@@ -92,6 +92,10 @@ def pytest_configure(config):
         "tune: measuring-autotuner and persistent-wisdom tests "
         "(determinism, wisdom round-trips, corrupt-file degradation; "
         "the measured-vs-analytic gate is bench_tune.py)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips without one, decided inside the test's fixture")
 
 
 @pytest.fixture
