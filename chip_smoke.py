@@ -11,16 +11,18 @@ Phases (any failed check exits non-zero):
      reports (registers, shared memory, spills);
   3. kernels against their plain PyTorch versions and torch.fft on the card
      (K1 at n = 256, 1024, MAX_LEAF with and without the epilogue; K2 at
-     L = 256, 1024, row- and column-major, with the epilogue), and
-     batch invariance (a row alone == the row inside a 32768-row batch);
+     L = 256, 1024, row- and column-major, with the epilogue; one error
+     formula), batch invariance (a row alone == the row inside a
+     32768-row batch), and each variant's main-path case timed beside its
+     bound, its plain version and torch.fft (a yardstick only);
   4. main path: the map-only FFT job (`repro_torch.launch.fft_job`) driven
-     pipelined through its CLI entry point, once per kernel variant, each
-     with the launch counts zeroed just before and read just after: every
-     output block within 5e-6 of torch.fft.fft of its input block, the
-     kernel launched, the plain versions never called;
+     pipelined through its CLI entry point, once per kernel variant and
+     once past MAX_LEAF**2 (three levels), each with the launch counts
+     zeroed just before and read just after: every output block within
+     5e-6 of torch.fft.fft of its input block, the kernel launched, the
+     plain versions never called;
   5. serial against pipelined: the merged outputs equal bitwise;
-  6. the `kernels` JSON line: each kernel variant's time beside its bound,
-     its plain version's time and torch.fft's (a yardstick only).
+  6. the `kernels` JSON line: phase 3's numbers and phase 4's launches.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result.
@@ -52,44 +54,52 @@ REPLACES = {
     "matfft_cols/four_step": "src/repro/kernels/fft/matfft.py:438",
 }
 
-# main-path runs: (variant it drives, fft_job arguments). Pipelined, with
-# 64 MiB (level 0) or 128 MiB (level 1) blocks.
+# main-path runs: (label, kernel it drives, fft_job arguments). Pipelined,
+# with 64 MiB (level 0) to 256 MiB (level 2) blocks. A label that names a
+# kernel variant gives that variant its launch count in the `kernels` line.
 FULL = {
     "runs": [
-        ("matfft/four_step", ["--fft-len", "1024", "--size-mb", "1024",
+        ("matfft/four_step", "matfft",
+         ["--fft-len", "1024", "--size-mb", "1024",
                               "--segments-per-block", "8192",
                               "--coalesce", "4", "--inflight", "2"]),
-        ("matfft_cols/four_step", ["--fft-len", "1048576", "--size-mb",
-                                   "256", "--segments-per-block", "16",
-                                   "--coalesce", "2", "--inflight", "2"]),
-        ("matfft/direct", ["--fft-len", "256", "--size-mb", "256",
-                           "--segments-per-block", "32768",
-                           "--coalesce", "4", "--inflight", "2"]),
-        ("matfft_cols/direct", ["--fft-len", "65536", "--size-mb", "256",
-                                "--segments-per-block", "128",
-                                "--coalesce", "4", "--inflight", "2"]),
+        ("matfft_cols/four_step", "matfft_cols",
+         ["--fft-len", "1048576", "--size-mb", "256",
+          "--segments-per-block", "16", "--coalesce", "2", "--inflight", "2"]),
+        ("matfft/direct", "matfft",
+         ["--fft-len", "256", "--size-mb", "256",
+          "--segments-per-block", "32768", "--coalesce", "4",
+          "--inflight", "2"]),
+        ("matfft_cols/direct", "matfft_cols",
+         ["--fft-len", "65536", "--size-mb", "256",
+          "--segments-per-block", "128", "--coalesce", "4",
+          "--inflight", "2"]),
+        # past MAX_LEAF**2: three levels, 256 x (512 x 256)
+        ("three_levels", "matfft_cols",
+         ["--fft-len", str(1 << 25), "--size-mb", "512",
+          "--segments-per-block", "1", "--coalesce", "2", "--inflight", "2"]),
     ],
     # serial vs pipelined: 4 blocks of the first run's configuration
     "serial": ["--fft-len", "1024", "--size-mb", "256",
                "--segments-per-block", "8192", "--coalesce", "4"],
-    "points": 1 << 25,      # complex points per kernel check / timing
+    "points": 1 << 25,      # complex points per kernel check and timing
     "batch_rows": 32768,    # batch of the invariance check
     "reps": 10,
 }
 REHEARSE = {
     "runs": [
-        ("matfft/four_step", ["--fft-len", "1024", "--size-mb", "1",
-                              "--segments-per-block", "32",
-                              "--coalesce", "4", "--inflight", "2"]),
-        ("matfft_cols/four_step", ["--fft-len", "16384", "--size-mb", "1",
-                                   "--segments-per-block", "2",
-                                   "--coalesce", "2", "--inflight", "2"]),
-        ("matfft/direct", ["--fft-len", "256", "--size-mb", "1",
-                           "--segments-per-block", "128",
-                           "--coalesce", "4", "--inflight", "2"]),
-        ("matfft_cols/direct", ["--fft-len", "65536", "--size-mb", "1",
-                                "--segments-per-block", "1",
-                                "--coalesce", "2", "--inflight", "2"]),
+        ("matfft/four_step", "matfft",
+         ["--fft-len", "1024", "--size-mb", "1", "--segments-per-block",
+          "32", "--coalesce", "4", "--inflight", "2"]),
+        ("matfft_cols/four_step", "matfft_cols",
+         ["--fft-len", "16384", "--size-mb", "1", "--segments-per-block",
+          "2", "--coalesce", "2", "--inflight", "2"]),
+        ("matfft/direct", "matfft",
+         ["--fft-len", "256", "--size-mb", "1", "--segments-per-block",
+          "128", "--coalesce", "4", "--inflight", "2"]),
+        ("matfft_cols/direct", "matfft_cols",
+         ["--fft-len", "65536", "--size-mb", "1", "--segments-per-block",
+          "1", "--coalesce", "2", "--inflight", "2"]),
     ],
     "serial": ["--fft-len", "1024", "--size-mb", "1",
                "--segments-per-block", "32", "--coalesce", "4"],
@@ -136,16 +146,44 @@ def timed_ms(torch, fn, reps: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions and torch.fft
+# phase 3: kernels against their plain versions and torch.fft; each
+# variant's main-path case is timed beside its bound, plain and torch.fft
 
 
-def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict]:
+def kernel_cases(cfg, max_leaf: int) -> list:
+    """(variant, wrapper, shape, options, timed): K1 at n = 256, 1024,
+    MAX_LEAF with and without the periodic epilogue, K2 at L = 256, 1024
+    row- and column-major with the epilogue. ``timed`` marks each
+    variant's main-path case: the level-0 batch (coalesce 4 x 8192
+    segments of 1024, or 4 x 32768 of 256) and the level-1 first pass
+    (2^20 points: 2 blocks x 16 segments as (32, 1024, 1024); 2^16: 4 x 128
+    as (512, 256, 256)), all at 2^25 points."""
+    points = cfg["points"]
+    cases = []
+    for n in (256, 1024, max_leaf):
+        variant = "matfft/direct" if n <= 256 else "matfft/four_step"
+        for period in (None, 64):
+            cases.append((variant, "matfft", (points // n, n),
+                          {"period": period},
+                          period is None and n in (256, 1024)))
+    for L in (256, 1024):
+        variant = "matfft_cols/direct" if L <= 256 else \
+            "matfft_cols/four_step"
+        for out_major in ("row", "col"):
+            cases.append((variant, "matfft_cols",
+                          (max(points // (L * L), 1), L, L),
+                          {"out_major": out_major}, out_major == "row"))
+    return cases
+
+
+def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
     import numpy as np
 
     from repro_torch.kernels.fft import matfft as km
     from repro_torch.kernels.fft import plan as kplan
 
     rng = np.random.default_rng(0)
+    reps = cfg["reps"]
 
     def planes(shape):
         a = rng.standard_normal((2, *shape), dtype=np.float32)
@@ -156,65 +194,79 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict]:
         return (torch.from_numpy(np.cos(ang).astype(np.float32)).to(dev),
                 torch.from_numpy(np.sin(ang).astype(np.float32)).to(dev))
 
-    def fft_planes(xr, xi, dim, epi=None):
-        y = torch.fft.fft(torch.complex(xr, xi), dim=dim)
-        yr, yi = y.real, y.imag
-        if epi is not None:
-            er, ei = epi
-            yr, yi = yr * er - yi * ei, yr * ei + yi * er
-        return yr, yi
+    def times(epi, er, ei):  # (rows, n) planes times per-row table rows
+        return er * epi[0] - ei * epi[1], er * epi[1] + ei * epi[0]
 
-    def errs(got, plain, lib):
-        c = lambda p: torch.complex(p[0], p[1])  # noqa: E731
-        return (rel_err(c(got), c(plain)), rel_err(c(got), c(lib)),
-                float((c(got) - c(plain)).abs().max()))
-
-    checks = []
-    for n in (256, 1024, kplan.MAX_LEAF):
-        rows = cfg["points"] // n
-        xr, xi = planes((rows, n))
-        for period in (None, 64):
-            epi = unit_table((period, n)) if period else None
-            got = km.matfft(xr, xi, epilogue=epi) if gpu else \
-                km.matfft_plain(xr, xi, epilogue=epi)
-            plain = km.matfft_plain(xr, xi, epilogue=epi)
-            lib_epi = None
+    checks, timing = [], {}
+    for variant, kernel, shape, opts, timed in kernel_cases(
+            cfg, kplan.MAX_LEAF):
+        xr, xi = planes(shape)
+        xc = torch.complex(xr, xi)
+        if kernel == "matfft":
+            rows, n = shape
+            epi = unit_table((opts["period"], n)) if opts["period"] else None
+            run = lambda: km.matfft(xr, xi, epilogue=epi)  # noqa: E731
+            plain = lambda: km.matfft_plain(xr, xi, epilogue=epi)  # noqa
+            lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
+            y = lib()
+            want = (y.real, y.imag)
             if epi is not None:
-                idx = torch.arange(rows, device=dev) % period
-                lib_epi = (epi[0][idx], epi[1][idx])
-            lib = fft_planes(xr, xi, -1, lib_epi)
-            e_plain, e_lib, e_abs = errs(got, plain, lib)
-            checks.append({"kernel": "matfft", "shape": [rows, n],
-                           "epilogue": period, "rel_err_plain": e_plain,
-                           "rel_err_torch_fft": e_lib, "abs_err": e_abs})
-        del xr, xi
-    for L in (256, 1024):
-        C = 1024
-        B = cfg["points"] // (L * C) or 1
-        xr, xi = planes((B, L, C))
-        epi = unit_table((C, L))
-        for out_major in ("row", "col"):
-            got = (km.matfft_cols if gpu else km.matfft_cols_plain)(
-                xr, xi, out_major=out_major, epilogue=epi)
-            plain = km.matfft_cols_plain(xr, xi, out_major=out_major,
-                                         epilogue=epi)
-            yr, yi = fft_planes(xr, xi, 1)  # (B, L, C)
-            yr = yr.transpose(1, 2).reshape(B * C, L)
-            yi = yi.transpose(1, 2).reshape(B * C, L)
-            er, ei = epi[0].repeat(B, 1), epi[1].repeat(B, 1)
-            lib = (yr * er - yi * ei, yr * ei + yi * er)
-            if out_major == "col":
-                lib = tuple(t.reshape(B, C, L).transpose(1, 2) for t in lib)
-            e_plain, e_lib, e_abs = errs(got, plain, lib)
-            checks.append({"kernel": "matfft_cols", "shape": [B, L, C],
-                           "out_major": out_major, "epilogue": [C, L],
-                           "rel_err_plain": e_plain,
-                           "rel_err_torch_fft": e_lib, "abs_err": e_abs})
-        del xr, xi
-    for c in checks:
+                idx = torch.arange(rows, device=dev) % opts["period"]
+                want = times((epi[0][idx], epi[1][idx]), *want)
+        else:
+            B, n, C = shape
+            rows = B * C
+            epi = unit_table((C, n))
+            major = opts["out_major"]
+            run = lambda: km.matfft_cols(  # noqa: E731
+                xr, xi, out_major=major, epilogue=epi)
+            plain = lambda: km.matfft_cols_plain(  # noqa: E731
+                xr, xi, out_major=major, epilogue=epi)
+            lib = lambda: torch.fft.fft(xc, dim=1)  # noqa: E731
+            y = lib().transpose(1, 2).reshape(rows, n)
+            want = times((epi[0].repeat(B, 1), epi[1].repeat(B, 1)),
+                         y.real, y.imag)
+            if major == "col":
+                want = tuple(t.reshape(B, C, n).transpose(1, 2) for t in want)
+        got = run() if gpu else plain()
+        ref = plain()
+        got_c = torch.complex(*got)
+        max_abs = float((got_c - torch.complex(*ref)).abs().max())
+        c = {"variant": variant, "shape": list(shape), **opts,
+             "epilogue": list(epi[0].shape) if epi is not None else None,
+             "max_abs_err": max_abs,
+             "rel_err_plain": max_abs / float(torch.complex(*ref).abs().max()),
+             "rel_err_torch_fft": rel_err(got_c, torch.complex(*want))}
         print("check " + json.dumps(c))
+        checks.append(c)
         check(c["rel_err_plain"] < TOL and c["rel_err_torch_fft"] < TOL,
               f"kernel disagrees: {c}")
+        del got, ref, got_c, want, y
+        if gpu and timed:
+            # plain, kernel, kernel, plain: one card, one call
+            t_plain = [timed_ms(torch, plain, reps)]
+            t_kernel = [timed_ms(torch, run, reps), timed_ms(torch, run, reps)]
+            t_plain.append(timed_ms(torch, plain, reps))
+            # each input read once (planes, leaf tables, epilogue), each
+            # output written once; 5 n log2 n flops a row, 6 a point for
+            # the epilogue's complex product
+            tables = km.leaf_tables(n, dev)
+            nbytes = (rows * kplan.fft_hbm_bytes(n)
+                      + sum(t.numel() * 4 for t in tables)
+                      + (2 * epi[0].numel() * 4 if epi is not None else 0))
+            flops = rows * (5.0 * n * math.log2(n)
+                            + (6.0 * n if epi is not None else 0.0))
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_flops = flops / F32_FLOPS_S * 1e3
+            timing[variant] = {
+                "case": c, "bytes": nbytes, "flops": flops,
+                "max_abs_err": max_abs, "max_rel_err": c["rel_err_plain"],
+                "ms": min(t_kernel), "ms_runs": t_kernel,
+                "plain_ms": min(t_plain), "plain_ms_runs": t_plain,
+                "library_ms": timed_ms(torch, lib, reps),
+                "bound_ms": max(t_bytes, t_flops),
+                "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+        del xr, xi, xc, epi
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise
     fn = km.matfft if gpu else km.matfft_plain
@@ -227,88 +279,20 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict]:
           f"{'bitwise equal' if invariant else 'DIFFERENT'}")
     if gpu:  # the plain version's matmul need not be batch invariant
         check(invariant, "row 0 alone differs from row 0 in the batch")
-    return checks, {"batch_invariant": invariant}
+    return checks, {"batch_invariant": invariant}, timing
 
 
-# ---------------------------------------------------------------------------
-# phase 6: per-variant timing beside bound, plain and torch.fft
-
-
-def kernel_line(torch, dev, cfg, launches: dict, checks: list) -> list:
-    import numpy as np
-
-    from repro_torch.kernels.fft import matfft as km
-    from repro_torch.kernels.fft import plan as kplan
-
-    rng = np.random.default_rng(1)
-    reps = cfg["reps"]
-
-    def planes(shape):
-        a = rng.standard_normal((2, *shape), dtype=np.float32)
-        return (torch.from_numpy(a[0]).to(dev), torch.from_numpy(a[1]).to(dev))
-
-    # the main path's shapes: the level-0 batch (coalesce 4 x 8192
-    # segments of 1024) and the level-1 pass-2 view of 2^20-point segments
-    # (2 blocks x 16 segments, (32, 1024, 1024)); the direct variants at
-    # the same 2^25 points
-    points = cfg["points"]
-    cases = [
-        ("matfft/four_step", "matfft", (points // 1024, 1024)),
-        ("matfft/direct", "matfft", (points // 256, 256)),
-        ("matfft_cols/four_step", "matfft_cols",
-         (max(points // (1024 * 1024), 1), 1024, 1024)),
-        ("matfft_cols/direct", "matfft_cols",
-         (max(points // (256 * 256), 1), 256, 256)),
-    ]
-    out = []
-    for name, kernel, shape in cases:
-        xr, xi = planes(shape)
-        if kernel == "matfft":
-            rows, n = shape
-            run = lambda: km.matfft(xr, xi)  # noqa: E731
-            plain = lambda: km.matfft_plain(xr, xi)  # noqa: E731
-            xc = torch.complex(xr, xi)
-            lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
-        else:
-            B, n, C = shape
-            rows = B * C
-            run = lambda: km.matfft_cols(xr, xi, out_major="col")  # noqa
-            plain = lambda: km.matfft_cols_plain(  # noqa: E731
-                xr, xi, out_major="col")
-            xc = torch.complex(xr, xi)
-            lib = lambda: torch.fft.fft(xc, dim=1)  # noqa: E731
-        got, want = run(), plain()
-        max_abs = float(torch.maximum((got[0] - want[0]).abs().max(),
-                                      (got[1] - want[1]).abs().max()))
-        max_rel = max_abs / float(torch.maximum(want[0].abs().max(),
-                                                want[1].abs().max()))
-        # plain, kernel, kernel, plain: one card, one call
-        t_plain = [timed_ms(torch, plain, reps)]
-        t_kernel = [timed_ms(torch, run, reps), timed_ms(torch, run, reps)]
-        t_plain.append(timed_ms(torch, plain, reps))
-        t_lib = timed_ms(torch, lib, reps)
-        nbytes = rows * kplan.fft_hbm_bytes(n)  # one leaf pass: 16 B/point
-        flops = rows * 5.0 * n * math.log2(n)
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_flops = flops / F32_FLOPS_S * 1e3
-        issued = rows * 2.0 * kplan.make_plan(n).gemm_macs
-        kernel_ms = min(t_kernel)
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/matfft.cu",
-            "replaces": REPLACES[name], "shape": list(shape),
-            "launches": launches[name], "max_abs_err": max_abs,
-            "max_rel_err": max_rel, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "kernel_ms_runs": t_kernel, "plain_ms": min(t_plain),
-            "plain_ms_runs": t_plain, "library_ms": t_lib,
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops, "issued_flops": issued,
-            "issued_flops_ms": issued / F32_FLOPS_S * 1e3,
-        })
-        check(max_rel < TOL, f"{name}: kernel vs plain {max_rel}")
-        del xr, xi, xc, got, want
-    return out
+def kernel_line(timing: dict, launches: dict) -> list:
+    """The `kernels` entries: measured numbers, the main path's launch
+    counts and the bound; each variant's shape, bytes and flops stay in
+    chiprun_out/chip_smoke.json."""
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/matfft.cu",
+             "replaces": REPLACES[name], "launches": launches[name],
+             **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                  "ms_runs", "plain_ms", "plain_ms_runs",
+                                  "library_ms", "bound_ms", "bound_by")}}
+            for name, t in timing.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -391,18 +375,18 @@ def main(argv=None) -> int:
                                            "spill", "smem")):
                     print(f"ptxas[{name}] {line.strip()}")
 
-    # phase 3: kernels against plain and torch.fft
-    checks, inv = kernel_checks(torch, dev, cfg, gpu)
+    # phase 3: kernels against plain and torch.fft, timed
+    checks, inv, timing = kernel_checks(torch, dev, cfg, gpu)
 
-    # phases 4-5: the main path, one run per kernel variant
+    # phases 4-5: the main path, one run per kernel variant and one past
+    # MAX_LEAF**2
     work_root = ROOT / "build" / "smoke"
     shutil.rmtree(work_root, ignore_errors=True)
     device_arg = ["--device", "cuda" if gpu else "cpu"]
     launches, runs = {}, []
     try:
-        for name, job_args in cfg["runs"]:
+        for name, kernel, job_args in cfg["runs"]:
             work = work_root / name.replace("/", "_")
-            kernel = name.split("/")[0]
             km.reset_counts()
             report = run_job([*job_args, "--pipelined", *device_arg,
                               "--work-dir", str(work)])
@@ -412,7 +396,7 @@ def main(argv=None) -> int:
                       + km.matfft_cols_plain.calls}
             fft_len = int(job_args[job_args.index("--fft-len") + 1])
             worst = check_job_output(torch, dev, work, fft_len)
-            summary = {"variant": name, "args": job_args,
+            summary = {"run": name, "args": job_args,
                        "job_s": report["job_s"],
                        "overlap_x": report["overlap_x"],
                        "gb_per_s": report["gb_per_s"],
@@ -455,11 +439,11 @@ def main(argv=None) -> int:
         return 0
 
     # phase 6: the kernels line
-    kernels = kernel_line(torch, dev, cfg, launches, checks)
+    kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
               "batch_invariance": inv, "main_path": runs,
-              "kernels": kernels,
+              "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -213,8 +213,11 @@ rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // K2: block (b, j) transforms columns [j*R, j*R + R) of matrix b of the
-// (B, L, C) planes; L = g.n. The (L, R) tile is read coalesced along C and
-// held transposed (one column per shared-memory row).
+// (B, L, C) planes; L = g.n. The (L, R) tile is read R consecutive floats
+// a matrix row and held transposed (one column per shared-memory row). A
+// warp's load fills whole 32-byte sectors only when R >= 8 (L <= 512);
+// at L = 1024 (R = 4) it uses half of each sector, at L = 4096 (R = 1) an
+// eighth.
 __global__ void __launch_bounds__(NT)
 cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             float* __restrict__ yr, float* __restrict__ yi, int C,

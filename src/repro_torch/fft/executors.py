@@ -8,6 +8,8 @@ Hierarchy (mirrors the paper's block decomposition):
   level 1  (device memory)  four-step n = n1*n2, leaf = level 0, with the
                             outer twiddle FUSED into the first pass's
                             epilogue
+  level 2  (device memory)  four-step n = n1*n2 with n2 > MAX_LEAF: the
+                            second pass is itself a level-1 four-step
 
 The ``layout`` option selects how level-1 pass boundaries move data:
 
@@ -70,8 +72,9 @@ def axis_pass(xr: torch.Tensor, xi: torch.Tensor, view, *,
     (b, c) (the four-step's outer twiddle).
 
     layout="zero_copy" + impl="matfft" runs the column-strided kernel
-    (`matfft_cols`); anything else materializes a transpose around the
-    row-major leaf (the measured "copy" baseline).
+    (`matfft_cols`) when L is one leaf; anything else materializes a
+    transpose around the row-major transform (the measured "copy"
+    baseline, and the level-2 second pass).
     """
     B, L, C = view
     xr3 = xr.reshape(B, L, C)
@@ -102,7 +105,8 @@ def four_step_zero_copy(xr: torch.Tensor, xi: torch.Tensor, n1: int, n2: int,
     transforms the n2-axis of the resulting (rows, n2, n1) view with a
     column-major store — which IS the o2-major final order. No transposed
     tensor is materialized: 4 traversals of the data in all
-    (plan.fft_hbm_bytes).
+    (plan.fft_hbm_bytes). When n2 exceeds one leaf (level 2), pass 2 is a
+    level-1 four-step between two materialized transposes.
     """
     rows, n = xr.shape
     if n != n1 * n2:
@@ -122,7 +126,7 @@ def fft(xr: torch.Tensor, xi: torch.Tensor, *, impl: str = "matfft",
     """Batched forward FFT along the last axis of planar float32 tensors.
 
     Any leading batch shape; the last-axis length must be a power of two up
-    to MAX_LEAF**2.
+    to MAX_LEAF**3.
     """
     if layout not in ("zero_copy", "copy"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -148,9 +152,10 @@ def _four_step(xr, xi, n1: int, n2: int, impl: str,
     calls over free reshapes of the same buffers (four_step_zero_copy).
 
     layout="copy": three reshape + transpose copies around two row-major
-    leaf passes, each a full round trip through device memory. Pass 1
-    still fuses the outer twiddle into the leaf epilogue as the periodic
-    (n2, n1) table.
+    passes, each a full round trip through device memory. Pass 1 is a
+    leaf and still fuses the outer twiddle into the leaf epilogue as the
+    periodic (n2, n1) table; pass 2 is a leaf, or a level-1 four-step when
+    n2 > MAX_LEAF.
     """
     rows, n = xr.shape
     if layout == "zero_copy" and impl == "matfft":
@@ -165,7 +170,7 @@ def _four_step(xr, xi, n1: int, n2: int, impl: str,
     def to_rows(a):  # (rows*n2, n1) -> (rows*n1, n2)
         return a.reshape(rows, n2, n1).transpose(1, 2).reshape(rows * n1, n2)
 
-    cr, ci = _leaf(to_rows(ar), to_rows(ai), impl)
+    cr, ci = fft(to_rows(ar), to_rows(ai), impl=impl, layout=layout)
 
     def out_order(a):  # rows (b, o1), cols o2 -> flat o = o2*n1 + o1
         return a.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)

@@ -11,7 +11,7 @@ rebuild nothing (`plan.build_counts["forward"]` stays at 1).
 
 An `ExecutablePlan` carries:
 
-  * the resolved `FftSpec` and the level-0/1 factorization (`plan.leaf`);
+  * the resolved `FftSpec` and the level-0/1/2 factorization (`plan.leaf`);
   * the analytic cost model: `flops`, `gemm_macs` and `hbm_bytes` (the
     roofline byte counter `fft_hbm_bytes`);
   * `execute(xr, xi)` / `execute_inverse(yr, yi)` on the caller's current
@@ -40,6 +40,17 @@ _CACHE_INFO = {"hits": 0, "misses": 0}
 # check-then-act on the cache must be atomic or the first same-shaped
 # blocks each build their own plan
 _CACHE_LOCK = threading.Lock()
+
+
+def _upload_tables(n: int, device: torch.device) -> None:
+    """Put every table a length-n matfft transform reads on ``device``."""
+    p = kplan.make_plan(n)
+    if p.levels == 1:
+        kmatfft.leaf_tables(n, device)
+        return
+    _upload_tables(p.n1, device)
+    _upload_tables(p.n2, device)
+    kmatfft.outer_twiddle(p.n1, p.n2, device)
 
 
 class AsyncResult:
@@ -74,7 +85,7 @@ class ExecutablePlan:
         object.__setattr__(self, "_frozen", False)
         self.spec = spec
         self.device = torch.device(spec.device)
-        #: level-0/1 factorization of the transform length
+        #: level-0/1/2 factorization of the transform length
         self.leaf = kplan.make_plan(max(spec.n, 1))
         self._build_lock = threading.RLock()
         self._builds = {"forward": 0, "inverse": 0}
@@ -173,13 +184,7 @@ class ExecutablePlan:
         s = self.spec
         dev = self.device
         if s.impl == "matfft":
-            # upload every table the transform reads, once
-            if self.leaf.levels == 1:
-                kmatfft.leaf_tables(s.n, dev)
-            else:
-                kmatfft.leaf_tables(self.leaf.n1, dev)
-                kmatfft.leaf_tables(self.leaf.n2, dev)
-                kmatfft.outer_twiddle(self.leaf.n1, self.leaf.n2, dev)
+            _upload_tables(s.n, dev)
             if dev.type == "cuda":
                 kmatfft._lib()  # build (first use) and bind the kernels
         if dev.type == "cuda":

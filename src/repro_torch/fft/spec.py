@@ -7,7 +7,7 @@ device — so strategy errors surface as one clear exception at plan time
 instead of a failure inside a kernel.
 
 This slice of the port runs the local placement of 1-D c2c transforms: the
-contiguous axis takes the level-0/1 four-step up to MAX_LEAF**2. Other
+contiguous axis takes the level-0/1/2 four-step up to MAX_LOCAL_N. Other
 kinds, shapes and placements are recognised and raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 
@@ -32,8 +32,9 @@ LAYOUTS = ("zero_copy", "copy")
 IMPLS = ("matfft", "stockham", "ref")
 PRECISIONS = ("f32",)  # reserved: bf16/f64 variants are future work
 
-# largest single-device transform: two nested four-step levels of MAX_LEAF
-MAX_LOCAL_N = kplan.MAX_LEAF ** 2
+# largest single-device transform, the JAX package's (its MAX_LEAF**2 with
+# a 16384-point leaf); the port's smaller leaf reaches it in three levels
+MAX_LOCAL_N = 1 << 28
 
 _NOT_YET = {
     "segmented": "ROADMAP Queue 1 item 7",
@@ -93,7 +94,7 @@ def resolve_device(device) -> torch.device:
 
 def _fits_local(shape: tuple) -> bool:
     """Can one device run this shape? The contiguous axis gets the nested
-    four-step (MAX_LEAF**2); each earlier axis is a single column-kernel
+    four-step (MAX_LOCAL_N); each earlier axis is a single column-kernel
     pass (MAX_LEAF)."""
     return (shape[-1] <= MAX_LOCAL_N
             and all(d <= kplan.MAX_LEAF for d in shape[:-1]))
@@ -106,7 +107,7 @@ def resolve_placement(shape) -> str:
     if not _fits_local(shape):
         raise ValueError(
             f"shape={shape} exceeds the single-device maximum (contiguous "
-            f"axis <= MAX_LEAF**2={MAX_LOCAL_N}, earlier axes <= "
+            f"axis <= MAX_LOCAL_N={MAX_LOCAL_N}, earlier axes <= "
             f"MAX_LEAF={kplan.MAX_LEAF}); the distributed placement is "
             f"{_NOT_YET['distributed']}")
     return "local"
@@ -173,7 +174,7 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
     elif not _fits_local(shape):
         raise ValueError(
             f"placement='local' caps the contiguous axis at "
-            f"MAX_LEAF**2={MAX_LOCAL_N}, got shape={shape}")
+            f"MAX_LOCAL_N={MAX_LOCAL_N}, got shape={shape}")
     return FftSpec(kind=kind, shape=shape, batch_shape=batch_shape,
                    placement=placement, layout=layout, impl=impl,
                    precision=precision, device=str(resolve_device(device)),

@@ -126,14 +126,16 @@ class FftPlan:
 
     levels == 1: single kernel call (n <= max_leaf).
     levels == 2: host-level four-step with leaf kernel calls on both passes.
+    levels == 3: host-level four-step whose second pass (n2 > max_leaf) is
+                 itself a level-2 four-step (n <= max_leaf**3).
     (Distributed cross-device planning lives in core/fft/distributed.py and
     composes on top of this plan for the per-device local work.)
     """
 
     n: int
     levels: int
-    n1: int  # levels==2: outer factor (column count);   levels==1: in-kernel n1
-    n2: int  # levels==2: inner factor (row FFT length); levels==1: in-kernel n2
+    n1: int  # levels>=2: outer factor (column count);   levels==1: in-kernel n1
+    n2: int  # levels>=2: inner factor (row FFT length); levels==1: in-kernel n2
 
     @property
     def flops(self) -> float:
@@ -145,7 +147,11 @@ class FftPlan:
         """Actual real MACs issued by the matmul formulation (per batch row)."""
         if self.levels == 1:
             return 4.0 * self.n * (self.n1 + self.n2)
-        f1, f2 = split_pow2(self.n1), split_pow2(self.n2)
+        f1 = split_pow2(self.n1)
+        if self.levels == 3:
+            return (4.0 * self.n * (f1[0] + f1[1])
+                    + self.n1 * make_plan(self.n2).gemm_macs)
+        f2 = split_pow2(self.n2)
         return 4.0 * self.n * (f1[0] + f1[1] + f2[0] + f2[1])
 
 
@@ -165,15 +171,19 @@ def fft_hbm_bytes(n: int, layout: str = "zero_copy",
     levels == 2, zero_copy: two passes, each read+write (4 traversals).
     levels == 2, copy (legacy): the three materialized transposes
     (to_cols / to_rows / out_order) each add a full read+write on top.
+    levels == 3: the second pass is a level-2 transform of length n2; on
+    the zero_copy path it runs between two materialized transposes
+    (executors.axis_pass), which add two read+writes.
     """
     p = make_plan(n, max_leaf)
     plane = _F32 * n
     per_pass = 2 * 2 * plane  # 2 planes in + 2 planes out
     if p.levels == 1:
         return per_pass
+    second = (n // p.n2) * fft_hbm_bytes(p.n2, layout, max_leaf)
     if layout == "zero_copy":
-        return 2 * per_pass
-    return 2 * per_pass + 3 * per_pass  # + transpose round-trips
+        return per_pass + second + (2 * per_pass if p.levels == 3 else 0)
+    return per_pass + second + 3 * per_pass  # + transpose round-trips
 
 
 def rfft_hbm_bytes(n: int, max_leaf: int = MAX_LEAF) -> int:
@@ -255,5 +265,12 @@ def make_plan(n: int, max_leaf: int = MAX_LEAF) -> FftPlan:
     if n <= max_leaf:
         n1, n2 = (1, n) if n <= 2 else split_pow2(n, max_leaf)
         return FftPlan(n=n, levels=1, n1=n1, n2=n2)
-    n1, n2 = split_pow2(n, max_leaf)
-    return FftPlan(n=n, levels=2, n1=n1, n2=n2)
+    if n <= max_leaf * max_leaf:
+        n1, n2 = split_pow2(n, max_leaf)
+        return FftPlan(n=n, levels=2, n1=n1, n2=n2)
+    # near-cube: a leaf-sized first pass, a level-2 second pass
+    n1 = 1 << (log2i(n) // 3)
+    n2 = n // n1
+    if n1 > max_leaf or n2 > max_leaf * max_leaf:
+        raise ValueError(f"cannot plan {n} in three levels of {max_leaf}")
+    return FftPlan(n=n, levels=3, n1=n1, n2=n2)

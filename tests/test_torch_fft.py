@@ -11,6 +11,7 @@ import repro.fft as jfft
 import repro_torch.fft as tfft
 from repro_torch.fft import executors
 from repro_torch.kernels.fft import matfft as km
+from repro_torch.kernels.fft import plan as tplan
 
 # the suite runs one process per core (xdist): keep torch to one thread
 # so these tests do not crowd the timing-sensitive ones beside them
@@ -163,6 +164,35 @@ def test_zero_copy_passes_run_the_column_kernel_only(rng):
     executors.fft(*x)
     assert km.matfft_cols_plain.calls == 2
     assert km.matfft_plain.calls == 0
+
+
+@pytest.fixture
+def leaf16(monkeypatch):
+    """Cap the port's leaf at 16 points, so that n = 1024 plans three
+    levels as n > 2^24 does at the real cap; plans built under the cap
+    leave the cache with it."""
+    make_plan = tplan.make_plan
+    monkeypatch.setattr(tplan, "make_plan",
+                        lambda n, max_leaf=16: make_plan(n, max_leaf))
+    tfft.clear_plan_cache()
+    yield
+    tfft.clear_plan_cache()
+
+
+def test_three_levels_match_reference(rng, leaf16):
+    x = _planes(rng, (2, 1024))
+    tp = tfft.plan(kind="c2c", n=1024, batch_shape=(2,), device="cpu")
+    assert tp.levels == 3
+    jp = jfft.plan(kind="c2c", n=1024, batch_shape=(2,))
+    km.reset_counts()
+    got = tp.execute(*x)
+    # pass 1 and the level-2 second pass's two passes, all through K2
+    assert (km.matfft_cols_plain.calls, km.matfft_plain.calls) == (3, 0)
+    want = jp.execute(*(jnp.asarray(a) for a in x))
+    assert _rel_err(got, want) < TOL
+    assert _rel_err(tp.execute_inverse(*got), x) < TOL
+    cp = executors.fft(*(torch.from_numpy(a) for a in x), layout="copy")
+    assert torch.equal(got[0], cp[0]) and torch.equal(got[1], cp[1])
 
 
 @pytest.mark.parametrize("out_major", ["row", "col"])

@@ -74,7 +74,7 @@ def test_k1_kernel_rows_are_batch_invariant(cuda, rng):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 1024, 1 << 15, 1 << 20])
+@pytest.mark.parametrize("n", [256, 1024, 1 << 15, 1 << 20, 1 << 25])
 def test_plan_on_the_card_matches_the_cpu_plan(cuda, rng, n):
     import repro_torch.fft as tfft
     rows = max(2, (1 << 18) // n)
@@ -90,7 +90,7 @@ def test_plan_on_the_card_matches_the_cpu_plan(cuda, rng, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1 << 13, 1 << 16])
+@pytest.mark.parametrize("n", [1 << 13, 1 << 16, 1 << 25])
 def test_zero_copy_equals_copy_bitwise_on_the_card(cuda, rng, n):
     """K2's column passes and K1's row passes over materialized transposes
     give each row the same result, bit for bit."""

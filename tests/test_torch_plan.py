@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.fft import spec as jspec
 from repro.kernels.fft import plan as jplan
 from repro.kernels.fft import ref as jref
 from repro_torch.fft import spec as tspec
@@ -32,7 +33,8 @@ def _rel_err(got_r, got_i, want_r, want_i) -> float:
 
 def test_port_max_leaf_fits_a_hopper_block():
     assert tplan.MAX_LEAF == 4096
-    assert tspec.MAX_LOCAL_N == tplan.MAX_LEAF ** 2
+    # one device takes every length the reference takes on one device
+    assert tspec.MAX_LOCAL_N == jspec.MAX_LOCAL_N == 1 << 28
 
 
 @pytest.mark.parametrize("n", [1, 2, 16, 256, 1024, 4096])
@@ -81,6 +83,25 @@ def test_make_plan_and_byte_counters_match_reference_at_same_cap(p):
     for layout in ("zero_copy", "copy"):
         assert (tplan.fft_hbm_bytes(n, layout)
                 == jplan.fft_hbm_bytes(n, layout, cap))
+
+
+@pytest.mark.parametrize("p", [25, 26, 27, 28])
+def test_make_plan_three_levels_past_max_leaf_squared(p):
+    """Lengths the reference plans in two levels of its 16384-point leaf
+    take three levels of the port's: a leaf first pass, a level-2 second."""
+    n = 1 << p
+    got = tplan.make_plan(n)
+    assert got.levels == 3 and got.n1 * got.n2 == n
+    assert got.n1 <= tplan.MAX_LEAF
+    assert tplan.make_plan(got.n2).levels == 2
+    # zero_copy: pass 1, pass 2 (two passes) and the two transposes around
+    # it; copy: the two-level copy path of the second pass besides
+    assert tplan.fft_hbm_bytes(n, "zero_copy") == 5 * 16 * n
+    assert tplan.fft_hbm_bytes(n, "copy") == 9 * 16 * n
+    f1 = tplan.split_pow2(got.n1)
+    assert got.gemm_macs == (4.0 * n * sum(f1)
+                             + got.n1 * tplan.make_plan(got.n2).gemm_macs)
+    assert tspec.resolve("c2c", n=n, device="cpu").placement == "local"
 
 
 def test_dft_matrix_unitary():
