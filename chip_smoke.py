@@ -7,22 +7,35 @@
 Phases (any failed check exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi), CUDA version;
-  2. build: compile every kernel from csrc/ with nvcc, print what ptxas
-     reports (registers, shared memory, spills);
+  2. build: compile every kernel from csrc/ with nvcc, all at once, print
+     what ptxas reports (registers, shared memory, spills);
   3. kernels against their plain PyTorch versions and torch.fft on the card
      (K1 at n = 256, 1024, MAX_LEAF with and without the epilogue; K2 at
-     L = 256, 1024, row- and column-major, with the epilogue; one error
-     formula), batch invariance (a row alone == the row inside a
-     32768-row batch), and each variant's main-path case timed beside its
-     bound, its plain version and torch.fft (a yardstick only);
+     L = 256, 1024, row- and column-major, with the epilogue; K3 at
+     n = 8, 512, 1024, 8192 with and without the untangle; K4 at n = 2,
+     256, 1024, MAX_LEAF; one error formula), batch invariance (a row
+     alone == the row inside a large batch, K1, K3 and K4), and each
+     variant's main-path case timed beside its bound, its plain version
+     and torch.fft (a yardstick only);
   4. main path: the map-only FFT job (`repro_torch.launch.fft_job`) driven
-     pipelined through its CLI entry point, once per kernel variant and
-     once past MAX_LEAF**2 (three levels), each with the launch counts
+     pipelined through its CLI entry point, once per K1/K2 variant, once
+     past MAX_LEAF**2 (three levels) and twice with --impl stockham (K4
+     leaves, and the copy path at 2^20), each with the launch counts
      zeroed just before and read just after: every output block within
      5e-6 of torch.fft.fft of its input block, the kernel launched, the
      plain versions never called;
   5. serial against pipelined: the merged outputs equal bitwise;
-  6. the `kernels` JSON line: phase 3's numbers and phase 4's launches.
+  6. the spectrogram job of examples/spectral_analysis.py through the
+     port: a 1 GiB real capture in 64 MiB blocks, a map-only job whose map
+     task is `repro_torch.core.spectral.power_spectrogram` on the card, at
+     frame 1024 (K3 four-step) and frame 512 (K3 direct): every block's
+     stft within 5e-6 of torch.fft.rfft of the same windowed frames, the
+     three tones found within one bin, the chirp found, K3 launched and
+     no plain version run;
+  7. `fft_conv` on the card (n = 8192 through K3 and K1; n = 2^21 through
+     K2) within 1e-4 of a float64 torch.fft convolution;
+  8. the `kernels` JSON line: phase 3's numbers and the main-path
+     launches (phases 4 and 6).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result.
@@ -46,13 +59,24 @@ TOL = 5e-6  # max|got - want| / max|want|, the selftest's bar
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_S = 67e12    # H100 SXM f32 outside the tensor cores
 
-# the Pallas sites each kernel variant replaces
+TOL_CONV = 1e-4  # fft_conv against float64 (tests/test_spectral.py's bar)
+
+# the Pallas sites each kernel variant replaces, and its CUDA source
 REPLACES = {
     "matfft/direct": "src/repro/kernels/fft/matfft.py:234",
     "matfft/four_step": "src/repro/kernels/fft/matfft.py:252",
     "matfft_cols/direct": "src/repro/kernels/fft/matfft.py:419",
     "matfft_cols/four_step": "src/repro/kernels/fft/matfft.py:438",
+    "rfft/direct": "src/repro/kernels/fft/matfft.py:559",
+    "rfft/four_step": "src/repro/kernels/fft/matfft.py:578",
+    "stockham": "src/repro/kernels/fft/stockham.py:80",
 }
+SOURCE = {name: "src/repro_torch/csrc/matfft.cu" for name in REPLACES}
+SOURCE["stockham"] = "src/repro_torch/csrc/stockham.cu"
+
+# examples/spectral_analysis.py's capture
+SR = 16_000
+TONES_HZ = (440.0, 1_250.0, 3_000.0)
 
 # main-path runs: (label, kernel it drives, fft_job arguments). Pipelined,
 # with 64 MiB (level 0) to 256 MiB (level 2) blocks. A label that names a
@@ -78,6 +102,16 @@ FULL = {
         ("three_levels", "matfft_cols",
          ["--fft-len", str(1 << 25), "--size-mb", "512",
           "--segments-per-block", "1", "--coalesce", "2", "--inflight", "2"]),
+        # K4 leaves: the first run's configuration, then the level-1 copy
+        # path (transposes around two K4 passes) at 2^20
+        ("stockham", "stockham",
+         ["--impl", "stockham", "--fft-len", "1024", "--size-mb", "1024",
+          "--segments-per-block", "8192", "--coalesce", "4",
+          "--inflight", "2"]),
+        ("stockham_copy_path", "stockham",
+         ["--impl", "stockham", "--fft-len", "1048576", "--size-mb", "256",
+          "--segments-per-block", "16", "--coalesce", "2",
+          "--inflight", "2"]),
     ],
     # serial vs pipelined: 4 blocks of the first run's configuration
     "serial": ["--fft-len", "1024", "--size-mb", "256",
@@ -85,6 +119,19 @@ FULL = {
     "points": 1 << 25,      # complex points per kernel check and timing
     "batch_rows": 32768,    # batch of the invariance check
     "reps": 10,
+    # K3 (rows, n): n = 8, the frame-512 and frame-1024 spectrogram blocks
+    # (2^24 samples), and fft_conv's n = 8192 at 2^25 samples
+    "rfft_shapes": [(1 << 22, 8), (65535, 512), (32767, 1024), (4096, 8192)],
+    # K4 (rows, n) at 2^25 points; (32768, 1024) is the main path's batch
+    "stockham_shapes": [(1 << 24, 2), (131072, 256), (32768, 1024),
+                        (8192, 4096)],
+    # the spectrogram job: 1 GiB of float32 samples at 16 kHz, 64 MiB
+    # blocks; (variant, frame, hop) per run
+    "capture_samples": 1 << 28,
+    "block_samples": 1 << 24,
+    "spectrograms": [("rfft/four_step", 1024, 512), ("rfft/direct", 512, 256)],
+    # fft_conv: (signals, samples, filter taps)
+    "conv": [(64, 4000, 100), (16, 1 << 20, 4097)],
 }
 REHEARSE = {
     "runs": [
@@ -100,12 +147,24 @@ REHEARSE = {
         ("matfft_cols/direct", "matfft_cols",
          ["--fft-len", "65536", "--size-mb", "1", "--segments-per-block",
           "1", "--coalesce", "2", "--inflight", "2"]),
+        ("stockham", "stockham",
+         ["--impl", "stockham", "--fft-len", "1024", "--size-mb", "1",
+          "--segments-per-block", "32", "--coalesce", "4", "--inflight", "2"]),
+        ("stockham_copy_path", "stockham",
+         ["--impl", "stockham", "--fft-len", "16384", "--size-mb", "1",
+          "--segments-per-block", "2", "--coalesce", "2", "--inflight", "2"]),
     ],
     "serial": ["--fft-len", "1024", "--size-mb", "1",
                "--segments-per-block", "32", "--coalesce", "4"],
     "points": 1 << 15,
     "batch_rows": 64,
     "reps": 1,
+    "rfft_shapes": [(64, 8), (33, 512), (17, 1024), (3, 8192)],
+    "stockham_shapes": [(64, 2), (16, 256), (8, 1024), (2, 4096)],
+    "capture_samples": 1 << 18,
+    "block_samples": 1 << 16,
+    "spectrograms": [("rfft/four_step", 1024, 512), ("rfft/direct", 512, 256)],
+    "conv": [(4, 200, 10), (2, 8192, 4097)],
 }
 
 
@@ -153,11 +212,14 @@ def timed_ms(torch, fn, reps: int) -> float:
 def kernel_cases(cfg, max_leaf: int) -> list:
     """(variant, wrapper, shape, options, timed): K1 at n = 256, 1024,
     MAX_LEAF with and without the periodic epilogue, K2 at L = 256, 1024
-    row- and column-major with the epilogue. ``timed`` marks each
+    row- and column-major with the epilogue, K3 at ``rfft_shapes`` with and
+    without the untangle, K4 at ``stockham_shapes``. ``timed`` marks each
     variant's main-path case: the level-0 batch (coalesce 4 x 8192
-    segments of 1024, or 4 x 32768 of 256) and the level-1 first pass
+    segments of 1024, or 4 x 32768 of 256), the level-1 first pass
     (2^20 points: 2 blocks x 16 segments as (32, 1024, 1024); 2^16: 4 x 128
-    as (512, 256, 256)), all at 2^25 points."""
+    as (512, 256, 256)), all at 2^25 points; K3 at a spectrogram block's
+    frames (65535 x 512, 32767 x 1024); K4 at the stockham run's batch
+    (32768 x 1024)."""
     points = cfg["points"]
     cases = []
     for n in (256, 1024, max_leaf):
@@ -173,7 +235,48 @@ def kernel_cases(cfg, max_leaf: int) -> list:
             cases.append((variant, "matfft_cols",
                           (max(points // (L * L), 1), L, L),
                           {"out_major": out_major}, out_major == "row"))
+    for rows, n in cfg["rfft_shapes"]:
+        variant = "rfft/direct" if n // 2 <= 256 else "rfft/four_step"
+        for untangle in (True, False):
+            cases.append((variant, "rfft", (rows, n), {"untangle": untangle},
+                          untangle and n in (512, 1024)))
+    for rows, n in cfg["stockham_shapes"]:
+        cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
     return cases
+
+
+def case_work(km, ks, kplan, kernel: str, shape, opts, epi, dev):
+    """(bytes, flops) of one call: each input read once (the tables too),
+    each output written once; 5 n log2 n flops a complex row, 6 a point
+    for an epilogue's complex product, and for K3 the reference planner's
+    count, 5 m log2 m + 10 m a row (m = n/2)."""
+    def table_bytes(tables):
+        return sum(t.numel() * 4 for t in tables)
+
+    if kernel in ("matfft", "matfft_cols"):
+        if kernel == "matfft":
+            rows, n = shape
+        else:
+            B, n, C = shape
+            rows = B * C
+        nbytes = (rows * kplan.fft_hbm_bytes(n)
+                  + table_bytes(km.leaf_tables(n, dev))
+                  + (table_bytes(epi) if epi is not None else 0))
+        flops = rows * (5.0 * n * math.log2(n)
+                        + (6.0 * n if epi is not None else 0.0))
+    elif kernel == "rfft":
+        rows, n = shape
+        m = n // 2
+        width = m + 1 if opts["untangle"] else m
+        nbytes = (rows * (4 * n + 8 * width)
+                  + table_bytes(km.leaf_tables(m, dev))
+                  + table_bytes(km.rfft_twiddle(n, dev)))
+        flops = rows * (5.0 * m * math.log2(m) + 10.0 * m)
+    else:
+        rows, n = shape
+        nbytes = rows * 16 * n + table_bytes(ks.stockham_table(n, dev))
+        flops = rows * 5.0 * n * math.log2(n)
+    return nbytes, flops
 
 
 def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
@@ -181,9 +284,14 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
 
     from repro_torch.kernels.fft import matfft as km
     from repro_torch.kernels.fft import plan as kplan
+    from repro_torch.kernels.fft import stockham as ks
 
     rng = np.random.default_rng(0)
     reps = cfg["reps"]
+
+    def real(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
     def planes(shape):
         a = rng.standard_normal((2, *shape), dtype=np.float32)
@@ -200,9 +308,10 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
     checks, timing = [], {}
     for variant, kernel, shape, opts, timed in kernel_cases(
             cfg, kplan.MAX_LEAF):
-        xr, xi = planes(shape)
-        xc = torch.complex(xr, xi)
+        epi = None
         if kernel == "matfft":
+            xr, xi = planes(shape)
+            xc = torch.complex(xr, xi)
             rows, n = shape
             epi = unit_table((opts["period"], n)) if opts["period"] else None
             run = lambda: km.matfft(xr, xi, epilogue=epi)  # noqa: E731
@@ -213,7 +322,9 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             if epi is not None:
                 idx = torch.arange(rows, device=dev) % opts["period"]
                 want = times((epi[0][idx], epi[1][idx]), *want)
-        else:
+        elif kernel == "matfft_cols":
+            xr, xi = planes(shape)
+            xc = torch.complex(xr, xi)
             B, n, C = shape
             rows = B * C
             epi = unit_table((C, n))
@@ -228,6 +339,27 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                          y.real, y.imag)
             if major == "col":
                 want = tuple(t.reshape(B, C, n).transpose(1, 2) for t in want)
+        elif kernel == "rfft":
+            x = real(shape)
+            if opts["untangle"]:
+                run = lambda: km.rfft_leaf(x)  # noqa: E731
+                plain = lambda: km.rfft_leaf_plain(x)  # noqa: E731
+                lib = lambda: torch.fft.rfft(x, dim=-1)  # noqa: E731
+            else:  # the packed half spectrum: the DFT of x[0::2] + i x[1::2]
+                xc = torch.complex(x[:, 0::2], x[:, 1::2])
+                run = lambda: km.rfft_pack_leaf(x)  # noqa: E731
+                plain = lambda: km.rfft_pack_leaf_plain(x)  # noqa: E731
+                lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
+            y = lib()
+            want = (y.real, y.imag)
+        else:
+            xr, xi = planes(shape)
+            xc = torch.complex(xr, xi)
+            run = lambda: ks.stockham_fft(xr, xi)  # noqa: E731
+            plain = lambda: ks.stockham_fft_plain(xr, xi)  # noqa: E731
+            lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
+            y = lib()
+            want = (y.real, y.imag)
         got = run() if gpu else plain()
         ref = plain()
         got_c = torch.complex(*got)
@@ -247,15 +379,8 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             t_plain = [timed_ms(torch, plain, reps)]
             t_kernel = [timed_ms(torch, run, reps), timed_ms(torch, run, reps)]
             t_plain.append(timed_ms(torch, plain, reps))
-            # each input read once (planes, leaf tables, epilogue), each
-            # output written once; 5 n log2 n flops a row, 6 a point for
-            # the epilogue's complex product
-            tables = km.leaf_tables(n, dev)
-            nbytes = (rows * kplan.fft_hbm_bytes(n)
-                      + sum(t.numel() * 4 for t in tables)
-                      + (2 * epi[0].numel() * 4 if epi is not None else 0))
-            flops = rows * (5.0 * n * math.log2(n)
-                            + (6.0 * n if epi is not None else 0.0))
+            nbytes, flops = case_work(km, ks, kplan, kernel, shape, opts, epi,
+                                      dev)
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             t_flops = flops / F32_FLOPS_S * 1e3
             timing[variant] = {
@@ -266,28 +391,37 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                 "library_ms": timed_ms(torch, lib, reps),
                 "bound_ms": max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
-        del xr, xi, xc, epi
+        del run, plain, lib
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise
-    fn = km.matfft if gpu else km.matfft_plain
     xr, xi = planes((cfg["batch_rows"], 1024))
-    alone = fn(xr[:1].contiguous(), xi[:1].contiguous())
-    batch = fn(xr, xi)
-    invariant = (torch.equal(alone[0][0], batch[0][0])
-                 and torch.equal(alone[1][0], batch[1][0]))
-    print(f"batch invariance (1 row vs {cfg['batch_rows']} rows, n=1024): "
-          f"{'bitwise equal' if invariant else 'DIFFERENT'}")
-    if gpu:  # the plain version's matmul need not be batch invariant
-        check(invariant, "row 0 alone differs from row 0 in the batch")
-    return checks, {"batch_invariant": invariant}, timing
+    x = xr  # real rows for K3
+    invariance = {}
+    for name, fn, args in (
+            ("matfft", km.matfft if gpu else km.matfft_plain, (xr, xi)),
+            ("rfft_leaf", km.rfft_leaf if gpu else km.rfft_leaf_plain, (x,)),
+            ("rfft_pack_leaf",
+             km.rfft_pack_leaf if gpu else km.rfft_pack_leaf_plain, (x,)),
+            ("stockham_fft", ks.stockham_fft if gpu else ks.stockham_fft_plain,
+             (xr, xi))):
+        alone = fn(*(a[:1].contiguous() for a in args))
+        batch = fn(*args)
+        invariance[name] = (torch.equal(alone[0][0], batch[0][0])
+                            and torch.equal(alone[1][0], batch[1][0]))
+        print(f"batch invariance of {name} (1 row vs {cfg['batch_rows']} "
+              f"rows, n=1024): "
+              f"{'bitwise equal' if invariance[name] else 'DIFFERENT'}")
+        if gpu:  # the plain versions' matmuls need not be batch invariant
+            check(invariance[name],
+                  f"{name}: row 0 alone differs from row 0 in the batch")
+    return checks, invariance, timing
 
 
 def kernel_line(timing: dict, launches: dict) -> list:
     """The `kernels` entries: measured numbers, the main path's launch
     counts and the bound; each variant's shape, bytes and flops stay in
     chiprun_out/chip_smoke.json."""
-    return [{"name": name, "route": "cuda",
-             "source": "src/repro_torch/csrc/matfft.cu",
+    return [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name], "launches": launches[name],
              **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                   "ms_runs", "plain_ms", "plain_ms_runs",
@@ -334,6 +468,169 @@ def check_job_output(torch, dev, work: Path, fft_len: int) -> float:
     return worst
 
 
+def reset_counts() -> None:
+    from repro_torch.kernels.fft import matfft as km
+    from repro_torch.kernels.fft import stockham as ks
+    km.reset_counts()
+    ks.reset_counts()
+
+
+def read_counts() -> dict:
+    """Launches of every kernel wrapper, and the plain versions' calls in
+    all, since the last `reset_counts`."""
+    from repro_torch.kernels.fft import matfft as km
+    from repro_torch.kernels.fft import stockham as ks
+    return {"matfft": km.matfft.launches,
+            "matfft_cols": km.matfft_cols.launches,
+            "rfft_leaf": km.rfft_leaf.launches,
+            "rfft_pack_leaf": km.rfft_pack_leaf.launches,
+            "stockham": ks.stockham_fft.launches,
+            "plain": (km.matfft_plain.calls + km.matfft_cols_plain.calls
+                      + km.rfft_leaf_plain.calls
+                      + km.rfft_pack_leaf_plain.calls
+                      + ks.stockham_fft_plain.calls)}
+
+
+def check_main_path(gpu: bool, name: str, counts: dict, kernel: str) -> None:
+    if gpu:
+        check(counts[kernel] > 0, f"{name}: {kernel} never launched")
+        check(counts["plain"] == 0,
+              f"{name}: a plain version ran on the main path")
+    else:
+        check(counts["plain"] > 0, f"rehearsal {name}: plain path not run")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the spectrogram job of examples/spectral_analysis.py
+
+
+def synth_capture(torch, dev, samples: int, seed: int = 0):
+    """The example's capture at ``samples`` samples: three tones, a 0.5 s
+    chirp in the middle, Gaussian noise from numpy's generator; tones and
+    chirp computed on ``dev`` in float64, 2^24 samples at a time. Returns
+    float32 numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = np.empty(samples, np.float32)
+    mid = samples // 2
+    w = torch.arange(SR // 2, dtype=torch.float64, device=dev) / SR
+    chirp = 2.0 * torch.sin(2 * math.pi * (2000 + 6000 * w) * w * SR)
+    step = 1 << 24
+    for s in range(0, samples, step):
+        e = min(samples, s + step)
+        t = torch.arange(s, e, dtype=torch.float64, device=dev) / SR
+        x = 0.05 * torch.from_numpy(rng.standard_normal(e - s)).to(dev)
+        for hz in TONES_HZ:
+            x += torch.sin(2 * math.pi * hz * t)
+        lo, hi = max(s, mid), min(e, mid + SR // 2)
+        if lo < hi:
+            x[lo - s:hi - s] += chirp[lo - mid:hi - mid]
+        out[s:e] = x.float().cpu().numpy()
+    return out
+
+
+def spectrogram_run(torch, dev, gpu: bool, store, work: Path, variant: str,
+                    frame: int, hop: int) -> dict:
+    """One map-only spectrogram job over ``store`` (the example's steps 2
+    and 3), its launch counts read just after the job, then its checks."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import JobConfig, MapOnlyJob
+    from repro_torch.core.spectral import power_spectrogram, stft
+
+    def map_fn(data, idx):
+        x = torch.from_numpy(np.frombuffer(data, np.float32).copy())
+        ps = power_spectrogram(x, frame, hop, device=dev)
+        return ps.cpu().numpy().tobytes()
+
+    job = MapOnlyJob(store, work / "out", map_fn, JobConfig(workers=4))
+    reset_counts()
+    t0 = time.monotonic()
+    stats = job.run()
+    job_s = time.monotonic() - t0
+    counts = read_counts()
+    check_main_path(gpu, variant, counts, "rfft_leaf")
+
+    # every block's stft against torch.fft.rfft of the same windowed frames
+    window = torch.from_numpy((0.5 - 0.5 * np.cos(
+        2 * math.pi * np.arange(frame) / frame)).astype(np.float32)).to(dev)
+    worst = 0.0
+    for i in range(len(store.blocks)):
+        x = torch.from_numpy(
+            np.frombuffer(store.read_block(i), np.float32).copy()).to(dev)
+        got = torch.complex(*stft(x, frame, hop, device=dev))
+        want = torch.fft.rfft(x.unfold(-1, frame, hop) * window, dim=-1)
+        check(bool(torch.isfinite(got).all()), f"{variant} block {i}: "
+              f"non-finite stft")
+        e = rel_err(got, want)
+        check(e < TOL, f"{variant} block {i}: stft {e} vs torch.fft.rfft")
+        worst = max(worst, e)
+        del x, got, want
+
+    # step 3: the merged power spectrogram finds the tones and the chirp
+    nbytes = job.merge(work / "spectrogram.bin")
+    n_bins = frame // 2 + 1
+    spec = np.fromfile(work / "spectrogram.bin", np.float32).reshape(-1,
+                                                                     n_bins)
+    found = np.sort(np.argsort(spec.mean(axis=0))[-3:]) * SR / frame
+    for f, hz in zip(found, sorted(TONES_HZ)):
+        check(abs(f - hz) < SR / frame + 1,
+              f"{variant}: tone {hz} Hz found at {f} Hz")
+    per_block = spec.shape[0] // len(store.blocks)
+    peak = int(spec[:, n_bins // 2:].sum(axis=1).argmax())
+    block_samples = store.block_bytes // 4
+    chirp_s = ((peak // per_block) * block_samples
+               + (peak % per_block) * hop) / SR
+    expected_s = store.total_bytes // 4 // 2 / SR
+    check(abs(chirp_s - expected_s) < 1.0,
+          f"{variant}: chirp at {chirp_s} s, expected {expected_s} s")
+    summary = {"run": variant, "frame": frame, "hop": hop,
+               "blocks": len(store.blocks), "job_s": job_s,
+               "gb_per_s": store.total_bytes / job_s / 1e9,
+               "merged_bytes": nbytes, "retries": stats.retries,
+               "speculative": stats.speculative_launches,
+               "launches": counts, "worst_block_rel_err": worst,
+               "tones_hz": [float(f) for f in found], "chirp_s": chirp_s}
+    print("spectrogram " + json.dumps(summary))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 7: fft_conv against a float64 torch.fft convolution
+
+
+def conv_checks(torch, dev, gpu: bool, cases) -> list:
+    import numpy as np
+
+    from repro_torch.core.spectral import fft_conv
+    from repro_torch.kernels.fft import plan as kplan
+
+    rng = np.random.default_rng(1)
+    out = []
+    for batch, t, tk in cases:
+        x = torch.from_numpy(rng.standard_normal((batch, t),
+                                                 dtype=np.float32)).to(dev)
+        k = torch.from_numpy(rng.standard_normal(tk,
+                                                 dtype=np.float32)).to(dev)
+        reset_counts()
+        got = fft_conv(x, k, device=dev)
+        counts = read_counts()
+        n = 1 << max(1, (t + tk - 1).bit_length())
+        want = torch.fft.irfft(torch.fft.rfft(x.double(), n)
+                               * torch.fft.rfft(k.double(), n), n)[..., :t]
+        e = float((got.double() - want).abs().max() / want.abs().max())
+        c = {"shape": [batch, t], "taps": tk, "n": n, "rel_err": e,
+             "launches": counts}
+        print("fft_conv " + json.dumps(c))
+        check(e < TOL_CONV, f"fft_conv {c}")
+        check(bool(torch.isfinite(got).all()), f"fft_conv {c}: non-finite")
+        kernel = "rfft_leaf" if n // 2 <= kplan.MAX_LEAF else "matfft_cols"
+        check_main_path(gpu, f"fft_conv n={n}", counts, kernel)
+        out.append(c)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -356,8 +653,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
+    from repro_torch.core.pipeline import BlockStore
     from repro_torch.kernels import build
-    from repro_torch.kernels.fft import matfft as km
 
     # phase 1: device
     smi = device_line() if gpu else "cpu (rehearsal)"
@@ -378,22 +675,19 @@ def main(argv=None) -> int:
     # phase 3: kernels against plain and torch.fft, timed
     checks, inv, timing = kernel_checks(torch, dev, cfg, gpu)
 
-    # phases 4-5: the main path, one run per kernel variant and one past
-    # MAX_LEAF**2
+    # phases 4-5: the main path, one run per K1/K2 variant, one past
+    # MAX_LEAF**2 and two through K4
     work_root = ROOT / "build" / "smoke"
     shutil.rmtree(work_root, ignore_errors=True)
     device_arg = ["--device", "cuda" if gpu else "cpu"]
-    launches, runs = {}, []
+    launches, runs, spectrograms = {}, [], []
     try:
         for name, kernel, job_args in cfg["runs"]:
             work = work_root / name.replace("/", "_")
-            km.reset_counts()
+            reset_counts()
             report = run_job([*job_args, "--pipelined", *device_arg,
                               "--work-dir", str(work)])
-            counts = {"matfft": km.matfft.launches,
-                      "matfft_cols": km.matfft_cols.launches,
-                      "plain": km.matfft_plain.calls
-                      + km.matfft_cols_plain.calls}
+            counts = read_counts()
             fft_len = int(job_args[job_args.index("--fft-len") + 1])
             worst = check_job_output(torch, dev, work, fft_len)
             summary = {"run": name, "args": job_args,
@@ -406,12 +700,7 @@ def main(argv=None) -> int:
                        "worst_block_rel_err": worst}
             print("main path " + json.dumps(summary))
             runs.append(summary)
-            if gpu:
-                check(counts[kernel] > 0, f"{name}: {kernel} never launched")
-                check(counts["plain"] == 0,
-                      f"{name}: a plain version ran on the main path")
-            else:
-                check(counts["plain"] > 0, "rehearsal: plain path not run")
+            check_main_path(gpu, name, counts, kernel)
             launches[name] = counts[kernel]
             shutil.rmtree(work, ignore_errors=True)
 
@@ -431,18 +720,40 @@ def main(argv=None) -> int:
               f"({len(merged['serial'])} bytes)")
         check(equal, "serial and pipelined outputs differ")
         del merged
+
+        # phase 6: the spectrogram job over a real capture, once per frame
+        t0 = time.monotonic()
+        capture = synth_capture(torch, dev, cfg["capture_samples"])
+        store = BlockStore(work_root / "capture",
+                           block_bytes=4 * cfg["block_samples"])
+        store.put_bytes(capture)
+        del capture
+        print(f"capture: {cfg['capture_samples']} samples at {SR} Hz in "
+              f"{len(store.blocks)} blocks, set up in "
+              f"{time.monotonic() - t0:.3f} s")
+        for variant, frame, hop in cfg["spectrograms"]:
+            work = work_root / f"spectrogram_{frame}"
+            summary = spectrogram_run(torch, dev, gpu, store, work, variant,
+                                      frame, hop)
+            spectrograms.append(summary)
+            launches[variant] = summary["launches"]["rfft_leaf"]
+            shutil.rmtree(work, ignore_errors=True)
     finally:
         shutil.rmtree(work_root, ignore_errors=True)
+
+    # phase 7: fft_conv
+    conv = conv_checks(torch, dev, gpu, cfg["conv"])
 
     if not gpu:
         print(f"rehearsal passed in {time.monotonic() - t_start:.1f} s")
         return 0
 
-    # phase 6: the kernels line
+    # phase 8: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
               "batch_invariance": inv, "main_path": runs,
+              "spectrograms": spectrograms, "fft_conv": conv,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

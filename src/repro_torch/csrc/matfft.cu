@@ -8,10 +8,11 @@
 //                 Replaces repro/kernels/fft/matfft.py:matfft_cols (Pallas
 //                 body _col_kernel).
 //
-// Both run one tile algebra (tile_dft below): a block stages TILE = 4096
-// complex points in shared memory (R = TILE / n whole rows, or R columns of
-// one (L, C) matrix for K2), transforms them in place, and stores them with
-// the optional periodic epilogue multiply fused into the store.
+// All three run one tile algebra (tile_dft below): a block stages TILE =
+// 4096 complex points in shared memory (R = TILE / n whole rows, or R
+// columns of one (L, C) matrix for K2), transforms them in place, and
+// stores them with the optional epilogue (K1, K2) or the untangle (K3)
+// fused into the store.
 //
 //   n <= 256   direct DFT: y[r, o] = sum_i x[r, i] W[i, o]
 //   n  > 256   four-step with n = n1 * n2 (i = i1*n2 + i2, o = o2*n1 + o1):
@@ -31,6 +32,20 @@
 // no second buffer, and lays the intermediate out so that each warp reads
 // consecutive shared-memory words and one table entry (a broadcast). It
 // uses IEEE f32 FMAs on the CUDA cores: no TF32 and no tensor cores.
+//
+//   matfft_rfft   K3: one-sided spectrum of real (rows, n) f32, n = 2m.
+//                 Replaces repro/kernels/fft/matfft.py:_rfft_pallas (Pallas
+//                 body _rfft_kernel, fused untangle_half_spectrum), behind
+//                 rfft_leaf and rfft_pack_leaf.
+//
+// K3 packs z[k] = x[2k] + i x[2k+1] as it loads (one 8-byte float2 read
+// per complex point, so the packing costs nothing), runs tile_dft at the
+// half length m with R = TILE / m whole rows a block, and untangles in
+// the store loop: Y[k] and its partner Y[(m-k) % m] are in the same
+// shared-memory row, v[k] = W_n^k comes from the plan's rfft_twiddle
+// table. It reads 4n bytes and writes 8(m+1) a row, half the traffic and
+// about half the FMAs of the complex transform of the same row. The
+// output row stride m+1 is odd, so its stores are scalar.
 //
 // A row's result depends only on its own values: every output is a
 // sequential fmaf chain in a fixed order, with no reduction across rows,
@@ -260,6 +275,63 @@ cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// K3: block b transforms real rows [b*R, b*R + R) of x (rows, 2m), packed
+// as m complex points each; g.n = m. untangle != 0 writes the one-sided
+// (rows, m+1) spectrum (untangle_half_spectrum, rounded as the plain
+// version rounds it), untangle == 0 the packed (rows, m) half spectrum.
+__global__ void __launch_bounds__(NT)
+rfft_kernel(const float2* __restrict__ x, float* __restrict__ yr,
+            float* __restrict__ yi, long long rows, Geom g, Tables tb,
+            const float* __restrict__ vr, const float* __restrict__ vi,
+            int untangle) {
+  extern __shared__ float smem[];
+  float* sr = smem;
+  float* si = smem + g.R * g.ld;
+  const long long row0 = (long long)blockIdx.x * g.R;
+  const int m = g.n;
+  const int tot = g.R * m;
+  for (int f = threadIdx.x; f < tot; f += NT) {
+    const int r = f >> g.log_n, k = f & (m - 1);
+    const long long row = row0 + r;
+    const float2 z = row < rows ? x[row * m + k] : make_float2(0.f, 0.f);
+    sr[r * g.ld + k] = z.x;
+    si[r * g.ld + k] = z.y;
+  }
+  __syncthreads();
+  tile_dft(sr, si, g, tb);
+  const int w = untangle ? m + 1 : m;
+  for (int f = threadIdx.x; f < g.R * w; f += NT) {
+    const int r = f / w, k = f - r * w;
+    const long long row = row0 + r;
+    if (row >= rows) continue;
+    const float* ar = sr + r * g.ld;
+    const float* ai = si + r * g.ld;
+    float xr, xi;
+    if (!untangle) {
+      xr = ar[k];
+      xi = ai[k];
+    } else {
+      // E = (Y[k] + conj(P))/2, O = (Y[k] - conj(P))/2i, P = Y[(m-k) % m]
+      const int kk = k < m ? k : 0;
+      const int p = (m - kk) & (m - 1);
+      const float er = __fmul_rn(0.5f, __fadd_rn(ar[kk], ar[p]));
+      const float ei = __fmul_rn(0.5f, __fsub_rn(ai[kk], ai[p]));
+      const float our = __fmul_rn(0.5f, __fadd_rn(ai[kk], ai[p]));
+      const float oui = __fmul_rn(0.5f, __fsub_rn(ar[p], ar[kk]));
+      if (k < m) {  // X[k] = E + v[k] O
+        const float wr = __ldg(vr + k), wi = __ldg(vi + k);
+        xr = __fsub_rn(__fadd_rn(er, __fmul_rn(wr, our)), __fmul_rn(wi, oui));
+        xi = __fadd_rn(__fadd_rn(ei, __fmul_rn(wr, oui)), __fmul_rn(wi, our));
+      } else {      // Nyquist X[m] = E[0] - O[0], real
+        xr = __fsub_rn(er, our);
+        xi = 0.f;
+      }
+    }
+    yr[row * w + k] = xr;
+    yi[row * w + k] = xi;
+  }
+}
+
 int log2i(int v) {
   int p = 0;
   while ((1 << p) < v) ++p;
@@ -338,6 +410,29 @@ int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
                        MAX_SMEM);
   cols_kernel<<<(unsigned)blocks, NT, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, C, tiles_per_b, g, tb, er, ei, col_major);
+  return (int)cudaGetLastError();
+}
+
+// x: real (rows, 2m), 8-byte aligned; yr, yi: (rows, m+1) with untangle,
+// (rows, m) without; n1, n2, wr..w2i: the leaf tables at length m.
+int matfft_rfft(const float* x, float* yr, float* yi, long long rows, int m,
+                int n1, int n2, const float* wr, const float* wi,
+                const float* tr, const float* ti, const float* w2r,
+                const float* w2i, const float* vr, const float* vi,
+                int untangle, void* stream) {
+  if (m < 2 || m > TILE || (m & (m - 1)) || ((size_t)x & 7))
+    return (int)cudaErrorInvalidValue;
+  const Geom g = make_geom(m, n1, n2, TILE / m, false);
+  const Tables tb{wr, wi, tr, ti, w2r, w2i};
+  const long long blocks = (rows + g.R - 1) / g.R;
+  if (blocks == 0) return 0;
+  const int smem = smem_bytes(g);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(rfft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       MAX_SMEM);
+  rfft_kernel<<<(unsigned)blocks, NT, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float2*>(x), yr, yi, rows, g, tb, vr, vi,
+      untangle);
   return (int)cudaGetLastError();
 }
 

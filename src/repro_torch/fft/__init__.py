@@ -8,8 +8,14 @@
     yr_np, yi_np = h.realize()          # the only host wait
     p.hbm_bytes, p.gemm_macs, p.flops   # analytic roofline cost model
 
-This slice runs local 1-D c2c transforms up to MAX_LOCAL_N points on one
-device; see ROADMAP.md for the placements and kinds still to port.
+    r = repro_torch.fft.plan(kind="r2c", n=1024, batch_shape=(8192,))
+    sr, si = r.execute_real(x)          # one-sided (8192, 513) spectrum
+    x_back = r.execute_inverse(sr, si)
+    r.fused_untangle                    # resolved strategy, inspectable
+
+The port runs local 1-D c2c and r2c transforms up to MAX_LOCAL_N points on
+one device; see ROADMAP.md for the shapes and placements still to port
+(`rfft2`/`irfft2` come with the N-D transforms).
 """
 
 from repro_torch.fft.planner import (AsyncResult, ExecutablePlan, cache_info,

@@ -1,6 +1,6 @@
 """Execution bodies behind `repro_torch.fft` plans: the level-0/1 transform
 code, plain functions over planar float32 tensors that drive the leaf
-kernels (`kernels/fft/matfft.py`).
+kernels (`kernels/fft/matfft.py`, `kernels/fft/stockham.py`).
 
 Hierarchy (mirrors the paper's block decomposition):
 
@@ -28,7 +28,11 @@ import torch
 
 from repro_torch.kernels.fft import plan as fft_plan
 from repro_torch.kernels.fft import ref as fft_ref
-from repro_torch.kernels.fft.matfft import matfft, matfft_cols, outer_twiddle
+from repro_torch.kernels.fft.matfft import (matfft, matfft_cols, outer_twiddle,
+                                            rfft_leaf, rfft_pack_leaf,
+                                            rfft_twiddle,
+                                            untangle_half_spectrum)
+from repro_torch.kernels.fft.stockham import stockham_fft
 
 Planar = tuple[torch.Tensor, torch.Tensor]
 
@@ -45,9 +49,10 @@ def _leaf(xr, xi, impl: str, epilogue=None) -> Planar:
     if impl == "matfft":
         return matfft(xr, xi, epilogue=epilogue)
     if impl == "stockham":
-        raise NotImplementedError(
-            "impl='stockham' runs kernel K4, which is not ported yet "
-            "(ROADMAP Queue 2)")
+        yr, yi = stockham_fft(xr, xi)
+        if epilogue is None:
+            return yr, yi
+        return _periodic(yr, yi, epilogue)
     if impl == "ref":
         yr, yi = fft_ref.fft_ref(xr, xi)
         if epilogue is None:
@@ -201,3 +206,82 @@ def ifft(xr: torch.Tensor, xi: torch.Tensor, **kw) -> Planar:
     n = xr.shape[-1]
     yr, yi = fft(xr, -xi, **kw)
     return yr / n, -yi / n
+
+
+# ---------------------------------------------------------------------------
+# real-input transforms: n reals packed as n/2 complex points
+
+
+def rfft(x: torch.Tensor, *, impl: str = "matfft",
+         layout: str = "zero_copy") -> Planar:
+    """Real-input FFT along the last axis; returns the planar one-sided
+    spectrum (n//2 + 1 bins).
+
+    Fast path (impl="matfft", n >= 4): the n real samples are read as n/2
+    complex points and one half-length transform runs. While n/2 is one
+    leaf (n <= 2*MAX_LEAF = 8192) that is one K3 launch, untangle fused in
+    its store; above it the rows are packed on the device, the half-length
+    c2c path runs (K1/K2), and `untangle_half_spectrum` runs as torch ops
+    after it. Otherwise: the full complex transform, sliced.
+    """
+    n = x.shape[-1]
+    x = x.to(torch.float32)
+    if n < 4 or impl != "matfft":
+        yr, yi = fft(x, torch.zeros_like(x), impl=impl, layout=layout)
+        return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]
+    fft_plan.log2i(n)
+    m = n // 2
+    batch_shape = x.shape[:-1]
+    x2 = x.reshape(-1, n).contiguous()
+    if fft_plan.make_plan(m).levels == 1:
+        yr, yi = rfft_leaf(x2)
+    else:
+        # bin k pairs with bin m - k, which a level-1 pass puts in another
+        # leaf, so the untangle runs after the whole half-length transform
+        z = x2.reshape(-1, m, 2)
+        zr, zi = fft(z[..., 0], z[..., 1], impl=impl, layout=layout)
+        yr, yi = untangle_half_spectrum(zr, zi, *rfft_twiddle(n, x.device))
+    return yr.reshape(*batch_shape, m + 1), yi.reshape(*batch_shape, m + 1)
+
+
+def irfft(yr: torch.Tensor, yi: torch.Tensor, *, impl: str = "matfft",
+          layout: str = "zero_copy") -> torch.Tensor:
+    """Inverse of rfft: one-sided (..., n//2 + 1) spectrum -> real (..., n).
+
+    Runs the packing in reverse: re-entangle the even/odd sub-spectra into
+    a half-length spectrum, one half-length inverse transform, then
+    interleave.
+    """
+    m = yr.shape[-1] - 1
+    n = 2 * m
+    if m < 2 or impl != "matfft":
+        # mirror to the full spectrum, full inverse transform
+        fr = torch.cat([yr, torch.flip(yr[..., 1:-1], (-1,))], dim=-1)
+        fi = torch.cat([yi, -torch.flip(yi[..., 1:-1], (-1,))], dim=-1)
+        zr, _ = ifft(fr, fi, impl=impl, layout=layout)
+        return zr
+    # E[k] = (X[k] + conj(X[m-k]))/2 ; O[k] = conj(v[k])*(X[k] - conj(X[m-k]))/2
+    xr_, xi_ = yr[..., :m], yi[..., :m]
+    # conj(X[m-k]), k = 0..m-1
+    pr, pi = torch.flip(yr[..., 1:], (-1,)), -torch.flip(yi[..., 1:], (-1,))
+    er, ei = 0.5 * (xr_ + pr), 0.5 * (xi_ + pi)
+    dr, di = 0.5 * (xr_ - pr), 0.5 * (xi_ - pi)
+    vr, vi = rfft_twiddle(n, yr.device)
+    our = vr * dr + vi * di  # conj(v) * D
+    oui = vr * di - vi * dr
+    # Z = E + i*O, z = IDFT_m(Z), x[2k] = Re z[k], x[2k+1] = Im z[k]
+    zr, zi = ifft(er - oui, ei + our, impl=impl, layout=layout)
+    return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
+
+
+def rfft_pack_pass(x2: torch.Tensor, n_last: int, *, impl: str = "matfft",
+                   layout: str = "zero_copy") -> Planar:
+    """Contiguous-axis pass of the N-D real-input path: (rows, n_last) real
+    rows -> (rows, n_last//2) RAW packed half spectrum (no untangle)."""
+    m = n_last // 2
+    if fft_plan.make_plan(m).levels == 1:
+        return rfft_pack_leaf(x2.contiguous())
+    # the half transform is level-1: pack on the device first (one extra
+    # round trip)
+    z = x2.reshape(x2.shape[0], m, 2)
+    return fft(z[..., 0], z[..., 1], impl=impl, layout=layout)

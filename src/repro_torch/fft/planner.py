@@ -11,13 +11,15 @@ rebuild nothing (`plan.build_counts["forward"]` stays at 1).
 
 An `ExecutablePlan` carries:
 
-  * the resolved `FftSpec` and the level-0/1/2 factorization (`plan.leaf`);
+  * the resolved `FftSpec` and the level-0/1/2 factorization (`plan.leaf`,
+    at the half length for the real-input fast path);
   * the analytic cost model: `flops`, `gemm_macs` and `hbm_bytes` (the
-    roofline byte counter `fft_hbm_bytes`);
-  * `execute(xr, xi)` / `execute_inverse(yr, yi)` on the caller's current
-    stream, and `execute_async(xr, xi, donate=)`, which stages host
-    operands to the device on the plan's own stream and returns an
-    `AsyncResult` without synchronising.
+    roofline byte counters `fft_hbm_bytes` / `rfft_hbm_bytes`);
+  * `execute(xr, xi)` (c2c) / `execute_real(x)` (r2c) /
+    `execute_inverse(yr, yi)` on the caller's current stream, and
+    `execute_async(*operands, donate=)`, which stages host operands to the
+    device on the plan's own stream and returns an `AsyncResult` without
+    synchronising.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ from repro_torch.fft import spec as spec_mod
 from repro_torch.fft.spec import FftSpec
 from repro_torch.kernels.fft import matfft as kmatfft
 from repro_torch.kernels.fft import plan as kplan
+from repro_torch.kernels.fft import stockham as kstockham
+
+_F32 = 4  # bytes per planar float32 element
 
 _PLAN_CACHE: dict = {}
 _CACHE_INFO = {"hits": 0, "misses": 0}
@@ -42,14 +47,18 @@ _CACHE_INFO = {"hits": 0, "misses": 0}
 _CACHE_LOCK = threading.Lock()
 
 
-def _upload_tables(n: int, device: torch.device) -> None:
-    """Put every table a length-n matfft transform reads on ``device``."""
+def _upload_tables(n: int, device: torch.device, impl: str) -> None:
+    """Put every table a length-n c2c transform with leaf ``impl`` reads
+    on ``device``."""
     p = kplan.make_plan(n)
     if p.levels == 1:
-        kmatfft.leaf_tables(n, device)
+        if impl == "matfft":
+            kmatfft.leaf_tables(n, device)
+        elif impl == "stockham" and n > 1:
+            kstockham.stockham_table(n, device)
         return
-    _upload_tables(p.n1, device)
-    _upload_tables(p.n2, device)
+    _upload_tables(p.n1, device, impl)
+    _upload_tables(p.n2, device, impl)
     kmatfft.outer_twiddle(p.n1, p.n2, device)
 
 
@@ -85,8 +94,12 @@ class ExecutablePlan:
         object.__setattr__(self, "_frozen", False)
         self.spec = spec
         self.device = torch.device(spec.device)
-        #: level-0/1/2 factorization of the transform length
-        self.leaf = kplan.make_plan(max(spec.n, 1))
+        # the r2c fast path packs n reals as n/2 complex points
+        self._fast_r2c = (spec.kind == "r2c" and spec.impl == "matfft"
+                          and spec.n >= 4)
+        #: level-0/1/2 factorization of the (half, for fast r2c) length
+        self.leaf = kplan.make_plan(
+            max(spec.n // 2 if self._fast_r2c else spec.n, 1))
         self._build_lock = threading.RLock()
         self._builds = {"forward": 0, "inverse": 0}
         self._fwd = None
@@ -105,7 +118,8 @@ class ExecutablePlan:
         return (f"ExecutablePlan(kind={s.kind!r}, shape={s.shape}, "
                 f"batch_shape={s.batch_shape}, placement={s.placement!r}, "
                 f"layout={s.layout!r}, impl={s.impl!r}, device={s.device!r}, "
-                f"levels={self.leaf.levels})")
+                f"levels={self.leaf.levels}, "
+                f"fused_untangle={self.fused_untangle})")
 
     # ------------------------------------------------------------------
     # resolved-strategy views
@@ -134,14 +148,29 @@ class ExecutablePlan:
     def levels(self) -> int:
         return self.leaf.levels
 
+    @property
+    def fused_untangle(self) -> bool:
+        """True when the r2c untangle runs fused in one leaf kernel (K3):
+        n/2 is one leaf, n <= 2*MAX_LEAF. False for longer r2c plans,
+        where it runs as torch ops after the half-length transform, and
+        for every c2c plan."""
+        return self._fast_r2c and self.leaf.levels == 1
+
     # ------------------------------------------------------------------
     # analytic cost model (roofline numerators)
 
     @property
     def flops_per_row(self) -> float:
-        """Algorithmic FLOPs per batch row (the 5 n log2 n convention)."""
+        """Algorithmic FLOPs per batch row (the 5 n log2 n convention);
+        the r2c fast path runs a half-length transform plus the O(n/2)
+        untangle (~10 real ops a bin)."""
         n = self.spec.n
-        return 5.0 * n * math.log2(n) if n > 1 else 0.0
+        if n <= 1:
+            return 0.0
+        if not self._fast_r2c:
+            return 5.0 * n * math.log2(n)
+        m = n // 2  # >= 2
+        return 5.0 * m * math.log2(m) + 10.0 * m
 
     @property
     def flops(self) -> float:
@@ -160,7 +189,14 @@ class ExecutablePlan:
     def hbm_bytes_per_row(self) -> int:
         """Planar-f32 payload device-memory bytes per batch row (tables
         excluded)."""
-        return kplan.fft_hbm_bytes(self.spec.n, self.spec.layout)
+        s = self.spec
+        if self._fast_r2c:
+            return kplan.rfft_hbm_bytes(s.n)
+        if s.kind == "r2c":
+            # full complex transform + sliced one-sided write
+            return (kplan.fft_hbm_bytes(s.n, s.layout)
+                    + 2 * _F32 * (s.n // 2 + 1))
+        return kplan.fft_hbm_bytes(s.n, s.layout)
 
     @property
     def hbm_bytes(self) -> int:
@@ -183,16 +219,28 @@ class ExecutablePlan:
     def _build_forward(self):
         s = self.spec
         dev = self.device
-        if s.impl == "matfft":
-            _upload_tables(s.n, dev)
-            if dev.type == "cuda":
-                kmatfft._lib()  # build (first use) and bind the kernels
+        if self._fast_r2c:
+            # K3 at n/2 reads the leaf tables at n/2 and the packing
+            # twiddle; longer rows run the c2c path at n/2 and untangle
+            # with the same twiddle (irfft re-entangles with it)
+            _upload_tables(s.n // 2, dev, s.impl)
+            kmatfft.rfft_twiddle(s.n, dev)
+        elif s.impl in ("matfft", "stockham"):
+            _upload_tables(s.n, dev, s.impl)
         if dev.type == "cuda":
+            if s.impl == "matfft":
+                kmatfft._lib()  # build (first use) and bind the kernels
+            elif s.impl == "stockham":
+                kstockham._lib()
             self._stream = torch.cuda.Stream(dev)
         self._builds["forward"] += 1
 
-        def forward(xr, xi):
-            return executors.fft(xr, xi, impl=s.impl, layout=s.layout)
+        if s.kind == "r2c":
+            def forward(x):
+                return executors.rfft(x, impl=s.impl, layout=s.layout)
+        else:
+            def forward(xr, xi):
+                return executors.fft(xr, xi, impl=s.impl, layout=s.layout)
 
         return forward
 
@@ -201,12 +249,17 @@ class ExecutablePlan:
             with self._build_lock:
                 if self._inv is None:
                     fwd = self._forward()
-                    n = self.spec.n
+                    s = self.spec
 
-                    def inverse(yr, yi):
-                        # conjugation identity on the forward transform
-                        ar, ai = fwd(yr, -yi)
-                        return ar / n, -ai / n
+                    if s.kind == "r2c":
+                        def inverse(yr, yi):
+                            return executors.irfft(yr, yi, impl=s.impl,
+                                                   layout=s.layout)
+                    else:
+                        def inverse(yr, yi):
+                            # conjugation identity on the forward transform
+                            ar, ai = fwd(yr, -yi)
+                            return ar / s.n, -ai / s.n
 
                     self._builds["inverse"] += 1
                     self._inv = inverse
@@ -214,11 +267,12 @@ class ExecutablePlan:
 
     # ------------------------------------------------------------------
 
-    def _operand(self, x, what: str) -> torch.Tensor:
+    def _operand(self, x, what: str, shape=None) -> torch.Tensor:
         x = torch.as_tensor(x)
-        if tuple(x.shape) != self.spec.operand_shape:
+        shape = self.spec.operand_shape if shape is None else shape
+        if tuple(x.shape) != shape:
             raise ValueError(
-                f"{what}: plan was built for shape {self.spec.operand_shape} "
+                f"{what}: plan was built for shape {shape} "
                 f"(batch_shape={self.spec.batch_shape}, "
                 f"shape={self.spec.shape}), got {tuple(x.shape)}")
         if x.dtype != torch.float32:
@@ -230,19 +284,39 @@ class ExecutablePlan:
         """Forward c2c transform of planar (*batch_shape, n) float32
         operands, on the caller's current stream. Returns planes on the
         plan's device."""
+        if self.spec.kind != "c2c":
+            raise ValueError(
+                "execute() is for kind='c2c' plans; use execute_real(x) "
+                "on this r2c plan")
         xr = self._operand(xr, "execute").to(self.device)
         xi = self._operand(xi, "execute").to(self.device)
         return self._forward()(xr, xi)
 
+    def execute_real(self, x):
+        """Forward r2c transform: real (*batch_shape, n) float32 -> planar
+        one-sided (*batch_shape, n//2 + 1) spectrum, on the caller's
+        current stream and the plan's device."""
+        if self.spec.kind != "r2c":
+            raise ValueError(
+                "execute_real() is for kind='r2c' plans; use "
+                "execute(xr, xi) on this c2c plan")
+        x = self._operand(x, "execute_real").to(self.device)
+        return self._forward()(x)
+
     def execute_inverse(self, yr, yi):
-        """Inverse c2c transform: planar spectrum -> planar signal."""
-        yr = self._operand(yr, "execute_inverse").to(self.device)
-        yi = self._operand(yi, "execute_inverse").to(self.device)
+        """Inverse transform. c2c: planar spectrum -> planar signal, both
+        (*batch_shape, n). r2c: one-sided (*batch_shape, n//2 + 1)
+        spectrum -> real (*batch_shape, n) signal."""
+        s = self.spec
+        shape = (s.operand_shape if s.kind == "c2c"
+                 else (*s.batch_shape, s.n // 2 + 1))
+        yr = self._operand(yr, "execute_inverse", shape).to(self.device)
+        yi = self._operand(yi, "execute_inverse", shape).to(self.device)
         return self._inverse()(yr, yi)
 
     def execute_async(self, *operands, donate: bool = False) -> AsyncResult:
         """Launch the forward transform of host operands WITHOUT waiting
-        for it.
+        for it. Operands: ``(xr, xi)`` for c2c plans, ``(x,)`` for r2c.
 
         On CUDA the operands are copied to the device on the plan's own
         stream (``non_blocking``: from pinned host memory the copy is
@@ -253,22 +327,21 @@ class ExecutablePlan:
         staging pool releases them only then). ``donate=False`` returns
         after the operands have been copied, so they may be reused at once.
         """
-        if len(operands) != 2:
+        nargs = 1 if self.spec.kind == "r2c" else 2
+        if len(operands) != nargs:
             raise ValueError(
-                f"execute_async on a 'c2c' plan takes 2 operand(s), got "
-                f"{len(operands)}")
-        xr, xi = (self._operand(x, "execute_async") for x in operands)
+                f"execute_async on a {self.spec.kind!r} plan takes "
+                f"{nargs} operand(s), got {len(operands)}")
+        ops = [self._operand(x, "execute_async") for x in operands]
         fwd = self._forward()
         if self.device.type == "cpu":
-            yr, yi = fwd(xr, xi)
-            return AsyncResult(yr, yi)
+            return AsyncResult(*fwd(*ops))
         with torch.cuda.stream(self._stream):
-            dr = xr.to(self.device, non_blocking=True)
-            di = xi.to(self.device, non_blocking=True)
+            staged_ops = [x.to(self.device, non_blocking=True) for x in ops]
             if not donate:
                 staged = torch.cuda.Event()
                 staged.record(self._stream)
-            yr, yi = fwd(dr, di)
+            yr, yi = fwd(*staged_ops)
             done = torch.cuda.Event()
             done.record(self._stream)
         if not donate:
@@ -287,15 +360,18 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
     """Resolve a transform spec and return the cached `ExecutablePlan`.
 
     Args:
-      kind: "c2c" (planar complex). "r2c" is not ported yet.
+      kind: "c2c" (planar complex) or "r2c" (real input, one-sided
+        output; `execute_real`).
       n: 1-D transform length — sugar for ``shape=(n,)``; pass exactly one
-        of ``n``/``shape`` (power-of-two lengths).
+        of ``n``/``shape`` (power-of-two lengths; the real length for
+        r2c).
       batch_shape: leading batch dims of the operands.
       placement: "auto" or "local"; the other placements are not ported
         yet and raise `NotImplementedError`.
       layout: "zero_copy" (default) or "copy" (the measured baseline).
-      impl: leaf kernel ("matfft", or "ref" for torch.fft; "stockham"
-        raises until its kernel is ported).
+      impl: leaf kernel: "matfft" (K1/K2, and K3 for r2c), "stockham"
+        (K4; r2c then runs the full complex transform, sliced) or "ref"
+        (torch.fft).
       precision: "f32".
       device: "cuda" (default; raises when no card is present) or "cpu",
         which runs the kernels' plain PyTorch versions.

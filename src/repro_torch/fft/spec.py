@@ -6,9 +6,9 @@ impl and precision membership, power-of-two lengths, the placement and the
 device — so strategy errors surface as one clear exception at plan time
 instead of a failure inside a kernel.
 
-This slice of the port runs the local placement of 1-D c2c transforms: the
-contiguous axis takes the level-0/1/2 four-step up to MAX_LOCAL_N. Other
-kinds, shapes and placements are recognised and raise
+The port runs the local placement of 1-D transforms, c2c and r2c: the
+contiguous axis takes the level-0/1/2 four-step up to MAX_LOCAL_N. N-D
+shapes and the other placements are recognised and raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 
 The device replaces the JAX package's ``interpret`` switch: it defaults to
@@ -47,8 +47,9 @@ _NOT_YET = {
 class FftSpec:
     """Fully-resolved transform spec; hashable plan-cache key."""
 
-    kind: str                     # "c2c"
-    shape: tuple                  # transform-axis lengths (trailing axes)
+    kind: str                     # "c2c" | "r2c"
+    shape: tuple                  # transform-axis lengths (trailing axes;
+    #                               real length for r2c)
     batch_shape: tuple            # leading batch dims
     placement: str                # resolved: "local"
     layout: str                   # "zero_copy" | "copy"
@@ -158,14 +159,12 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
         raise NotImplementedError(
             f"placement={placement!r} is not ported yet "
             f"({_NOT_YET[placement]})")
-    if kind == "r2c":
-        raise NotImplementedError(
-            "kind='r2c' runs kernel K3, not ported yet "
-            "(ROADMAP Queue 1 item 5)")
     shape = _normalize_shape(n, shape)
     if len(shape) > 1:
         raise NotImplementedError(
             "N-D transforms are not ported yet (ROADMAP Queue 1 item 6)")
+    if kind == "r2c" and shape[-1] < 2:
+        raise ValueError(f"r2c needs n >= 2, got n={shape[-1]}")
     batch_shape = tuple(int(d) for d in batch_shape)
     if any(d < 1 for d in batch_shape):
         raise ValueError(f"batch_shape dims must be >= 1, got {batch_shape}")

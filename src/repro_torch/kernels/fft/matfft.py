@@ -1,23 +1,28 @@
-"""Matrix-DFT leaf transforms: the Hopper kernels K1 and K2 and their plain
-PyTorch versions.
+"""Matrix-DFT leaf transforms: the Hopper kernels K1, K2 and K3 and their
+plain PyTorch versions.
 
   * ``matfft``       K1, row-major batch: (rows, n) in, (rows, n) out.
   * ``matfft_cols``  K2, column-strided batch: transforms the MIDDLE axis of
     a (B, L, C) view and writes row-major (B*C, L) or column-major
     (B, L, C). Chaining two of these is the zero-copy level-1 four-step:
     no transposed tensor is ever written to device memory.
+  * ``rfft_leaf`` / ``rfft_pack_leaf``  K3, real rows: (rows, n) real in,
+    the one-sided (rows, n/2 + 1) spectrum or the packed (rows, n/2) half
+    spectrum out.
 
-Both kernels live in ``csrc/matfft.cu`` (CUDA C++ for ``sm_90a``, built
-by `repro_torch.kernels.build` and called through ctypes). They replace the
+The kernels live in ``csrc/matfft.cu`` (CUDA C++ for ``sm_90a``, built by
+`repro_torch.kernels.build` and called through ctypes). They replace the
 Pallas kernels of the JAX package's ``kernels/fft/matfft.py``:
-``matfft`` (bodies ``_dft_kernel`` and ``_matfft_kernel``) and
-``matfft_cols`` (body ``_col_kernel``). Both run one tile algebra: the
-direct DFT, one complex product with the (n, n) DFT matrix, for
-n <= DIRECT_N; above it the four-step n = n1 * n2 — column DFTs with
-W_{n1}, the inner twiddle T, row DFTs with W_{n2}, output in o2*n1 + o1
-order. The optional epilogue multiplies each output row by a row of a
-periodic table before the store; the level-1 four-step fuses its outer
-twiddle there.
+``matfft`` (bodies ``_dft_kernel`` and ``_matfft_kernel``),
+``matfft_cols`` (body ``_col_kernel``) and ``_rfft_pallas`` (body
+``_rfft_kernel``). All run one tile algebra: the direct DFT, one complex
+product with the (n, n) DFT matrix, for n <= DIRECT_N; above it the
+four-step n = n1 * n2 — column DFTs with W_{n1}, the inner twiddle T, row
+DFTs with W_{n2}, output in o2*n1 + o1 order. The optional epilogue
+multiplies each output row by a row of a periodic table before the store;
+the level-1 four-step fuses its outer twiddle there. K3 packs the real row
+as m = n/2 complex points on the load, runs the tile algebra at m and
+untangles the half spectrum (`untangle_half_spectrum`) in its store.
 
 What bounds them on an H100, and what the design does about it, is set out
 at the top of ``csrc/matfft.cu``: the matrix formulation issues
@@ -26,10 +31,11 @@ kernels are bound by f32 FMA issue and shared-memory reads; each block
 transforms its rows in place in shared memory with IEEE f32 FMAs (no TF32,
 no tensor cores) and touches device memory once per point each way.
 
-Each wrapper takes planar float32 tensors. On a CUDA tensor it launches its
-kernel (and counts the launch in ``<wrapper>.launches``) or raises; on a
-CPU tensor it runs the plain version, ``matfft_plain`` /
-``matfft_cols_plain``, which repeats the tile algebra with PyTorch
+Each wrapper takes float32 tensors (planar for K1 and K2, real for K3). On
+a CUDA tensor it launches its kernel (and counts the launch in
+``<wrapper>.launches``) or raises; on a CPU tensor it runs the plain
+version — ``matfft_plain``, ``matfft_cols_plain``, ``rfft_leaf_plain``,
+``rfft_pack_leaf_plain`` — which repeats the tile algebra with PyTorch
 operations (and counts the call in ``<plain>.calls``).
 """
 
@@ -95,6 +101,15 @@ def outer_twiddle(n1: int, n2: int, device: torch.device) -> Planar:
     return _device_table(
         ("outer", n1, n2),
         lambda: tuple(a.T.copy() for a in fft_plan.twiddle_table(n1, n2, n)),
+        device)
+
+
+def rfft_twiddle(n: int, device: torch.device) -> Planar:
+    """The real-input transform's packing twiddle v[k] = W_n^k, planar
+    (n/2,), on ``device``: the untangle's table."""
+    return _device_table(
+        ("rfft", n),
+        lambda: tuple(a.reshape(-1) for a in fft_plan.rfft_twiddle(n)),
         device)
 
 
@@ -170,6 +185,61 @@ def matfft_cols_plain(xr: torch.Tensor, xi: torch.Tensor, *,
 matfft_cols_plain.calls = 0
 
 
+def untangle_half_spectrum(yr, yi, vr, vi) -> Planar:
+    """One-sided real-input spectrum from the half-length packed transform.
+
+    Given Y = DFT_m(x[..., 0::2] + 1j*x[..., 1::2]) along the last axis,
+    the even/odd sub-spectra are recovered from the conjugate-symmetric
+    partner Y[(m-k) % m] and combined with the packing twiddle
+    v[k] = W_{2m}^k:
+
+        E[k] = (Y[k] + conj(Y[m-k]))/2      O[k] = (Y[k] - conj(Y[m-k]))/2i
+        X[k] = E[k] + v[k]*O[k]   k < m;    X[m] = E[0] - O[0]  (Nyquist)
+
+    Torch ops on (..., m) planes -> (..., m+1), in the JAX package's
+    expression order; K3 rounds its fused untangle the same way. Also the
+    untangle of the level-1 rfft path (`executors.rfft`).
+    """
+    # conj partner p[k] = Y[(m-k) % m]: reverse then rotate right by one
+    pr = torch.roll(torch.flip(yr, (-1,)), 1, -1)
+    pi = torch.roll(torch.flip(yi, (-1,)), 1, -1)
+    er, ei = 0.5 * (yr + pr), 0.5 * (yi - pi)
+    our, oui = 0.5 * (yi + pi), 0.5 * (pr - yr)
+    xr = er + vr * our - vi * oui
+    xi = ei + vr * oui + vi * our
+    nyq = er[..., :1] - our[..., :1]
+    return (torch.cat([xr, nyq], dim=-1),
+            torch.cat([xi, torch.zeros_like(nyq)], dim=-1))
+
+
+def _rfft_plain(x: torch.Tensor, untangle: bool, what: str) -> Planar:
+    """Pack, half-length tile DFT, optional untangle: K3's algebra."""
+    _, n, m = _check_real(x, what)
+    yr, yi = _tile_dft_plain(x[:, 0::2], x[:, 1::2],
+                             leaf_tables(m, x.device), m)
+    if not untangle:
+        return yr, yi
+    return untangle_half_spectrum(yr, yi, *rfft_twiddle(n, x.device))
+
+
+def rfft_leaf_plain(x: torch.Tensor) -> Planar:
+    """Plain PyTorch version of `rfft_leaf`, same argument and algebra."""
+    rfft_leaf_plain.calls += 1
+    return _rfft_plain(x, True, "rfft_leaf")
+
+
+rfft_leaf_plain.calls = 0
+
+
+def rfft_pack_leaf_plain(x: torch.Tensor) -> Planar:
+    """Plain PyTorch version of `rfft_pack_leaf`."""
+    rfft_pack_leaf_plain.calls += 1
+    return _rfft_plain(x, False, "rfft_pack_leaf")
+
+
+rfft_pack_leaf_plain.calls = 0
+
+
 # ---------------------------------------------------------------------------
 # argument checks shared by the kernels and their plain versions
 
@@ -224,6 +294,25 @@ def _check_cols(xr, xi, out_major, epilogue) -> tuple[int, int, int]:
     return B, L, C
 
 
+def _check_real(x, what: str) -> tuple[int, int, int]:
+    """(rows, n, m = n/2) of real rows K3 takes: n a power of two >= 4
+    whose half m is one leaf, as the JAX package's `_rfft_pallas`."""
+    if x.dim() != 2:
+        raise ValueError(f"{what} expects 2-D (rows, n), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 rows, got {x.dtype}")
+    rows, n = x.shape
+    fft_plan.log2i(n)
+    if n < 4:
+        raise ValueError(f"{what} needs n >= 4, got {n}")
+    m = n // 2
+    if fft_plan.make_plan(m).levels != 1:
+        raise ValueError(f"n={n} exceeds {what} capacity (n/2 <= MAX_LEAF="
+                         f"{fft_plan.MAX_LEAF}); use executors.rfft")
+    return rows, n, m
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 
@@ -240,6 +329,9 @@ def _lib() -> ctypes.CDLL:
         lib.matfft_cols.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 4 + \
             [_c_ptr] * 8 + [_c_int, _c_ptr]
         lib.matfft_cols.restype = _c_int
+        lib.matfft_rfft.argtypes = [_c_ptr] * 3 + [_c_ll] + [_c_int] * 3 + \
+            [_c_ptr] * 8 + [_c_int, _c_ptr]
+        lib.matfft_rfft.restype = _c_int
         _BOUND.set()
     return lib
 
@@ -352,7 +444,61 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
 matfft_cols.launches = 0
 
 
+def _launch_rfft(x: torch.Tensor, untangle: bool, what: str) -> Planar:
+    _check_cuda(x, what)
+    rows, n, m = _check_real(x, what)
+    _contiguous(x, what=what)
+    if x.data_ptr() % 8:
+        raise ValueError(f"{what} reads each row as float2 pairs: the "
+                         f"tensor must start 8-byte aligned")
+    n1, n2, tabs = _kernel_args(leaf_tables(m, x.device), m)
+    vr, vi = rfft_twiddle(n, x.device)
+    shape = (rows, m + 1 if untangle else m)
+    yr = torch.empty(shape, dtype=torch.float32, device=x.device)
+    yi = torch.empty(shape, dtype=torch.float32, device=x.device)
+    rc = _lib().matfft_rfft(
+        x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, m, n1, n2, *tabs,
+        vr.data_ptr(), vi.data_ptr(), int(untangle),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    return yr, yi
+
+
+def rfft_leaf(x: torch.Tensor) -> Planar:
+    """One-sided spectrum of real (rows, n) float32 rows, n a power of two
+    >= 4 with n/2 <= MAX_LEAF. Returns planar (rows, n/2 + 1) tensors.
+
+    Costs one HALF-length DFT: the kernel reads the real rows as n/2
+    complex points and untangles the half spectrum in its store.
+    """
+    if x.device.type == "cpu":
+        return rfft_leaf_plain(x)
+    y = _launch_rfft(x, True, "rfft_leaf")
+    rfft_leaf.launches += 1
+    return y
+
+
+rfft_leaf.launches = 0
+
+
+def rfft_pack_leaf(x: torch.Tensor) -> Planar:
+    """Raw packed half spectrum of real (rows, n) rows: DFT_m of
+    x[:, 0::2] + i*x[:, 1::2], planar (rows, n/2), NO untangle (the N-D
+    real-input path untangles after its remaining axes)."""
+    if x.device.type == "cpu":
+        return rfft_pack_leaf_plain(x)
+    y = _launch_rfft(x, False, "rfft_pack_leaf")
+    rfft_pack_leaf.launches += 1
+    return y
+
+
+rfft_pack_leaf.launches = 0
+
+
 def reset_counts() -> None:
     """Zero every launch and plain-call counter of this module."""
     matfft.launches = matfft_cols.launches = 0
+    rfft_leaf.launches = rfft_pack_leaf.launches = 0
     matfft_plain.calls = matfft_cols_plain.calls = 0
+    rfft_leaf_plain.calls = rfft_pack_leaf_plain.calls = 0

@@ -1,0 +1,122 @@
+"""Radix-2 Stockham autosort FFT: the Hopper kernel K4 and its plain
+PyTorch version.
+
+  * ``stockham_fft``  forward DFT along the last axis of planar (rows, n)
+    float32, n a power of two <= MAX_LEAF, natural-order output.
+
+The kernel lives in ``csrc/stockham.cu`` (CUDA C++ for ``sm_90a``, built by
+`repro_torch.kernels.build` and called through ctypes). It replaces the
+Pallas kernel of the JAX package's ``kernels/fft/stockham.py``
+(``stockham_fft``, body ``_stockham_kernel``): log2(n) decimation-in-
+frequency butterfly stages, no bit reversal, the per-stage twiddles packed
+in one (n,) planar table (`plan.stockham_twiddles`, stage offsets
+`plan.stockham_stage_offsets`). It is the comparison implementation
+against the matrix formulation of `matfft`, the `impl="stockham"` leaf.
+
+On a CUDA tensor the wrapper launches the kernel (counted in
+``stockham_fft.launches``) or raises; on a CPU tensor it runs
+``stockham_fft_plain`` (counted in ``stockham_fft_plain.calls``), which
+repeats the stages with PyTorch operations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fft import plan as fft_plan
+from repro_torch.kernels.fft.matfft import (Planar, _check_cuda, _check_planes,
+                                            _contiguous, _device_table)
+
+
+def stockham_table(n: int, device: torch.device) -> Planar:
+    """The packed per-stage twiddles of a length-n transform on
+    ``device``."""
+    return _device_table(("stockham", n),
+                         lambda: fft_plan.stockham_twiddles(n), device)
+
+
+def _check(xr, xi) -> tuple[int, int]:
+    _check_planes(xr, xi, 2, "stockham_fft")
+    rows, n = xr.shape
+    fft_plan.log2i(n)
+    if n > fft_plan.MAX_LEAF:
+        raise ValueError(f"n={n} exceeds single-kernel capacity "
+                         f"(MAX_LEAF={fft_plan.MAX_LEAF}); use executors.fft")
+    return rows, n
+
+
+def stockham_fft_plain(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
+    """Plain PyTorch version of `stockham_fft`, same stages and rounding."""
+    stockham_fft_plain.calls += 1
+    rows, n = _check(xr, xi)
+    if n == 1:
+        return xr, xi
+    twr, twi = stockham_table(n, xr.device)
+    for off, l, m in fft_plan.stockham_stage_offsets(n):
+        # x viewed as [b, h, j, k] with flat index h*l*m + j*m + k
+        xr4 = xr.reshape(rows, 2, l, m)
+        xi4 = xi.reshape(rows, 2, l, m)
+        ar, ai = xr4[:, 0], xi4[:, 0]
+        br, bi = xr4[:, 1], xi4[:, 1]
+        wr = twr[off:off + l].reshape(1, l, 1)
+        wi = twi[off:off + l].reshape(1, l, 1)
+        # DIF butterfly: y0 = a + b ; y1 = (a - b) * w
+        dr, di = ar - br, ai - bi
+        tr = wr * dr - wi * di
+        ti = wr * di + wi * dr
+        # y[b, j, t, k] at flat index j*2m + t*m + k
+        xr = torch.stack([ar + br, tr], dim=2).reshape(rows, n)
+        xi = torch.stack([ai + bi, ti], dim=2).reshape(rows, n)
+    return xr, xi
+
+
+stockham_fft_plain.calls = 0
+
+_BOUND = threading.Event()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("stockham")
+    if not _BOUND.is_set():
+        lib.stockham_rows.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 3
+        lib.stockham_rows.restype = ctypes.c_int
+        _BOUND.set()
+    return lib
+
+
+def stockham_fft(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
+    """Batched forward DFT along the last axis of planar (rows, n) float32
+    tensors via radix-2 Stockham stages; n a power of two <= MAX_LEAF.
+    n == 1 returns its input."""
+    if xr.device.type == "cpu":
+        return stockham_fft_plain(xr, xi)
+    _check_cuda(xr, "stockham_fft")
+    rows, n = _check(xr, xi)
+    if n == 1:
+        return xr, xi
+    _contiguous(xr, xi, what="stockham_fft")
+    twr, twi = stockham_table(n, xr.device)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    rc = _lib().stockham_rows(
+        xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, n,
+        twr.data_ptr(), twi.data_ptr(),
+        torch.cuda.current_stream(xr.device).cuda_stream)
+    if rc:
+        raise RuntimeError(
+            f"stockham_fft kernel launch failed: CUDA error {rc}")
+    stockham_fft.launches += 1
+    return yr, yi
+
+
+stockham_fft.launches = 0
+
+
+def reset_counts() -> None:
+    """Zero this module's launch and plain-call counters."""
+    stockham_fft.launches = 0
+    stockham_fft_plain.calls = 0

@@ -129,10 +129,18 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_stockham_waits_for_its_kernel(rng):
+    """impl="stockham" runs kernel K4 (here its plain version) and agrees
+    with the reference's stockham plan."""
+    x = _planes(rng, (2, 256))
     p = tfft.plan(kind="c2c", n=256, batch_shape=(2,), impl="stockham",
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="K4"):
-        p.execute(*_planes(rng, (2, 256)))
+    km.reset_counts()
+    got = p.execute(*x)
+    assert km.matfft_plain.calls == 0
+    jp = jfft.plan(kind="c2c", n=256, batch_shape=(2,), impl="stockham")
+    want = jp.execute(*(jnp.asarray(a) for a in x))
+    assert _rel_err(got, want) < TOL
+    assert _rel_err(p.execute_inverse(*got), x) < TOL
 
 
 def test_ref_impl_matches_matfft(rng):

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.fft import matfft as km
 from repro_torch.kernels.fft import plan as tplan
+from repro_torch.kernels.fft import stockham as ks
 
 TOL = 5e-6  # max|kernel - plain| / max|plain|
 
@@ -99,6 +100,80 @@ def test_zero_copy_equals_copy_bitwise_on_the_card(cuda, rng, n):
     zc = executors.fft(*x, layout="zero_copy")
     cp = executors.fft(*x, layout="copy")
     assert torch.equal(zc[0], cp[0]) and torch.equal(zc[1], cp[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4, 8, 512, 1024, 2 * tplan.MAX_LEAF])
+@pytest.mark.parametrize("rows", [1, 7, 300])
+def test_k3_kernel_matches_plain(cuda, rng, n, rows):
+    x = torch.from_numpy(rng.standard_normal((rows, n))
+                         .astype(np.float32)).to(cuda)
+    for kernel, plain in ((km.rfft_leaf, km.rfft_leaf_plain),
+                          (km.rfft_pack_leaf, km.rfft_pack_leaf_plain)):
+        before = kernel.launches
+        got = kernel(x)
+        assert kernel.launches == before + 1
+        want = plain(x)
+        assert got[0].shape == want[0].shape
+        assert _rel_err(got, want) < TOL
+    full = torch.fft.rfft(x.double(), dim=-1)
+    assert _rel_err(km.rfft_leaf(x), (full.real, full.imag)) < TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 4, 256, 1024, tplan.MAX_LEAF])
+@pytest.mark.parametrize("rows", [1, 7, 300])
+def test_k4_kernel_matches_plain(cuda, rng, n, rows):
+    x = _planes(rng, (rows, n), cuda)
+    got = ks.stockham_fft(*x)
+    assert _rel_err(got, ks.stockham_fft_plain(*x)) < TOL
+    full = torch.fft.fft(torch.complex(*x).to(torch.complex128), dim=-1)
+    assert _rel_err(got, (full.real, full.imag)) < TOL
+
+
+@pytest.mark.gpu
+def test_k3_and_k4_rows_are_batch_invariant(cuda, rng):
+    x = torch.from_numpy(rng.standard_normal((4096, 1024))
+                         .astype(np.float32)).to(cuda)
+    for fn in (km.rfft_leaf, km.rfft_pack_leaf):
+        alone = fn(x[5:6].contiguous())
+        batch = fn(x)
+        assert torch.equal(alone[0][0], batch[0][5])
+        assert torch.equal(alone[1][0], batch[1][5])
+    xr, xi = _planes(rng, (4096, 1024), cuda)
+    alone = ks.stockham_fft(xr[5:6].contiguous(), xi[5:6].contiguous())
+    batch = ks.stockham_fft(xr, xi)
+    assert torch.equal(alone[0][0], batch[0][5])
+    assert torch.equal(alone[1][0], batch[1][5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 1024, 8192, 1 << 14, 1 << 20])
+def test_r2c_plan_on_the_card_matches_the_cpu_plan(cuda, rng, n):
+    import repro_torch.fft as tfft
+    rows = max(2, (1 << 18) // n)
+    x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
+    on_card = tfft.plan(kind="r2c", n=n, batch_shape=(rows,))
+    on_cpu = tfft.plan(kind="r2c", n=n, batch_shape=(rows,), device="cpu")
+    got = on_card.execute_real(x)
+    assert _rel_err(got, on_cpu.execute_real(x)) < TOL
+    back = on_card.execute_inverse(*got)
+    assert float((back.cpu() - x).abs().max() / x.abs().max()) < TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1024, 1 << 20])
+def test_stockham_plan_on_the_card_launches_k4(cuda, rng, n):
+    import repro_torch.fft as tfft
+    rows = max(2, (1 << 18) // n)
+    x = _planes(rng, (rows, n), "cpu")
+    ks.reset_counts()
+    got = tfft.plan(kind="c2c", n=n, batch_shape=(rows,),
+                    impl="stockham").execute(*x)
+    assert ks.stockham_fft.launches == (1 if n <= tplan.MAX_LEAF else 2)
+    assert ks.stockham_fft_plain.calls == 0
+    full = torch.fft.fft(torch.complex(*x).to(torch.complex128), dim=-1)
+    assert _rel_err(got, (full.real, full.imag)) < TOL
 
 
 @pytest.mark.gpu

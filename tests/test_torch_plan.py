@@ -52,13 +52,27 @@ def test_twiddle_table_bitwise(n1, n2):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("n", [4, 256, 4096])
+@pytest.mark.parametrize("n", [2, 4, 8, 256, 512, 1024, 4096, 8192])
 def test_rfft_and_stockham_tables_bitwise(n):
+    """K3 reads rfft_twiddle(n) (n up to 2*MAX_LEAF), K4 the packed
+    stage twiddles at its offsets: the reference's tables, bit for bit."""
     for a, b in zip(tplan.rfft_twiddle(n), jplan.rfft_twiddle(n)):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(tplan.stockham_twiddles(n), jplan.stockham_twiddles(n)):
         np.testing.assert_array_equal(a, b)
     assert tplan.stockham_stage_offsets(n) == jplan.stockham_stage_offsets(n)
+
+
+@pytest.mark.parametrize("p", [2, 3, 9, 10, 12, 13, 14, 16, 20])
+def test_rfft_hbm_bytes_match_reference_at_same_cap(p):
+    """The real-input byte counter is the reference's at the port's leaf
+    cap: fused (read the row, write the spectrum) while n/2 is one leaf,
+    pack + half-length c2c + untangle above it."""
+    n = 1 << p
+    cap = tplan.MAX_LEAF
+    assert tplan.rfft_hbm_bytes(n) == jplan.rfft_hbm_bytes(n, cap)
+    if n // 2 <= cap:
+        assert tplan.rfft_hbm_bytes(n) == 4 * n + 8 * (n // 2 + 1)
 
 
 @pytest.mark.parametrize("p", range(1, 25))
@@ -150,8 +164,14 @@ def test_resolve_local_cpu_spec():
                                                         (8, 1024))
 
 
+def test_resolve_local_r2c_spec():
+    s = tspec.resolve("r2c", n=1024, batch_shape=(8,), device="cpu")
+    assert (s.kind, s.placement, s.operand_shape) == ("r2c", "local",
+                                                      (8, 1024))
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(kind="r2c", n=256), "item 5"),
+    (dict(kind="r2c", shape=(64, 64)), "item 6"),
     (dict(kind="c2c", shape=(64, 64)), "item 6"),
     (dict(kind="c2c", n=256, placement="segmented"), "item 7"),
     (dict(kind="c2c", n=256, placement="distributed"), "item 7"),
