@@ -13,10 +13,13 @@ Phases (any failed check exits non-zero):
      (K1 at n = 256, 1024, MAX_LEAF with and without the epilogue; K2 at
      L = 256, 1024, row- and column-major, with the epilogue; K3 at
      n = 8, 512, 1024, 8192 with and without the untangle; K4 at n = 2,
-     256, 1024, MAX_LEAF; one error formula), batch invariance (a row
-     alone == the row inside a large batch, K1, K3 and K4), and each
-     variant's main-path case timed beside its bound, its plain version
-     and torch.fft (a yardstick only);
+     256, 1024, MAX_LEAF; one error formula; whether each equals its
+     plain version bit for bit), batch invariance (a row alone == the row
+     inside a large batch: K1 at n = 256 and 1024, K3 at 512 and 1024, K4
+     at 1024), zero_copy == copy bitwise at 2^16 and 2^17 (K2's column
+     passes against K1's row passes over transposes), and each variant's
+     main-path case timed beside its bound, its plain version and
+     torch.fft (a yardstick only);
   4. main path: the map-only FFT job (`repro_torch.launch.fft_job`) driven
      pipelined through its CLI entry point, once per K1/K2 variant, once
      past MAX_LEAF**2 (three levels) and twice with --impl stockham (K4
@@ -118,6 +121,7 @@ FULL = {
                "--segments-per-block", "8192", "--coalesce", "4"],
     "points": 1 << 25,      # complex points per kernel check and timing
     "batch_rows": 32768,    # batch of the invariance check
+    "layout_rows": 64,      # rows of the zero_copy == copy check
     "reps": 10,
     # K3 (rows, n): n = 8, the frame-512 and frame-1024 spectrogram blocks
     # (2^24 samples), and fft_conv's n = 8192 at 2^25 samples
@@ -158,6 +162,7 @@ REHEARSE = {
                "--segments-per-block", "32", "--coalesce", "4"],
     "points": 1 << 15,
     "batch_rows": 64,
+    "layout_rows": 2,
     "reps": 1,
     "rfft_shapes": [(64, 8), (33, 512), (17, 1024), (3, 8192)],
     "stockham_shapes": [(64, 2), (16, 256), (8, 1024), (2, 4096)],
@@ -282,6 +287,7 @@ def case_work(km, ks, kplan, kernel: str, shape, opts, epi, dev):
 def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
     import numpy as np
 
+    from repro_torch.fft import executors
     from repro_torch.kernels.fft import matfft as km
     from repro_torch.kernels.fft import plan as kplan
     from repro_torch.kernels.fft import stockham as ks
@@ -366,7 +372,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         max_abs = float((got_c - torch.complex(*ref)).abs().max())
         c = {"variant": variant, "shape": list(shape), **opts,
              "epilogue": list(epi[0].shape) if epi is not None else None,
-             "max_abs_err": max_abs,
+             "max_abs_err": max_abs, "bitwise_plain": max_abs == 0.0,
              "rel_err_plain": max_abs / float(torch.complex(*ref).abs().max()),
              "rel_err_torch_fft": rel_err(got_c, torch.complex(*want))}
         print("check " + json.dumps(c))
@@ -386,6 +392,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             timing[variant] = {
                 "case": c, "bytes": nbytes, "flops": flops,
                 "max_abs_err": max_abs, "max_rel_err": c["rel_err_plain"],
+                "bitwise_plain": c["bitwise_plain"],
                 "ms": min(t_kernel), "ms_runs": t_kernel,
                 "plain_ms": min(t_plain), "plain_ms_runs": t_plain,
                 "library_ms": timed_ms(torch, lib, reps),
@@ -393,27 +400,48 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
         del run, plain, lib
 
-    # batch invariance: row 0 alone == row 0 inside the big batch, bitwise
-    xr, xi = planes((cfg["batch_rows"], 1024))
-    x = xr  # real rows for K3
+    # batch invariance: row 0 alone == row 0 inside the big batch, bitwise;
+    # K1 and K3 at a length of each branch (K3 at n = 512 runs m = 256)
     invariance = {}
-    for name, fn, args in (
-            ("matfft", km.matfft if gpu else km.matfft_plain, (xr, xi)),
-            ("rfft_leaf", km.rfft_leaf if gpu else km.rfft_leaf_plain, (x,)),
+    for name, fn, lengths, real_rows in (
+            ("matfft", km.matfft if gpu else km.matfft_plain, (256, 1024),
+             False),
+            ("rfft_leaf", km.rfft_leaf if gpu else km.rfft_leaf_plain,
+             (512, 1024), True),
             ("rfft_pack_leaf",
-             km.rfft_pack_leaf if gpu else km.rfft_pack_leaf_plain, (x,)),
+             km.rfft_pack_leaf if gpu else km.rfft_pack_leaf_plain,
+             (512, 1024), True),
             ("stockham_fft", ks.stockham_fft if gpu else ks.stockham_fft_plain,
-             (xr, xi))):
-        alone = fn(*(a[:1].contiguous() for a in args))
-        batch = fn(*args)
-        invariance[name] = (torch.equal(alone[0][0], batch[0][0])
-                            and torch.equal(alone[1][0], batch[1][0]))
-        print(f"batch invariance of {name} (1 row vs {cfg['batch_rows']} "
-              f"rows, n=1024): "
-              f"{'bitwise equal' if invariance[name] else 'DIFFERENT'}")
-        if gpu:  # the plain versions' matmuls need not be batch invariant
-            check(invariance[name],
-                  f"{name}: row 0 alone differs from row 0 in the batch")
+             (1024,), False)):
+        for n in lengths:
+            args = (real((cfg["batch_rows"], n)),) if real_rows else planes(
+                (cfg["batch_rows"], n))
+            alone = fn(*(a[:1].contiguous() for a in args))
+            batch = fn(*args)
+            key = f"{name}/{n}"
+            invariance[key] = (torch.equal(alone[0][0], batch[0][0])
+                               and torch.equal(alone[1][0], batch[1][0]))
+            print(f"batch invariance of {name} (1 row vs {cfg['batch_rows']} "
+                  f"rows, n={n}): "
+                  f"{'bitwise equal' if invariance[key] else 'DIFFERENT'}")
+            if gpu:  # the plain versions' matmuls need not be batch invariant
+                check(invariance[key],
+                      f"{name}: row 0 alone differs from row 0 in the batch "
+                      f"at n={n}")
+
+    # zero_copy == copy: K2's column passes (the first at L = 256) against
+    # K1's row passes over materialized transposes, bitwise
+    for n in (1 << 16, 1 << 17):
+        xr, xi = planes((cfg["layout_rows"], n))
+        zc = executors.fft(xr, xi, layout="zero_copy")
+        cp = executors.fft(xr, xi, layout="copy")
+        same = torch.equal(zc[0], cp[0]) and torch.equal(zc[1], cp[1])
+        invariance[f"zero_copy==copy/{n}"] = same
+        print(f"zero_copy vs copy ({cfg['layout_rows']} rows, n={n}): "
+              f"{'bitwise equal' if same else 'DIFFERENT'}")
+        if gpu:
+            check(same, f"zero_copy and copy differ at n={n}")
+        del zc, cp
     return checks, invariance, timing
 
 
@@ -424,7 +452,8 @@ def kernel_line(timing: dict, launches: dict) -> list:
     return [{"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name], "launches": launches[name],
              **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms",
-                                  "ms_runs", "plain_ms", "plain_ms_runs",
+                                  "bitwise_plain", "ms_runs", "plain_ms",
+                                  "plain_ms_runs",
                                   "library_ms", "bound_ms", "bound_by")}}
             for name, t in timing.items()]
 

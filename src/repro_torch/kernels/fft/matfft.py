@@ -15,21 +15,27 @@ The kernels live in ``csrc/matfft.cu`` (CUDA C++ for ``sm_90a``, built by
 Pallas kernels of the JAX package's ``kernels/fft/matfft.py``:
 ``matfft`` (bodies ``_dft_kernel`` and ``_matfft_kernel``),
 ``matfft_cols`` (body ``_col_kernel``) and ``_rfft_pallas`` (body
-``_rfft_kernel``). All run one tile algebra: the direct DFT, one complex
-product with the (n, n) DFT matrix, for n <= DIRECT_N; above it the
-four-step n = n1 * n2 — column DFTs with W_{n1}, the inner twiddle T, row
-DFTs with W_{n2}, output in o2*n1 + o1 order. The optional epilogue
-multiplies each output row by a row of a periodic table before the store;
-the level-1 four-step fuses its outer twiddle there. K3 packs the real row
-as m = n/2 complex points on the load, runs the tile algebra at m and
+``_rfft_kernel``). All run one tile algebra with two branches. For
+n <= DIRECT_N (the reference's direct DFT, one product with the (n, n) DFT
+matrix) the port runs a radix FFT: n = a * b with a = min(n, RADIX),
+radix-2 Stockham stages of length a, the inner twiddle W_n^{i2*o1}, stages
+of length b, output in o2*a + o1 order, every twiddle an entry of the
+(n,) table `plan.radix_twiddles`. Above DIRECT_N it is the four-step
+n = n1 * n2 — column DFTs with W_{n1}, the inner twiddle T, row DFTs with
+W_{n2}, output in o2*n1 + o1 order. The optional epilogue multiplies each
+output row by a row of a periodic table before the store; the level-1
+four-step fuses its outer twiddle there. K3 packs the real row as
+m = n/2 complex points on the load, runs the tile algebra at m and
 untangles the half spectrum (`untangle_half_spectrum`) in its store.
 
 What bounds them on an H100, and what the design does about it, is set out
-at the top of ``csrc/matfft.cu``: the matrix formulation issues
-4*n*(n1+n2) real FMAs per row against 16*n bytes of traffic, so the
-kernels are bound by f32 FMA issue and shared-memory reads; each block
-transforms its rows in place in shared memory with IEEE f32 FMAs (no TF32,
-no tensor cores) and touches device memory once per point each way.
+at the top of ``csrc/matfft.cu``: the radix branch does about 5 log2 n
+flops a point against 16 bytes of traffic, so it is bound by bytes; the
+four-step's matrix products issue 4*n*(n1+n2) real FMAs per row, so that
+branch is bound by f32 FMA issue and shared-memory reads. Each block
+transforms its rows in place in shared memory in IEEE f32 on the CUDA
+cores (no TF32, no tensor cores) and touches device memory once per point
+each way.
 
 Each wrapper takes float32 tensors (planar for K1 and K2, real for K3). On
 a CUDA tensor it launches its kernel (and counts the launch in
@@ -49,8 +55,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.fft import plan as fft_plan
 
-# Transform lengths up to this use one full DFT-matrix product.
+# Transform lengths up to this take the radix branch (the reference's
+# direct DFT): passes of at most RADIX points in each thread's registers.
 DIRECT_N = 256
+RADIX = 16
 
 Planar = tuple[torch.Tensor, torch.Tensor]
 
@@ -74,16 +82,17 @@ def _device_table(key, make, device: torch.device) -> tuple:
 
 
 def leaf_tables(n: int, device: torch.device) -> tuple:
-    """The leaf transform's tables on ``device``: (W_r, W_i) for the direct
-    DFT, (W1_r, W1_i, Tt_r, Tt_i, W2_r, W2_i) for the four-step, where
+    """The leaf transform's tables on ``device``: the (n,) roots of unity
+    (W_r, W_i) of `plan.radix_twiddles` for the radix branch,
+    (W1_r, W1_i, Tt_r, Tt_i, W2_r, W2_i) for the four-step, where
     Tt = T^T is the (n2, n1) inner twiddle."""
     p = fft_plan.make_plan(n)
     if p.levels != 1:
         raise ValueError(f"n={n} exceeds one leaf (MAX_LEAF="
                          f"{fft_plan.MAX_LEAF}); use the level-1 four-step")
     if n <= DIRECT_N:
-        return _device_table(("direct", n), lambda: fft_plan.dft_matrix(n),
-                             device)
+        return _device_table(("radix", n),
+                             lambda: fft_plan.radix_twiddles(n), device)
 
     def make():
         w1 = fft_plan.dft_matrix(p.n1)
@@ -125,11 +134,83 @@ def _cgemm(ar, ai, br, bi):
     return ar @ br - ai @ bi, ar @ bi + ai @ br
 
 
+def stockham_stages(xr, xi, twiddles) -> Planar:
+    """Radix-2 Stockham (decimation in frequency) stages along the last
+    axis of (rows, m) planes, natural order in and out. ``twiddles``
+    gives, stage by stage (l = m/2, m/4, ..., 1), the planar (l,) stage
+    twiddles w_j = W_{2l}^j. The plain version of K4 and of the radix
+    leaf; the kernels run the same butterflies, rounded the same way."""
+    rows, m = xr.shape
+    ms = 1
+    for wr, wi in twiddles:
+        l = m // (2 * ms)
+        # x viewed as [r, h, j, k] with flat index h*l*ms + j*ms + k
+        xr4 = xr.reshape(rows, 2, l, ms)
+        xi4 = xi.reshape(rows, 2, l, ms)
+        ar, ai = xr4[:, 0], xi4[:, 0]
+        br, bi = xr4[:, 1], xi4[:, 1]
+        wr, wi = wr.reshape(1, l, 1), wi.reshape(1, l, 1)
+        # y[r, j, 0, k] = a + b, y[r, j, 1, k] = (a - b) * w_j at flat
+        # index j*2ms + t*ms + k
+        dr, di = ar - br, ai - bi
+        tr = wr * dr - wi * di
+        ti = wr * di + wi * dr
+        xr = torch.stack([ar + br, tr], dim=2).reshape(rows, m)
+        xi = torch.stack([ai + bi, ti], dim=2).reshape(rows, m)
+        ms *= 2
+    return xr, xi
+
+
+def _radix_stages(xr, xi, twr, twi, n: int) -> Planar:
+    """An m-point DFT of (rows, m) planes by Stockham stages whose twiddle
+    W_{2l}^j is entry j*n/(2l) of the length-n table: the kernel's
+    `reg_dft`."""
+    def twiddles():
+        l = xr.shape[1] // 2
+        while l >= 1:
+            step = n // (2 * l)
+            yield twr[:l * step:step], twi[:l * step:step]
+            l //= 2
+
+    return stockham_stages(xr, xi, twiddles())
+
+
+def _radix_plain(xr, xi, tables, n: int) -> Planar:
+    """The radix branch, n = a*b with a = min(n, RADIX): a-point stages
+    over i1 for each (row, i2), the inner twiddle W_n^{i2*o1}, b-point
+    stages over i2 for each (row, o1), output at o2*a + o1 — the kernel's
+    `tile_radix`."""
+    twr, twi = tables
+    a = min(n, RADIX)
+    b = n // a
+    if b == 1:
+        return _radix_stages(xr, xi, twr, twi, n)
+    rows = xr.shape[0]
+
+    def by_column(x):  # x[r, i1*b + i2] -> rows (r, i2), cols i1
+        return x.reshape(rows, a, b).transpose(1, 2).reshape(rows * b, a)
+
+    ar, ai = _radix_stages(by_column(xr), by_column(xi), twr, twi, n)
+    k = (torch.arange(b, device=xr.device)[:, None]
+         * torch.arange(a, device=xr.device)).reshape(-1)
+    ar, ai = _cmul(ar.reshape(rows, b * a), ai.reshape(rows, b * a),
+                   twr[k], twi[k])
+
+    def by_row(x):  # x[r, i2*a + o1] -> rows (r, o1), cols i2
+        return x.reshape(rows, b, a).transpose(1, 2).reshape(rows * a, b)
+
+    cr, ci = _radix_stages(by_row(ar), by_row(ai), twr, twi, n)
+
+    def out_order(x):  # rows (r, o1), cols o2 -> flat o = o2*a + o1
+        return x.reshape(rows, a, b).transpose(1, 2).reshape(rows, n)
+
+    return out_order(cr), out_order(ci)
+
+
 def _tile_dft_plain(xr, xi, tables, n: int) -> Planar:
-    """Direct or four-step DFT of (rows, n) planes with the leaf tables."""
+    """Radix or four-step DFT of (rows, n) planes with the leaf tables."""
     if n <= DIRECT_N:
-        wr, wi = tables
-        return _cgemm(xr, xi, wr, wi)
+        return _radix_plain(xr, xi, tables, n)
     w1r, w1i, tr, ti, w2r, w2i = tables
     n1, n2 = w1r.shape[0], w2r.shape[0]
     rows = xr.shape[0]

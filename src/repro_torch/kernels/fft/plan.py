@@ -64,6 +64,18 @@ def dft_matrix(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
+def radix_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Planar roots of unity W_n^k = exp(-2j*pi*k/n), k in [0, n), f32.
+
+    Every twiddle of the radix leaf (n <= matfft.DIRECT_N) is one of them:
+    a stage twiddle W_{2l}^j is entry j*n/(2l), the inner twiddle
+    W_n^{i2*o1} entry i2*o1.
+    """
+    ang = -2.0 * math.pi * np.arange(n, dtype=np.float64) / n
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def twiddle_table(n1: int, n2: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     """Planar inner twiddle T[o1, i2] = exp(-2j*pi*o1*i2/n), shape (n1, n2)."""
     o1 = np.arange(n1, dtype=np.float64)

@@ -29,7 +29,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.fft import plan as fft_plan
 from repro_torch.kernels.fft.matfft import (Planar, _check_cuda, _check_planes,
-                                            _contiguous, _device_table)
+                                            _contiguous, _device_table,
+                                            stockham_stages)
 
 
 def stockham_table(n: int, device: torch.device) -> Planar:
@@ -52,26 +53,13 @@ def _check(xr, xi) -> tuple[int, int]:
 def stockham_fft_plain(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
     """Plain PyTorch version of `stockham_fft`, same stages and rounding."""
     stockham_fft_plain.calls += 1
-    rows, n = _check(xr, xi)
+    _, n = _check(xr, xi)
     if n == 1:
         return xr, xi
     twr, twi = stockham_table(n, xr.device)
-    for off, l, m in fft_plan.stockham_stage_offsets(n):
-        # x viewed as [b, h, j, k] with flat index h*l*m + j*m + k
-        xr4 = xr.reshape(rows, 2, l, m)
-        xi4 = xi.reshape(rows, 2, l, m)
-        ar, ai = xr4[:, 0], xi4[:, 0]
-        br, bi = xr4[:, 1], xi4[:, 1]
-        wr = twr[off:off + l].reshape(1, l, 1)
-        wi = twi[off:off + l].reshape(1, l, 1)
-        # DIF butterfly: y0 = a + b ; y1 = (a - b) * w
-        dr, di = ar - br, ai - bi
-        tr = wr * dr - wi * di
-        ti = wr * di + wi * dr
-        # y[b, j, t, k] at flat index j*2m + t*m + k
-        xr = torch.stack([ar + br, tr], dim=2).reshape(rows, n)
-        xi = torch.stack([ai + bi, ti], dim=2).reshape(rows, n)
-    return xr, xi
+    return stockham_stages(
+        xr, xi, ((twr[off:off + l], twi[off:off + l])
+                 for off, l, _ in fft_plan.stockham_stage_offsets(n)))
 
 
 stockham_fft_plain.calls = 0

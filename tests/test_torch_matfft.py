@@ -40,7 +40,11 @@ def _j(arrays):
     return tuple(jnp.asarray(a) for a in arrays)
 
 
-@pytest.mark.parametrize("n", [2, 16, 256, 512, 4096])
+# every length of the radix branch (n <= DIRECT_N), two of the four-step
+RADIX_NS = [1 << p for p in range(9)]
+
+
+@pytest.mark.parametrize("n", RADIX_NS + [512, 4096])
 @pytest.mark.parametrize("rows", [1, 5])
 def test_k1_plain_matches_pallas(rng, n, rows):
     x = _planes(rng, (rows, n))
@@ -49,7 +53,7 @@ def test_k1_plain_matches_pallas(rng, n, rows):
     assert _rel_err(got, want) < TOL
 
 
-@pytest.mark.parametrize("n", [16, 256, 1024])
+@pytest.mark.parametrize("n", RADIX_NS + [1024])
 def test_k1_plain_periodic_epilogue_matches_pallas(rng, n):
     rows, period = 24, 8  # rows ragged against the kernel's row tile
     x = _planes(rng, (rows, n))
@@ -59,7 +63,8 @@ def test_k1_plain_periodic_epilogue_matches_pallas(rng, n):
     assert _rel_err(got, want) < TOL
 
 
-@pytest.mark.parametrize("L,C", [(16, 8), (256, 4), (512, 2)])
+@pytest.mark.parametrize("L,C", [(2, 8), (4, 8), (8, 8), (16, 8), (32, 4),
+                                 (64, 4), (128, 2), (256, 4), (512, 2)])
 @pytest.mark.parametrize("out_major", ["row", "col"])
 @pytest.mark.parametrize("with_epilogue", [False, True])
 def test_k2_plain_matches_pallas(rng, L, C, out_major, with_epilogue):

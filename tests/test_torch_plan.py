@@ -44,6 +44,18 @@ def test_dft_matrix_bitwise(n):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("n", [1, 2, 4, 16, 32, 128, 256])
+def test_radix_twiddles_are_the_roots_of_unity(n):
+    """The radix leaf's one table: W_n^k = exp(-2 pi i k / n), k < n,
+    computed in float64 and rounded once to float32."""
+    wr, wi = tplan.radix_twiddles(n)
+    assert wr.dtype == wi.dtype == np.float32 and wr.shape == (n,)
+    want = np.exp(-2j * np.pi * np.arange(n, dtype=np.float64) / n)
+    np.testing.assert_array_equal(wr, want.real.astype(np.float32))
+    np.testing.assert_array_equal(wi, want.imag.astype(np.float32))
+    assert np.abs((wr + 1j * wi.astype(np.float64)) - want).max() < 6e-8
+
+
 @pytest.mark.parametrize("n1,n2", [(16, 32), (32, 32), (64, 64),
                                    (1024, 1024)])
 def test_twiddle_table_bitwise(n1, n2):
