@@ -10,14 +10,15 @@ Phases (any failed check exits non-zero):
   2. build: compile every kernel from csrc/ with nvcc, all at once, print
      what ptxas reports (registers, shared memory, spills);
   3. kernels against their plain PyTorch versions and torch.fft on the card
-     (K1 at n = 256, 1024, MAX_LEAF with and without the epilogue; K2 at
-     L = 256, 1024, row- and column-major, with the epilogue; K3 at
-     n = 8, 512, 1024, 8192 with and without the untangle; K4 at n = 2,
-     256, 1024, MAX_LEAF; one error formula; whether each equals its
-     plain version bit for bit), batch invariance (a row alone == the row
-     inside a large batch: K1 at n = 256 and 1024, K3 at 512 and 1024, K4
-     at 1024), zero_copy == copy bitwise at 2^16 and 2^17 (K2's column
-     passes against K1's row passes over transposes), and each variant's
+     (K1 at n = 256, 512, 1024, 2048, MAX_LEAF with and without the
+     epilogue; K2 at L = 256, 1024, MAX_LEAF, row- and column-major, with
+     the epilogue; K3 at n = 8, 512, 1024, 4096, 8192 with and without
+     the untangle; K4 at n = 2, 256, 1024, MAX_LEAF; one error formula;
+     K1, K2 and K3 equal to their plain versions bit for bit), batch
+     invariance (a row alone == the row inside a large batch: K1 at n =
+     256, 1024, 2048, 4096, K3 at 512, 1024, 2048, 4096, K4 at 1024),
+     zero_copy == copy bitwise at 2^16, 2^17 and 2^20 (K2's column passes
+     against K1's row passes over transposes), and each variant's
      main-path case timed beside its bound, its plain version and
      torch.fft (a yardstick only);
   4. main path: the map-only FFT job (`repro_torch.launch.fft_job`) driven
@@ -31,7 +32,8 @@ Phases (any failed check exits non-zero):
   6. the spectrogram job of examples/spectral_analysis.py through the
      port: a 1 GiB real capture in 64 MiB blocks, a map-only job whose map
      task is `repro_torch.core.spectral.power_spectrogram` on the card, at
-     frame 1024 (K3 four-step) and frame 512 (K3 direct): every block's
+     frame 1024 (K3 at m = 512, three passes) and frame 512 (K3 at m =
+     256, two passes): every block's
      stft within 5e-6 of torch.fft.rfft of the same windowed frames, the
      three tones found within one bin, the chirp found, K3 launched and
      no plain version run;
@@ -124,8 +126,9 @@ FULL = {
     "layout_rows": 64,      # rows of the zero_copy == copy check
     "reps": 10,
     # K3 (rows, n): n = 8, the frame-512 and frame-1024 spectrogram blocks
-    # (2^24 samples), and fft_conv's n = 8192 at 2^25 samples
-    "rfft_shapes": [(1 << 22, 8), (65535, 512), (32767, 1024), (4096, 8192)],
+    # (2^24 samples), n = 4096 and fft_conv's n = 8192 at 2^25 samples
+    "rfft_shapes": [(1 << 22, 8), (65535, 512), (32767, 1024), (8192, 4096),
+                    (4096, 8192)],
     # K4 (rows, n) at 2^25 points; (32768, 1024) is the main path's batch
     "stockham_shapes": [(1 << 24, 2), (131072, 256), (32768, 1024),
                         (8192, 4096)],
@@ -164,7 +167,7 @@ REHEARSE = {
     "batch_rows": 64,
     "layout_rows": 2,
     "reps": 1,
-    "rfft_shapes": [(64, 8), (33, 512), (17, 1024), (3, 8192)],
+    "rfft_shapes": [(64, 8), (33, 512), (17, 1024), (5, 4096), (3, 8192)],
     "stockham_shapes": [(64, 2), (16, 256), (8, 1024), (2, 4096)],
     "capture_samples": 1 << 18,
     "block_samples": 1 << 16,
@@ -215,9 +218,10 @@ def timed_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_cases(cfg, max_leaf: int) -> list:
-    """(variant, wrapper, shape, options, timed): K1 at n = 256, 1024,
-    MAX_LEAF with and without the periodic epilogue, K2 at L = 256, 1024
-    row- and column-major with the epilogue, K3 at ``rfft_shapes`` with and
+    """(variant, wrapper, shape, options, timed): K1 at n = 256, 512,
+    1024, 2048, MAX_LEAF with and without the periodic epilogue, K2 at L =
+    256, 1024, MAX_LEAF row- and column-major with the epilogue, K3 at
+    ``rfft_shapes`` with and
     without the untangle, K4 at ``stockham_shapes``. ``timed`` marks each
     variant's main-path case: the level-0 batch (coalesce 4 x 8192
     segments of 1024, or 4 x 32768 of 256), the level-1 first pass
@@ -227,19 +231,20 @@ def kernel_cases(cfg, max_leaf: int) -> list:
     (32768 x 1024)."""
     points = cfg["points"]
     cases = []
-    for n in (256, 1024, max_leaf):
+    for n in (256, 512, 1024, 2048, max_leaf):
         variant = "matfft/direct" if n <= 256 else "matfft/four_step"
         for period in (None, 64):
             cases.append((variant, "matfft", (points // n, n),
                           {"period": period},
                           period is None and n in (256, 1024)))
-    for L in (256, 1024):
+    for L in (256, 1024, max_leaf):
         variant = "matfft_cols/direct" if L <= 256 else \
             "matfft_cols/four_step"
         for out_major in ("row", "col"):
             cases.append((variant, "matfft_cols",
                           (max(points // (L * L), 1), L, L),
-                          {"out_major": out_major}, out_major == "row"))
+                          {"out_major": out_major},
+                          out_major == "row" and L in (256, 1024)))
     for rows, n in cfg["rfft_shapes"]:
         variant = "rfft/direct" if n // 2 <= 256 else "rfft/four_step"
         for untangle in (True, False):
@@ -379,6 +384,9 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         checks.append(c)
         check(c["rel_err_plain"] < TOL and c["rel_err_torch_fft"] < TOL,
               f"kernel disagrees: {c}")
+        if gpu and kernel != "stockham":  # K1-K3 round as their plain versions
+            check(c["bitwise_plain"], f"kernel differs from its plain "
+                  f"version: {c}")
         del got, ref, got_c, want, y
         if gpu and timed:
             # plain, kernel, kernel, plain: one card, one call
@@ -401,16 +409,17 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         del run, plain, lib
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise;
-    # K1 and K3 at a length of each branch (K3 at n = 512 runs m = 256)
+    # K1 and K3 at lengths of two and of three passes (K3 at n = 512 runs
+    # m = 256)
     invariance = {}
     for name, fn, lengths, real_rows in (
-            ("matfft", km.matfft if gpu else km.matfft_plain, (256, 1024),
-             False),
+            ("matfft", km.matfft if gpu else km.matfft_plain,
+             (256, 1024, 2048, 4096), False),
             ("rfft_leaf", km.rfft_leaf if gpu else km.rfft_leaf_plain,
-             (512, 1024), True),
+             (512, 1024, 2048, 4096), True),
             ("rfft_pack_leaf",
              km.rfft_pack_leaf if gpu else km.rfft_pack_leaf_plain,
-             (512, 1024), True),
+             (512, 1024, 2048, 4096), True),
             ("stockham_fft", ks.stockham_fft if gpu else ks.stockham_fft_plain,
              (1024,), False)):
         for n in lengths:
@@ -429,9 +438,9 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                       f"{name}: row 0 alone differs from row 0 in the batch "
                       f"at n={n}")
 
-    # zero_copy == copy: K2's column passes (the first at L = 256) against
+    # zero_copy == copy: K2's column passes (L = 256, 512 and 1024) against
     # K1's row passes over materialized transposes, bitwise
-    for n in (1 << 16, 1 << 17):
+    for n in (1 << 16, 1 << 17, 1 << 20):
         xr, xi = planes((cfg["layout_rows"], n))
         zc = executors.fft(xr, xi, layout="zero_copy")
         cp = executors.fft(xr, xi, layout="copy")

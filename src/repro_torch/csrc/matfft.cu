@@ -12,47 +12,49 @@
 // 4096 complex points in shared memory (R = TILE / n whole rows, or R
 // columns of one (L, C) matrix for K2), in natural order, transforms them
 // in place, and stores them with the optional epilogue (K1, K2) or the
-// untangle (K3) fused into the store. Each kernel has two instantiations,
-// one for each branch of the tile algebra, so that each gets the registers
-// its own branch needs: the radix one is held to 64 registers a thread, so
-// that four blocks (1024 threads, 34-50 KB of shared memory each) fit a
-// SM.
+// untangle (K3) fused into the store.
 //
-//   n <= 256   radix FFT (tile_radix), n = a * b, a = min(n, RADIX = 16),
-//              i = i1*b + i2, o = o2*a + o1:
+// The tile algebra is a radix FFT for every n <= TILE. Its passes are
+// DFTs of at most RADIX = 16 points, each run in one thread's registers
+// (reg_dft: the radix-2 butterflies of the plain version's Stockham
+// stages, kept in place), with an inner twiddle between two passes. With
+// i = i1*b + i2, o = o2*a + o1:
+//
+//   n <= 256   two passes (tile_radix), n = a * b, a = min(n, RADIX):
 //                A[o1, i2] = W_n^{i2*o1} * DFT_a(x[. * b + i2])[o1]
 //                y[o2*a + o1] = DFT_b(A[o1, .])[o2]
-//              Each DFT runs in one thread's registers: the radix-2
-//              butterflies of the plain version's Stockham stages, kept in
-//              place (reg_dft). The reference's direct DFT (one product
-//              with the (n, n) DFT matrix) is replaced, not ported.
-//   n  > 256   four-step with n = n1 * n2 (i = i1*n2 + i2, o = o2*n1 + o1):
-//                B[o1, i2] = T[o1, i2] * sum_i1 x[i1*n2 + i2] W1[i1, o1]
-//                y[o2*n1 + o1] = sum_i2 B[o1, i2] W2[i2, o2]
+//   n >= 512   three passes (tile_radix3), n = 16 * b, b = 16 * c,
+//              c in {2, 4, 8, 16}: the same first pass with a = 16, then
+//              the b-point DFT over i2 as the two passes above at length b
+//              (16 points over i2a, i2 = i2a*c + i2b, the inner twiddle
+//              W_b^{i2b*o2} = W_n^{16*i2b*o2}, then c points over i2b);
+//              output o = (o3*16 + o2)*16 + o1.
 //
-// The tables (the radix branch's (n,) roots of unity W_n^k; the four-step's
-// W1, W2 and T) are the plan's float32 tables, computed in float64 on the
-// host (kernels/fft/plan.py) and read through the read-only cache; no
-// sin/cos is evaluated on the card.
+// Each kernel has two instantiations, one for each of these, so that each
+// gets the registers its own passes need. The reference's matrix DFTs
+// (one product with the (n, n) DFT matrix up to 256 points, the four-step
+// of products with W_{n1}, T and W_{n2} above) are replaced, not ported.
 //
-// What bounds it on an H100. The radix branch does about 34 flops a point
-// at n = 256 (two 16-point passes of 32 butterflies and 17 twiddle
-// products each, and the inner twiddle) against 16 bytes of device memory
-// traffic, about 2 flops a byte, far below the card's f32 ridge (67 TFLOP/s
-// over 3.35 TB/s = 20): it is bound by bytes. The design reads
-// and writes device memory once a point each way, coalesced, and keeps
-// shared memory to two round trips a pass: each of 256 threads reads its
-// 16 points into registers, runs its DFTs there, and writes back once,
-// through strides chosen so that no access has a bank conflict (make_geom
-// says how). The four-step branch issues 4*n*(n1+n2) real FMAs per row
-// against the same 16*n bytes, so it is bound by f32 FMA issue and by
-// shared-memory operand reads; it keeps every intermediate in shared
-// memory, holds each thread's 16 outputs in registers so the in-place
-// update needs no second buffer, and lays the intermediate out so that
-// each warp reads consecutive shared-memory words and one table entry (a
-// broadcast). Both use IEEE f32 on the CUDA cores: no TF32 and no tensor
-// cores; the radix branch rounds every product and sum as its plain
-// PyTorch version does (__fmul_rn, __fadd_rn: no contraction).
+// Every twiddle is an entry W_n^k, k < n, of the plan's (n,) float32
+// table (kernels/fft/plan.py:radix_twiddles, computed in float64 on the
+// host), read through the read-only cache: a stage twiddle W_{2l}^j is
+// entry j*n/(2l), an inner twiddle entry i2*o1 or 16*i2b*o2. No sin/cos
+// is evaluated on the card.
+//
+// What bounds it on an H100. An FFT of n points does about 5 n log2 n
+// flops (40 a point at n = 256, 60 at n = 4096) against 16 bytes a point
+// of device memory traffic, at most about 4 flops a byte, far below the
+// card's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20): it is bound by
+// bytes. The design reads and writes device memory once a point each way,
+// coalesced, and keeps shared memory to two round trips a pass: each of
+// 256 threads reads its 16 points into registers, runs its DFTs there,
+// and writes back once, through strides chosen so that no access has a
+// bank conflict (make_geom says how). Both instantiations are held to 64
+// registers a thread, so that four blocks (1024 threads, 33-50 KB of
+// shared memory each) fit a SM. IEEE f32 on the CUDA cores, no TF32 and
+// no tensor cores; every product and sum is rounded as the plain PyTorch
+// version rounds it (__fmul_rn, __fadd_rn: no contraction), so each
+// kernel equals its plain version bit for bit.
 //
 //   matfft_rfft   K3: one-sided spectrum of real (rows, n) f32, n = 2m.
 //                 Replaces repro/kernels/fft/matfft.py:_rfft_pallas (Pallas
@@ -80,36 +82,25 @@ constexpr int NT = 256;         // threads per block
 constexpr int P = 16;           // outputs held by each thread
 constexpr int TILE = NT * P;    // complex points per block; the longest
                                 // row, kernels/fft/plan.py:MAX_LEAF
-constexpr int LOG_RADIX = 4;    // radix branch: passes of at most
-constexpr int RADIX = 1 << LOG_RADIX;  // RADIX = P points, one a thread
+constexpr int LOG_RADIX = 4;    // passes of at most RADIX = P points,
+constexpr int RADIX = 1 << LOG_RADIX;  // held by one thread
+constexpr int TWO_PASS_N = RADIX * RADIX;  // longest two-pass length
+constexpr int MIN_BLOCKS = 4;   // blocks a SM: 64 registers a thread
 constexpr int MAX_SMEM = 64 * 1024;
-
-struct Tables {
-  const float* __restrict__ wr;   // radix: W_n^k (n,); four-step: W1 (n1, n1)
-  const float* __restrict__ wi;
-  const float* __restrict__ tr;   // four-step: T^T (n2, n1), T^T[i2, o1]
-  const float* __restrict__ ti;
-  const float* __restrict__ w2r;  // four-step: W2 (n2, n2)
-  const float* __restrict__ w2i;
-};
+// tile_radix3's intermediates (make_geom): the first pass's output at
+// (r*16 + o1) * (b + M1_PAD) + i2, the second's at d * M2_STRIDE + o2*16
+// + o1 with d = r*c + i2b
+constexpr int M1_PAD = 2;
+constexpr int M2_STRIDE = (RADIX + 1) * RADIX;
 
 struct Geom {
   int n, log_n;     // transform length
-  int n1, log_n1;   // four-step factors; n1 == 0 selects the radix branch
-  int n2, log_n2;
   int R, log_R;     // rows (K2: columns) staged per block
   int ld;           // shared-memory row stride, in floats
-  int log_w;        // radix branch: a warp takes 2^log_w adjacent columns
-                    // of 32 / 2^log_w rows (make_geom)
+  int plane;        // floats of one plane (real or imaginary) of the tile
+  int log_w;        // two-pass branch: a warp takes 2^log_w adjacent
+                    // columns of 32 / 2^log_w rows (make_geom)
 };
-
-__device__ __forceinline__ void cmac(float xr, float xi, float wr, float wi,
-                                     float& ar, float& ai) {
-  ar = fmaf(xr, wr, ar);
-  ar = fmaf(-xi, wi, ar);
-  ai = fmaf(xr, wi, ai);
-  ai = fmaf(xi, wr, ai);
-}
 
 // (ar + i ai) * (br + i bi), rounded as the plain PyTorch version rounds it
 __device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
@@ -179,7 +170,7 @@ __device__ __forceinline__ void pair_of(int p, int lw, int log_R, int& r,
   c = ((p >> (lw + log_R)) << lw) | (p & ((1 << lw) - 1));
 }
 
-// The radix branch of tile_dft at n = 2^LOG_N <= 256: n = A * B, A =
+// tile_dft at n = 2^LOG_N <= 256, in two passes: n = A * B, A =
 // min(n, RADIX). Pass 1: item (r, i2) reads x[i1*B + i2], i1 < A, runs the
 // A-point DFT (reg_dft) and multiplies output o1 by W_n^{i2*o1}; the block
 // synchronises and writes the intermediate to r*ld + i2*(A+1) + o1. Pass 2
@@ -273,109 +264,162 @@ __device__ __forceinline__ void tile_radix(float* sr, float* si,
   }
 }
 
-// The four-step branch of tile_dft, n > 256.
-__device__ void tile_four_step(float* sr, float* si, const Geom& g,
-                               const Tables& tb) {
-  const int t = threadIdx.x;
-  float ar[P], ai[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) ar[k] = ai[k] = 0.f;
+// tile_dft at n = 2^LOG_N in [512, 4096], in three passes: n = 16 * B,
+// B = 16 * C, i = i1*B + i2a*C + i2b (i2 = i2a*C + i2b), and a block
+// stages RF = P / C rows (g.R <= RF: K2 may stage fewer), so that each
+// pass has one item a thread, P points each.
+//   Pass 1: item (r, i2) reads x[i1*B + i2], i1 < 16, runs the 16-point
+//   DFT and multiplies output o1 by W_n^{i2*o1}; stores it to
+//   M1 = (r*16 + o1) * (B + M1_PAD) + i2.
+//   Pass 2: item (r, o1, i2b) reads M1 over i2a < 16, runs the 16-point
+//   DFT and multiplies output o2 by W_B^{i2b*o2} = W_n^{16*i2b*o2}; stores
+//   it to M2 = d * M2_STRIDE + o2*16 + o1, d = r*C + i2b.
+//   Pass 3: item (o1, o2) reads M2 over every d: the C-point DFTs over
+//   i2b of all RF rows, each at its own constant offset r*C of the
+//   registers; stores output o3 of row r to r*ld + (o3*16 + o2)*16 + o1,
+//   natural order.
+// These are the two passes of tile_radix at length B, after a first pass
+// at A = 16, with the same operations in the same order as the plain
+// version's recursion (matfft.py:_radix_plain).
+template <int LOG_N>
+__device__ __forceinline__ void tile_radix3(float* sr, float* si,
+                                            const Geom& g,
+                                            const float* __restrict__ twr,
+                                            const float* __restrict__ twi) {
+  constexpr int LOG_C = LOG_N - 2 * LOG_RADIX;
+  constexpr int LOG_B = LOG_N - LOG_RADIX;
+  constexpr int C = 1 << LOG_C, B = 1 << LOG_B;
+  constexpr int RF = P / C;         // rows a full tile holds
+  constexpr int S1 = B + M1_PAD;    // M1's stride over (r, o1)
+  const int t = threadIdx.x, ld = g.ld, R = g.R;
+  float vr[P], vi[P];
 
-  const int n1 = g.n1, n2 = g.n2;
-  const int bs = n1 + 1;  // stride of the transposed intermediate B^T
-  {
-    // column DFTs + inner twiddle; each thread owns one i2
-    const int i2 = t & (n2 - 1);
-    const int q0 = t >> g.log_n2, qstep = NT >> g.log_n2;
-    for (int i1 = 0; i1 < n1; ++i1) {
+  {  // pass 1
+    const int r = t >> LOG_B, i2 = t & (B - 1);
+    const bool on = r < R;
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const int q = q0 + k * qstep;
-        const int r = q >> g.log_n1, o1 = q & (n1 - 1);
-        if (r < g.R) {
-          const int xs = r * g.ld + i1 * n2 + i2;
-          cmac(sr[xs], si[xs], __ldg(tb.wr + i1 * n1 + o1),
-               __ldg(tb.wi + i1 * n1 + o1), ar[k], ai[k]);
+    for (int i1 = 0; i1 < RADIX; ++i1) {
+      const int x = r * ld + i1 * B + i2;
+      vr[i1] = on ? sr[x] : 0.f;
+      vi[i1] = on ? si[x] : 0.f;
+    }
+    reg_dft<LOG_RADIX, LOG_N>(vr, vi, 0, twr, twi);
+    if (on) {
+#pragma unroll
+      for (int o1 = 1; o1 < RADIX; ++o1) {
+        const int e = i2 * o1, q = brev(o1, LOG_RADIX);
+        cmul(vr[q], vi[q], __ldg(twr + e), __ldg(twi + e), vr[q], vi[q]);
+      }
+    }
+    __syncthreads();
+    if (on) {
+#pragma unroll
+      for (int o1 = 0; o1 < RADIX; ++o1) {
+        const int x = (r * RADIX + o1) * S1 + i2;
+        sr[x] = vr[brev(o1, LOG_RADIX)];
+        si[x] = vi[brev(o1, LOG_RADIX)];
+      }
+    }
+    __syncthreads();
+  }
+  {  // pass 2
+    const int o1 = t & (RADIX - 1), d = t >> LOG_RADIX;
+    const int r = d >> LOG_C, i2b = d & (C - 1);
+    const bool on = r < R;
+#pragma unroll
+    for (int i2a = 0; i2a < RADIX; ++i2a) {
+      const int x = (r * RADIX + o1) * S1 + i2a * C + i2b;
+      vr[i2a] = on ? sr[x] : 0.f;
+      vi[i2a] = on ? si[x] : 0.f;
+    }
+    reg_dft<LOG_RADIX, LOG_N>(vr, vi, 0, twr, twi);
+    if (on) {
+#pragma unroll
+      for (int o2 = 1; o2 < RADIX; ++o2) {
+        const int e = (i2b * o2) << LOG_RADIX, q = brev(o2, LOG_RADIX);
+        cmul(vr[q], vi[q], __ldg(twr + e), __ldg(twi + e), vr[q], vi[q]);
+      }
+    }
+    __syncthreads();
+    if (on) {
+#pragma unroll
+      for (int o2 = 0; o2 < RADIX; ++o2) {
+        const int x = d * M2_STRIDE + o2 * RADIX + o1;
+        sr[x] = vr[brev(o2, LOG_RADIX)];
+        si[x] = vi[brev(o2, LOG_RADIX)];
+      }
+    }
+    __syncthreads();
+  }
+  {  // pass 3
+    const int o1 = t & (RADIX - 1), o2 = t >> LOG_RADIX;
+#pragma unroll
+    for (int r = 0; r < RF; ++r) {
+#pragma unroll
+      for (int i2b = 0; i2b < C; ++i2b) {
+        const int d = r * C + i2b, x = d * M2_STRIDE + o2 * RADIX + o1;
+        vr[d] = r < R ? sr[x] : 0.f;
+        vi[d] = r < R ? si[x] : 0.f;
+      }
+      reg_dft<LOG_C, LOG_N>(vr, vi, r * C, twr, twi);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RF; ++r) {
+      if (r < R) {
+#pragma unroll
+        for (int o3 = 0; o3 < C; ++o3) {
+          const int x = r * ld + (o3 * RADIX + o2) * RADIX + o1;
+          sr[x] = vr[r * C + brev(o3, LOG_C)];
+          si[x] = vi[r * C + brev(o3, LOG_C)];
         }
       }
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const int q = q0 + k * qstep;
-      const int r = q >> g.log_n1, o1 = q & (n1 - 1);
-      if (r < g.R) {
-        float br, bi;
-        cmul(ar[k], ai[k], __ldg(tb.tr + i2 * n1 + o1),
-             __ldg(tb.ti + i2 * n1 + o1), br, bi);
-        sr[r * g.ld + i2 * bs + o1] = br;
-        si[r * g.ld + i2 * bs + o1] = bi;
-      }
-      ar[k] = ai[k] = 0.f;
-    }
-    __syncthreads();
   }
-  // row DFTs; each thread owns one o1, output index o2*n1 + o1
-  const int o1 = t & (n1 - 1);
-  const int q0 = t >> g.log_n1, qstep = NT >> g.log_n1;
-  for (int i2 = 0; i2 < n2; ++i2) {
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const int q = q0 + k * qstep;
-      const int r = q >> g.log_n2, o2 = q & (n2 - 1);
-      if (r < g.R) {
-        const int bsx = r * g.ld + i2 * bs + o1;
-        cmac(sr[bsx], si[bsx], __ldg(tb.w2r + i2 * n2 + o2),
-             __ldg(tb.w2i + i2 * n2 + o2), ar[k], ai[k]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const int q = q0 + k * qstep;
-    const int r = q >> g.log_n2, o2 = q & (n2 - 1);
-    if (r < g.R) {
-      sr[r * g.ld + o2 * n1 + o1] = ar[k];
-      si[r * g.ld + o2 * n1 + o1] = ai[k];
-    }
-  }
-  __syncthreads();
 }
 
 // Transforms g.R rows of length g.n held in shared memory (row r at
-// s[r * g.ld]) in place, natural output order: the radix branch (kRadix,
-// n <= 256) or the four-step. Every thread of the block must call it.
-template <bool kRadix>
+// s[r * g.ld]) in place, natural output order: in two passes (kTwoPass,
+// n <= TWO_PASS_N) or three. Every thread of the block must call it.
+template <bool kTwoPass>
 __device__ __forceinline__ void tile_dft(float* sr, float* si, const Geom& g,
-                                         const Tables& tb) {
-  if constexpr (kRadix) {
+                                         const float* __restrict__ twr,
+                                         const float* __restrict__ twi) {
+  if constexpr (kTwoPass) {
     switch (g.log_n) {
-      case 1: tile_radix<1>(sr, si, g, tb.wr, tb.wi); break;
-      case 2: tile_radix<2>(sr, si, g, tb.wr, tb.wi); break;
-      case 3: tile_radix<3>(sr, si, g, tb.wr, tb.wi); break;
-      case 4: tile_radix<4>(sr, si, g, tb.wr, tb.wi); break;
-      case 5: tile_radix<5>(sr, si, g, tb.wr, tb.wi); break;
-      case 6: tile_radix<6>(sr, si, g, tb.wr, tb.wi); break;
-      case 7: tile_radix<7>(sr, si, g, tb.wr, tb.wi); break;
-      case 8: tile_radix<8>(sr, si, g, tb.wr, tb.wi); break;
+      case 1: tile_radix<1>(sr, si, g, twr, twi); break;
+      case 2: tile_radix<2>(sr, si, g, twr, twi); break;
+      case 3: tile_radix<3>(sr, si, g, twr, twi); break;
+      case 4: tile_radix<4>(sr, si, g, twr, twi); break;
+      case 5: tile_radix<5>(sr, si, g, twr, twi); break;
+      case 6: tile_radix<6>(sr, si, g, twr, twi); break;
+      case 7: tile_radix<7>(sr, si, g, twr, twi); break;
+      case 8: tile_radix<8>(sr, si, g, twr, twi); break;
       default: break;  // n == 1: the DFT is the identity
     }
   } else {
-    tile_four_step(sr, si, g, tb);
+    switch (g.log_n) {
+      case 9: tile_radix3<9>(sr, si, g, twr, twi); break;
+      case 10: tile_radix3<10>(sr, si, g, twr, twi); break;
+      case 11: tile_radix3<11>(sr, si, g, twr, twi); break;
+      case 12: tile_radix3<12>(sr, si, g, twr, twi); break;
+      default: break;  // not reached: the launchers pass n <= TILE
+    }
   }
 }
 
 // K1: block b transforms rows [b*R, b*R + R) of the (rows, n) planes.
-template <bool kRadix>
-__global__ void __launch_bounds__(NT, kRadix ? 4 : 1)
+template <bool kTwoPass>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             float* __restrict__ yr, float* __restrict__ yi, long long rows,
-            Geom g, Tables tb, const float* __restrict__ er,
+            Geom g, const float* __restrict__ twr,
+            const float* __restrict__ twi, const float* __restrict__ er,
             const float* __restrict__ ei, int period) {
   extern __shared__ float smem[];
   float* sr = smem;
-  float* si = smem + g.R * g.ld;
+  float* si = smem + g.plane;
   const long long row0 = (long long)blockIdx.x * g.R;
   const int tot = g.R * g.n;
   for (int f = threadIdx.x; f < tot; f += NT) {
@@ -386,7 +430,7 @@ rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     si[r * g.ld + i] = in ? xi[row * g.n + i] : 0.f;
   }
   __syncthreads();
-  tile_dft<kRadix>(sr, si, g, tb);
+  tile_dft<kTwoPass>(sr, si, g, twr, twi);
   for (int f = threadIdx.x; f < tot; f += NT) {
     const int r = f >> g.log_n, o = f & (g.n - 1);
     const long long row = row0 + r;
@@ -407,15 +451,16 @@ rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // warp's load fills whole 32-byte sectors only when R >= 8 (L <= 512);
 // at L = 1024 (R = 4) it uses half of each sector, at L = 4096 (R = 1) an
 // eighth.
-template <bool kRadix>
-__global__ void __launch_bounds__(NT, kRadix ? 4 : 1)
+template <bool kTwoPass>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             float* __restrict__ yr, float* __restrict__ yi, int C,
-            int tiles_per_b, Geom g, Tables tb, const float* __restrict__ er,
+            int tiles_per_b, Geom g, const float* __restrict__ twr,
+            const float* __restrict__ twi, const float* __restrict__ er,
             const float* __restrict__ ei, int col_major) {
   extern __shared__ float smem[];
   float* sr = smem;
-  float* si = smem + g.R * g.ld;
+  float* si = smem + g.plane;
   const long long b = blockIdx.x / tiles_per_b;
   const int c0 = (blockIdx.x % tiles_per_b) * g.R;
   const int L = g.n;
@@ -427,7 +472,7 @@ cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     si[r * g.ld + l] = xi[base + (long long)l * C + r];
   }
   __syncthreads();
-  tile_dft<kRadix>(sr, si, g, tb);
+  tile_dft<kTwoPass>(sr, si, g, twr, twi);
   for (int f = threadIdx.x; f < tot; f += NT) {
     int r, o;
     long long dst;
@@ -454,15 +499,16 @@ cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // as m complex points each; g.n = m. untangle != 0 writes the one-sided
 // (rows, m+1) spectrum (untangle_half_spectrum, rounded as the plain
 // version rounds it), untangle == 0 the packed (rows, m) half spectrum.
-template <bool kRadix>
-__global__ void __launch_bounds__(NT, kRadix ? 4 : 1)
+template <bool kTwoPass>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 rfft_kernel(const float2* __restrict__ x, float* __restrict__ yr,
-            float* __restrict__ yi, long long rows, Geom g, Tables tb,
+            float* __restrict__ yi, long long rows, Geom g,
+            const float* __restrict__ twr, const float* __restrict__ twi,
             const float* __restrict__ vr, const float* __restrict__ vi,
             int untangle) {
   extern __shared__ float smem[];
   float* sr = smem;
-  float* si = smem + g.R * g.ld;
+  float* si = smem + g.plane;
   const long long row0 = (long long)blockIdx.x * g.R;
   const int m = g.n;
   const int tot = g.R * m;
@@ -474,7 +520,7 @@ rfft_kernel(const float2* __restrict__ x, float* __restrict__ yr,
     si[r * g.ld + k] = z.y;
   }
   __syncthreads();
-  tile_dft<kRadix>(sr, si, g, tb);
+  tile_dft<kTwoPass>(sr, si, g, twr, twi);
   const int w = untangle ? m + 1 : m;
   for (int f = threadIdx.x; f < g.R * w; f += NT) {
     const int r = f / w, k = f - r * w;
@@ -514,32 +560,44 @@ int log2i(int v) {
   return p;
 }
 
-// The shared-memory row stride ld, in floats, and the radix passes' warp
-// shape. Four-step: room for B^T (stride n1 + 1) as well as x. Radix: room
-// for the intermediate (i2 at stride RADIX + 1), 17b - 1 floats for
-// n = 16b >= 32, and n below.
+// The shared-memory row stride ld, in floats, the plane size and the
+// two-pass branch's warp shape.
+// Two passes (n <= 256): room for the intermediate (i2 at stride RADIX +
+// 1), 17b - 1 floats for n = 16b >= 32, and n below.
 //   K1, K3 (no pad): ld is the least odd multiple of b (b = 1 for n <= 16):
-//   17b for n >= 32, n + 1 below. A warp of either radix pass takes w = b
+//   17b for n >= 32, n + 1 below. A warp of either pass takes w = b
 //   adjacent columns of 32 / b rows, and each access of both passes —
 //   x at r*ld + i1*b + i2, the intermediate at r*ld + i2*(RADIX+1) + o1,
 //   y at r*ld + o2*RADIX + o1 — falls in 32 different banks: the warp's w
 //   columns differ mod w (RADIX + 1 is odd) and its rows lie at distinct
 //   multiples of w mod 32 (ld / w is odd).
-//   K2 (pad): the transposing load's rule below fixes ld % 32; the radix
-//   passes then take w = the largest power of two dividing ld (at most b),
+//   K2 (pad): the transposing load's rule below fixes ld % 32; the passes
+//   then take w = the largest power of two dividing ld (at most b),
 //   conflict-free by the same argument whenever R * w >= 32.
-Geom make_geom(int n, int n1, int n2, int R, bool pad) {
+// Three passes (n >= 512, b = n / 16 >= 32, c = b / 16): a warp is 32
+// consecutive threads, and no access leans on rows or on ld, so the
+// argument holds at R = 1 (n = 4096, where a warp spans part of one row)
+// and for K2's ld alike. At each unrolled step:
+//   pass 1 reads x at r*ld + i1*b + i2 and stores M1 at (r*16 + o1)*(b +
+//   2) + i2 for 32 consecutive i2 of one row: 32 consecutive words;
+//   pass 2 reads M1 for 16 o1 and two adjacent i2b of one row: banks
+//   2*o1 + i2b + const (b + 2 = 2 mod 32), 32 different; it stores M2 at
+//   d*272 + o2*16 + o1 for 16 o1 and two adjacent d: banks 16*d + o1 +
+//   const (272 = 16 mod 32), 32 different;
+//   pass 3 reads M2 and stores y at r*ld + (o3*16 + o2)*16 + o1 for 16 o1
+//   and two adjacent o2: 32 consecutive words.
+//   K1, K3: ld = n. K2: ld from the load's rule. The plane holds the rows
+//   and both intermediates: max(R*ld, 16R*(b + 2), (R*c - 1)*272 + 256)
+//   floats, 4336-4352 for a full tile (34-35 KB a block for both planes).
+Geom make_geom(int n, int R, bool pad) {
   Geom g;
   g.n = n;
   g.log_n = log2i(n);
-  g.n1 = n1;
-  g.log_n1 = n1 ? log2i(n1) : 0;
-  g.n2 = n2;
-  g.log_n2 = n2 ? log2i(n2) : 0;
   g.R = R;
   g.log_R = log2i(R);
+  const bool two_pass = n <= TWO_PASS_N;
   const int b = n > RADIX ? n / RADIX : 1;
-  const int base = n1 ? n2 * (n1 + 1) : (b > 1 ? (RADIX + 1) * b - 1 : n);
+  const int base = !two_pass ? n : (b > 1 ? (RADIX + 1) * b - 1 : n);
   int ld = base;
   if (pad) {
     // K2's transposing load has a warp write R columns x (32 / R) rows of
@@ -551,17 +609,24 @@ Geom make_geom(int n, int n1, int n2, int R, bool pad) {
       const int target = R < 32 ? 32 / R : 1;
       ld = base + (((target - base) % 32) + 32) % 32;
     }
-  } else if (!n1) {
+  } else if (two_pass) {
     ld = (base + b - 1) / b * b;
     if (!((ld / b) & 1)) ld += b;
   }
   g.ld = ld;
+  g.plane = R * ld;
+  if (!two_pass) {
+    const int m1 = RADIX * R * (b + M1_PAD);
+    const int m2 = (R * (b / RADIX) - 1) * M2_STRIDE + TWO_PASS_N;
+    if (m1 > g.plane) g.plane = m1;
+    if (m2 > g.plane) g.plane = m2;
+  }
   g.log_w = 0;
   while (g.log_w < LOG_RADIX && !(ld & (1 << g.log_w))) ++g.log_w;
   return g;
 }
 
-int smem_bytes(const Geom& g) { return 2 * g.R * g.ld * (int)sizeof(float); }
+int smem_bytes(const Geom& g) { return 2 * g.plane * (int)sizeof(float); }
 
 // Launches one instantiation of a kernel with the tile's shared memory.
 template <typename... Params, typename... Args>
@@ -575,67 +640,54 @@ int launch(void (*kernel)(Params...), long long blocks, const Geom& g,
   return (int)cudaGetLastError();
 }
 
-// The leaf's branch: the radix FFT (n1 == 0) only up to 256 points.
-bool valid_split(int n, int n1, int n2) {
-  return n1 ? n1 * n2 == n : n <= RADIX * RADIX;
-}
-
 }  // namespace
 
 extern "C" {
 
-// Returns 0, or the CUDA error code of the launch.
+// Returns 0, or the CUDA error code of the launch. wr, wi: the leaf table
+// W_n^k (n,).
 int matfft_rows(const float* xr, const float* xi, float* yr, float* yi,
-                long long rows, int n, int n1, int n2, const float* wr,
-                const float* wi, const float* tr, const float* ti,
-                const float* w2r, const float* w2i, const float* er,
-                const float* ei, int period, void* stream) {
-  if (n < 1 || n > TILE || (n & (n - 1)) || !valid_split(n, n1, n2))
-    return (int)cudaErrorInvalidValue;
-  const Geom g = make_geom(n, n1, n2, TILE / n, false);
-  const Tables tb{wr, wi, tr, ti, w2r, w2i};
+                long long rows, int n, const float* wr, const float* wi,
+                const float* er, const float* ei, int period, void* stream) {
+  if (n < 1 || n > TILE || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+  const Geom g = make_geom(n, TILE / n, false);
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
-  return launch(n1 ? rows_kernel<false> : rows_kernel<true>, blocks, g,
-                stream, xr, xi, yr, yi, rows, g, tb, er, ei, period);
+  return launch(n <= TWO_PASS_N ? rows_kernel<true> : rows_kernel<false>,
+                blocks, g, stream, xr, xi, yr, yi, rows, g, wr, wi, er, ei,
+                period);
 }
 
 int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
-                long long B, int L, int C, int n1, int n2, const float* wr,
-                const float* wi, const float* tr, const float* ti,
-                const float* w2r, const float* w2i, const float* er,
-                const float* ei, int col_major, void* stream) {
-  if (L < 1 || L > TILE || (L & (L - 1)) || C < 1 || (C & (C - 1)) ||
-      !valid_split(L, n1, n2))
+                long long B, int L, int C, const float* wr, const float* wi,
+                const float* er, const float* ei, int col_major,
+                void* stream) {
+  if (L < 1 || L > TILE || (L & (L - 1)) || C < 1 || (C & (C - 1)))
     return (int)cudaErrorInvalidValue;
   const int R = TILE / L < C ? TILE / L : C;
-  const Geom g = make_geom(L, n1, n2, R, true);
-  const Tables tb{wr, wi, tr, ti, w2r, w2i};
+  const Geom g = make_geom(L, R, true);
   const int tiles_per_b = C / R;
   const long long blocks = B * tiles_per_b;
   if (blocks == 0) return 0;
-  return launch(n1 ? cols_kernel<false> : cols_kernel<true>, blocks, g,
-                stream, xr, xi, yr, yi, C, tiles_per_b, g, tb, er, ei,
-                col_major);
+  return launch(L <= TWO_PASS_N ? cols_kernel<true> : cols_kernel<false>,
+                blocks, g, stream, xr, xi, yr, yi, C, tiles_per_b, g, wr, wi,
+                er, ei, col_major);
 }
 
 // x: real (rows, 2m), 8-byte aligned; yr, yi: (rows, m+1) with untangle,
-// (rows, m) without; n1, n2, wr..w2i: the leaf tables at length m.
+// (rows, m) without; wr, wi: the leaf table at length m; vr, vi: the
+// packing twiddle W_{2m}^k (m,).
 int matfft_rfft(const float* x, float* yr, float* yi, long long rows, int m,
-                int n1, int n2, const float* wr, const float* wi,
-                const float* tr, const float* ti, const float* w2r,
-                const float* w2i, const float* vr, const float* vi,
-                int untangle, void* stream) {
-  if (m < 2 || m > TILE || (m & (m - 1)) || ((size_t)x & 7) ||
-      !valid_split(m, n1, n2))
+                const float* wr, const float* wi, const float* vr,
+                const float* vi, int untangle, void* stream) {
+  if (m < 2 || m > TILE || (m & (m - 1)) || ((size_t)x & 7))
     return (int)cudaErrorInvalidValue;
-  const Geom g = make_geom(m, n1, n2, TILE / m, false);
-  const Tables tb{wr, wi, tr, ti, w2r, w2i};
+  const Geom g = make_geom(m, TILE / m, false);
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
-  return launch(n1 ? rfft_kernel<false> : rfft_kernel<true>, blocks, g,
-                stream, reinterpret_cast<const float2*>(x), yr, yi, rows, g,
-                tb, vr, vi, untangle);
+  return launch(m <= TWO_PASS_N ? rfft_kernel<true> : rfft_kernel<false>,
+                blocks, g, stream, reinterpret_cast<const float2*>(x), yr, yi,
+                rows, g, wr, wi, vr, vi, untangle);
 }
 
 }  // extern "C"

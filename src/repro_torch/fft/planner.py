@@ -178,7 +178,8 @@ class ExecutablePlan:
 
     @property
     def gemm_macs_per_row(self) -> float:
-        """Real MACs the matrix formulation issues per batch row."""
+        """Real MACs the reference's matrix formulation issues per batch
+        row (`FftPlan.gemm_macs`; not the port's radix leaf)."""
         return self.leaf.gemm_macs
 
     @property

@@ -15,27 +15,25 @@ The kernels live in ``csrc/matfft.cu`` (CUDA C++ for ``sm_90a``, built by
 Pallas kernels of the JAX package's ``kernels/fft/matfft.py``:
 ``matfft`` (bodies ``_dft_kernel`` and ``_matfft_kernel``),
 ``matfft_cols`` (body ``_col_kernel``) and ``_rfft_pallas`` (body
-``_rfft_kernel``). All run one tile algebra with two branches. For
-n <= DIRECT_N (the reference's direct DFT, one product with the (n, n) DFT
-matrix) the port runs a radix FFT: n = a * b with a = min(n, RADIX),
-radix-2 Stockham stages of length a, the inner twiddle W_n^{i2*o1}, stages
-of length b, output in o2*a + o1 order, every twiddle an entry of the
-(n,) table `plan.radix_twiddles`. Above DIRECT_N it is the four-step
-n = n1 * n2 — column DFTs with W_{n1}, the inner twiddle T, row DFTs with
-W_{n2}, output in o2*n1 + o1 order. The optional epilogue multiplies each
+``_rfft_kernel``). All run one tile algebra, a radix FFT at every leaf
+length, where the reference multiplies by DFT matrices (a direct DFT up
+to 256 points, a four-step of matrix products above): n = a * b with
+a = min(n, RADIX), radix-2 Stockham stages of length a, the inner twiddle
+W_n^{i2*o1}, the b-point DFT by the same rule, output in o2*a + o1 order,
+every twiddle an entry of the (n,) table `plan.radix_twiddles`. Up to
+RADIX**2 = 256 points that is two passes of at most RADIX points, from
+512 to MAX_LEAF = 4096 three. The optional epilogue multiplies each
 output row by a row of a periodic table before the store; the level-1
 four-step fuses its outer twiddle there. K3 packs the real row as
 m = n/2 complex points on the load, runs the tile algebra at m and
 untangles the half spectrum (`untangle_half_spectrum`) in its store.
 
 What bounds them on an H100, and what the design does about it, is set out
-at the top of ``csrc/matfft.cu``: the radix branch does about 5 log2 n
-flops a point against 16 bytes of traffic, so it is bound by bytes; the
-four-step's matrix products issue 4*n*(n1+n2) real FMAs per row, so that
-branch is bound by f32 FMA issue and shared-memory reads. Each block
-transforms its rows in place in shared memory in IEEE f32 on the CUDA
-cores (no TF32, no tensor cores) and touches device memory once per point
-each way.
+at the top of ``csrc/matfft.cu``: about 5 log2 n flops a point against 16
+bytes of traffic, so they are bound by bytes. Each block transforms its
+rows in place in shared memory, each pass in its threads' registers, in
+IEEE f32 on the CUDA cores (no TF32, no tensor cores), and touches device
+memory once per point each way.
 
 Each wrapper takes float32 tensors (planar for K1 and K2, real for K3). On
 a CUDA tensor it launches its kernel (and counts the launch in
@@ -55,9 +53,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.fft import plan as fft_plan
 
-# Transform lengths up to this take the radix branch (the reference's
-# direct DFT): passes of at most RADIX points in each thread's registers.
-DIRECT_N = 256
+# the leaf runs passes of at most RADIX points in each thread's registers
 RADIX = 16
 
 Planar = tuple[torch.Tensor, torch.Tensor]
@@ -81,26 +77,14 @@ def _device_table(key, make, device: torch.device) -> tuple:
         return got
 
 
-def leaf_tables(n: int, device: torch.device) -> tuple:
-    """The leaf transform's tables on ``device``: the (n,) roots of unity
-    (W_r, W_i) of `plan.radix_twiddles` for the radix branch,
-    (W1_r, W1_i, Tt_r, Tt_i, W2_r, W2_i) for the four-step, where
-    Tt = T^T is the (n2, n1) inner twiddle."""
-    p = fft_plan.make_plan(n)
-    if p.levels != 1:
+def leaf_tables(n: int, device: torch.device) -> Planar:
+    """The leaf transform's table on ``device``: the (n,) roots of unity
+    (W_r, W_i) of `plan.radix_twiddles`."""
+    if fft_plan.make_plan(n).levels != 1:
         raise ValueError(f"n={n} exceeds one leaf (MAX_LEAF="
                          f"{fft_plan.MAX_LEAF}); use the level-1 four-step")
-    if n <= DIRECT_N:
-        return _device_table(("radix", n),
-                             lambda: fft_plan.radix_twiddles(n), device)
-
-    def make():
-        w1 = fft_plan.dft_matrix(p.n1)
-        tt = tuple(a.T.copy() for a in fft_plan.twiddle_table(p.n1, p.n2, n))
-        w2 = fft_plan.dft_matrix(p.n2)
-        return (*w1, *tt, *w2)
-
-    return _device_table(("four_step", n), make, device)
+    return _device_table(("radix", n),
+                         lambda: fft_plan.radix_twiddles(n), device)
 
 
 def outer_twiddle(n1: int, n2: int, device: torch.device) -> Planar:
@@ -128,10 +112,6 @@ def rfft_twiddle(n: int, device: torch.device) -> Planar:
 
 def _cmul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
-
-
-def _cgemm(ar, ai, br, bi):
-    return ar @ br - ai @ bi, ar @ bi + ai @ br
 
 
 def stockham_stages(xr, xi, twiddles) -> Planar:
@@ -175,57 +155,39 @@ def _radix_stages(xr, xi, twr, twi, n: int) -> Planar:
     return stockham_stages(xr, xi, twiddles())
 
 
-def _radix_plain(xr, xi, tables, n: int) -> Planar:
-    """The radix branch, n = a*b with a = min(n, RADIX): a-point stages
-    over i1 for each (row, i2), the inner twiddle W_n^{i2*o1}, b-point
-    stages over i2 for each (row, o1), output at o2*a + o1 — the kernel's
-    `tile_radix`."""
+def _radix_plain(xr, xi, tables) -> Planar:
+    """The m-point DFT of (rows, m) planes as the kernel runs it, every
+    twiddle an entry of the (n,) leaf table, m dividing n: m = a*b with
+    a = min(m, RADIX), a-point stages over i1 for each (row, i2), the inner
+    twiddle W_m^{i2*o1} = entry i2*o1*n/m, the b-point DFT over i2 for each
+    (row, o1) by the same rule, output at o2*a + o1. At m = n that is the
+    kernel's `tile_radix` up to 256 points and `tile_radix3` above."""
     twr, twi = tables
-    a = min(n, RADIX)
-    b = n // a
+    rows, m = xr.shape
+    n = twr.shape[0]
+    a = min(m, RADIX)
+    b = m // a
     if b == 1:
         return _radix_stages(xr, xi, twr, twi, n)
-    rows = xr.shape[0]
 
     def by_column(x):  # x[r, i1*b + i2] -> rows (r, i2), cols i1
         return x.reshape(rows, a, b).transpose(1, 2).reshape(rows * b, a)
 
     ar, ai = _radix_stages(by_column(xr), by_column(xi), twr, twi, n)
     k = (torch.arange(b, device=xr.device)[:, None]
-         * torch.arange(a, device=xr.device)).reshape(-1)
+         * torch.arange(a, device=xr.device)).reshape(-1) * (n // m)
     ar, ai = _cmul(ar.reshape(rows, b * a), ai.reshape(rows, b * a),
                    twr[k], twi[k])
 
     def by_row(x):  # x[r, i2*a + o1] -> rows (r, o1), cols i2
         return x.reshape(rows, b, a).transpose(1, 2).reshape(rows * a, b)
 
-    cr, ci = _radix_stages(by_row(ar), by_row(ai), twr, twi, n)
+    cr, ci = _radix_plain(by_row(ar), by_row(ai), tables)
 
     def out_order(x):  # rows (r, o1), cols o2 -> flat o = o2*a + o1
-        return x.reshape(rows, a, b).transpose(1, 2).reshape(rows, n)
+        return x.reshape(rows, a, b).transpose(1, 2).reshape(rows, m)
 
     return out_order(cr), out_order(ci)
-
-
-def _tile_dft_plain(xr, xi, tables, n: int) -> Planar:
-    """Radix or four-step DFT of (rows, n) planes with the leaf tables."""
-    if n <= DIRECT_N:
-        return _radix_plain(xr, xi, tables, n)
-    w1r, w1i, tr, ti, w2r, w2i = tables
-    n1, n2 = w1r.shape[0], w2r.shape[0]
-    rows = xr.shape[0]
-
-    def col_major(x):  # x[b, i1, i2] -> rows (b, i2), cols i1
-        return x.reshape(rows, n1, n2).transpose(1, 2).reshape(rows * n2, n1)
-
-    ar, ai = _cgemm(col_major(xr), col_major(xi), w1r, w1i)  # cols o1
-    ar, ai = _cmul(ar.reshape(rows, n2, n1), ai.reshape(rows, n2, n1), tr, ti)
-    br = ar.transpose(1, 2).reshape(rows * n1, n2)  # rows (b, o1)
-    bi = ai.transpose(1, 2).reshape(rows * n1, n2)
-    cr, ci = _cgemm(br, bi, w2r, w2i)  # cols o2
-    yr = cr.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)
-    yi = ci.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)
-    return yr, yi
 
 
 def matfft_plain(xr: torch.Tensor, xi: torch.Tensor, *,
@@ -233,7 +195,7 @@ def matfft_plain(xr: torch.Tensor, xi: torch.Tensor, *,
     """Plain PyTorch version of `matfft`, same arguments and algebra."""
     matfft_plain.calls += 1
     rows, n = _check_rows(xr, xi, epilogue)
-    yr, yi = _tile_dft_plain(xr, xi, leaf_tables(n, xr.device), n)
+    yr, yi = _radix_plain(xr, xi, leaf_tables(n, xr.device))
     if epilogue is not None:
         er, ei = epilogue
         idx = torch.arange(rows, device=xr.device) % er.shape[0]
@@ -253,7 +215,7 @@ def matfft_cols_plain(xr: torch.Tensor, xi: torch.Tensor, *,
     B, L, C = _check_cols(xr, xi, out_major, epilogue)
     xrt = xr.transpose(1, 2).reshape(B * C, L)
     xit = xi.transpose(1, 2).reshape(B * C, L)
-    yr, yi = _tile_dft_plain(xrt, xit, leaf_tables(L, xr.device), L)
+    yr, yi = _radix_plain(xrt, xit, leaf_tables(L, xr.device))
     if epilogue is not None:
         er, ei = epilogue
         yr, yi = _cmul(yr, yi, er.repeat(B, 1), ei.repeat(B, 1))
@@ -296,8 +258,7 @@ def untangle_half_spectrum(yr, yi, vr, vi) -> Planar:
 def _rfft_plain(x: torch.Tensor, untangle: bool, what: str) -> Planar:
     """Pack, half-length tile DFT, optional untangle: K3's algebra."""
     _, n, m = _check_real(x, what)
-    yr, yi = _tile_dft_plain(x[:, 0::2], x[:, 1::2],
-                             leaf_tables(m, x.device), m)
+    yr, yi = _radix_plain(x[:, 0::2], x[:, 1::2], leaf_tables(m, x.device))
     if not untangle:
         return yr, yi
     return untangle_half_spectrum(yr, yi, *rfft_twiddle(n, x.device))
@@ -404,25 +365,17 @@ _BOUND = threading.Event()
 def _lib() -> ctypes.CDLL:
     lib = build.load("matfft")
     if not _BOUND.is_set():
-        lib.matfft_rows.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 3 + \
-            [_c_ptr] * 8 + [_c_int, _c_ptr]
+        lib.matfft_rows.argtypes = [_c_ptr] * 4 + [_c_ll, _c_int] + \
+            [_c_ptr] * 4 + [_c_int, _c_ptr]
         lib.matfft_rows.restype = _c_int
-        lib.matfft_cols.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 4 + \
-            [_c_ptr] * 8 + [_c_int, _c_ptr]
+        lib.matfft_cols.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 2 + \
+            [_c_ptr] * 4 + [_c_int, _c_ptr]
         lib.matfft_cols.restype = _c_int
-        lib.matfft_rfft.argtypes = [_c_ptr] * 3 + [_c_ll] + [_c_int] * 3 + \
-            [_c_ptr] * 8 + [_c_int, _c_ptr]
+        lib.matfft_rfft.argtypes = [_c_ptr] * 3 + [_c_ll, _c_int] + \
+            [_c_ptr] * 4 + [_c_int, _c_ptr]
         lib.matfft_rfft.restype = _c_int
         _BOUND.set()
     return lib
-
-
-def _kernel_args(tables, n: int):
-    p = fft_plan.make_plan(n)
-    ptrs = [t.data_ptr() for t in tables]
-    if n <= DIRECT_N:
-        return 0, 0, ptrs + [None] * 4
-    return p.n1, p.n2, ptrs
 
 
 def _check_cuda(xr, what: str) -> None:
@@ -458,11 +411,11 @@ def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
     rows, n = _check_rows(xr, xi, epilogue)
     er, ei = epilogue if epilogue is not None else (None, None)
     _contiguous(xr, xi, er, ei, what="matfft")
-    n1, n2, tabs = _kernel_args(leaf_tables(n, xr.device), n)
+    wr, wi = leaf_tables(n, xr.device)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     rc = _lib().matfft_rows(
         xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, n,
-        n1, n2, *tabs,
+        wr.data_ptr(), wi.data_ptr(),
         er.data_ptr() if er is not None else None,
         ei.data_ptr() if ei is not None else None,
         er.shape[0] if er is not None else 1,
@@ -504,13 +457,13 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
     B, L, C = _check_cols(xr, xi, out_major, epilogue)
     er, ei = epilogue if epilogue is not None else (None, None)
     _contiguous(xr, xi, er, ei, what="matfft_cols")
-    n1, n2, tabs = _kernel_args(leaf_tables(L, xr.device), L)
+    wr, wi = leaf_tables(L, xr.device)
     shape = (B * C, L) if out_major == "row" else (B, L, C)
     yr = torch.empty(shape, dtype=torch.float32, device=xr.device)
     yi = torch.empty(shape, dtype=torch.float32, device=xr.device)
     rc = _lib().matfft_cols(
         xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), B, L, C,
-        n1, n2, *tabs,
+        wr.data_ptr(), wi.data_ptr(),
         er.data_ptr() if er is not None else None,
         ei.data_ptr() if ei is not None else None,
         int(out_major == "col"),
@@ -532,14 +485,14 @@ def _launch_rfft(x: torch.Tensor, untangle: bool, what: str) -> Planar:
     if x.data_ptr() % 8:
         raise ValueError(f"{what} reads each row as float2 pairs: the "
                          f"tensor must start 8-byte aligned")
-    n1, n2, tabs = _kernel_args(leaf_tables(m, x.device), m)
+    wr, wi = leaf_tables(m, x.device)
     vr, vi = rfft_twiddle(n, x.device)
     shape = (rows, m + 1 if untangle else m)
     yr = torch.empty(shape, dtype=torch.float32, device=x.device)
     yi = torch.empty(shape, dtype=torch.float32, device=x.device)
     rc = _lib().matfft_rfft(
-        x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, m, n1, n2, *tabs,
-        vr.data_ptr(), vi.data_ptr(), int(untangle),
+        x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, m, wr.data_ptr(),
+        wi.data_ptr(), vr.data_ptr(), vi.data_ptr(), int(untangle),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

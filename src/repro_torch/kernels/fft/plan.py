@@ -26,8 +26,8 @@ import numpy as np
 
 # Maximum transform length handled by one leaf kernel call. A Hopper block
 # holds its whole row in shared memory and transforms it in place: 4096
-# complex points (32 KiB of planar f32 plus the padded four-step
-# intermediate) with 256 threads keeping 16 outputs each in registers.
+# complex points (32 KiB of planar f32 plus the padded intermediates of
+# its radix passes) with 256 threads keeping 16 points each in registers.
 # Longer rows take the level-1 four-step over two leaf passes.
 MAX_LEAF = 4096
 
@@ -67,8 +67,8 @@ def dft_matrix(n: int) -> tuple[np.ndarray, np.ndarray]:
 def radix_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
     """Planar roots of unity W_n^k = exp(-2j*pi*k/n), k in [0, n), f32.
 
-    Every twiddle of the radix leaf (n <= matfft.DIRECT_N) is one of them:
-    a stage twiddle W_{2l}^j is entry j*n/(2l), the inner twiddle
+    Every twiddle of the leaf's radix FFT (csrc/matfft.cu) is one of
+    them: a stage twiddle W_{2l}^j is entry j*n/(2l), an inner twiddle
     W_n^{i2*o1} entry i2*o1.
     """
     ang = -2.0 * math.pi * np.arange(n, dtype=np.float64) / n
@@ -146,8 +146,8 @@ class FftPlan:
 
     n: int
     levels: int
-    n1: int  # levels>=2: outer factor (column count);   levels==1: in-kernel n1
-    n2: int  # levels>=2: inner factor (row FFT length); levels==1: in-kernel n2
+    n1: int  # levels>=2: outer factor (column count);   levels==1: the
+    n2: int  # levels>=2: inner factor (row FFT length); reference leaf's split
 
     @property
     def flops(self) -> float:
@@ -156,7 +156,9 @@ class FftPlan:
 
     @property
     def gemm_macs(self) -> float:
-        """Actual real MACs issued by the matmul formulation (per batch row)."""
+        """Real MACs the reference's matmul formulation issues per batch
+        row (its direct DFT and four-step leaves); the port's leaf runs a
+        radix FFT instead, so this counts the reference, not the port."""
         if self.levels == 1:
             return 4.0 * self.n * (self.n1 + self.n2)
         f1 = split_pow2(self.n1)

@@ -37,11 +37,11 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-RADIX_NS = [1 << p for p in range(9)]  # the radix branch, n <= DIRECT_N
+LEAF_NS = [1 << p for p in range(13)]  # every leaf length, 1 to MAX_LEAF
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", RADIX_NS + [512, 1024, 2048, tplan.MAX_LEAF])
+@pytest.mark.parametrize("n", LEAF_NS)
 @pytest.mark.parametrize("rows", [1, 7, 300])
 def test_k1_kernel_matches_plain(cuda, rng, n, rows):
     x = _planes(rng, (rows, n), cuda)
@@ -56,8 +56,8 @@ def test_k1_kernel_matches_plain(cuda, rng, n, rows):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("L,C", [(2, 2), (16, 1024), (32, 1), (64, 64),
-                                 (128, 2), (256, 8), (256, 256), (1024, 16),
-                                 (tplan.MAX_LEAF, 4)])
+                                 (128, 2), (256, 8), (256, 256), (512, 1),
+                                 (1024, 16), (2048, 8), (tplan.MAX_LEAF, 4)])
 @pytest.mark.parametrize("out_major", ["row", "col"])
 def test_k2_kernel_matches_plain(cuda, rng, L, C, out_major):
     x = _planes(rng, (3, L, C), cuda)
@@ -69,7 +69,7 @@ def test_k2_kernel_matches_plain(cuda, rng, L, C, out_major):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("n", [256, 1024, 2048, 4096])
 def test_k1_kernel_rows_are_batch_invariant(cuda, rng, n):
     x = _planes(rng, (4096, n), cuda)
     alone = km.matfft(x[0][5:6].contiguous(), x[1][5:6].contiguous())
@@ -95,7 +95,8 @@ def test_plan_on_the_card_matches_the_cpu_plan(cuda, rng, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1 << 13, 1 << 16, 1 << 17, 1 << 25])
+@pytest.mark.parametrize("n", [1 << 13, 1 << 16, 1 << 17, 1 << 20, 1 << 24,
+                               1 << 25])
 def test_zero_copy_equals_copy_bitwise_on_the_card(cuda, rng, n):
     """K2's column passes and K1's row passes over materialized transposes
     give each row the same result, bit for bit."""
@@ -107,8 +108,8 @@ def test_zero_copy_equals_copy_bitwise_on_the_card(cuda, rng, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128, 256, 512, 1024,
-                               2 * tplan.MAX_LEAF])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                               4096, 2 * tplan.MAX_LEAF])
 @pytest.mark.parametrize("rows", [1, 7, 300])
 def test_k3_kernel_matches_plain(cuda, rng, n, rows):
     x = torch.from_numpy(rng.standard_normal((rows, n))
@@ -126,22 +127,25 @@ def test_k3_kernel_matches_plain(cuda, rng, n, rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", RADIX_NS)
+@pytest.mark.parametrize("n", LEAF_NS)
 def test_radix_kernels_equal_their_plain_versions_bitwise(cuda, rng, n):
-    """The radix branch rounds every sum and product as its plain version
-    does, in the same order: K1, K2 (both majors, with the epilogue) and
-    K3 (n = 2 * that length) give the plain versions' bits."""
+    """The radix leaf rounds every sum and product as its plain version
+    does, in the same order: K1, K2 (both majors, with the epilogue, with
+    a full tile of columns and with fewer) and K3 (n = 2 * that length)
+    give the plain versions' bits."""
     def same(got, want):
         return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
     x = _planes(rng, (300, n), cuda)
     epi = _planes(rng, (4, n), cuda)
     assert same(km.matfft(*x, epilogue=epi), km.matfft_plain(*x, epilogue=epi))
-    x3 = _planes(rng, (3, n, 64), cuda)
-    epi3 = _planes(rng, (64, n), cuda)
-    for major in ("row", "col"):
-        assert same(km.matfft_cols(*x3, out_major=major, epilogue=epi3),
-                    km.matfft_cols_plain(*x3, out_major=major, epilogue=epi3))
+    for C in (64, 2):
+        x3 = _planes(rng, (3, n, C), cuda)
+        epi3 = _planes(rng, (C, n), cuda)
+        for major in ("row", "col"):
+            assert same(
+                km.matfft_cols(*x3, out_major=major, epilogue=epi3),
+                km.matfft_cols_plain(*x3, out_major=major, epilogue=epi3))
     if n >= 2:
         xr = torch.from_numpy(rng.standard_normal((300, 2 * n))
                               .astype(np.float32)).to(cuda)
@@ -161,7 +165,7 @@ def test_k4_kernel_matches_plain(cuda, rng, n, rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [512, 1024])
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096])
 def test_k3_and_k4_rows_are_batch_invariant(cuda, rng, n):
     x = torch.from_numpy(rng.standard_normal((4096, n))
                          .astype(np.float32)).to(cuda)

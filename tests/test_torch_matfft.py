@@ -40,11 +40,12 @@ def _j(arrays):
     return tuple(jnp.asarray(a) for a in arrays)
 
 
-# every length of the radix branch (n <= DIRECT_N), two of the four-step
-RADIX_NS = [1 << p for p in range(9)]
+# every leaf length: two register passes up to 256, three from 512 on
+TWO_PASS_NS = [1 << p for p in range(9)]
+THREE_PASS_NS = [512, 1024, 2048, 4096]
 
 
-@pytest.mark.parametrize("n", RADIX_NS + [512, 4096])
+@pytest.mark.parametrize("n", TWO_PASS_NS + THREE_PASS_NS)
 @pytest.mark.parametrize("rows", [1, 5])
 def test_k1_plain_matches_pallas(rng, n, rows):
     x = _planes(rng, (rows, n))
@@ -53,7 +54,7 @@ def test_k1_plain_matches_pallas(rng, n, rows):
     assert _rel_err(got, want) < TOL
 
 
-@pytest.mark.parametrize("n", RADIX_NS + [1024])
+@pytest.mark.parametrize("n", TWO_PASS_NS + [1024, 2048])
 def test_k1_plain_periodic_epilogue_matches_pallas(rng, n):
     rows, period = 24, 8  # rows ragged against the kernel's row tile
     x = _planes(rng, (rows, n))
@@ -64,7 +65,8 @@ def test_k1_plain_periodic_epilogue_matches_pallas(rng, n):
 
 
 @pytest.mark.parametrize("L,C", [(2, 8), (4, 8), (8, 8), (16, 8), (32, 4),
-                                 (64, 4), (128, 2), (256, 4), (512, 2)])
+                                 (64, 4), (128, 2), (256, 4), (512, 2),
+                                 (1024, 2)])
 @pytest.mark.parametrize("out_major", ["row", "col"])
 @pytest.mark.parametrize("with_epilogue", [False, True])
 def test_k2_plain_matches_pallas(rng, L, C, out_major, with_epilogue):
@@ -77,6 +79,15 @@ def test_k2_plain_matches_pallas(rng, L, C, out_major, with_epilogue):
                         epilogue=_j(epi) if epi else None, interpret=True)
     assert tuple(got[0].shape) == tuple(want[0].shape)
     assert _rel_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("n", THREE_PASS_NS)
+def test_three_pass_plain_matches_numpy(rng, n):
+    """The three-pass radix FFT against numpy's float64 FFT."""
+    x = _planes(rng, (3, n))
+    got = km._radix_plain(*_t(x), km.leaf_tables(n, torch.device("cpu")))
+    want = np.fft.fft(x[0].astype(np.float64) + 1j * x[1], axis=-1)
+    assert _rel_err(got, (want.real, want.imag)) < TOL
 
 
 def test_cpu_tensors_take_the_plain_version(rng):

@@ -40,7 +40,8 @@ def _real(rng, shape):
 # K3
 
 
-@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128, 256, 512, 1024, 8192])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                               4096, 8192])
 @pytest.mark.parametrize("rows", [1, 3, 17])
 @pytest.mark.parametrize("untangle", [True, False])
 def test_k3_plain_matches_pallas(rng, n, rows, untangle):
