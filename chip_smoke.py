@@ -13,10 +13,11 @@ Phases (any failed check exits non-zero):
      (K1 at n = 256, 512, 1024, 2048, MAX_LEAF with and without the
      epilogue; K2 at L = 256, 1024, MAX_LEAF, row- and column-major, with
      the epilogue; K3 at n = 8, 512, 1024, 4096, 8192 with and without
-     the untangle; K4 at n = 2, 256, 1024, MAX_LEAF; one error formula;
-     K1, K2 and K3 equal to their plain versions bit for bit), batch
-     invariance (a row alone == the row inside a large batch: K1 at n =
-     256, 1024, 2048, 4096, K3 at 512, 1024, 2048, 4096, K4 at 1024),
+     the untangle; K4 at every power of two from 2 to MAX_LEAF, every
+     split of its groups of stages; one error formula; K1-K4 equal to
+     their plain versions bit for bit), batch invariance (a row alone ==
+     the row inside a large batch: K1 at n = 256, 1024, 2048, 4096, K3 at
+     512, 1024, 2048, 4096, K4 at 256, 1024, 2048, 4096),
      zero_copy == copy bitwise at 2^16, 2^17 and 2^20 (K2's column passes
      against K1's row passes over transposes), and each variant's
      main-path case timed beside its bound, its plain version and
@@ -129,9 +130,9 @@ FULL = {
     # (2^24 samples), n = 4096 and fft_conv's n = 8192 at 2^25 samples
     "rfft_shapes": [(1 << 22, 8), (65535, 512), (32767, 1024), (8192, 4096),
                     (4096, 8192)],
-    # K4 (rows, n) at 2^25 points; (32768, 1024) is the main path's batch
-    "stockham_shapes": [(1 << 24, 2), (131072, 256), (32768, 1024),
-                        (8192, 4096)],
+    # K4 (rows, n) at 2^25 points, n = 2 to 4096: every split of its
+    # groups of stages; (32768, 1024) is the main path's batch
+    "stockham_shapes": [((1 << 25) >> p, 1 << p) for p in range(1, 13)],
     # the spectrogram job: 1 GiB of float32 samples at 16 kHz, 64 MiB
     # blocks; (variant, frame, hop) per run
     "capture_samples": 1 << 28,
@@ -168,7 +169,8 @@ REHEARSE = {
     "layout_rows": 2,
     "reps": 1,
     "rfft_shapes": [(64, 8), (33, 512), (17, 1024), (5, 4096), (3, 8192)],
-    "stockham_shapes": [(64, 2), (16, 256), (8, 1024), (2, 4096)],
+    "stockham_shapes": [(max(2, (1 << 13) >> p), 1 << p)
+                        for p in range(1, 13)],
     "capture_samples": 1 << 18,
     "block_samples": 1 << 16,
     "spectrograms": [("rfft/four_step", 1024, 512), ("rfft/direct", 512, 256)],
@@ -384,7 +386,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         checks.append(c)
         check(c["rel_err_plain"] < TOL and c["rel_err_torch_fft"] < TOL,
               f"kernel disagrees: {c}")
-        if gpu and kernel != "stockham":  # K1-K3 round as their plain versions
+        if gpu:  # every kernel rounds as its plain version
             check(c["bitwise_plain"], f"kernel differs from its plain "
                   f"version: {c}")
         del got, ref, got_c, want, y
@@ -409,8 +411,8 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         del run, plain, lib
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise;
-    # K1 and K3 at lengths of two and of three passes (K3 at n = 512 runs
-    # m = 256)
+    # K1, K3 and K4 at lengths of two and of three passes or groups (K3 at
+    # n = 512 runs m = 256)
     invariance = {}
     for name, fn, lengths, real_rows in (
             ("matfft", km.matfft if gpu else km.matfft_plain,
@@ -421,7 +423,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
              km.rfft_pack_leaf if gpu else km.rfft_pack_leaf_plain,
              (512, 1024, 2048, 4096), True),
             ("stockham_fft", ks.stockham_fft if gpu else ks.stockham_fft_plain,
-             (1024,), False)):
+             (256, 1024, 2048, 4096), False)):
         for n in lengths:
             args = (real((cfg["batch_rows"], n)),) if real_rows else planes(
                 (cfg["batch_rows"], n))

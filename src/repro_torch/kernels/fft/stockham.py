@@ -13,6 +13,13 @@ in one (n,) planar table (`plan.stockham_twiddles`, stage offsets
 `plan.stockham_stage_offsets`). It is the comparison implementation
 against the matrix formulation of `matfft`, the `impl="stockham"` leaf.
 
+The kernel runs the stages in groups of up to four, each group in one
+thread's registers, and passes data between groups through shared memory
+(n = 1024: 4 + 4 + 2 stages, two exchanges). `_stockham_grouped_plain`
+spells out its index maps with tensor views; it computes the same
+butterflies as ``stockham_fft_plain``, so the two, and the kernel, agree
+bit for bit.
+
 On a CUDA tensor the wrapper launches the kernel (counted in
 ``stockham_fft.launches``) or raises; on a CPU tensor it runs
 ``stockham_fft_plain`` (counted in ``stockham_fft_plain.calls``), which
@@ -63,6 +70,57 @@ def stockham_fft_plain(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
 
 
 stockham_fft_plain.calls = 0
+
+GROUP = 4  # stages a group of the kernel
+
+
+def _brev(v: int, bits: int) -> int:
+    return int(format(v, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _stockham_grouped_plain(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
+    """`stockham_fft_plain` computed in the kernel's groups of stages: the
+    index maps of ``csrc/stockham.cu`` written with tensor views. On no
+    path; the tests hold it to ``stockham_fft_plain`` bit for bit.
+
+    A group starts at stage s and runs g <= GROUP stages (the short group
+    last), Q = 2^g, ms = 2^s, J = n / (ms Q). It reads row r as (Q, J,
+    ms): register q of item (j, k) is x[(j + q J) ms + k]. Stage t pairs
+    registers i and i + h, h = Q >> (t+1), in each block of 2h, with
+    twiddle entry off_{s+t} + i J + j. Register rho then holds output c =
+    brev_g(rho), written to row r as (J, Q, ms): y[(j Q + c) ms + k]."""
+    _, n = _check(xr, xi)
+    if n == 1:
+        return xr, xi
+    rows = xr.shape[0]
+    log_n = fft_plan.log2i(n)
+    twr, twi = stockham_table(n, xr.device)
+    s = 0
+    while s < log_n:
+        g = min(GROUP, log_n - s)
+        q_, ms = 1 << g, 1 << s
+        j_ = n // (ms * q_)
+        vr = list(xr.reshape(rows, q_, j_, ms).unbind(1))
+        vi = list(xi.reshape(rows, q_, j_, ms).unbind(1))
+        for t in range(g):
+            h = q_ >> (t + 1)
+            off = n - (n >> (s + t))
+            for i in range(h):
+                lo = off + i * j_
+                wr = twr[lo:lo + j_].reshape(1, j_, 1)
+                wi = twi[lo:lo + j_].reshape(1, j_, 1)
+                for blk in range(0, q_, 2 * h):
+                    a, b = blk + i, blk + i + h
+                    ar, ai, br, bi = vr[a], vi[a], vr[b], vi[b]
+                    vr[a], vi[a] = ar + br, ai + bi
+                    dr, di = ar - br, ai - bi
+                    vr[b] = wr * dr - wi * di
+                    vi[b] = wr * di + wi * dr
+        order = [_brev(c, g) for c in range(q_)]
+        xr = torch.stack([vr[rho] for rho in order], dim=2).reshape(rows, n)
+        xi = torch.stack([vi[rho] for rho in order], dim=2).reshape(rows, n)
+        s += g
+    return xr, xi
 
 _BOUND = threading.Event()
 

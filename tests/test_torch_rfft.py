@@ -107,6 +107,24 @@ def test_k4_plain_matches_pallas(rng, n):
     assert _rel_err(got, want) < TOL
 
 
+@pytest.mark.parametrize("n", [1 << p for p in range(1, 13)])
+def test_k4_grouped_plain_equals_plain_bitwise(rng, n):
+    """The kernel's groups of up to four stages (every length of the short
+    group, log2 n mod 4) give the stage-by-stage plain version's bits."""
+    x = tuple(torch.from_numpy(_real(rng, (5, n))) for _ in range(2))
+    got = ks._stockham_grouped_plain(*x)
+    want = ks.stockham_fft_plain(*x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [8, 32, 512, 2048])
+def test_k4_grouped_plain_matches_pallas(rng, n):
+    x = (_real(rng, (3, n)), _real(rng, (3, n)))
+    got = ks._stockham_grouped_plain(*(torch.from_numpy(a) for a in x))
+    want = js.stockham_fft(*(jnp.asarray(a) for a in x), interpret=True)
+    assert _rel_err(got, want) < TOL
+
+
 def test_k4_length_one_returns_its_input(rng):
     x = tuple(torch.from_numpy(_real(rng, (5, 1))) for _ in range(2))
     got = ks.stockham_fft(*x)
