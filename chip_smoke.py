@@ -30,7 +30,18 @@ Phases (any failed check exits non-zero):
      5e-6 of torch.fft.fft of its input block, the kernel launched, the
      plain versions never called;
   5. serial against pipelined: the merged outputs equal bitwise;
-  6. the spectrogram job of examples/spectral_analysis.py through the
+  6. out-of-core: `fft_job --out-of-core` through its CLI entry point at
+     2^29 points (a 4 GiB operand under a 256 MiB working set; both passes
+     through K2), its merged spectrum within 5e-6 of torch.fft.fft of the
+     corner-turned input on the card, the measured storage traffic equal
+     to the model's, working set <= budget < operand; then 2^22 points
+     (K1 at 2048) bitwise equal to the in-memory oracle, and again after
+     a scheduled shuffle failure and a resume that redoes only the lost
+     pass-1 jobs; then the paper's 2^37 points (1 TiB under 1 GiB)
+     factored analytically. Each streamed run has its launch counts
+     zeroed just before and read just after: the kernel launched, the
+     plain versions never called;
+  7. the spectrogram job of examples/spectral_analysis.py through the
      port: a 1 GiB real capture in 64 MiB blocks, a map-only job whose map
      task is `repro_torch.core.spectral.power_spectrogram` on the card, at
      frame 1024 (K3 at m = 512, three passes) and frame 512 (K3 at m =
@@ -38,10 +49,10 @@ Phases (any failed check exits non-zero):
      stft within 5e-6 of torch.fft.rfft of the same windowed frames, the
      three tones found within one bin, the chirp found, K3 launched and
      no plain version run;
-  7. `fft_conv` on the card (n = 8192 through K3 and K1; n = 2^21 through
+  8. `fft_conv` on the card (n = 8192 through K3 and K1; n = 2^21 through
      K2) within 1e-4 of a float64 torch.fft convolution;
-  8. the `kernels` JSON line: phase 3's numbers and the main-path
-     launches (phases 4 and 6).
+  9. the `kernels` JSON line: phase 3's numbers and the main-path
+     launches (phases 4, 6 and 7).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result.
@@ -140,6 +151,12 @@ FULL = {
     "spectrograms": [("rfft/four_step", 1024, 512), ("rfft/direct", 512, 256)],
     # fft_conv: (signals, samples, filter taps)
     "conv": [(64, 4000, 100), (16, 1 << 20, 4097)],
+    # out-of-core: log2 of the at-scale run's points, its budget in MiB
+    # and the size it falls back to on a short disk; log2 of the bitwise
+    # and resume runs' points and their budget as a fraction of the
+    # operand
+    "ooc": {"log2_n": 29, "budget_mb": 256, "short_disk_log2_n": 28,
+            "bitwise_log2_n": 22, "bitwise_budget_div": 16},
 }
 REHEARSE = {
     "runs": [
@@ -175,7 +192,12 @@ REHEARSE = {
     "block_samples": 1 << 16,
     "spectrograms": [("rfft/four_step", 1024, 512), ("rfft/direct", 512, 256)],
     "conv": [(4, 200, 10), (2, 8192, 4097)],
+    # 2^18 points: the smallest operand past the launcher's 1 MiB budget
+    "ooc": {"log2_n": 18, "budget_mb": 1, "short_disk_log2_n": 16,
+            "bitwise_log2_n": 10, "bitwise_budget_div": 8},
 }
+# the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
+PAPER_OOC = (1 << 37, 1 << 30)
 
 
 class CheckFailed(Exception):
@@ -541,7 +563,181 @@ def check_main_path(gpu: bool, name: str, counts: dict, kernel: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the spectrogram job of examples/spectral_analysis.py
+# phase 6: the out-of-core transform
+
+
+def ooc_check(torch, dev, merged: Path, n: int, seed: int, factors) -> float:
+    """The merged spectrum against torch.fft.fft on the card: the input
+    regenerated from the seed, compared in transposed order,
+    out == T(fft(T(s))) with T(v) = v.reshape(n2, n1).T. Returns the
+    error."""
+    import numpy as np
+
+    from repro_torch.launch.fft_job import operand_chunks
+
+    def corner_turn(v):
+        return v.reshape(factors.n2, factors.n1).T.contiguous().reshape(-1)
+
+    s = torch.empty(n, dtype=torch.complex64, device=dev)
+    start = 0
+    for chunk in operand_chunks(n, seed):
+        s[start:start + len(chunk)] = torch.view_as_complex(
+            torch.from_numpy(chunk).to(dev))
+        start += len(chunk)
+    want = corner_turn(torch.fft.fft(corner_turn(s)))
+    del s
+    got = torch.view_as_complex(torch.from_numpy(
+        np.fromfile(merged, np.float32).reshape(n, 2)).to(dev))
+    check(bool(torch.isfinite(got).all()), "out-of-core: non-finite output")
+    e = rel_err(got, want)
+    del got, want
+    return e
+
+
+def ooc_at_scale(torch, dev, gpu: bool, cfg: dict, work: Path,
+                 device_arg: list) -> dict:
+    """`fft_job --out-of-core` through its CLI at the configured size (or
+    the short-disk size), checked on the card."""
+    log2_n = cfg["log2_n"]
+    need = 4 * 8 << log2_n  # input, tiles, output and merged file at once
+    work.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(work.parent).free
+    print(f"out-of-core: {free} bytes free under {work.parent}, "
+          f"{need} needed at 2^{log2_n}")
+    if free < need + (need >> 3):
+        log2_n = cfg["short_disk_log2_n"]
+        print(f"out-of-core: disk short, cut to 2^{log2_n} points")
+    argv = ["--out-of-core", "--log2-n", str(log2_n), "--budget-mb",
+            str(cfg["budget_mb"]), *device_arg, "--work-dir", str(work)]
+    reset_counts()
+    report = run_job(argv)
+    counts = read_counts()
+    f = report["factors"]
+    stats = report["stats"]
+    attempts = stats["pass1_attempts"] + stats["pass2_attempts"]
+    check(stats["io"]["total"] == f["io_bytes"],
+          f"out-of-core: measured I/O {stats['io']} != model {f['io_bytes']}")
+    check(f["working_set_bytes"] <= f["budget_bytes"] < f["operand_bytes"],
+          f"out-of-core: working set {f['working_set_bytes']}, budget "
+          f"{f['budget_bytes']}, operand {f['operand_bytes']}")
+    check(attempts == f["pass1_jobs"] + f["pass2_jobs"],
+          f"out-of-core: {attempts} attempts for "
+          f"{f['pass1_jobs'] + f['pass2_jobs']} jobs")
+    # both passes run the level-1 four-step: two K2 launches a job
+    kernel = "matfft_cols" if min(f["n1"], f["n2"]) > 4096 else "matfft"
+    check_main_path(gpu, "out-of-core", counts, kernel)
+    if gpu and kernel == "matfft_cols":
+        check(counts["matfft_cols"] == 2 * attempts,
+              f"out-of-core: {counts['matfft_cols']} K2 launches for "
+              f"{attempts} jobs")
+    from repro_torch.fft import factor_out_of_core
+    factors = factor_out_of_core(f["n"], f["budget_bytes"])
+    t0 = time.monotonic()
+    err = ooc_check(torch, dev, work / "merged.bin", f["n"], 0, factors)
+    check(err < TOL, f"out-of-core: {err} vs torch.fft.fft")
+    summary = {"run": "out_of_core", "factors": f,
+               "block_bytes": report["block_bytes"],
+               "copy_in_s": report["copy_in_s"], "job_s": report["job_s"],
+               "merge_s": report["merge_s"],
+               "stage_s": {p: stats[p]["stage_s"] for p in ("pass1",
+                                                             "pass2")},
+               "wall_s": {p: stats[p]["wall_s"] for p in ("pass1", "pass2")},
+               "attempts": {"pass1": stats["pass1_attempts"],
+                            "pass2": stats["pass2_attempts"]},
+               "io": stats["io"], "launches": counts,
+               "max_rel_err": err, "check_s": time.monotonic() - t0}
+    print("out_of_core " + json.dumps(summary))
+    return summary
+
+
+def ooc_bitwise_and_resume(torch, dev, gpu: bool, cfg: dict,
+                           work: Path) -> dict:
+    """The streamed output bitwise equal to the in-memory oracle on the
+    card, then again after a shuffle failure that exhausts one pass-1
+    job's retries and a resume over the same work directory."""
+    from repro_torch.core.fft.outofcore import reference_out_of_core
+    from repro_torch.core.pipeline import BlockStore, JobConfig
+    from repro_torch.core.resilience import (FaultInjector, FaultPlan,
+                                             FaultRule)
+    from repro_torch.fft import factor_out_of_core, plan
+    from repro_torch.launch.fft_job import operand_chunks
+
+    import numpy as np
+
+    n = 1 << cfg["bitwise_log2_n"]
+    budget = 8 * n // cfg["bitwise_budget_div"]
+    f = factor_out_of_core(n, budget)
+    sig = np.concatenate(list(operand_chunks(n, 1)))
+    store = BlockStore(work / "in", block_bytes=f.pass1_panel_bytes)
+    store.put_bytes(sig)
+
+    def streamed(name, config=None):
+        p = plan(kind="c2c", n=n, placement="out_of_core", store=store,
+                 work_dir=work / name, budget_bytes=budget, impl="matfft",
+                 job_config=config, device=dev)
+        reset_counts()
+        try:
+            stats = p.execute()
+        finally:
+            counts = read_counts()
+        check_main_path(gpu, f"out-of-core {name}", counts, "matfft")
+        return p, stats, counts
+
+    def merged(p):
+        p.merge(p.work_dir / "merged.bin")
+        return (p.work_dir / "merged.bin").read_bytes()
+
+    p, stats, counts = streamed("bitwise")
+    launches = counts["matfft"]
+    oracle = reference_out_of_core(sig, f, impl="matfft", device=dev)
+    equal = merged(p) == oracle
+    print(f"out-of-core 2^{cfg['bitwise_log2_n']} streamed vs oracle: "
+          f"{'bitwise equal' if equal else 'DIFFERENT'}")
+    check(equal, "out-of-core streamed output differs from the oracle")
+
+    victim = f.pass1_jobs // 2
+    killer = FaultInjector(FaultPlan((FaultRule(
+        site="ooc.shuffle", index=victim * f.pass1_jobs + victim,
+        calls=(1, 2, 3, 4)),)))
+    crash_cfg = JobConfig(readers=2, writers=2, inflight=2,
+                          speculation=False, max_retries=3, injector=killer)
+    try:
+        streamed("resume", crash_cfg)
+        crashed = False
+    except RuntimeError as e:
+        crashed = "failed" in str(e)
+        crash_counts = read_counts()
+    check(crashed, "out-of-core: the scheduled shuffle failure did not "
+          "stop the run")
+    p, stats, counts = streamed("resume")
+    launches += crash_counts["matfft"] + counts["matfft"]
+    check(0 < stats.pass1_attempts < f.pass1_jobs,
+          f"out-of-core resume: {stats.pass1_attempts} pass-1 attempts of "
+          f"{f.pass1_jobs} jobs")
+    equal_resumed = merged(p) == oracle
+    print(f"out-of-core resume: {stats.pass1_attempts} of {f.pass1_jobs} "
+          f"pass-1 jobs redone, output "
+          f"{'bitwise equal' if equal_resumed else 'DIFFERENT'}")
+    check(equal_resumed, "out-of-core resumed output differs from the "
+          "oracle")
+    return {"run": "out_of_core_bitwise", "factors": f.as_dict(),
+            "bitwise": equal, "resumed_bitwise": equal_resumed,
+            "resume_pass1_attempts": stats.pass1_attempts,
+            "launches": launches}
+
+
+def ooc_paper_size() -> dict:
+    """The paper's >1 TB case, factored only: no time is claimed."""
+    from repro_torch.fft import factor_out_of_core
+    f = factor_out_of_core(*PAPER_OOC).as_dict()
+    print("out_of_core_paper " + json.dumps(f))
+    check(f["working_set_bytes"] <= f["budget_bytes"],
+          f"paper size: working set over budget {f}")
+    return f
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the spectrogram job of examples/spectral_analysis.py
 
 
 def synth_capture(torch, dev, samples: int, seed: int = 0):
@@ -637,7 +833,7 @@ def spectrogram_run(torch, dev, gpu: bool, store, work: Path, variant: str,
 
 
 # ---------------------------------------------------------------------------
-# phase 7: fft_conv against a float64 torch.fft convolution
+# phase 8: fft_conv against a float64 torch.fft convolution
 
 
 def conv_checks(torch, dev, gpu: bool, cases) -> list:
@@ -720,7 +916,7 @@ def main(argv=None) -> int:
     work_root = ROOT / "build" / "smoke"
     shutil.rmtree(work_root, ignore_errors=True)
     device_arg = ["--device", "cuda" if gpu else "cpu"]
-    launches, runs, spectrograms = {}, [], []
+    launches, runs, spectrograms, ooc = {}, [], [], {}
     try:
         for name, kernel, job_args in cfg["runs"]:
             work = work_root / name.replace("/", "_")
@@ -761,7 +957,23 @@ def main(argv=None) -> int:
         check(equal, "serial and pipelined outputs differ")
         del merged
 
-        # phase 6: the spectrogram job over a real capture, once per frame
+        # phase 6: out of core, at scale through the CLI, then bitwise and
+        # after a resume, then the paper's size analytically
+        t0 = time.monotonic()
+        ooc = {"at_scale": ooc_at_scale(torch, dev, gpu, cfg["ooc"],
+                                        work_root / "ooc", device_arg)}
+        launches["matfft_cols/direct"] += ooc["at_scale"]["launches"][
+            "matfft_cols"]
+        shutil.rmtree(work_root / "ooc", ignore_errors=True)
+        ooc["bitwise"] = ooc_bitwise_and_resume(torch, dev, gpu, cfg["ooc"],
+                                                work_root / "ooc_bitwise")
+        launches["matfft/four_step"] += ooc["bitwise"]["launches"]
+        shutil.rmtree(work_root / "ooc_bitwise", ignore_errors=True)
+        ooc["paper"] = ooc_paper_size()
+        ooc["seconds"] = time.monotonic() - t0
+        print(f"out-of-core phase: {ooc['seconds']:.3f} s")
+
+        # phase 7: the spectrogram job over a real capture, once per frame
         t0 = time.monotonic()
         capture = synth_capture(torch, dev, cfg["capture_samples"])
         store = BlockStore(work_root / "capture",
@@ -781,19 +993,20 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work_root, ignore_errors=True)
 
-    # phase 7: fft_conv
+    # phase 8: fft_conv
     conv = conv_checks(torch, dev, gpu, cfg["conv"])
 
     if not gpu:
         print(f"rehearsal passed in {time.monotonic() - t_start:.1f} s")
         return 0
 
-    # phase 8: the kernels line
+    # phase 9: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
               "batch_invariance": inv, "main_path": runs,
-              "spectrograms": spectrograms, "fft_conv": conv,
+              "out_of_core": ooc, "spectrograms": spectrograms,
+              "fft_conv": conv,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

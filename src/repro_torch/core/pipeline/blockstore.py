@@ -153,11 +153,27 @@ class BlockStore:
         through a ``memoryview`` so no chunk copy is ever materialized —
         the seed doubled peak ingest memory by slicing ``bytes`` directly.
         """
+        self.put_chunks([data])
+
+    def put_chunks(self, chunks) -> None:
+        """Streaming copy-in from an iterable of buffers, split into blocks
+        as if concatenated. Every buffer but the last must be a whole
+        number of blocks, so no block straddles two buffers and ingest
+        holds one buffer at a time (a generator can produce the operand
+        slice by slice)."""
         self.blocks = []
-        mv = memoryview(data).cast("B")
-        self.total_bytes = mv.nbytes
-        for off in range(0, mv.nbytes, self.block_bytes):
-            self._append_block(off, mv[off:off + self.block_bytes])
+        self.total_bytes = 0
+        for data in chunks:
+            if self.total_bytes % self.block_bytes:
+                raise ValueError(
+                    f"put_chunks: a buffer before the last ended mid-block "
+                    f"at byte {self.total_bytes}; every buffer but the last "
+                    f"must be a multiple of block_bytes={self.block_bytes}")
+            mv = memoryview(data).cast("B")
+            for off in range(0, mv.nbytes, self.block_bytes):
+                self._append_block(self.total_bytes + off,
+                                   mv[off:off + self.block_bytes])
+            self.total_bytes += mv.nbytes
         self._save_manifest()
 
     def put_file(self, path: os.PathLike) -> None:

@@ -357,8 +357,10 @@ class ExecutablePlan:
 def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
          batch_shape=(), placement: str = "auto", layout: str = "zero_copy",
          impl: str = "matfft", precision: str = "f32", device="cuda",
-         verify: str = "off") -> ExecutablePlan:
-    """Resolve a transform spec and return the cached `ExecutablePlan`.
+         verify: str = "off", tune: bool = False, store=None, work_dir=None,
+         budget_bytes: int | None = None, job_config=None):
+    """Resolve a transform spec and return the cached `ExecutablePlan`, or
+    for ``placement="out_of_core"`` a new `OutOfCorePlan`.
 
     Args:
       kind: "c2c" (planar complex) or "r2c" (real input, one-sided
@@ -367,8 +369,11 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         of ``n``/``shape`` (power-of-two lengths; the real length for
         r2c).
       batch_shape: leading batch dims of the operands.
-      placement: "auto" or "local"; the other placements are not ported
-        yet and raise `NotImplementedError`.
+      placement: "auto", "local" or "out_of_core" (one 1-D c2c signal
+        whose operand lives in ``store``, streamed through two bounded
+        passes of cached local plans; core/fft/outofcore.py). The
+        segmented and distributed placements are not ported yet and raise
+        `NotImplementedError`.
       layout: "zero_copy" (default) or "copy" (the measured baseline).
       impl: leaf kernel: "matfft" (K1/K2, and K3 for r2c), "stockham"
         (K4; r2c then runs the full complex transform, sliced) or "ref"
@@ -379,10 +384,28 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
       verify: ABFT mode for consumers that run the plan's invariant checks:
         "off", "parseval" or "abft". Verified and unverified plans are
         distinct cache entries.
+      tune: the measuring autotuner; not ported yet (raises).
+      store, work_dir, budget_bytes, job_config: out-of-core only — the
+        `BlockStore` holding the operand, the directory for tiles,
+        manifests and output, the host working-set cap in bytes, and the
+        streamed passes' `JobConfig` (None: the plan's default).
 
     Same resolved spec -> the SAME plan object, with its tables already
-    on the device.
+    on the device. Out-of-core plans carry live store state and are never
+    cached; the per-pass plans they launch are.
     """
+    if tune:
+        raise NotImplementedError(
+            "plan(tune=True): the autotuner is not ported yet (ROADMAP "
+            "Queue 1 item 10)")
+    if placement == "out_of_core":
+        return _plan_out_of_core(kind, n, shape, batch_shape, impl, device,
+                                 verify, store, work_dir, budget_bytes,
+                                 job_config)
+    if store is not None or work_dir is not None or budget_bytes is not None:
+        raise ValueError(
+            "store=/work_dir=/budget_bytes= apply only to "
+            "placement='out_of_core'")
     resolved = spec_mod.resolve(
         kind=kind, n=n, shape=shape, batch_shape=batch_shape,
         placement=placement, layout=layout, impl=impl, precision=precision,
@@ -396,6 +419,40 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         p = ExecutablePlan(resolved)
         _PLAN_CACHE[resolved] = p
         return p
+
+
+def _plan_out_of_core(kind, n, shape, batch_shape, impl, device, verify,
+                      store, work_dir, budget_bytes, job_config):
+    """Validate the out-of-core arguments and bind the plan to ``store``."""
+    if kind != "c2c":
+        raise ValueError(
+            "placement='out_of_core' streams the four-step c2c "
+            "decomposition; run real captures as packed c2c")
+    if shape is not None:
+        shape_t = (shape,) if isinstance(shape, int) else tuple(shape)
+        if n is not None or len(shape_t) != 1:
+            raise ValueError(
+                f"placement='out_of_core' transforms ONE 1-D signal; "
+                f"pass n= (or a 1-tuple shape), got shape={shape}")
+        n = int(shape_t[0])
+    if n is None:
+        raise ValueError("placement='out_of_core' requires n=")
+    if batch_shape not in ((), None):
+        raise ValueError(
+            f"placement='out_of_core' takes no batch_shape, got "
+            f"{batch_shape}; the panel batching is internal")
+    if impl not in spec_mod.IMPLS:
+        raise ValueError(
+            f"unknown fft impl {impl!r}; expected one of {spec_mod.IMPLS}")
+    if store is None or work_dir is None or budget_bytes is None:
+        raise ValueError(
+            "placement='out_of_core' requires store= (the BlockStore "
+            "holding the operand), work_dir= (tiles/manifests/output), "
+            "and budget_bytes= (the host working-set cap)")
+    from repro_torch.core.fft.outofcore import plan_out_of_core
+    return plan_out_of_core(int(n), store, work_dir, int(budget_bytes),
+                            impl=impl, config=job_config, verify=verify,
+                            device=device)
 
 
 def cache_info() -> dict:

@@ -7,8 +7,10 @@ device — so strategy errors surface as one clear exception at plan time
 instead of a failure inside a kernel.
 
 The port runs the local placement of 1-D transforms, c2c and r2c: the
-contiguous axis takes the level-0/1/2 four-step up to MAX_LOCAL_N. N-D
-shapes and the other placements are recognised and raise
+contiguous axis takes the level-0/1/2 four-step up to MAX_LOCAL_N. The
+out-of-core placement is bound to a `BlockStore`, so `repro_torch.fft.plan`
+builds it directly and `resolve()` refuses it. N-D shapes and the
+segmented and distributed placements are recognised and raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 
 The device replaces the JAX package's ``interpret`` switch: it defaults to
@@ -39,7 +41,6 @@ MAX_LOCAL_N = 1 << 28
 _NOT_YET = {
     "segmented": "ROADMAP Queue 1 item 7",
     "distributed": "ROADMAP Queue 1 item 7",
-    "out_of_core": "ROADMAP Queue 1 item 8",
 }
 
 
@@ -155,6 +156,14 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
     if precision not in PRECISIONS:
         raise ValueError(
             f"unsupported precision {precision!r}; supported: {PRECISIONS}")
+    if placement == "out_of_core":
+        # out-of-core plans bind to live store/directory state, so they
+        # are built (and NOT process-cached) by `repro_torch.fft.plan`
+        # itself — there is no frozen spec to resolve here
+        raise ValueError(
+            "placement='out_of_core' is constructed by repro_torch.fft.plan("
+            "store=..., work_dir=..., budget_bytes=...) and has no "
+            "resolvable FftSpec (the plan is bound to a BlockStore)")
     if placement in _NOT_YET:
         raise NotImplementedError(
             f"placement={placement!r} is not ported yet "

@@ -14,6 +14,10 @@ modes over the same store:
     with ``--coalesce`` same-shaped blocks per device batch and an
     ``--inflight`` launch window, so device compute hides behind block I/O.
 
+With ``--out-of-core`` the job is instead ONE 2^log2-n-point c2c whose
+operand lives in the store, streamed through two bounded passes under
+``--budget-mb`` of host working set (core/fft/outofcore.py).
+
 The transforms run on the CUDA card (``--device cuda``, the default; no
 card is an error) or, with ``--device cpu``, through the kernels' plain
 PyTorch versions. Both modes report per-stage clocks
@@ -44,6 +48,7 @@ from repro_torch.core.pipeline.records import segment_block_bytes
 from repro_torch.fft.spec import resolve_device
 
 STAGES = ("read", "h2d", "compute", "d2h", "write")
+INGEST_POINTS = 1 << 22  # complex points drawn per slice of the operand
 
 
 class _TimedStore:
@@ -150,6 +155,83 @@ def run_job(store: BlockStore, out_dir, *, fft_len: int, impl: str,
     return job, stats, stage_s
 
 
+def operand_chunks(n: int, seed: int):
+    """The out-of-core operand, ``default_rng(seed).standard_normal((n,
+    2))`` as float32 bytes, drawn in slices of INGEST_POINTS points: the
+    generator yields the same values sliced as in one draw, and copy-in
+    never holds the float64 draw of the whole operand."""
+    rng = np.random.default_rng(seed)
+    for start in range(0, n, INGEST_POINTS):
+        rows = min(INGEST_POINTS, n - start)
+        yield rng.standard_normal((rows, 2)).astype(np.float32)
+
+
+def run_out_of_core(args, device: torch.device) -> dict:
+    """The >RAM workload: one giant 1-D c2c streamed through the store.
+
+    Ingests 2^log2_n random complex64 samples as a `BlockStore`, builds
+    the ``placement="out_of_core"`` plan under ``--budget-mb``, executes
+    both streamed passes (crash-resume: re-running the same --work-dir
+    picks up from the phase manifests), and getmerges the spectrum.
+    """
+    work = Path(args.work_dir)
+    n = 1 << args.log2_n
+    budget = args.budget_mb << 20
+    factors = fft_api.factor_out_of_core(n, budget)
+    # one job's panel per block, capped at 4 MiB: both are powers of two,
+    # so the block always tiles the panel (and an ingest slice)
+    block_bytes = min(factors.pass1_panel_bytes, 1 << 22)
+
+    t0 = time.monotonic()
+    store = BlockStore(work / "in", block_bytes=block_bytes,
+                       replication=args.replication)
+    store.put_chunks(operand_chunks(n, args.seed))
+    t_put = time.monotonic() - t0
+
+    injector = None
+    if args.faults:
+        from repro_torch.core.resilience import FaultInjector, FaultPlan
+        injector = FaultInjector(
+            FaultPlan.parse(args.faults, num_blocks=len(store.blocks)))
+        store.injector = injector
+    cfg = JobConfig(readers=args.readers, writers=args.writers,
+                    inflight=args.inflight, speculation=False,
+                    max_retries=args.max_retries, injector=injector)
+
+    plan = fft_api.plan(kind="c2c", n=n, placement="out_of_core",
+                        store=store, work_dir=work / "ooc", impl=args.impl,
+                        budget_bytes=budget, job_config=cfg,
+                        verify=args.verify, device=device)
+    t0 = time.monotonic()
+    stats = plan.execute()
+    t_job = time.monotonic() - t0
+    t0 = time.monotonic()
+    nbytes = plan.merge(work / "merged.bin")
+    t_merge = time.monotonic() - t0
+    from repro_torch.core.resilience import events
+    return {
+        "mode": "out_of_core",
+        "device": str(device),
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "verify": args.verify,
+        "corruption_detected": len(events("verify_failed")),
+        "corruption_recomputed": stats.pass1.retries + stats.pass2.retries,
+        "factors": factors.as_dict(),
+        "block_bytes": block_bytes,
+        "budget_bytes": budget,
+        "operand_over_budget_x": factors.operand_bytes / budget,
+        "copy_in_s": t_put,
+        "job_s": t_job,
+        "merge_s": t_merge,
+        "merged_bytes": nbytes,
+        "stats": stats.as_dict(),
+        "store": store.stats.as_dict(),
+        "faults": injector.summary() if injector is not None else None,
+        "plan_cache": fft_api.cache_info(),
+    }
+
+
 def main(argv=None) -> dict:
     """Run the job from command-line arguments; prints the JSON report and
     returns it."""
@@ -196,8 +278,21 @@ def main(argv=None) -> dict:
                          "adds a linearity checksum row per batch; "
                          "detections quarantine-and-recompute through "
                          "the retry path and are counted in the report")
+    ap.add_argument("--out-of-core", action="store_true",
+                    help="run one 2^log2-n-point c2c whose operand lives "
+                         "in the BlockStore, streamed under --budget-mb "
+                         "(ignores the segment-batch options above)")
+    ap.add_argument("--log2-n", type=int, default=20,
+                    help="out-of-core transform size, log2 of points")
+    ap.add_argument("--budget-mb", type=int, default=16,
+                    help="out-of-core working-set budget in MiB")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)  # no card: fail before any work
+
+    if args.out_of_core:
+        report = run_out_of_core(args, device)
+        print(json.dumps(report, indent=1))
+        return report
 
     work = Path(args.work_dir)
     n_seg = args.size_mb * (1 << 20) // (8 * args.fft_len)

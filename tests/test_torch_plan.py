@@ -14,6 +14,7 @@ import torch
 from repro.fft import spec as jspec
 from repro.kernels.fft import plan as jplan
 from repro.kernels.fft import ref as jref
+import repro_torch.fft as tfft
 from repro_torch.fft import spec as tspec
 from repro_torch.kernels.fft import plan as tplan
 from repro_torch.kernels.fft import ref as tref
@@ -182,16 +183,23 @@ def test_resolve_local_r2c_spec():
                                                       (8, 1024))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(kind="r2c", shape=(64, 64)), "item 6"),
-    (dict(kind="c2c", shape=(64, 64)), "item 6"),
-    (dict(kind="c2c", n=256, placement="segmented"), "item 7"),
-    (dict(kind="c2c", n=256, placement="distributed"), "item 7"),
-    (dict(kind="c2c", n=256, placement="out_of_core"), "item 8"),
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(kind="r2c", shape=(64, 64)), NotImplementedError, "item 6"),
+    (dict(kind="c2c", shape=(64, 64)), NotImplementedError, "item 6"),
+    (dict(kind="c2c", n=256, placement="segmented"), NotImplementedError,
+     "item 7"),
+    (dict(kind="c2c", n=256, placement="distributed"), NotImplementedError,
+     "item 7"),
+    # ported: plan() builds it from a store, resolve() refuses it
+    (dict(kind="c2c", n=256, placement="out_of_core"), ValueError,
+     "constructed by repro_torch.fft.plan.* no resolvable FftSpec"),
 ])
-def test_unported_specs_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_specs_name_their_roadmap_item(kw, exc, match):
+    with pytest.raises(exc, match=match):
         tspec.resolve(device="cpu", **kw)
+    if kw.get("placement") == "out_of_core":  # and plan() needs store=
+        with pytest.raises(ValueError, match="requires store="):
+            tfft.plan(device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw,match", [
