@@ -31,7 +31,7 @@ Phases (any failed check exits non-zero):
      plain versions never called;
   5. serial against pipelined: the merged outputs equal bitwise;
   6. out-of-core: `fft_job --out-of-core` through its CLI entry point at
-     2^29 points (a 4 GiB operand under a 256 MiB working set; both passes
+     2^28 points (a 2 GiB operand under a 256 MiB working set; both passes
      through K2), its merged spectrum within 5e-6 of torch.fft.fft of the
      corner-turned input on the card, the measured storage traffic equal
      to the model's, working set <= budget < operand; then 2^22 points
@@ -154,8 +154,9 @@ FULL = {
     # out-of-core: log2 of the at-scale run's points, its budget in MiB
     # and the size it falls back to on a short disk; log2 of the bitwise
     # and resume runs' points and their budget as a fraction of the
-    # operand
-    "ooc": {"log2_n": 29, "budget_mb": 256, "short_disk_log2_n": 28,
+    # operand. 2^28, not 2^29: at 2^29 the phase took 134 s and the
+    # script 320 s on the H100 (PERF.md §4)
+    "ooc": {"log2_n": 28, "budget_mb": 256, "short_disk_log2_n": 27,
             "bitwise_log2_n": 22, "bitwise_budget_div": 16},
 }
 REHEARSE = {
@@ -594,6 +595,33 @@ def ooc_check(torch, dev, merged: Path, n: int, seed: int, factors) -> float:
     return e
 
 
+def ooc_encode_s(factors, panels: int = 3) -> dict:
+    """Host seconds of pass 1's encode for one (t2, n1) panel, alone on an
+    idle host: the twiddle (`_apply_twiddle`) and the interleave
+    (`block_of_segments`), mean over ``panels`` job indices spread over
+    the pass."""
+    import numpy as np
+
+    from repro_torch.core.fft.outofcore import _apply_twiddle
+    from repro_torch.core.pipeline.records import block_of_segments
+
+    f = factors
+    rng = np.random.default_rng(2)
+    yr, yi = rng.standard_normal((2, f.t2, f.n1), dtype=np.float32)
+    twiddle = interleave = 0.0
+    jobs = [c * (f.pass1_jobs - 1) // max(panels - 1, 1)
+            for c in range(panels)]
+    for c in jobs:
+        t0 = time.perf_counter()
+        tr, ti = _apply_twiddle(yr, yi, c * f.t2, f.n)
+        t1 = time.perf_counter()
+        block_of_segments(tr, ti)
+        twiddle += t1 - t0
+        interleave += time.perf_counter() - t1
+    return {"twiddle_s": twiddle / len(jobs),
+            "interleave_s": interleave / len(jobs), "panels": jobs}
+
+
 def ooc_at_scale(torch, dev, gpu: bool, cfg: dict, work: Path,
                  device_arg: list) -> dict:
     """`fft_job --out-of-core` through its CLI at the configured size (or
@@ -645,7 +673,8 @@ def ooc_at_scale(torch, dev, gpu: bool, cfg: dict, work: Path,
                "attempts": {"pass1": stats["pass1_attempts"],
                             "pass2": stats["pass2_attempts"]},
                "io": stats["io"], "launches": counts,
-               "max_rel_err": err, "check_s": time.monotonic() - t0}
+               "max_rel_err": err, "check_s": time.monotonic() - t0,
+               "encode_one_panel": ooc_encode_s(factors)}
     print("out_of_core " + json.dumps(summary))
     return summary
 
@@ -655,14 +684,14 @@ def ooc_bitwise_and_resume(torch, dev, gpu: bool, cfg: dict,
     """The streamed output bitwise equal to the in-memory oracle on the
     card, then again after a shuffle failure that exhausts one pass-1
     job's retries and a resume over the same work directory."""
+    import numpy as np
+
     from repro_torch.core.fft.outofcore import reference_out_of_core
     from repro_torch.core.pipeline import BlockStore, JobConfig
     from repro_torch.core.resilience import (FaultInjector, FaultPlan,
                                              FaultRule)
     from repro_torch.fft import factor_out_of_core, plan
     from repro_torch.launch.fft_job import operand_chunks
-
-    import numpy as np
 
     n = 1 << cfg["bitwise_log2_n"]
     budget = 8 * n // cfg["bitwise_budget_div"]

@@ -68,8 +68,10 @@ from dataclasses import dataclass, field, replace
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from repro_torch.core.pipeline.blockstore import BlockStore, _atomic_write, _crc
+from repro_torch.core.pipeline.blockstore import (BlockStore, _atomic_write,
+                                                  _crc)
 from repro_torch.core.pipeline.maponly import (FAILED, PENDING, JobConfig,
                                                JobStats, Manifest)
 from repro_torch.core.pipeline.records import block_of_segments
@@ -91,6 +93,7 @@ WS_PANELS = 4
 def _near_square_split(n: int) -> tuple[int, int]:
     """n = n1 * n2, both pow2, near-square, each within the single-device
     plan maximum (MAX_LOCAL_N — the pass lengths run device-local)."""
+    # imported here, not at the top: repro_torch.fft imports this module
     from repro_torch.fft.spec import MAX_LOCAL_N
     if not kplan.is_pow2(n) or n < 4:
         raise ValueError(f"out-of-core transform length must be a power of "
@@ -474,7 +477,6 @@ class _PanelTransform(StreamTransform):
                        energy=e_in)
 
     def gather(self, group):
-        import torch
         (d,) = group
         shape = (self.rows, self.n)
         if self._pool is not None:
@@ -824,8 +826,6 @@ def reference_out_of_core(sig: np.ndarray, factors: OocPlan,
     storage round-trips. Returns merged output bytes in the transposed
     spectral order out[k1*n2 + k2]; the streamed result must match it
     BITWISE."""
-    import torch
-
     import repro_torch.fft as fft_api
     from repro_torch.fft.spec import resolve_device
     device = resolve_device(device)
