@@ -14,7 +14,8 @@ Phases (any failed check exits non-zero):
      epilogue; K2 at L = 256, 1024, MAX_LEAF, row- and column-major, with
      the epilogue; K3 at n = 8, 512, 1024, 4096, 8192 with and without
      the untangle; K4 at every power of two from 2 to MAX_LEAF, every
-     split of its groups of stages; one error formula; K1-K4 equal to
+     split of its groups of stages; K1 and K2 at the shapes phase 6's
+     runs give them; one error formula; K1-K4 equal to
      their plain versions bit for bit), batch invariance (a row alone ==
      the row inside a large batch: K1 at n = 256, 1024, 2048, 4096, K3 at
      512, 1024, 2048, 4096, K4 at 256, 1024, 2048, 4096),
@@ -253,7 +254,8 @@ def kernel_cases(cfg, max_leaf: int) -> list:
     (2^20 points: 2 blocks x 16 segments as (32, 1024, 1024); 2^16: 4 x 128
     as (512, 256, 256)), all at 2^25 points; K3 at a spectrogram block's
     frames (65535 x 512, 32767 x 1024); K4 at the stockham run's batch
-    (32768 x 1024)."""
+    (32768 x 1024). Then the out-of-core runs' K1/K2 calls at their own
+    shapes (`ooc_kernel_cases`)."""
     points = cfg["points"]
     cases = []
     for n in (256, 512, 1024, 2048, max_leaf):
@@ -268,7 +270,7 @@ def kernel_cases(cfg, max_leaf: int) -> list:
         for out_major in ("row", "col"):
             cases.append((variant, "matfft_cols",
                           (max(points // (L * L), 1), L, L),
-                          {"out_major": out_major},
+                          {"out_major": out_major, "with_epilogue": True},
                           out_major == "row" and L in (256, 1024)))
     for rows, n in cfg["rfft_shapes"]:
         variant = "rfft/direct" if n // 2 <= 256 else "rfft/four_step"
@@ -277,6 +279,48 @@ def kernel_cases(cfg, max_leaf: int) -> list:
                           untangle and n in (512, 1024)))
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
+    return cases + ooc_kernel_cases(cfg)
+
+
+def ooc_kernel_cases(cfg) -> list:
+    """The K1/K2 calls of phase 6's runs (at scale, its short-disk
+    fallback, bitwise) at the shapes those runs give them: a pass of t
+    rows of length m is one K1 call (t, m) when m is one leaf, else the
+    level-1 four-step m = m1 * m2 as two K2 calls, (t, m1, m2) row-major
+    with the outer twiddle and (t, m2, m1) column-major without.
+    Untimed."""
+    from repro_torch.fft import factor_out_of_core
+    from repro_torch.kernels.fft import plan as kplan
+
+    c = cfg["ooc"]
+    runs = [(c["log2_n"], c["budget_mb"] << 20),
+            (c["short_disk_log2_n"], c["budget_mb"] << 20),
+            (c["bitwise_log2_n"],
+             (8 << c["bitwise_log2_n"]) // c["bitwise_budget_div"])]
+    shapes = set()
+    for log2_n, budget in runs:
+        f = factor_out_of_core(1 << log2_n, budget)
+        for t, m in ((f.t2, f.n1), (f.t1, f.n2)):
+            p = kplan.make_plan(m)
+            check(p.levels <= 2, f"out-of-core pass length {m} is past "
+                  f"one four-step; add its kernel shapes")
+            if p.levels == 1:
+                shapes.add(("matfft", (t, m), None))
+            else:
+                shapes.add(("matfft_cols", (t, p.n1, p.n2), "row"))
+                shapes.add(("matfft_cols", (t, p.n2, p.n1), "col"))
+    cases = []
+    for kernel, shape, major in sorted(shapes):
+        if kernel == "matfft":
+            variant = "matfft/direct" if shape[1] <= 256 else \
+                "matfft/four_step"
+            opts = {"period": None}
+        else:
+            variant = "matfft_cols/direct" if shape[1] <= 256 else \
+                "matfft_cols/four_step"
+            opts = {"out_major": major, "with_epilogue": major == "row"}
+        cases.append((variant, kernel, shape, {**opts, "out_of_core": True},
+                      False))
     return cases
 
 
@@ -363,7 +407,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             xc = torch.complex(xr, xi)
             B, n, C = shape
             rows = B * C
-            epi = unit_table((C, n))
+            epi = unit_table((C, n)) if opts["with_epilogue"] else None
             major = opts["out_major"]
             run = lambda: km.matfft_cols(  # noqa: E731
                 xr, xi, out_major=major, epilogue=epi)
@@ -371,8 +415,10 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                 xr, xi, out_major=major, epilogue=epi)
             lib = lambda: torch.fft.fft(xc, dim=1)  # noqa: E731
             y = lib().transpose(1, 2).reshape(rows, n)
-            want = times((epi[0].repeat(B, 1), epi[1].repeat(B, 1)),
-                         y.real, y.imag)
+            want = (y.real, y.imag)
+            if epi is not None:
+                want = times((epi[0].repeat(B, 1), epi[1].repeat(B, 1)),
+                             *want)
             if major == "col":
                 want = tuple(t.reshape(B, C, n).transpose(1, 2) for t in want)
         elif kernel == "rfft":

@@ -638,6 +638,8 @@ class OutOfCorePlan:
 
     ``device`` is where the passes' FFTs run: "cuda" (default; raises at
     construction when no card is present) or "cpu" (plain versions).
+    ``impl`` is the passes' leaf: "matfft" (default: K1/K2), "stockham"
+    (K4) or "ref" (torch.fft).
 
     Layout under ``work_dir``:
       tiles/                 the shuffle tiles (intermediate, 1 operand)
@@ -648,7 +650,7 @@ class OutOfCorePlan:
     """
 
     def __init__(self, factors: OocPlan, store: BlockStore,
-                 work_dir: os.PathLike, impl: str = "ref",
+                 work_dir: os.PathLike, impl: str = "matfft",
                  config: JobConfig | None = None, verify: str = "off",
                  device="cuda"):
         from repro_torch.fft.spec import resolve_device
@@ -788,14 +790,13 @@ class OutOfCorePlan:
 
 
 def plan_out_of_core(n: int, store: BlockStore, work_dir: os.PathLike,
-                     budget_bytes: int, impl: str = "ref",
+                     budget_bytes: int, impl: str = "matfft",
                      config: JobConfig | None = None,
-                     verify: str = "off", panel_scale: int = 1,
+                     verify: str = "off",
                      device="cuda") -> OutOfCorePlan:
     """Factor + bind: the `placement="out_of_core"` entry point."""
     factors = factor_out_of_core(n, budget_bytes,
-                                 block_bytes=store.block_bytes,
-                                 panel_scale=panel_scale)
+                                 block_bytes=store.block_bytes)
     return OutOfCorePlan(factors, store, work_dir, impl=impl, config=config,
                          verify=verify, device=device)
 
@@ -819,7 +820,7 @@ def corner_turn(v: np.ndarray, factors: OocPlan) -> np.ndarray:
 
 
 def reference_out_of_core(sig: np.ndarray, factors: OocPlan,
-                          impl: str = "ref", device="cuda") -> bytes:
+                          impl: str = "matfft", device="cuda") -> bytes:
     """In-memory oracle: the SAME decomposition as the streamed path —
     same panel-shaped cached plans on the same device, same host twiddle
     helper, same encode — on interleaved (n, 2) float32, without the

@@ -11,6 +11,7 @@ assert only what it shows, so they do not depend on how far the other
 jobs' threads got before the failed job stopped the run.
 """
 
+import inspect
 import json
 from pathlib import Path
 
@@ -24,6 +25,7 @@ from repro.core.pipeline import BlockStore as JBlockStore
 from repro.core.pipeline import JobConfig as JJobConfig
 from repro.launch import fft_job as jjob
 import repro_torch.fft as tfft
+from repro_torch.core.fft import outofcore as ooc
 from repro_torch.core.fft.outofcore import (_near_square_split, corner_turn,
                                             factor_out_of_core,
                                             reference_out_of_core)
@@ -154,6 +156,19 @@ def test_factor_equals_reference_on_a_grid(panel_scale):
                 raised.add(got is ValueError)
     # a bad scale always raises; a good one both factors and raises
     assert raised == ({True} if panel_scale in (3, 0) else {True, False})
+
+
+def test_out_of_core_entry_points_default_to_the_ported_kernels(tmp_path):
+    # built directly, without plan(), the passes still run K1/K2, never
+    # the library FFT ("ref") unless the caller asks for it
+    store = _make_store(tmp_path, _signal())
+    f = factor_out_of_core(N, BUDGET)
+    direct = ooc.OutOfCorePlan(f, store, tmp_path / "a", device="cpu")
+    bound = ooc.plan_out_of_core(N, store, tmp_path / "b", BUDGET,
+                                 device="cpu")
+    assert direct.impl == bound.impl == "matfft"
+    assert inspect.signature(reference_out_of_core).parameters[
+        "impl"].default == "matfft"
 
 
 def test_planner_validates_out_of_core_args(tmp_path):
