@@ -15,7 +15,8 @@ Phases (any failed check exits non-zero):
      the epilogue; K3 at n = 8, 512, 1024, 4096, 8192 with and without
      the untangle; K4 at every power of two from 2 to MAX_LEAF, every
      split of its groups of stages; K1 and K2 at the shapes phase 6's
-     runs give them; one error formula; K1-K4 equal to
+     runs give them, K1-K3 at every shape phase 9's runs give them; one
+     error formula; K1-K4 equal to
      their plain versions bit for bit), batch invariance (a row alone ==
      the row inside a large batch: K1 at n = 256, 1024, 2048, 4096, K3 at
      512, 1024, 2048, 4096, K4 at 256, 1024, 2048, 4096),
@@ -52,8 +53,18 @@ Phases (any failed check exits non-zero):
      no plain version run;
   8. `fft_conv` on the card (n = 8192 through K3 and K1; n = 2^21 through
      K2) within 1e-4 of a float64 torch.fft convolution;
-  9. the `kernels` JSON line: phase 3's numbers and the main-path
-     launches (phases 4, 6 and 7).
+  9. N-D: `fft2`/`ifft2` over 8 images of 4096 x 4096 (K1b, K2b at L =
+     4096; zero_copy == copy bitwise), `fftn` over a 512^3 volume (K1b,
+     K2b twice), `rfft2`/`irfft2` over 8 real images of 4096 x 4096 (K3b
+     packed, K2b, K1b) and `fft_conv2d` of a 24-megapixel frame with a
+     65 x 65 filter, landscape (4000 x 6000, padded to 4096 x 8192: K3b
+     packed at m = 4096) and portrait (6000 x 4000, padded to 8192 x
+     4096: the leading axis as two K2a passes between transposes), each
+     against torch.fft, the calls the wrappers record (wrapper, shape,
+     major) held to those worked out from the shapes; rfft2's N-D
+     untangle and re-entangle timed alone;
+ 10. the `kernels` JSON line: phase 3's numbers and the main-path
+     launches (phases 4, 6, 7 and 9).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result.
@@ -78,6 +89,7 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_S = 67e12    # H100 SXM f32 outside the tensor cores
 
 TOL_CONV = 1e-4  # fft_conv against float64 (tests/test_spectral.py's bar)
+TOL_ROUND = 1e-5  # inverse(forward(x)) against x (tests/test_fft2_plan.py)
 
 # the Pallas sites each kernel variant replaces, and its CUDA source
 REPLACES = {
@@ -159,6 +171,12 @@ FULL = {
     # script 320 s on the H100 (PERF.md §4)
     "ooc": {"log2_n": 28, "budget_mb": 256, "short_disk_log2_n": 27,
             "bitwise_log2_n": 22, "bitwise_budget_div": 16},
+    # N-D: (batch, shape) of the c2c images and volume and of the real
+    # images, the fft_conv2d frames and filter, and each run's timed calls
+    "nd": {"fft2": ((8,), (4096, 4096)), "fftn": ((), (512, 512, 512)),
+           "rfft2": ((8,), (4096, 4096)),
+           "conv2d": [((4000, 6000), (65, 65)), ((6000, 4000), (65, 65))],
+           "reps": 3},
 }
 REHEARSE = {
     "runs": [
@@ -197,6 +215,12 @@ REHEARSE = {
     # 2^18 points: the smallest operand past the launcher's 1 MiB budget
     "ooc": {"log2_n": 18, "budget_mb": 1, "short_disk_log2_n": 16,
             "bitwise_log2_n": 10, "bitwise_budget_div": 8},
+    # the frames pad to (32, 8192) and (8192, 32): K3 at m = 4096 and the
+    # long leading axis on the CPU too
+    "nd": {"fft2": ((2,), (64, 128)), "fftn": ((), (8, 16, 32)),
+           "rfft2": ((2,), (64, 128)),
+           "conv2d": [((20, 4200), (5, 65)), ((4200, 20), (65, 5))],
+           "reps": 1},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -279,7 +303,7 @@ def kernel_cases(cfg, max_leaf: int) -> list:
                           untangle and n in (512, 1024)))
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
-    return cases + ooc_kernel_cases(cfg)
+    return cases + ooc_kernel_cases(cfg) + nd_kernel_cases(cfg)
 
 
 def ooc_kernel_cases(cfg) -> list:
@@ -321,6 +345,31 @@ def ooc_kernel_cases(cfg) -> list:
             opts = {"out_major": major, "with_epilogue": major == "row"}
         cases.append((variant, kernel, shape, {**opts, "out_of_core": True},
                       False))
+    return cases
+
+
+def nd_kernel_cases(cfg) -> list:
+    """Every K1/K2/K3 call of phase 9's runs at the shape the run gives
+    it, each timed under its own name ("<variant> <shape>[ <major>]");
+    drawn on the device from a seeded generator."""
+    shapes = set()
+    for run in nd_runs(cfg).values():
+        shapes.update(run["launches"])
+    cases = []
+    for kernel, shape, major in sorted(shapes):
+        leaf = shape[1]
+        if kernel == "matfft":
+            variant = "matfft/direct" if leaf <= 256 else "matfft/four_step"
+            opts = {"period": None}
+        elif kernel == "matfft_cols":
+            variant = "matfft_cols/direct" if leaf <= 256 else \
+                "matfft_cols/four_step"
+            opts = {"out_major": major, "with_epilogue": major == "row"}
+        else:
+            variant = "rfft/direct" if leaf // 2 <= 256 else "rfft/four_step"
+            kernel, opts = "rfft", {"untangle": False}
+        name = f"{variant} {tuple(shape)}" + (f" {major}" if major else "")
+        cases.append((variant, kernel, shape, {**opts, "nd": True}, name))
     return cases
 
 
@@ -367,17 +416,28 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
     from repro_torch.kernels.fft import stockham as ks
 
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     reps = cfg["reps"]
 
-    def real(shape):
+    # on_device: phase 9's shapes, drawn on the device from ``gen``; the
+    # rest from ``rng``
+    def real(shape, on_device=False):
+        if on_device:
+            return torch.randn(shape, generator=gen, device=dev)
         return torch.from_numpy(
             rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
-    def planes(shape):
+    def planes(shape, on_device=False):
+        if on_device:
+            return real(shape, True), real(shape, True)
         a = rng.standard_normal((2, *shape), dtype=np.float32)
         return (torch.from_numpy(a[0]).to(dev), torch.from_numpy(a[1]).to(dev))
 
-    def unit_table(shape):
+    def unit_table(shape, on_device=False):
+        if on_device:
+            ang = (2 * torch.rand(shape, generator=gen, device=dev,
+                                  dtype=torch.float64) - 1) * math.pi
+            return ang.cos().float(), ang.sin().float()
         ang = rng.uniform(-math.pi, math.pi, size=shape)
         return (torch.from_numpy(np.cos(ang).astype(np.float32)).to(dev),
                 torch.from_numpy(np.sin(ang).astype(np.float32)).to(dev))
@@ -389,11 +449,14 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
     for variant, kernel, shape, opts, timed in kernel_cases(
             cfg, kplan.MAX_LEAF):
         epi = None
+        nd = opts.get("nd", False)
+        lib_time = None
         if kernel == "matfft":
-            xr, xi = planes(shape)
+            xr, xi = planes(shape, nd)
             xc = torch.complex(xr, xi)
             rows, n = shape
-            epi = unit_table((opts["period"], n)) if opts["period"] else None
+            epi = (unit_table((opts["period"], n), nd) if opts["period"]
+                   else None)
             run = lambda: km.matfft(xr, xi, epilogue=epi)  # noqa: E731
             plain = lambda: km.matfft_plain(xr, xi, epilogue=epi)  # noqa
             lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
@@ -403,11 +466,11 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                 idx = torch.arange(rows, device=dev) % opts["period"]
                 want = times((epi[0][idx], epi[1][idx]), *want)
         elif kernel == "matfft_cols":
-            xr, xi = planes(shape)
+            xr, xi = planes(shape, nd)
             xc = torch.complex(xr, xi)
             B, n, C = shape
             rows = B * C
-            epi = unit_table((C, n)) if opts["with_epilogue"] else None
+            epi = unit_table((C, n), nd) if opts["with_epilogue"] else None
             major = opts["out_major"]
             run = lambda: km.matfft_cols(  # noqa: E731
                 xr, xi, out_major=major, epilogue=epi)
@@ -422,7 +485,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             if major == "col":
                 want = tuple(t.reshape(B, C, n).transpose(1, 2) for t in want)
         elif kernel == "rfft":
-            x = real(shape)
+            x = real(shape, nd)
             if opts["untangle"]:
                 run = lambda: km.rfft_leaf(x)  # noqa: E731
                 plain = lambda: km.rfft_leaf_plain(x)  # noqa: E731
@@ -432,10 +495,12 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                 run = lambda: km.rfft_pack_leaf(x)  # noqa: E731
                 plain = lambda: km.rfft_pack_leaf_plain(x)  # noqa: E731
                 lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
+                # timed: the one-sided transform of the same real rows
+                lib_time = lambda: torch.fft.rfft(x, dim=-1)  # noqa: E731
             y = lib()
             want = (y.real, y.imag)
         else:
-            xr, xi = planes(shape)
+            xr, xi = planes(shape, nd)
             xc = torch.complex(xr, xi)
             run = lambda: ks.stockham_fft(xr, xi)  # noqa: E731
             plain = lambda: ks.stockham_fft_plain(xr, xi)  # noqa: E731
@@ -459,6 +524,8 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             check(c["bitwise_plain"], f"kernel differs from its plain "
                   f"version: {c}")
         del got, ref, got_c, want, y
+        if kernel == "rfft" and not opts["untangle"]:
+            del xc
         if gpu and timed:
             # plain, kernel, kernel, plain: one card, one call
             t_plain = [timed_ms(torch, plain, reps)]
@@ -468,16 +535,18 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                                       dev)
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             t_flops = flops / F32_FLOPS_S * 1e3
-            timing[variant] = {
+            timing[timed if isinstance(timed, str) else variant] = {
                 "case": c, "bytes": nbytes, "flops": flops,
                 "max_abs_err": max_abs, "max_rel_err": c["rel_err_plain"],
                 "bitwise_plain": c["bitwise_plain"],
                 "ms": min(t_kernel), "ms_runs": t_kernel,
                 "plain_ms": min(t_plain), "plain_ms_runs": t_plain,
-                "library_ms": timed_ms(torch, lib, reps),
+                "library_ms": timed_ms(torch, lib_time or lib, reps),
                 "bound_ms": max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
-        del run, plain, lib
+        del run, plain, lib, lib_time
+        if nd and gpu:
+            torch.cuda.empty_cache()
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise;
     # K1, K3 and K4 at lengths of two and of three passes or groups (K3 at
@@ -529,8 +598,10 @@ def kernel_line(timing: dict, launches: dict) -> list:
     """The `kernels` entries: measured numbers, the main path's launch
     counts and the bound; each variant's shape, bytes and flops stay in
     chiprun_out/chip_smoke.json."""
-    return [{"name": name, "route": "cuda", "source": SOURCE[name],
-             "replaces": REPLACES[name], "launches": launches[name],
+    return [{"name": name, "route": "cuda",
+             "source": SOURCE[t["case"]["variant"]],
+             "replaces": REPLACES[t["case"]["variant"]],
+             "launches": launches[name],
              **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                   "bitwise_plain", "ms_runs", "plain_ms",
                                   "plain_ms_runs",
@@ -598,6 +669,15 @@ def read_counts() -> dict:
                       + km.rfft_leaf_plain.calls
                       + km.rfft_pack_leaf_plain.calls
                       + ks.stockham_fft_plain.calls)}
+
+
+def read_shapes(gpu: bool):
+    """Counter of (wrapper, shape, out_major) over the kernel launches since
+    the last `reset_counts`; in the rehearsal, over the calls the wrappers
+    gave to their plain versions."""
+    from collections import Counter
+    from repro_torch.kernels.fft import matfft as km
+    return Counter(km.launch_shapes if gpu else km.plain_shapes)
 
 
 def check_main_path(gpu: bool, name: str, counts: dict, kernel: str) -> None:
@@ -942,6 +1022,275 @@ def conv_checks(torch, dev, gpu: bool, cases) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the N-D transforms
+
+
+def nd_pass_launches(rows: int, n: int) -> list:
+    """Kernel calls of a zero-copy matfft transform of (rows, n) rows:
+    (wrapper, shape, major) per launch."""
+    from repro_torch.kernels.fft import plan as kplan
+    p = kplan.make_plan(n)
+    check(p.levels <= 2, f"N-D pass length {n} is past one four-step")
+    if p.levels == 1:
+        return [("matfft", (rows, n), None)]
+    return [("matfft_cols", (rows, p.n1, p.n2), "row"),
+            ("matfft_cols", (rows, p.n2, p.n1), "col")]
+
+
+def nd_leading_launches(rows: int, shape, width) -> list:
+    """Kernel calls of the earlier axes' passes over (rows, *width): one
+    column-major K2 pass an axis up to MAX_LEAF, a transform of its
+    columns as rows (between two transposes) above."""
+    from repro_torch.kernels.fft import plan as kplan
+    out = []
+    for k in range(len(shape) - 2, -1, -1):
+        b, L = rows * math.prod(shape[:k]), shape[k]
+        c = math.prod(width[k + 1:])
+        if L <= kplan.MAX_LEAF:
+            out.append(("matfft_cols", (b, L, c), "col"))
+        else:
+            out += nd_pass_launches(b * c, L)
+    return out
+
+
+def nd_launches(kind: str, batch, shape, inverse: bool = False) -> list:
+    """Every kernel call of one N-D plan call, worked out from the shapes
+    (the executors' structure, written out independently)."""
+    rows = math.prod(batch)
+    lead = rows * math.prod(shape[:-1])
+    if kind == "c2c":
+        return (nd_pass_launches(lead, shape[-1])
+                + nd_leading_launches(rows, shape, shape))
+    m = shape[-1] // 2
+    half = (*shape[:-1], m)
+    if inverse:
+        return (nd_leading_launches(rows, shape, half)
+                + nd_pass_launches(lead, m))
+    from repro_torch.kernels.fft import plan as kplan
+    first = ([("rfft_pack_leaf", (lead, shape[-1]), None)]
+             if kplan.make_plan(m).levels == 1 else nd_pass_launches(lead, m))
+    return first + nd_leading_launches(rows, shape, half)
+
+
+def conv2d_pad(image, filt) -> tuple:
+    """fft_conv2d's padded shape: the next powers of two >= h + kh and
+    w + kw."""
+    return tuple(1 << max(1, (a + b - 1).bit_length())
+                 for a, b in zip(image, filt))
+
+
+def conv2d_name(image) -> str:
+    return f"fft_conv2d {image[0]}x{image[1]}"
+
+
+def nd_runs(cfg) -> dict:
+    """Phase 9's runs and the kernel calls each makes, forward and
+    inverse: {run: {"launches": Counter((wrapper, shape, major))}}."""
+    from collections import Counter
+    c = cfg["nd"]
+    (b2, s2), (b3, s3), (br, sr) = c["fft2"], c["fftn"], c["rfft2"]
+    runs = {
+        "fft2": nd_launches("c2c", b2, s2) * 2,  # forward and inverse
+        "fftn": nd_launches("c2c", b3, s3),
+        "rfft2": (nd_launches("r2c", br, sr)
+                  + nd_launches("r2c", br, sr, inverse=True)),
+    }
+    for image, filt in c["conv2d"]:
+        pad = conv2d_pad(image, filt)
+        # the image's and the filter's forward, the product's inverse
+        runs[conv2d_name(image)] = (nd_launches("r2c", (), pad) * 2
+                                    + nd_launches("r2c", (), pad,
+                                                  inverse=True))
+    return {name: {"launches": Counter(calls)}
+            for name, calls in runs.items()}
+
+
+def nd_check_counts(gpu: bool, name: str, counts: dict, shapes,
+                    want) -> None:
+    """The calls the wrappers recorded, by shape, equal the expected calls;
+    on the card every one launched its kernel and no plain version ran, in
+    the rehearsal every one ran its plain version."""
+    check(shapes == want, f"{name}: calls {sorted(shapes.items())}, "
+          f"expected {sorted(want.items())}")
+    if gpu:
+        check(counts["plain"] == 0, f"{name}: a plain version ran")
+    else:
+        check(counts["plain"] == sum(want.values()),
+              f"rehearsal {name}: {counts['plain']} plain calls, expected "
+              f"{sum(want.values())}")
+
+
+def nd_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
+    """Phase 9: each N-D run once with the counts zeroed just before and
+    read just after, checked against torch.fft, then its forward timed
+    beside torch.fft's (CUDA events, ``reps`` calls); rfft2's untangle
+    and re-entangle timed alone. Returns the summaries and each run's
+    measured calls, {run: Counter((wrapper, shape, out_major))}."""
+    import repro_torch.fft as tfft
+    from repro_torch.core.spectral import fft_conv2d
+    from repro_torch.fft import executors
+
+    c = cfg["nd"]
+    reps = c["reps"]
+    expected = nd_runs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out, measured = {}, {}
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def run_counted(name, fn):
+        reset_counts()
+        t0 = time.monotonic()
+        y = fn()
+        if gpu:
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, shapes = read_counts(), read_shapes(gpu)
+        measured[name] = shapes
+        nd_check_counts(gpu, name, counts, shapes,
+                        expected[name]["launches"])
+        return y, counts, wall
+
+    def times(fwd, lib):
+        if not gpu:
+            return {}
+        return {"ms": timed_ms(torch, fwd, reps),
+                "library_ms": timed_ms(torch, lib, reps)}
+
+    def record(name, summary):
+        summary["launched"] = [[w, list(s), m, k] for (w, s, m), k
+                               in sorted(measured[name].items())]
+        print(f"nd {name} " + json.dumps(summary))
+        out[name] = summary
+
+    # c2c fft2 and ifft2 over a batch of images; the copy layout bitwise
+    batch, shape = c["fft2"]
+    xr, xi = randn((*batch, *shape)), randn((*batch, *shape))
+    p = tfft.plan(kind="c2c", shape=shape, batch_shape=batch, device=dev)
+
+    def fft2_both():
+        y = tfft.fft2(xr, xi, device=dev)
+        return y, tfft.ifft2(*y, device=dev)
+
+    (y, back), counts, wall = run_counted("fft2", fft2_both)
+    xc = torch.complex(xr, xi)
+    want = torch.fft.fft2(xc)
+    err = rel_err(torch.complex(*y), want)
+    err_back = rel_err(torch.complex(*back), xc)
+    del want, back
+    check(err < TOL, f"fft2: {err} vs torch.fft.fft2")
+    check(err_back < TOL_ROUND, f"ifft2: {err_back} vs the input")
+    reset_counts()
+    cp = tfft.fft2(xr, xi, device=dev, layout="copy")
+    copy_counts = read_counts()
+    same = torch.equal(cp[0], y[0]) and torch.equal(cp[1], y[1])
+    print(f"fft2 zero_copy vs copy: {'bitwise equal' if same else 'DIFFERENT'}")
+    check(same, "fft2: zero_copy and copy differ")
+    if gpu:  # the copy layout: K1 over the materialized transpose too
+        check(copy_counts["matfft"] == 2 and copy_counts["matfft_cols"] == 0,
+              f"fft2 copy layout: {copy_counts}")
+    del cp, y
+    record("fft2", {"batch": list(batch), "shape": list(shape),
+                    "rel_err": err, "roundtrip_rel_err": err_back,
+                    "copy_bitwise": same, "copy_launches": copy_counts,
+                    "launches": counts,
+                    "wall_s": wall, "hbm_bytes": p.hbm_bytes,
+                    **times(lambda: p.execute(xr, xi),
+                            lambda: torch.fft.fft2(xc))})
+    del xr, xi, xc
+
+    # c2c fftn over a volume
+    batch, shape = c["fftn"]
+    xr, xi = randn((*batch, *shape)), randn((*batch, *shape))
+    p = tfft.plan(kind="c2c", shape=shape, batch_shape=batch, device=dev)
+    y, counts, wall = run_counted("fftn", lambda: p.execute(xr, xi))
+    xc = torch.complex(xr, xi)
+    err = rel_err(torch.complex(*y), torch.fft.fftn(xc, dim=(-3, -2, -1)))
+    check(err < TOL, f"fftn: {err} vs torch.fft.fftn")
+    del y
+    record("fftn", {"batch": list(batch), "shape": list(shape),
+                    "rel_err": err, "launches": counts, "wall_s": wall,
+                    "hbm_bytes": p.hbm_bytes,
+                    **times(lambda: p.execute(xr, xi),
+                            lambda: torch.fft.fftn(xc, dim=(-3, -2, -1)))})
+    del xr, xi, xc
+
+    # r2c rfft2 and irfft2 over real images
+    batch, shape = c["rfft2"]
+    x = randn((*batch, *shape))
+    p = tfft.plan(kind="r2c", shape=shape, batch_shape=batch, device=dev)
+
+    def rfft2_both():
+        y = tfft.rfft2(x, device=dev)
+        return y, tfft.irfft2(*y, device=dev)
+
+    (y, back), counts, wall = run_counted("rfft2", rfft2_both)
+    err = rel_err(torch.complex(*y), torch.fft.rfft2(x))
+    err_back = rel_err(back, x)
+    check(err < TOL, f"rfft2: {err} vs torch.fft.rfft2")
+    check(bool(torch.isfinite(back).all()), "irfft2: non-finite")
+    check(err_back < TOL_ROUND, f"irfft2: {err_back} vs the input")
+    del back
+    summary = {"batch": list(batch), "shape": list(shape), "rel_err": err,
+               "roundtrip_rel_err": err_back, "launches": counts,
+               "wall_s": wall, "hbm_bytes": p.hbm_bytes,
+               **times(lambda: p.execute_real(x),
+                       lambda: torch.fft.rfft2(x))}
+    if gpu:  # the N-D untangle (forward) and re-entangle (inverse) alone
+        n_last, nd_ = shape[-1], len(shape)
+        zr, zi = randn(y[0].shape[:-1] + (n_last // 2,)), randn(
+            y[0].shape[:-1] + (n_last // 2,))
+        vr, vi = executors.rfft_twiddle(n_last, dev)
+        summary["untangle_ms"] = timed_ms(
+            torch, lambda: executors._untangle_nd(zr, zi, vr, vi, nd_), reps)
+        summary["entangle_ms"] = timed_ms(
+            torch, lambda: executors._entangle_nd(*y, n_last, nd_), reps)
+        del zr, zi
+    del y
+    record("rfft2", summary)
+    del x
+
+    # fft_conv2d of a frame with a filter, against float64 torch.fft
+    for image, filt in c["conv2d"]:
+        name = conv2d_name(image)
+        pad = conv2d_pad(image, filt)
+        img, k = randn(image), randn(filt)
+        got, counts, wall = run_counted(
+            name, lambda: fft_conv2d(img, k, device=dev))
+        want = torch.fft.irfft2(torch.fft.rfft2(img.double(), s=pad)
+                                * torch.fft.rfft2(k.double(), s=pad),
+                                s=pad)[:image[0], :image[1]]
+        check(tuple(got.shape) == tuple(image), f"{name}: shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        check(err < TOL_CONV, f"{name}: {err} vs float64 torch.fft")
+        del got, want
+        record(name, {"image": list(image), "filter": list(filt),
+                      "padded": list(pad), "rel_err": err,
+                      "launches": counts, "wall_s": wall,
+                      **times(lambda: fft_conv2d(img, k, device=dev),
+                              lambda: torch.fft.irfft2(
+                                  torch.fft.rfft2(img, s=pad)
+                                  * torch.fft.rfft2(k, s=pad), s=pad))})
+        del img, k
+    if gpu:
+        torch.cuda.empty_cache()
+    return out, measured
+
+
+def nd_kernel_launches(cfg, measured: dict) -> dict:
+    """Measured launches of each of phase 9's kernel shapes over its
+    checked runs, under the names `nd_kernel_cases` times them by."""
+    launches = {}
+    for _, kernel, shape, opts, name in nd_kernel_cases(cfg):
+        key = ("rfft_pack_leaf" if kernel == "rfft" else kernel, shape,
+               opts.get("out_major"))
+        launches[name] = sum(run[key] for run in measured.values())
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -1071,17 +1420,27 @@ def main(argv=None) -> int:
     # phase 8: fft_conv
     conv = conv_checks(torch, dev, gpu, cfg["conv"])
 
+    # phase 9: N-D transforms
+    t0 = time.monotonic()
+    nd, nd_measured = nd_checks(torch, dev, gpu, cfg)
+    nd["seconds"] = time.monotonic() - t0
+    print(f"N-D phase: {nd['seconds']:.3f} s")
+    for name, k in nd_kernel_launches(cfg, nd_measured).items():
+        launches[name] = k
+        variant = name.split(" ")[0]
+        launches[variant] = launches.get(variant, 0) + k
+
     if not gpu:
         print(f"rehearsal passed in {time.monotonic() - t_start:.1f} s")
         return 0
 
-    # phase 9: the kernels line
+    # phase 10: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
               "batch_invariance": inv, "main_path": runs,
               "out_of_core": ooc, "spectrograms": spectrograms,
-              "fft_conv": conv,
+              "fft_conv": conv, "nd": nd,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

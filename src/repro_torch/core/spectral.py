@@ -6,6 +6,8 @@ These are the framework-level consumers of the paper's technique:
     plans and their kernel K3;
   * ``fft_conv`` — long causal convolution via FFT (only valid for
     time-invariant kernels);
+  * ``fft_conv2d`` — 2-D FFT convolution for image filtering, on the
+    ``shape=(n0, n1)`` r2c plans;
   * ``spectral_mixer`` — FNet-style token mixing.
 
 Every transform goes through the `repro_torch.fft` plan-and-execute
@@ -109,12 +111,39 @@ def fft_conv(x, kernel, *, impl: str = "matfft",
     return yr[..., :t]
 
 
-def fft_conv2d(x, kernel, **kw):
-    """2-D FFT convolution: runs on the N-D r2c plans, which are not
-    ported yet."""
-    raise NotImplementedError(
-        "fft_conv2d runs on the N-D r2c plans (rfftn/irfftn), not ported "
-        "yet (ROADMAP Queue 1 item 6)")
+def fft_conv2d(x, kernel, *, impl: str = "matfft",
+               device="cuda") -> torch.Tensor:
+    """2-D convolution of (..., h, w) images with a (kh, kw) filter via the
+    2-D FFT plans (image filtering, O(hw log hw)).
+
+    Both operands are real, so both transforms ride the r2c fast path
+    (packed contiguous axis, one N-D untangle after the leading axis):
+    multiply the one-sided 2-D spectra — conjugate symmetry survives the
+    pointwise product — and invert with the r2c plan's inverse.
+    Zero-padded to the next powers of two >= h + kh, w + kw so the
+    circular convolution equals the linear one on the leading h x w
+    window (the top-left alignment of `fft_conv`).
+    """
+    x, dev = _on(x, device)
+    kernel, _ = _on(kernel, dev)
+    h, w = x.shape[-2:]
+    kh, kw = kernel.shape[-2:]
+    n0, n1 = _next_pow2(h + kh), _next_pow2(w + kw)
+    # F.pad writes new contiguous tensors: K3 reads their rows as float2
+    xp = F.pad(x, (0, n1 - w, 0, n0 - h))
+    kp = F.pad(kernel, (0, n1 - kw, 0, n0 - kh))
+    px = fft_api.plan(kind="r2c", shape=(n0, n1),
+                      batch_shape=tuple(xp.shape[:-2]), impl=impl,
+                      device=dev)
+    pk = fft_api.plan(kind="r2c", shape=(n0, n1),
+                      batch_shape=tuple(kp.shape[:-2]), impl=impl,
+                      device=dev)
+    xr, xi = px.execute_real(xp)
+    kr, ki = pk.execute_real(kp)
+    pr = xr * kr - xi * ki
+    pi = xr * ki + xi * kr
+    yr = px.execute_inverse(pr, pi)
+    return yr[..., :h, :w]
 
 
 def spectral_mixer(x, *, impl: str = "matfft",

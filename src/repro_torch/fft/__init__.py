@@ -19,28 +19,41 @@
     stats = o.execute()                 # two streamed passes, resumable
     o.merge(work / "merged.bin")        # spectrum in transposed order
 
-The port runs local 1-D c2c and r2c transforms up to MAX_LOCAL_N points on
-one device, and one 1-D c2c signal larger than memory out of core; see
-ROADMAP.md for the shapes and placements still to port (`rfft2`/`irfft2`
-come with the N-D transforms).
+    q = repro_torch.fft.plan(kind="r2c", shape=(4096, 4096),
+                             batch_shape=(8,))
+    sr, si = q.execute_real(images)     # (8, 4096, 2049) one-sided
+    yr, yi = repro_torch.fft.fft2(xr, xi)   # numpy.fft.fft2 conventions
+
+The port runs local c2c and r2c transforms of 1 to 3 axes on one device
+(the contiguous axis up to MAX_LOCAL_N points, earlier axes up to
+MAX_EARLIER_AXIS), with `fft2`/`ifft2`/`rfft2`/`irfft2` over the trailing
+two axes, and one 1-D c2c signal larger than memory out of core; see
+ROADMAP.md for the placements still to port.
 """
 
 from repro_torch.core.fft.outofcore import (OocPlan, OutOfCorePlan,
                                             factor_out_of_core)
 from repro_torch.fft.planner import (AsyncResult, ExecutablePlan, cache_info,
-                                     clear_plan_cache, plan)
-from repro_torch.fft.spec import MAX_LOCAL_N, FftSpec, resolve_placement
+                                     clear_plan_cache, fft2, ifft2, irfft2,
+                                     plan, rfft2)
+from repro_torch.fft.spec import (MAX_EARLIER_AXIS, MAX_LOCAL_N, FftSpec,
+                                  resolve_placement)
 
 __all__ = [
     "AsyncResult",
     "ExecutablePlan",
     "FftSpec",
+    "MAX_EARLIER_AXIS",
     "MAX_LOCAL_N",
     "OocPlan",
     "OutOfCorePlan",
     "cache_info",
     "clear_plan_cache",
     "factor_out_of_core",
+    "fft2",
+    "ifft2",
+    "irfft2",
     "plan",
     "resolve_placement",
+    "rfft2",
 ]

@@ -11,6 +11,14 @@ Hierarchy (mirrors the paper's block decomposition):
   level 2  (device memory)  four-step n = n1*n2 with n2 > MAX_LEAF: the
                             second pass is itself a level-1 four-step
 
+N-D transforms (`fftn`, `rfftn` and their inverses) run the contiguous
+axis as a batched 1-D transform and every earlier axis as one `axis_pass`
+with a column-major store: no outer twiddle, the DFT is separable. An
+earlier axis longer than MAX_LEAF (up to the JAX package's 16384, where
+it runs one column pass) takes `axis_pass`'s transpose fallback: a
+materialized transpose, the level-1 `fft` (two K2 passes) and a
+transpose back.
+
 The ``layout`` option selects how level-1 pass boundaries move data:
 
   "zero_copy" (default)  the column-strided kernel (`matfft_cols`) reads
@@ -23,6 +31,8 @@ Every function runs on the device its operands lie on.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -285,3 +295,192 @@ def rfft_pack_pass(x2: torch.Tensor, n_last: int, *, impl: str = "matfft",
     # round trip)
     z = x2.reshape(x2.shape[0], m, 2)
     return fft(z[..., 0], z[..., 1], impl=impl, layout=layout)
+
+
+# ---------------------------------------------------------------------------
+# N-D transforms: axis passes, no outer twiddle (the DFT is separable)
+
+
+def _flip_leading(pr, pi, ndim: int, nd: int) -> Planar:
+    """Index-negate (k -> (-k) mod n) every transformed axis but the last."""
+    for ax in range(ndim - nd, ndim - 1):
+        pr = torch.roll(torch.flip(pr, (ax,)), 1, ax)
+        pi = torch.roll(torch.flip(pi, (ax,)), 1, ax)
+    return pr, pi
+
+
+def _untangle_nd(zr, zi, vr, vi, nd: int) -> Planar:
+    """N-D untangle of the packed half spectrum AFTER the leading axes'
+    DFTs have run on it.
+
+    Same E/O algebra as `untangle_half_spectrum`, but conjugation is
+    antilinear — it anticommutes with the leading-axis DFTs — so the
+    Hermitian partner of bin (k0, .., k) sits at ((-k0) % n0, ..,
+    (m-k) % m): flipped along EVERY transformed axis, not just the last.
+    The Nyquist column m is no longer real for nd > 1 (only the full N-D
+    Hermitian symmetry survives, not per-column realness).
+    """
+    pr, pi = _flip_leading(zr, zi, zr.dim(), nd)
+    pr = torch.roll(torch.flip(pr, (-1,)), 1, -1)
+    pi = torch.roll(torch.flip(pi, (-1,)), 1, -1)
+    er, ei = 0.5 * (zr + pr), 0.5 * (zi - pi)
+    our, oui = 0.5 * (zi + pi), 0.5 * (pr - zr)
+    xr = er + vr * our - vi * oui
+    xi = ei + vr * oui + vi * our
+    nyq_r = er[..., :1] - our[..., :1]
+    nyq_i = ei[..., :1] - oui[..., :1]
+    return torch.cat([xr, nyq_r], dim=-1), torch.cat([xi, nyq_i], dim=-1)
+
+
+def _entangle_nd(yr, yi, n_last: int, nd: int) -> Planar:
+    """Inverse of `_untangle_nd`: one-sided (..., m+1) bins -> the packed
+    (..., m) half spectrum, m = n_last/2. irfft's algebra with the
+    Hermitian partner flipped along every transformed axis:
+    conj(X[(-k0) % n0, .., m-k])."""
+    m = n_last // 2
+    xr_, xi_ = yr[..., :m], yi[..., :m]
+    pr = torch.flip(yr[..., 1:], (-1,))  # conj partner, last axis
+    pi = -torch.flip(yi[..., 1:], (-1,))
+    pr, pi = _flip_leading(pr, pi, pr.dim(), nd)
+    er, ei = 0.5 * (xr_ + pr), 0.5 * (xi_ + pi)
+    dr, di = 0.5 * (xr_ - pr), 0.5 * (xi_ - pi)
+    vr, vi = rfft_twiddle(n_last, yr.device)
+    our = vr * dr + vi * di  # conj(v) * D
+    oui = vr * di - vi * dr
+    return er - oui, ei + our
+
+
+def _leading_views(shape: tuple, width: tuple, rows: int):
+    """(B, L, C) view of each earlier axis k of ``shape``, last first, over
+    a buffer whose trailing dims are ``width`` (``shape`` with the last
+    axis as stored)."""
+    for k in range(len(shape) - 2, -1, -1):
+        yield (rows * math.prod(shape[:k]), shape[k],
+               math.prod(width[k + 1:]))
+
+
+def fftn(xr: torch.Tensor, xi: torch.Tensor, shape, *, impl: str = "matfft",
+         layout: str = "zero_copy") -> Planar:
+    """N-D forward FFT over the trailing ``len(shape)`` axes.
+
+    The contiguous (last) axis runs the batched 1-D path (level 0/1/2);
+    every earlier axis is one `axis_pass` with a column-major store, so on
+    the zero-copy path the data never leaves its natural layout (K2 reads
+    and writes it in place). layout="copy" materializes a transpose round
+    trip per earlier axis: the naive baseline.
+    """
+    shape = tuple(int(d) for d in shape)
+    nd = len(shape)
+    if tuple(xr.shape[-nd:]) != shape:
+        raise ValueError(
+            f"operand trailing dims {tuple(xr.shape[-nd:])} do not match "
+            f"transform shape {shape}")
+    if nd == 1:
+        return fft(xr, xi, impl=impl, layout=layout)
+    batch = xr.shape[:-nd]
+    rows = math.prod(batch)
+    yr, yi = fft(xr, xi, impl=impl, layout=layout)
+    for view in _leading_views(shape, shape, rows):
+        yr, yi = axis_pass(yr, yi, view, out_major="col", impl=impl,
+                           layout=layout)
+    return yr.reshape(*batch, *shape), yi.reshape(*batch, *shape)
+
+
+def ifftn(xr: torch.Tensor, xi: torch.Tensor, shape, **kw) -> Planar:
+    """Inverse N-D FFT via the global conjugation identity (/prod(shape))."""
+    n_total = math.prod(int(d) for d in shape)
+    yr, yi = fftn(xr, -xi, shape, **kw)
+    return yr / n_total, -yi / n_total
+
+
+def rfftn(x: torch.Tensor, shape, *, impl: str = "matfft",
+          layout: str = "zero_copy") -> Planar:
+    """N-D real-input FFT; one-sided over the contiguous axis.
+
+    Returns planar ``(*batch, *shape[:-1], shape[-1]//2 + 1)``, the
+    numpy.fft.rfftn/rfft2 convention (r2c on the last axis).
+
+    Fast path (impl="matfft", shape[-1] >= 4): the contiguous axis packs
+    n reals as n/2 complex and transforms at half length WITHOUT the
+    untangle (K3's `rfft_pack_leaf` reads the real rows as float2 pairs);
+    the remaining axes transform the half-width spectrum (the untangle is
+    a linear map on the last axis, so it commutes with the other axes'
+    DFTs); ONE untangle at the end widens m -> m+1 bins. Otherwise the
+    full complex N-D transform, sliced.
+    """
+    shape = tuple(int(d) for d in shape)
+    nd = len(shape)
+    x = x.to(torch.float32)
+    if nd == 1:
+        return rfft(x, impl=impl, layout=layout)
+    n_last = shape[-1]
+    if n_last < 4 or impl != "matfft":
+        yr, yi = fftn(x, torch.zeros_like(x), shape, impl=impl,
+                      layout=layout)
+        return yr[..., : n_last // 2 + 1], yi[..., : n_last // 2 + 1]
+    fft_plan.log2i(n_last)
+    m = n_last // 2
+    batch = x.shape[:-nd]
+    rows = math.prod(batch)
+    half = (*shape[:-1], m)
+
+    # the contiguous axis: packed half-length transform, raw half spectrum
+    # out; K3 reads float2 pairs, so its rows come from a contiguous buffer
+    x2 = x.contiguous().reshape(rows * math.prod(shape[:-1]), n_last)
+    zr, zi = rfft_pack_pass(x2, n_last, impl=impl, layout=layout)
+
+    # the remaining axes on the half-width spectrum (all powers of two)
+    for view in _leading_views(shape, half, rows):
+        zr, zi = axis_pass(zr, zi, view, out_major="col", impl=impl,
+                           layout=layout)
+    zr = zr.reshape(*batch, *half)
+    zi = zi.reshape(*batch, *half)
+
+    # one N-D untangle: m -> m + 1 bins
+    vr, vi = rfft_twiddle(n_last, x.device)
+    return _untangle_nd(zr, zi, vr, vi, nd)
+
+
+def irfftn(yr: torch.Tensor, yi: torch.Tensor, shape, *,
+           impl: str = "matfft", layout: str = "zero_copy") -> torch.Tensor:
+    """Inverse of rfftn: one-sided spectrum -> real ``(*batch, *shape)``.
+
+    Runs the forward factorization in reverse: re-entangle the one-sided
+    bins into the half-length spectrum (a power-of-two width again),
+    inverse transform the leading axes, then the half-length inverse and
+    interleave on the contiguous axis.
+    """
+    shape = tuple(int(d) for d in shape)
+    nd = len(shape)
+    if nd == 1:
+        return irfft(yr, yi, impl=impl, layout=layout)
+    n_last = shape[-1]
+    m = n_last // 2
+    if m < 2 or impl != "matfft":
+        # inverse the leading axes as c2c over materialized transposes,
+        # then the 1-D irfft on the contiguous axis
+        for k in range(nd - 1):
+            ax = k - nd  # negative axis index of shape[k] in the operand
+            ar = yr.transpose(ax, -1)
+            ai = yi.transpose(ax, -1)
+            ar, ai = ifft(ar, ai, impl=impl, layout=layout)
+            yr = ar.transpose(ax, -1)
+            yi = ai.transpose(ax, -1)
+        return irfft(yr, yi, impl=impl, layout=layout)
+    batch = yr.shape[:-nd]
+    rows = math.prod(batch)
+    half = (*shape[:-1], m)
+
+    # re-entangle one-sided bins -> half-length spectrum
+    zr, zi = _entangle_nd(yr, yi, n_last, nd)
+
+    # leading-axis inverses on the half width (conjugation identity)
+    for (b, L, inner) in _leading_views(shape, half, rows):
+        ar, ai = axis_pass(zr, -zi, (b, L, inner), out_major="col",
+                           impl=impl, layout=layout)
+        zr = ar.reshape(*batch, *half) / L
+        zi = -ai.reshape(*batch, *half) / L
+
+    # contiguous axis: half-length inverse + interleave
+    wr, wi = ifft(zr, zi, impl=impl, layout=layout)
+    return torch.stack([wr, wi], dim=-1).reshape(*wr.shape[:-1], n_last)

@@ -11,15 +11,20 @@ rebuild nothing (`plan.build_counts["forward"]` stays at 1).
 
 An `ExecutablePlan` carries:
 
-  * the resolved `FftSpec` and the level-0/1/2 factorization (`plan.leaf`,
-    at the half length for the real-input fast path);
+  * the resolved `FftSpec` and the level-0/1/2 factorization of its
+    longest axis pass (`plan.leaf`; the contiguous axis at half length
+    for the real-input fast path);
   * the analytic cost model: `flops`, `gemm_macs` and `hbm_bytes` (the
-    roofline byte counters `fft_hbm_bytes` / `rfft_hbm_bytes`);
+    roofline byte counters `fft_hbm_bytes` / `rfft_hbm_bytes` and their
+    N-D forms `fftn_hbm_bytes` / `rfftn_hbm_bytes`);
   * `execute(xr, xi)` (c2c) / `execute_real(x)` (r2c) /
     `execute_inverse(yr, yi)` on the caller's current stream, and
     `execute_async(*operands, donate=)`, which stages host operands to the
     device on the plan's own stream and returns an `AsyncResult` without
     synchronising.
+
+`fft2`, `ifft2`, `rfft2` and `irfft2` plan over the trailing two axes
+(numpy.fft conventions) and execute through the cached plan.
 """
 
 from __future__ import annotations
@@ -94,12 +99,14 @@ class ExecutablePlan:
         object.__setattr__(self, "_frozen", False)
         self.spec = spec
         self.device = torch.device(spec.device)
-        # the r2c fast path packs n reals as n/2 complex points
+        # the r2c fast path packs n reals as n/2 complex points on the
+        # contiguous axis (the N-D untangle runs after the other axes)
         self._fast_r2c = (spec.kind == "r2c" and spec.impl == "matfft"
-                          and spec.n >= 4)
-        #: level-0/1/2 factorization of the (half, for fast r2c) length
-        self.leaf = kplan.make_plan(
-            max(spec.n // 2 if self._fast_r2c else spec.n, 1))
+                          and spec.shape[-1] >= 4)
+        # the contiguous axis dominates; halved by the r2c packing
+        last = spec.shape[-1] // 2 if self._fast_r2c else spec.shape[-1]
+        #: level-0/1/2 factorization of the longest axis pass
+        self.leaf = kplan.make_plan(max(last, *spec.shape[:-1], 1))
         self._build_lock = threading.RLock()
         self._builds = {"forward": 0, "inverse": 0}
         self._fwd = None
@@ -137,6 +144,10 @@ class ExecutablePlan:
         return self.spec.shape
 
     @property
+    def ndim(self) -> int:
+        return self.spec.ndim
+
+    @property
     def batch_shape(self) -> tuple:
         return self.spec.batch_shape
 
@@ -151,26 +162,37 @@ class ExecutablePlan:
     @property
     def fused_untangle(self) -> bool:
         """True when the r2c untangle runs fused in one leaf kernel (K3):
-        n/2 is one leaf, n <= 2*MAX_LEAF. False for longer r2c plans,
-        where it runs as torch ops after the half-length transform, and
-        for every c2c plan."""
-        return self._fast_r2c and self.leaf.levels == 1
+        a 1-D plan whose n/2 is one leaf, n <= 2*MAX_LEAF. False for
+        longer r2c plans, where it runs as torch ops after the half-length
+        transform, for N-D plans (the untangle runs after the leading
+        axes' passes), and for every c2c plan."""
+        return (self._fast_r2c and self.spec.ndim == 1
+                and self.leaf.levels == 1)
 
     # ------------------------------------------------------------------
     # analytic cost model (roofline numerators)
 
     @property
     def flops_per_row(self) -> float:
-        """Algorithmic FLOPs per batch row (the 5 n log2 n convention);
-        the r2c fast path runs a half-length transform plus the O(n/2)
+        """Algorithmic FLOPs per batch row (the 5 n log2 n convention).
+
+        N-D is a sum over axis passes; the r2c fast path halves the
+        working width after the contiguous-axis pass and adds the O(N/2)
         untangle (~10 real ops a bin)."""
-        n = self.spec.n
+        s = self.spec
+        n = s.n
         if n <= 1:
             return 0.0
         if not self._fast_r2c:
             return 5.0 * n * math.log2(n)
-        m = n // 2  # >= 2
-        return 5.0 * m * math.log2(m) + 10.0 * m
+        m = s.shape[-1] // 2  # >= 2
+        if s.ndim == 1:
+            return 5.0 * m * math.log2(m) + 10.0 * m
+        half_n = n // 2
+        f = 10.0 * half_n + (half_n // m) * 5.0 * m * math.log2(m)
+        for ax_len in s.shape[:-1]:
+            f += (half_n // ax_len) * 5.0 * ax_len * math.log2(ax_len)
+        return f
 
     @property
     def flops(self) -> float:
@@ -179,8 +201,17 @@ class ExecutablePlan:
     @property
     def gemm_macs_per_row(self) -> float:
         """Real MACs the reference's matrix formulation issues per batch
-        row (`FftPlan.gemm_macs`; not the port's radix leaf)."""
-        return self.leaf.gemm_macs
+        row (`FftPlan.gemm_macs`; not the port's radix leaf). N-D: the
+        sum over axis passes."""
+        s = self.spec
+        if s.ndim == 1:
+            return self.leaf.gemm_macs
+        width = s.n // 2 if self._fast_r2c else s.n
+        last = s.shape[-1] // 2 if self._fast_r2c else s.shape[-1]
+        macs = (width // last) * kplan.make_plan(last).gemm_macs
+        for ax_len in s.shape[:-1]:
+            macs += (width // ax_len) * kplan.make_plan(ax_len).gemm_macs
+        return macs
 
     @property
     def gemm_macs(self) -> float:
@@ -192,12 +223,13 @@ class ExecutablePlan:
         excluded)."""
         s = self.spec
         if self._fast_r2c:
-            return kplan.rfft_hbm_bytes(s.n)
+            return kplan.rfftn_hbm_bytes(s.shape)
+        c2c = kplan.fftn_hbm_bytes(s.shape, s.layout)
         if s.kind == "r2c":
             # full complex transform + sliced one-sided write
-            return (kplan.fft_hbm_bytes(s.n, s.layout)
-                    + 2 * _F32 * (s.n // 2 + 1))
-        return kplan.fft_hbm_bytes(s.n, s.layout)
+            return (c2c + 2 * _F32 * (s.n // s.shape[-1])
+                    * (s.shape[-1] // 2 + 1))
+        return c2c
 
     @property
     def hbm_bytes(self) -> int:
@@ -220,14 +252,17 @@ class ExecutablePlan:
     def _build_forward(self):
         s = self.spec
         dev = self.device
-        if self._fast_r2c:
-            # K3 at n/2 reads the leaf tables at n/2 and the packing
-            # twiddle; longer rows run the c2c path at n/2 and untangle
-            # with the same twiddle (irfft re-entangles with it)
-            _upload_tables(s.n // 2, dev, s.impl)
-            kmatfft.rfft_twiddle(s.n, dev)
-        elif s.impl in ("matfft", "stockham"):
-            _upload_tables(s.n, dev, s.impl)
+        if s.impl in ("matfft", "stockham"):
+            # every axis pass reads the tables of its length; the fast r2c
+            # path runs the contiguous axis at n/2 (K3, or the c2c path
+            # past one leaf) and untangles with the packing twiddle, with
+            # which irfft re-entangles
+            last = s.shape[-1]
+            for length in {*s.shape[:-1],
+                           last // 2 if self._fast_r2c else last}:
+                _upload_tables(length, dev, s.impl)
+            if self._fast_r2c:
+                kmatfft.rfft_twiddle(last, dev)
         if dev.type == "cuda":
             if s.impl == "matfft":
                 kmatfft._lib()  # build (first use) and bind the kernels
@@ -238,10 +273,12 @@ class ExecutablePlan:
 
         if s.kind == "r2c":
             def forward(x):
-                return executors.rfft(x, impl=s.impl, layout=s.layout)
+                return executors.rfftn(x, s.shape, impl=s.impl,
+                                       layout=s.layout)
         else:
             def forward(xr, xi):
-                return executors.fft(xr, xi, impl=s.impl, layout=s.layout)
+                return executors.fftn(xr, xi, s.shape, impl=s.impl,
+                                      layout=s.layout)
 
         return forward
 
@@ -254,11 +291,13 @@ class ExecutablePlan:
 
                     if s.kind == "r2c":
                         def inverse(yr, yi):
-                            return executors.irfft(yr, yi, impl=s.impl,
-                                                   layout=s.layout)
+                            return executors.irfftn(yr, yi, s.shape,
+                                                    impl=s.impl,
+                                                    layout=s.layout)
                     else:
                         def inverse(yr, yi):
-                            # conjugation identity on the forward transform
+                            # conjugation identity on the forward
+                            # transform; s.n is every point, the N-D scale
                             ar, ai = fwd(yr, -yi)
                             return ar / s.n, -ai / s.n
 
@@ -282,7 +321,7 @@ class ExecutablePlan:
         return x
 
     def execute(self, xr, xi):
-        """Forward c2c transform of planar (*batch_shape, n) float32
+        """Forward c2c transform of planar (*batch_shape, *shape) float32
         operands, on the caller's current stream. Returns planes on the
         plan's device."""
         if self.spec.kind != "c2c":
@@ -294,9 +333,9 @@ class ExecutablePlan:
         return self._forward()(xr, xi)
 
     def execute_real(self, x):
-        """Forward r2c transform: real (*batch_shape, n) float32 -> planar
-        one-sided (*batch_shape, n//2 + 1) spectrum, on the caller's
-        current stream and the plan's device."""
+        """Forward r2c transform: real (*batch_shape, *shape) float32 ->
+        planar one-sided (*batch_shape, *shape[:-1], shape[-1]//2 + 1)
+        spectrum, on the caller's current stream and the plan's device."""
         if self.spec.kind != "r2c":
             raise ValueError(
                 "execute_real() is for kind='r2c' plans; use "
@@ -306,11 +345,12 @@ class ExecutablePlan:
 
     def execute_inverse(self, yr, yi):
         """Inverse transform. c2c: planar spectrum -> planar signal, both
-        (*batch_shape, n). r2c: one-sided (*batch_shape, n//2 + 1)
-        spectrum -> real (*batch_shape, n) signal."""
+        (*batch_shape, *shape). r2c: one-sided (*batch_shape, *shape[:-1],
+        shape[-1]//2 + 1) spectrum -> real (*batch_shape, *shape)
+        signal."""
         s = self.spec
         shape = (s.operand_shape if s.kind == "c2c"
-                 else (*s.batch_shape, s.n // 2 + 1))
+                 else (*s.batch_shape, *s.shape[:-1], s.shape[-1] // 2 + 1))
         yr = self._operand(yr, "execute_inverse", shape).to(self.device)
         yi = self._operand(yi, "execute_inverse", shape).to(self.device)
         return self._inverse()(yr, yi)
@@ -357,8 +397,9 @@ class ExecutablePlan:
 def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
          batch_shape=(), placement: str = "auto", layout: str = "zero_copy",
          impl: str = "matfft", precision: str = "f32", device="cuda",
-         verify: str = "off", tune: bool = False, store=None, work_dir=None,
-         budget_bytes: int | None = None, job_config=None):
+         r2c_axis: int = -1, verify: str = "off", tune: bool = False,
+         store=None, work_dir=None, budget_bytes: int | None = None,
+         job_config=None):
     """Resolve a transform spec and return the cached `ExecutablePlan`, or
     for ``placement="out_of_core"`` a new `OutOfCorePlan`.
 
@@ -368,19 +409,29 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
       n: 1-D transform length — sugar for ``shape=(n,)``; pass exactly one
         of ``n``/``shape`` (power-of-two lengths; the real length for
         r2c).
+      shape: N-D transform shape over the TRAILING operand axes, 1 to 3
+        axes, e.g. ``shape=(n0, n1)`` for a 2-D image FFT. The contiguous
+        (last) axis runs the level-0/1/2 four-step (up to MAX_LOCAL_N);
+        earlier axes one column-kernel pass each up to MAX_LEAF, a
+        level-1 transform between two transposes up to MAX_EARLIER_AXIS.
+        Scalar ``n`` and the equivalent 1-tuple give the SAME plan.
       batch_shape: leading batch dims of the operands.
       placement: "auto", "local" or "out_of_core" (one 1-D c2c signal
         whose operand lives in ``store``, streamed through two bounded
         passes of cached local plans; core/fft/outofcore.py). The
         segmented and distributed placements are not ported yet and raise
         `NotImplementedError`.
-      layout: "zero_copy" (default) or "copy" (the measured baseline).
+      layout: "zero_copy" (default) or "copy" (the measured baseline; for
+        N-D the naive transpose-per-axis path).
       impl: leaf kernel: "matfft" (K1/K2, and K3 for r2c), "stockham"
         (K4; r2c then runs the full complex transform, sliced) or "ref"
         (torch.fft).
       precision: "f32".
       device: "cuda" (default; raises when no card is present) or "cpu",
         which runs the kernels' plain PyTorch versions.
+      r2c_axis: the transform axis that carries the real-to-complex
+        halving; only the contiguous axis (-1) is supported, anything
+        else is a plan-time ValueError.
       verify: ABFT mode for consumers that run the plan's invariant checks:
         "off", "parseval" or "abft". Verified and unverified plans are
         distinct cache entries.
@@ -409,7 +460,7 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
     resolved = spec_mod.resolve(
         kind=kind, n=n, shape=shape, batch_shape=batch_shape,
         placement=placement, layout=layout, impl=impl, precision=precision,
-        device=device, verify=verify)
+        device=device, r2c_axis=r2c_axis, verify=verify)
     with _CACHE_LOCK:
         cached = _PLAN_CACHE.get(resolved)
         if cached is not None:
@@ -453,6 +504,62 @@ def _plan_out_of_core(kind, n, shape, batch_shape, impl, device, verify,
     return plan_out_of_core(int(n), store, work_dir, int(budget_bytes),
                             impl=impl, config=job_config, verify=verify,
                             device=device)
+
+
+# ---------------------------------------------------------------------------
+# 2-D convenience wrappers (numpy.fft.fft2/rfft2 conventions): plan over the
+# trailing two axes, execute through the cached plan
+
+
+def _check_2d(a, what: str) -> None:
+    # numpy.fft.fft2/rfft2 raise for <2-D input; silently planning a 1-D
+    # transform here would hand back a wrong-dimensionality spectrum
+    if a.ndim < 2:
+        raise ValueError(
+            f"{what} transforms the trailing TWO axes; got a "
+            f"{a.ndim}-D operand of shape {tuple(a.shape)} — use the 1-D "
+            f"plan (n=...) for single-axis transforms")
+
+
+def fft2(xr, xi, **kw):
+    """Forward 2-D FFT over the trailing two axes of planar float32
+    tensors. ``kw`` passes through to `plan` (device=, layout=, impl=);
+    repeat calls with the same shapes hit the plan cache."""
+    _check_2d(xr, "fft2")
+    p = plan(kind="c2c", shape=tuple(xr.shape[-2:]),
+             batch_shape=tuple(xr.shape[:-2]), **kw)
+    return p.execute(xr, xi)
+
+
+def ifft2(yr, yi, **kw):
+    """Inverse 2-D FFT over the trailing two axes (planar)."""
+    _check_2d(yr, "ifft2")
+    p = plan(kind="c2c", shape=tuple(yr.shape[-2:]),
+             batch_shape=tuple(yr.shape[:-2]), **kw)
+    return p.execute_inverse(yr, yi)
+
+
+def rfft2(x, **kw):
+    """Real-input 2-D FFT: (*batch, n0, n1) real -> planar one-sided
+    (*batch, n0, n1//2 + 1) spectrum (numpy.fft.rfft2 convention)."""
+    _check_2d(x, "rfft2")
+    p = plan(kind="r2c", shape=tuple(x.shape[-2:]),
+             batch_shape=tuple(x.shape[:-2]), **kw)
+    return p.execute_real(x)
+
+
+def irfft2(yr, yi, shape=None, **kw):
+    """Inverse of rfft2: one-sided spectrum -> real (*batch, n0, n1).
+
+    ``shape`` is the real-image shape (n0, n1); the default reconstructs
+    the even length 2*(yr.shape[-1] - 1) like numpy.fft.irfft2.
+    """
+    _check_2d(yr, "irfft2")
+    if shape is None:
+        shape = (yr.shape[-2], 2 * (yr.shape[-1] - 1))
+    p = plan(kind="r2c", shape=tuple(shape),
+             batch_shape=tuple(yr.shape[:-2]), **kw)
+    return p.execute_inverse(yr, yi)
 
 
 def cache_info() -> dict:

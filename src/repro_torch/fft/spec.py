@@ -6,12 +6,17 @@ impl and precision membership, power-of-two lengths, the placement and the
 device — so strategy errors surface as one clear exception at plan time
 instead of a failure inside a kernel.
 
-The port runs the local placement of 1-D transforms, c2c and r2c: the
-contiguous axis takes the level-0/1/2 four-step up to MAX_LOCAL_N. The
-out-of-core placement is bound to a `BlockStore`, so `repro_torch.fft.plan`
-builds it directly and `resolve()` refuses it. N-D shapes and the
-segmented and distributed placements are recognised and raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+The port runs the local placement of 1-D to 3-D transforms, c2c and r2c:
+``shape`` is the tuple of transform-axis lengths over the TRAILING axes of
+the operand (scalar ``n`` is 1-D sugar and normalizes to ``shape=(n,)``,
+the same cache key). The contiguous (last) axis takes the level-0/1/2
+four-step up to MAX_LOCAL_N; every earlier axis caps at MAX_EARLIER_AXIS.
+r2c rides the packed-real fast path on the contiguous axis only
+(``r2c_axis`` must normalize to -1). The out-of-core placement is bound to
+a `BlockStore`, so `repro_torch.fft.plan` builds it directly and
+`resolve()` refuses it. The segmented and distributed placements are
+recognised and raise `NotImplementedError` naming the ROADMAP item that
+ports them.
 
 The device replaces the JAX package's ``interpret`` switch: it defaults to
 ``"cuda"``, which must be present, and ``"cpu"`` runs the kernels' plain
@@ -37,6 +42,10 @@ PRECISIONS = ("f32",)  # reserved: bf16/f64 variants are future work
 # largest single-device transform, the JAX package's (its MAX_LEAF**2 with
 # a 16384-point leaf); the port's smaller leaf reaches it in three levels
 MAX_LOCAL_N = 1 << 28
+# longest earlier (non-contiguous) axis, the JAX package's MAX_LEAF: one
+# column-kernel pass up to the port's MAX_LEAF, a level-1 transform
+# between two transposes above it
+MAX_EARLIER_AXIS = 1 << 14
 
 _NOT_YET = {
     "segmented": "ROADMAP Queue 1 item 7",
@@ -96,10 +105,9 @@ def resolve_device(device) -> torch.device:
 
 def _fits_local(shape: tuple) -> bool:
     """Can one device run this shape? The contiguous axis gets the nested
-    four-step (MAX_LOCAL_N); each earlier axis is a single column-kernel
-    pass (MAX_LEAF)."""
+    four-step (MAX_LOCAL_N); each earlier axis caps at MAX_EARLIER_AXIS."""
     return (shape[-1] <= MAX_LOCAL_N
-            and all(d <= kplan.MAX_LEAF for d in shape[:-1]))
+            and all(d <= MAX_EARLIER_AXIS for d in shape[:-1]))
 
 
 def resolve_placement(shape) -> str:
@@ -110,8 +118,8 @@ def resolve_placement(shape) -> str:
         raise ValueError(
             f"shape={shape} exceeds the single-device maximum (contiguous "
             f"axis <= MAX_LOCAL_N={MAX_LOCAL_N}, earlier axes <= "
-            f"MAX_LEAF={kplan.MAX_LEAF}); the distributed placement is "
-            f"{_NOT_YET['distributed']}")
+            f"MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}); the distributed "
+            f"placement is {_NOT_YET['distributed']}")
     return "local"
 
 
@@ -133,13 +141,16 @@ def _normalize_shape(n, shape) -> tuple:
             raise ValueError(
                 f"every transform axis must be a power of two; axis "
                 f"{ax_i} of shape {shape} is {d}")
+    if len(shape) > 1 and min(shape) < 2:
+        raise ValueError(
+            f"N-D transform axes must be >= 2, got shape {shape}")
     return shape
 
 
 def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
             layout: str = "zero_copy", impl: str = "matfft",
             precision: str = "f32", device="cuda", shape=None,
-            verify: str = "off") -> FftSpec:
+            r2c_axis: int = -1, verify: str = "off") -> FftSpec:
     """Validate + normalize everything into a frozen FftSpec."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
@@ -169,11 +180,18 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
             f"placement={placement!r} is not ported yet "
             f"({_NOT_YET[placement]})")
     shape = _normalize_shape(n, shape)
-    if len(shape) > 1:
-        raise NotImplementedError(
-            "N-D transforms are not ported yet (ROADMAP Queue 1 item 6)")
-    if kind == "r2c" and shape[-1] < 2:
-        raise ValueError(f"r2c needs n >= 2, got n={shape[-1]}")
+    ndim = len(shape)
+    if kind == "r2c":
+        if shape[-1] < 2:
+            raise ValueError(f"r2c needs n >= 2, got n={shape[-1]}")
+        ax = r2c_axis if r2c_axis >= 0 else ndim + r2c_axis
+        if ax != ndim - 1:
+            raise ValueError(
+                f"r2c_axis={r2c_axis} is not the contiguous axis: the "
+                f"packed-real fast path reads n reals as n/2 complex via a "
+                f"free reshape, which only the LAST transform axis "
+                f"(r2c_axis=-1) supports; transpose the operand or use "
+                f"kind='c2c'")
     batch_shape = tuple(int(d) for d in batch_shape)
     if any(d < 1 for d in batch_shape):
         raise ValueError(f"batch_shape dims must be >= 1, got {batch_shape}")
@@ -182,7 +200,8 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
     elif not _fits_local(shape):
         raise ValueError(
             f"placement='local' caps the contiguous axis at "
-            f"MAX_LOCAL_N={MAX_LOCAL_N}, got shape={shape}")
+            f"MAX_LOCAL_N={MAX_LOCAL_N} and earlier axes at "
+            f"MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}, got shape={shape}")
     return FftSpec(kind=kind, shape=shape, batch_shape=batch_shape,
                    placement=placement, layout=layout, impl=impl,
                    precision=precision, device=str(resolve_device(device)),

@@ -37,16 +37,18 @@ memory once per point each way.
 
 Each wrapper takes float32 tensors (planar for K1 and K2, real for K3). On
 a CUDA tensor it launches its kernel (and counts the launch in
-``<wrapper>.launches``) or raises; on a CPU tensor it runs the plain
-version — ``matfft_plain``, ``matfft_cols_plain``, ``rfft_leaf_plain``,
-``rfft_pack_leaf_plain`` — which repeats the tile algebra with PyTorch
-operations (and counts the call in ``<plain>.calls``).
+``<wrapper>.launches``, and its shape in ``launch_shapes``) or raises;
+on a CPU tensor it runs the plain version — ``matfft_plain``,
+``matfft_cols_plain``, ``rfft_leaf_plain``, ``rfft_pack_leaf_plain`` —
+which repeats the tile algebra with PyTorch operations (and counts the
+call in ``<plain>.calls``, and its shape in ``plain_shapes``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from collections import Counter
 
 import torch
 
@@ -57,6 +59,11 @@ from repro_torch.kernels.fft import plan as fft_plan
 RADIX = 16
 
 Planar = tuple[torch.Tensor, torch.Tensor]
+
+# (wrapper, operand shape, out_major or None) of each kernel launch, and of
+# each call a wrapper gave to its plain version, since `reset_counts`
+launch_shapes: Counter = Counter()
+plain_shapes: Counter = Counter()
 
 _TABLES: dict = {}
 _TABLES_LOCK = threading.Lock()
@@ -406,6 +413,7 @@ def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
             "matfft global_twiddle belongs to the distributed placement "
             "(ROADMAP Queue 1 item 7)")
     if xr.device.type == "cpu":
+        plain_shapes["matfft", tuple(xr.shape), None] += 1
         return matfft_plain(xr, xi, epilogue=epilogue)
     _check_cuda(xr, "matfft")
     rows, n = _check_rows(xr, xi, epilogue)
@@ -423,6 +431,7 @@ def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
     if rc:
         raise RuntimeError(f"matfft kernel launch failed: CUDA error {rc}")
     matfft.launches += 1
+    launch_shapes["matfft", (rows, n), None] += 1
     return yr, yi
 
 
@@ -451,6 +460,7 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
             "matfft_cols global_twiddle and column slabs belong to the "
             "distributed placement (ROADMAP Queue 1 item 7)")
     if xr.device.type == "cpu":
+        plain_shapes["matfft_cols", tuple(xr.shape), out_major] += 1
         return matfft_cols_plain(xr, xi, out_major=out_major,
                                  epilogue=epilogue)
     _check_cuda(xr, "matfft_cols")
@@ -472,6 +482,7 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
         raise RuntimeError(
             f"matfft_cols kernel launch failed: CUDA error {rc}")
     matfft_cols.launches += 1
+    launch_shapes["matfft_cols", (B, L, C), out_major] += 1
     return yr, yi
 
 
@@ -507,9 +518,11 @@ def rfft_leaf(x: torch.Tensor) -> Planar:
     complex points and untangles the half spectrum in its store.
     """
     if x.device.type == "cpu":
+        plain_shapes["rfft_leaf", tuple(x.shape), None] += 1
         return rfft_leaf_plain(x)
     y = _launch_rfft(x, True, "rfft_leaf")
     rfft_leaf.launches += 1
+    launch_shapes["rfft_leaf", tuple(x.shape), None] += 1
     return y
 
 
@@ -521,9 +534,11 @@ def rfft_pack_leaf(x: torch.Tensor) -> Planar:
     x[:, 0::2] + i*x[:, 1::2], planar (rows, n/2), NO untangle (the N-D
     real-input path untangles after its remaining axes)."""
     if x.device.type == "cpu":
+        plain_shapes["rfft_pack_leaf", tuple(x.shape), None] += 1
         return rfft_pack_leaf_plain(x)
     y = _launch_rfft(x, False, "rfft_pack_leaf")
     rfft_pack_leaf.launches += 1
+    launch_shapes["rfft_pack_leaf", tuple(x.shape), None] += 1
     return y
 
 
@@ -531,7 +546,10 @@ rfft_pack_leaf.launches = 0
 
 
 def reset_counts() -> None:
-    """Zero every launch and plain-call counter of this module."""
+    """Zero every launch and plain-call counter of this module, and the
+    shape counters (`stockham` records its calls there too)."""
+    launch_shapes.clear()
+    plain_shapes.clear()
     matfft.launches = matfft_cols.launches = 0
     rfft_leaf.launches = rfft_pack_leaf.launches = 0
     matfft_plain.calls = matfft_cols_plain.calls = 0

@@ -233,17 +233,36 @@ def fftn_hbm_bytes(shape, layout: str = "zero_copy",
     non-contiguous axis is brought to the minor position by a materialized
     swapaxes, row-FFT'd, and swapped back — two extra full round-trips of
     the image per axis on top of the pass itself.
+
+    An earlier axis longer than one leaf (`earlier_axis_hbm_bytes`) runs
+    between two materialized transposes in either layout.
     """
     shape = tuple(int(d) for d in shape)
     n_last = shape[-1]
     total_n = math.prod(shape)
     total = (total_n // n_last) * fft_hbm_bytes(n_last, layout, max_leaf)
-    per_pass = 2 * 2 * _F32 * total_n  # 2 planes in + 2 planes out
-    for _ in shape[:-1]:
-        total += per_pass
-        if layout != "zero_copy":
-            total += 2 * per_pass  # swapaxes there and back, materialized
+    for d in shape[:-1]:
+        total += earlier_axis_hbm_bytes(d, total_n, layout, max_leaf)
     return total
+
+
+def earlier_axis_hbm_bytes(length: int, points: int,
+                           layout: str = "zero_copy",
+                           max_leaf: int = MAX_LEAF) -> int:
+    """HBM bytes of one earlier-axis pass of length ``length`` over an
+    image or volume of ``points`` complex points (executors.axis_pass).
+
+    Up to one leaf on the zero-copy path: ONE column-strided pass, read 2
+    planes + write 2 planes. Otherwise the axis is brought to the minor
+    position by a materialized transpose, transformed as
+    ``points // length`` rows (level 0, or the level-1 four-step past
+    ``max_leaf``), and transposed back: two extra round trips.
+    """
+    per_pass = 2 * 2 * _F32 * points  # 2 planes in + 2 planes out
+    if layout == "zero_copy" and length <= max_leaf:
+        return per_pass
+    return ((points // length) * fft_hbm_bytes(length, layout, max_leaf)
+            + 2 * per_pass)
 
 
 def rfftn_hbm_bytes(shape, max_leaf: int = MAX_LEAF) -> int:
@@ -269,8 +288,9 @@ def rfftn_hbm_bytes(shape, max_leaf: int = MAX_LEAF) -> int:
     pass_a = rows_last * (_F32 * n_last + 2 * _F32 * m)
     if make_plan(m, max_leaf).levels != 1:
         pass_a += rows_last * fft_hbm_bytes(m, "zero_copy", max_leaf)
-    per_pass = 2 * 2 * _F32 * half_n
-    passes_rest = (len(shape) - 1) * per_pass
+    passes_rest = sum(earlier_axis_hbm_bytes(d, half_n, "zero_copy",
+                                             max_leaf)
+                      for d in shape[:-1])
     untangle = 2 * 2 * _F32 * half_n + 2 * _F32 * rows_last * (m + 1)
     return pass_a + passes_rest + untangle
 

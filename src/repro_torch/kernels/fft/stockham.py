@@ -23,7 +23,8 @@ bit for bit.
 On a CUDA tensor the wrapper launches the kernel (counted in
 ``stockham_fft.launches``) or raises; on a CPU tensor it runs
 ``stockham_fft_plain`` (counted in ``stockham_fft_plain.calls``), which
-repeats the stages with PyTorch operations.
+repeats the stages with PyTorch operations. Each call's shape goes to
+`matfft`'s ``launch_shapes`` or ``plain_shapes`` as well.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fft import plan as fft_plan
 from repro_torch.kernels.fft.matfft import (Planar, _check_cuda, _check_planes,
                                             _contiguous, _device_table,
+                                            launch_shapes, plain_shapes,
                                             stockham_stages)
 
 
@@ -140,6 +142,7 @@ def stockham_fft(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
     tensors via radix-2 Stockham stages; n a power of two <= MAX_LEAF.
     n == 1 returns its input."""
     if xr.device.type == "cpu":
+        plain_shapes["stockham", tuple(xr.shape), None] += 1
         return stockham_fft_plain(xr, xi)
     _check_cuda(xr, "stockham_fft")
     rows, n = _check(xr, xi)
@@ -156,6 +159,7 @@ def stockham_fft(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
         raise RuntimeError(
             f"stockham_fft kernel launch failed: CUDA error {rc}")
     stockham_fft.launches += 1
+    launch_shapes["stockham", (rows, n), None] += 1
     return yr, yi
 
 

@@ -226,3 +226,81 @@ def test_execute_async_from_pinned_staging(cuda, rng, donate):
     want = p.execute(*x)
     np.testing.assert_array_equal(got[0], want[0].cpu().numpy())
     np.testing.assert_array_equal(got[1], want[1].cpu().numpy())
+
+
+# N-D plans: (shape, batch) pairs at 2^18 to 2^20 points, with a K1 or K3
+# contiguous axis, K2 earlier axes, a level-1 contiguous axis and a
+# leading axis past MAX_LEAF (transposes around two K2 passes)
+ND_SHAPES = [((64, 64), (16,)), ((512, 1024), ()), ((16, 1 << 15), ()),
+             ((8192, 64), ()), ((64, 128, 32), (2,)), ((8, 16, 4096), ())]
+
+
+def _axis_k2_launches(shape) -> int:
+    """K2 launches of the earlier axes of an N-D forward: one column pass
+    an axis up to MAX_LEAF, the two passes of the level-1 four-step (between
+    transposes) past it."""
+    return sum(1 if n <= tplan.MAX_LEAF else 2 for n in shape[:-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,batch", ND_SHAPES)
+def test_fftn_plan_on_the_card_matches_the_cpu_plan(cuda, rng, shape, batch):
+    import repro_torch.fft as tfft
+    x = _planes(rng, (*batch, *shape), "cpu")
+    km.reset_counts()
+    on_card = tfft.plan(kind="c2c", shape=shape, batch_shape=batch)
+    got = on_card.execute(*x)
+    # the contiguous axis: one K1 pass, or the level-1 four-step's two K2
+    leaf = shape[-1] <= tplan.MAX_LEAF
+    assert km.matfft.launches == int(leaf)
+    assert km.matfft_cols.launches == (2 * (not leaf)
+                                       + _axis_k2_launches(shape))
+    assert km.matfft_cols_plain.calls == km.matfft_plain.calls == 0
+    on_cpu = tfft.plan(kind="c2c", shape=shape, batch_shape=batch,
+                       device="cpu")
+    assert _rel_err(got, on_cpu.execute(*x)) < TOL
+    assert _rel_err(on_card.execute_inverse(*got), x) < TOL
+    if len(shape) == 2:  # the helper is the same plan
+        y = tfft.fft2(*(t.to(cuda) for t in x))
+        assert torch.equal(y[0], got[0]) and torch.equal(y[1], got[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,batch", ND_SHAPES)
+def test_rfftn_plan_on_the_card_matches_the_cpu_plan(cuda, rng, shape, batch):
+    import repro_torch.fft as tfft
+    x = torch.from_numpy(rng.standard_normal((*batch, *shape))
+                         .astype(np.float32))
+    km.reset_counts()
+    on_card = tfft.plan(kind="r2c", shape=shape, batch_shape=batch)
+    got = on_card.execute_real(x)
+    # the contiguous axis: K3 packed, or the level-1 four-step's two K2 at
+    # half length
+    leaf = shape[-1] // 2 <= tplan.MAX_LEAF
+    assert km.rfft_pack_leaf.launches == int(leaf)
+    assert km.matfft.launches == 0
+    assert km.matfft_cols.launches == (2 * (not leaf)
+                                       + _axis_k2_launches(shape))
+    assert km.rfft_pack_leaf_plain.calls == km.matfft_cols_plain.calls == 0
+    on_cpu = tfft.plan(kind="r2c", shape=shape, batch_shape=batch,
+                       device="cpu")
+    assert _rel_err(got, on_cpu.execute_real(x)) < TOL
+    back = on_card.execute_inverse(*got)
+    assert float((back.cpu() - x).abs().max() / x.abs().max()) < TOL
+    if len(shape) == 2:
+        y = tfft.rfft2(x.to(cuda))
+        assert torch.equal(y[0], got[0]) and torch.equal(y[1], got[1])
+        assert torch.equal(tfft.irfft2(*y), back)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 1024), (8192, 64), (64, 128, 32)])
+def test_nd_zero_copy_equals_copy_bitwise_on_the_card(cuda, rng, shape):
+    from repro_torch.fft import executors
+    x = _planes(rng, (2, *shape), cuda)
+    zc = executors.fftn(*x, shape)
+    cp = executors.fftn(*x, shape, layout="copy")
+    assert torch.equal(zc[0], cp[0]) and torch.equal(zc[1], cp[1])
+    zc = executors.rfftn(x[0], shape)
+    cp = executors.rfftn(x[0], shape, layout="copy")
+    assert torch.equal(zc[0], cp[0]) and torch.equal(zc[1], cp[1])

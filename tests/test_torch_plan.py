@@ -183,9 +183,13 @@ def test_resolve_local_r2c_spec():
                                                       (8, 1024))
 
 
+@pytest.mark.parametrize("kind", ["r2c", "c2c"])
+def test_resolve_local_nd_spec(kind):
+    s = tspec.resolve(kind, shape=(64, 64), device="cpu")
+    assert (s.shape, s.ndim, s.placement) == ((64, 64), 2, "local")
+
+
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(kind="r2c", shape=(64, 64)), NotImplementedError, "item 6"),
-    (dict(kind="c2c", shape=(64, 64)), NotImplementedError, "item 6"),
     (dict(kind="c2c", n=256, placement="segmented"), NotImplementedError,
      "item 7"),
     (dict(kind="c2c", n=256, placement="distributed"), NotImplementedError,

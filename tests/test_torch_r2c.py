@@ -125,7 +125,7 @@ def test_r2c_builds_once_and_keys_its_own_cache_entry(rng):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(n=1), ValueError, "n >= 2"),
-    (dict(shape=(64, 64)), NotImplementedError, "item 6"),
+    (dict(shape=(64, 64), r2c_axis=0), ValueError, "contiguous axis"),
 ])
 def test_r2c_specs_the_port_refuses(kw, exc, match):
     with pytest.raises(exc, match=match):

@@ -124,9 +124,20 @@ def test_spectral_mixer_matches_reference(rng):
     assert _rel(got, want) < TOL
 
 
-def test_fft_conv2d_waits_for_the_nd_plans():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        spectral.fft_conv2d(np.zeros((8, 8)), np.zeros((3, 3)))
+def test_fft_conv2d_waits_for_the_nd_plans(rng):
+    """It waited for the N-D r2c plans; on them it matches the
+    reference's fft_conv2d and a direct convolution."""
+    x = rng.standard_normal((2, 16, 20)).astype(np.float32)
+    k = rng.standard_normal((3, 5)).astype(np.float32)
+    got = spectral.fft_conv2d(x, k, device="cpu").numpy()
+    want = np.asarray(jspectral.fft_conv2d(jnp.asarray(x), jnp.asarray(k)))
+    assert got.shape == x.shape
+    assert _rel(got, want) < TOL
+    direct = np.zeros(x.shape, np.float64)
+    for i in range(3):
+        for j in range(5):
+            direct[:, i:, j:] += k[i, j] * x[:, :16 - i, :20 - j]
+    assert _rel(got, direct) < TOL
 
 
 def test_spectral_ops_default_to_the_card(monkeypatch):
