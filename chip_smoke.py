@@ -177,6 +177,14 @@ FULL = {
            "rfft2": ((8,), (4096, 4096)),
            "conv2d": [((4000, 6000), (65, 65)), ((6000, 4000), (65, 65))],
            "reps": 3},
+    # the mesh placements on a world-size-1 group: the 1-D distributed
+    # four-step at n (every overlap x fuse_twiddle x layout) and at
+    # n_level2 (n1 past one leaf: pass 1 between transposes, unfused), the
+    # segmented c2c (segments, length) and r2c (segments, length); the
+    # options' checks at the per-rank shapes of a plan over `ranks`
+    "dist": {"n": 1 << 24, "n_level2": 1 << 26, "chunks": 4,
+             "seg_c2c": (64, 1 << 20), "seg_r2c": (4096, 1 << 16),
+             "ranks": 8, "reps": 3},
 }
 REHEARSE = {
     "runs": [
@@ -221,6 +229,9 @@ REHEARSE = {
            "rfft2": ((2,), (64, 128)),
            "conv2d": [((20, 4200), (5, 65)), ((4200, 20), (65, 5))],
            "reps": 1},
+    "dist": {"n": 1 << 12, "n_level2": 1 << 14, "chunks": 4,
+             "seg_c2c": (8, 1 << 10), "seg_r2c": (16, 1 << 14), "ranks": 8,
+             "reps": 1},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -303,7 +314,8 @@ def kernel_cases(cfg, max_leaf: int) -> list:
                           untangle and n in (512, 1024)))
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
-    return cases + ooc_kernel_cases(cfg) + nd_kernel_cases(cfg)
+    return (cases + ooc_kernel_cases(cfg) + nd_kernel_cases(cfg)
+            + dist_kernel_cases(cfg))
 
 
 def ooc_kernel_cases(cfg) -> list:
@@ -373,11 +385,104 @@ def nd_kernel_cases(cfg) -> list:
     return cases
 
 
+def dist_split(n: int) -> tuple[int, int]:
+    """(n1, n2) of the distributed four-step at n with D <= sqrt(n): n1 =
+    2^floor(log2(n) / 2) (core/fft/distributed.py:plan_distributed)."""
+    p = n.bit_length() - 1
+    return 1 << (p // 2), 1 << (p - p // 2)
+
+
+def option_key(kernel: str, shape, major, opts) -> tuple:
+    """A call's `matfft.launch_shapes` key: (wrapper, shape, major), and
+    with the global twiddle or a column slab, a fourth entry naming them."""
+    tags = (("twiddle",) if opts.get("global_twiddle") else ()) + (
+        ("slab", opts["ncols"]) if opts.get("ncols") else ())
+    return (kernel, tuple(shape), major) + ((tags,) if tags else ())
+
+
+def dist_kernel_cases(cfg) -> list:
+    """K1 and K2 with the distributed four-step's options: the global
+    twiddle and K2's column slab. Timed (under their own names) at the
+    shapes phase 10's runs give them on one rank: pass 1 fused (K2 row,
+    K1 in the copy layout; a whole pass and a slab of the overlapped
+    engine), pass 2's slab; checked only: the options at shapes one rank
+    does not reach (the twiddle in a col-major store, a one-column slab)
+    and at the per-rank shapes of a plan over ``ranks`` ranks (pass 1
+    with each rank's row offset, pass 2's slabs)."""
+    c = cfg["dist"]
+    n = c["n"]
+    n1, n2 = dist_split(n)
+    k, d = c["chunks"], c["ranks"]
+    n1l, n2l = n1 // d, n2 // d
+
+    def twiddle(off):
+        return {"global_twiddle": (n, off)}
+
+    def slab(off, nc):
+        return {"col_offset": off, "ncols": nc}
+
+    cases = [  # (kernel, shape, major, options, timed)
+        ("matfft_cols", (1, n1, n2), "row", twiddle(0), True),
+        ("matfft_cols", (1, n1, n2), "col", twiddle(0), False),
+        ("matfft_cols", (1, n1, n2 // k), "row", twiddle(n2 // k), True),
+        ("matfft_cols", (1, n2, n1), "col", slab(n1 // k, n1 // k), True),
+        ("matfft_cols", (1, n2, n1), "col", slab(n1 - 1, 1), False),
+        ("matfft", (n2, n1), None, twiddle(0), True),
+        ("matfft", (n2 // k, n1), None, twiddle(3 * n2 // k), True)]
+    cases += [("matfft_cols", (1, n1, n2l), "row", twiddle(r * n2l), False)
+              for r in range(d)]
+    cases += [("matfft_cols", (1, n2, n1l), "col",
+               slab(j * n1l // k, n1l // k), False) for j in range(k)]
+    out, seen = [], set()
+
+    def add(wrapper, shape, opts, name):
+        kernel = "rfft" if wrapper == "rfft_leaf" else wrapper
+        frozen = (kernel, tuple(shape), tuple(sorted(opts.items())))
+        if frozen not in seen:
+            seen.add(frozen)
+            out.append((variant_of((wrapper, shape)), kernel, shape,
+                        {**opts, "dist": True}, name))
+
+    for kernel, shape, major, opts, timed in cases:
+        key = option_key(kernel, shape, major, opts)
+        opts = {**opts, **({"period": None} if kernel == "matfft" else
+                           {"out_major": major, "with_epilogue": False})}
+        add(kernel, shape, opts, dist_case_name(variant_of(key), key)
+            if timed else False)
+    # every other call of phase 10's runs, at its own shape and offsets
+    calls = [call for run in dist_runs(cfg) for call in dist_calls(*run)]
+    calls += [call for kind in ("c2c", "r2c")
+              for call in seg_calls(kind, *c[f"seg_{kind}"])]
+    for key, opts in calls:
+        add(key[0], key[1], opts, False)
+    return out
+
+
+def case_key(kernel: str, shape, opts) -> tuple:
+    """The `matfft.launch_shapes` key of a phase 3 case's call."""
+    if kernel == "rfft":
+        kernel = "rfft_leaf" if opts["untangle"] else "rfft_pack_leaf"
+    return option_key(kernel, shape, opts.get("out_major"), opts)
+
+
+def dist_case_name(variant: str, key: tuple) -> str:
+    """A timed option case's name in the `kernels` line: "<variant>
+    <shape>[ <major>] twiddle|slab <ncols>"."""
+    words = [variant, str(key[1])] + ([key[2]] if key[2] else [])
+    tags = key[3]
+    if "twiddle" in tags:
+        words.append("twiddle")
+    if "slab" in tags:
+        words.append(f"slab {tags[tags.index('slab') + 1]}")
+    return " ".join(words)
+
+
 def case_work(km, ks, kplan, kernel: str, shape, opts, epi, dev):
     """(bytes, flops) of one call: each input read once (the tables too),
     each output written once; 5 n log2 n flops a complex row, 6 a point
-    for an epilogue's complex product, and for K3 the reference planner's
-    count, 5 m log2 m + 10 m a row (m = n/2)."""
+    for an epilogue's complex product and 12 for the global twiddle's (the
+    two tables' product, then the output's), and for K3 the reference
+    planner's count, 5 m log2 m + 10 m a row (m = n/2)."""
     def table_bytes(tables):
         return sum(t.numel() * 4 for t in tables)
 
@@ -386,12 +491,16 @@ def case_work(km, ks, kplan, kernel: str, shape, opts, epi, dev):
             rows, n = shape
         else:
             B, n, C = shape
-            rows = B * C
+            rows = B * (opts.get("ncols") or C)
+        gt = opts.get("global_twiddle")
         nbytes = (rows * kplan.fft_hbm_bytes(n)
                   + table_bytes(km.leaf_tables(n, dev))
-                  + (table_bytes(epi) if epi is not None else 0))
+                  + (table_bytes(epi) if epi is not None else 0)
+                  + (table_bytes(km.global_twiddle_tables(gt[0], dev))
+                     if gt else 0))
         flops = rows * (5.0 * n * math.log2(n)
-                        + (6.0 * n if epi is not None else 0.0))
+                        + (6.0 * n if epi is not None else 0.0)
+                        + (12.0 * n if gt else 0.0))
     elif kernel == "rfft":
         rows, n = shape
         m = n // 2
@@ -445,45 +554,64 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
     def times(epi, er, ei):  # (rows, n) planes times per-row table rows
         return er * epi[0] - ei * epi[1], er * epi[1] + ei * epi[0]
 
+    def global_twiddle(rows, n, gt):
+        """W_N^((row_off + r) * o mod N), (rows, n), complex128."""
+        n_global, off = gt
+        r = torch.arange(off, off + rows, device=dev)
+        m = (r[:, None] * torch.arange(n, device=dev)) % n_global
+        return torch.exp((-2j * math.pi / n_global) * m.double())
+
     checks, timing = [], {}
     for variant, kernel, shape, opts, timed in kernel_cases(
             cfg, kplan.MAX_LEAF):
         epi = None
-        nd = opts.get("nd", False)
+        # phases 9 and 10's shapes (up to 2^27 points) drawn on the device
+        nd = opts.get("nd", False) or opts.get("dist", False)
         lib_time = None
+        # the distributed four-step's options (dist_kernel_cases)
+        kw = {k: opts[k] for k in ("global_twiddle", "col_offset", "ncols")
+              if opts.get(k) is not None}
+        gt = opts.get("global_twiddle")
         if kernel == "matfft":
             xr, xi = planes(shape, nd)
             xc = torch.complex(xr, xi)
             rows, n = shape
             epi = (unit_table((opts["period"], n), nd) if opts["period"]
                    else None)
-            run = lambda: km.matfft(xr, xi, epilogue=epi)  # noqa: E731
-            plain = lambda: km.matfft_plain(xr, xi, epilogue=epi)  # noqa
+            run = lambda: km.matfft(xr, xi, epilogue=epi, **kw)  # noqa
+            plain = lambda: km.matfft_plain(  # noqa: E731
+                xr, xi, epilogue=epi, **kw)
             lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
             y = lib()
+            if gt:
+                y = y * global_twiddle(rows, n, gt)
             want = (y.real, y.imag)
             if epi is not None:
                 idx = torch.arange(rows, device=dev) % opts["period"]
                 want = times((epi[0][idx], epi[1][idx]), *want)
         elif kernel == "matfft_cols":
             xr, xi = planes(shape, nd)
-            xc = torch.complex(xr, xi)
             B, n, C = shape
-            rows = B * C
+            off, nc = opts.get("col_offset", 0), opts.get("ncols") or C
+            xc = torch.complex(xr, xi)[:, :, off:off + nc]
+            rows = B * nc
             epi = unit_table((C, n), nd) if opts["with_epilogue"] else None
             major = opts["out_major"]
             run = lambda: km.matfft_cols(  # noqa: E731
-                xr, xi, out_major=major, epilogue=epi)
+                xr, xi, out_major=major, epilogue=epi, **kw)
             plain = lambda: km.matfft_cols_plain(  # noqa: E731
-                xr, xi, out_major=major, epilogue=epi)
+                xr, xi, out_major=major, epilogue=epi, **kw)
             lib = lambda: torch.fft.fft(xc, dim=1)  # noqa: E731
             y = lib().transpose(1, 2).reshape(rows, n)
+            if gt:
+                y = y * global_twiddle(rows, n, gt)
             want = (y.real, y.imag)
             if epi is not None:
                 want = times((epi[0].repeat(B, 1), epi[1].repeat(B, 1)),
                              *want)
             if major == "col":
-                want = tuple(t.reshape(B, C, n).transpose(1, 2) for t in want)
+                want = tuple(t.reshape(B, nc, n).transpose(1, 2)
+                             for t in want)
         elif kernel == "rfft":
             x = real(shape, nd)
             if opts["untangle"]:
@@ -511,7 +639,9 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         ref = plain()
         got_c = torch.complex(*got)
         max_abs = float((got_c - torch.complex(*ref)).abs().max())
-        c = {"variant": variant, "shape": list(shape), **opts,
+        c = {"variant": variant, "shape": list(shape),
+             **{k: v for k, v in opts.items() if k != "global_twiddle"},
+             "global_twiddle": list(gt) if gt else None,
              "epilogue": list(epi[0].shape) if epi is not None else None,
              "max_abs_err": max_abs, "bitwise_plain": max_abs == 0.0,
              "rel_err_plain": max_abs / float(torch.complex(*ref).abs().max()),
@@ -545,7 +675,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                 "bound_ms": max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
         del run, plain, lib, lib_time
-        if nd and gpu:
+        if (nd or opts.get("dist")) and gpu:
             torch.cuda.empty_cache()
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise;
@@ -1280,9 +1410,273 @@ def nd_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
     return out, measured
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the segmented and 1-D distributed placements on one rank
+
+
+def pass_opts(key: tuple) -> dict:
+    """Phase 3's options for a call of a zero-copy transform: K2's
+    row-major pass of a four-step carries the outer twiddle, its
+    column-major pass nothing; K1 no epilogue; K3 with the untangle."""
+    kernel, _, major = key[:3]
+    if kernel == "matfft":
+        return {"period": None}
+    if kernel == "matfft_cols":
+        return {"out_major": major, "with_epilogue": major == "row"}
+    return {"untangle": True}
+
+
+def dist_runs(cfg) -> list:
+    """Phase 10's distributed runs, (n, chunks, fuse_twiddle, layout):
+    every overlap x fuse_twiddle x layout at ``n``, both overlaps unfused
+    and zero-copy at ``n_level2``."""
+    c = cfg["dist"]
+    k = c["chunks"]
+    return ([(c["n"], o, f, lay) for o in (None, k) for f in (False, True)
+             for lay in ("zero_copy", "copy")]
+            + [(c["n_level2"], o, False, "zero_copy") for o in (None, k)])
+
+
+def dist_calls(n: int, chunks, fuse: bool, layout: str) -> list:
+    """Every kernel call of one distributed forward on one rank, worked
+    out from the plan (n = n1 * n2, k = chunks or 1), as (launch_shapes
+    key, phase 3's options): pass 1 over k slabs of (n1, n2/k) columns,
+    slab c's first row at c * n2/k, as K2 with a row-major store, or in
+    the copy layout K1 over the transposed slab, the global twiddle in the
+    store when fused and n1 is one leaf; past one leaf (zero_copy only)
+    the level-1 transform of the slab's columns as rows. Pass 2 over (n2,
+    n1): K2 col-major, whole or in k slabs of n1/k columns read in place;
+    in the copy layout or past one leaf the slab's columns as rows."""
+    from repro_torch.kernels.fft import plan as kplan
+    n1, n2 = dist_split(n)
+    k = chunks or 1
+    leaf1 = kplan.make_plan(n1).levels == 1
+    check(leaf1 or layout == "zero_copy",
+          f"dist_calls: the copy layout past one leaf (n1={n1})")
+    out = []
+    for c in range(k):
+        tw = {"global_twiddle": (n, c * n2 // k)} if fuse and leaf1 else {}
+        if leaf1 and layout == "zero_copy":
+            out.append((("matfft_cols", (1, n1, n2 // k), "row"),
+                        {"out_major": "row", "with_epilogue": False, **tw}))
+        elif leaf1:
+            out.append((("matfft", (n2 // k, n1), None),
+                        {"period": None, **tw}))
+        else:
+            out += [(key, pass_opts(key))
+                    for key in nd_pass_launches(n2 // k, n1)]
+    for j in range(k):
+        if kplan.make_plan(n2).levels == 1 and layout == "zero_copy":
+            opts = {"out_major": "col", "with_epilogue": False}
+            if chunks:
+                opts.update(col_offset=j * n1 // k, ncols=n1 // k)
+            out.append((("matfft_cols", (1, n2, n1), "col"), opts))
+        else:
+            out += [(key, pass_opts(key))
+                    for key in nd_pass_launches(n1 // k, n2)]
+    return [(option_key(key[0], key[1], key[2], opts), opts)
+            for key, opts in out]
+
+
+def seg_calls(kind: str, segs: int, length: int) -> list:
+    """The kernel calls of one segmented forward on one rank, as
+    `dist_calls` gives them: the local plan's over this rank's rows."""
+    from repro_torch.kernels.fft import plan as kplan
+    if kind == "c2c":
+        keys = nd_pass_launches(segs, length)
+    elif kplan.make_plan(length // 2).levels == 1:
+        keys = [("rfft_leaf", (segs, length), None)]
+    else:
+        keys = nd_pass_launches(segs, length // 2)
+    return [(key, pass_opts(key)) for key in keys]
+
+
+def dist_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
+    """Phase 10: a world-size-1 group (NCCL on the card, gloo in the
+    rehearsal) over a one-rank ("data",) mesh. The 1-D distributed
+    four-step at ``n`` under every overlap x fuse_twiddle x layout and at
+    ``n_level2`` under both overlaps; the segmented c2c and r2c batches.
+    Each run once with the counts zeroed just before and read just after,
+    its calls held to those worked out from the plan, its output within
+    5e-6 of torch.fft; overlap == off, zero_copy == copy and segmented ==
+    the local plan, bitwise; then each timed beside torch.fft (CUDA
+    events, ``reps`` calls). Returns the summary and each run's measured
+    calls."""
+    import datetime
+    from collections import Counter
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.fft as tfft
+    from repro_torch.kernels.fft import matfft as km
+
+    c = cfg["dist"]
+    reps = c["reps"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    store = ROOT / "build" / "dist_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl" if gpu else "gloo",
+                            store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+    runs, measured = [], {}
+
+    def counted(name, fn, want):
+        reset_counts()
+        y = fn()
+        if gpu:
+            torch.cuda.synchronize()
+        counts, shapes = read_counts(), read_shapes(gpu)
+        measured[name] = shapes
+        nd_check_counts(gpu, name, counts, shapes, Counter(want))
+        return y, counts
+
+    def timed(fn, lib):
+        if not gpu:
+            return {}
+        return {"ms": timed_ms(torch, fn, reps),
+                "library_ms": timed_ms(torch, lib, reps)}
+
+    try:
+        for n in (c["n"], c["n_level2"]):
+            matrix = [run[1:] for run in dist_runs(cfg) if run[0] == n]
+            xr = torch.randn(n, generator=gen, device=dev)
+            xi = torch.randn(n, generator=gen, device=dev)
+            xc = torch.complex(xr, xi)
+            want = torch.fft.fft(xc)
+            outs = {}
+            for chunks, fuse, layout in matrix:
+                overlap = chunks or "off"
+                name = f"distributed n={n} overlap={overlap} " \
+                       f"fuse={fuse} {layout}"
+                p = tfft.plan(kind="c2c", n=n, mesh=mesh,
+                              placement="distributed", overlap=overlap,
+                              fuse_twiddle=fuse, layout=layout)
+                shard = (tfft.local_shard(xr, mesh),
+                         tfft.local_shard(xi, mesh))
+                y, counts = counted(name, lambda: p.execute(*shard),
+                                    [key for key, _ in dist_calls(
+                                        n, chunks, fuse, layout)])
+                err = rel_err(torch.complex(*y), want)
+                check(bool(torch.isfinite(y[0]).all()), f"{name}: "
+                      f"non-finite")
+                check(err < TOL, f"{name}: {err} vs torch.fft.fft")
+                outs[chunks, fuse, layout] = y
+                run = {"run": name, "n": n, "dist": [p.dist.n1, p.dist.n2,
+                                                     p.dist.chunks],
+                       "rel_err": err, "launches": counts,
+                       "collective_bytes": p.collective_bytes,
+                       "exposed_collective_bytes":
+                           p.exposed_collective_bytes,
+                       "hbm_bytes": p.hbm_bytes,
+                       **timed(lambda: p.execute(*shard),
+                               lambda: torch.fft.fft(xc))}
+                if chunks is None and not fuse and layout == "zero_copy":
+                    back = p.execute_inverse(*y)
+                    run["roundtrip_rel_err"] = rel_err(torch.complex(*back),
+                                                       xc)
+                    check(run["roundtrip_rel_err"] < TOL_ROUND,
+                          f"{name}: inverse {run['roundtrip_rel_err']}")
+                    del back
+                runs.append(run)
+            # bitwise: overlap == off, zero_copy == copy
+            same = {}
+            for (chunks, fuse, layout), y in outs.items():
+                for other in ((None, fuse, layout), (chunks, fuse,
+                                                     "zero_copy")):
+                    if other != (chunks, fuse, layout) and other in outs:
+                        z = outs[other]
+                        key = f"n={n} {(chunks, fuse, layout)} == {other}"
+                        same[key] = (torch.equal(y[0], z[0])
+                                     and torch.equal(y[1], z[1]))
+                        check(same[key], f"distributed {key}: bits differ")
+            print(f"distributed n={n}: {len(same)} bitwise pairs equal")
+            runs.append({"run": f"bitwise n={n}", "pairs": same})
+            del outs, want, xc, xr, xi
+
+        # segmented: the batch split, each rank's rows by the local plan
+        for kind, (segs, length) in (("c2c", c["seg_c2c"]),
+                                     ("r2c", c["seg_r2c"])):
+            name = f"segmented {kind} {segs} x {length}"
+            p = tfft.plan(kind=kind, n=length, batch_shape=(segs,),
+                          mesh=mesh, placement="segmented")
+            local = tfft.plan(kind=kind, n=length, batch_shape=(segs,),
+                              device=dev)
+            if kind == "c2c":
+                x = (torch.randn((segs, length), generator=gen, device=dev),
+                     torch.randn((segs, length), generator=gen, device=dev))
+                lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
+                xc = torch.complex(*x)
+                shard = tuple(tfft.local_shard(a, mesh) for a in x)
+                fwd, fwd_local = p.execute, local.execute
+            else:
+                x = torch.randn((segs, length), generator=gen, device=dev)
+                lib = lambda: torch.fft.rfft(x, dim=-1)  # noqa: E731
+                shard = (tfft.local_shard(x, mesh),)
+                fwd, fwd_local = p.execute_real, local.execute_real
+            y, counts = counted(name, lambda: fwd(*shard),
+                                [key for key, _ in seg_calls(kind, segs,
+                                                             length)])
+            err = rel_err(torch.complex(*y), lib())
+            check(err < TOL, f"{name}: {err} vs torch.fft")
+            z = fwd_local(*shard)
+            same = torch.equal(y[0], z[0]) and torch.equal(y[1], z[1])
+            check(same, f"{name}: differs from the local plan")
+            runs.append({"run": name, "placement": p.placement,
+                         "rel_err": err, "launches": counts,
+                         "local_bitwise": same, "hbm_bytes": p.hbm_bytes,
+                         **timed(lambda: fwd(*shard), lib)})
+            del x, y, z, shard
+
+        # the unfused pass 1's twiddle alone (torch ops), on the (n2, n1)
+        # output of pass 1 at n
+        n1, n2 = dist_split(c["n"])
+        br, bi = (torch.randn((n2, n1), generator=gen, device=dev)
+                  for _ in range(2))
+        twiddle = {"shape": [n2, n1], "n_global": c["n"]}
+        if gpu:
+            twiddle["ms"] = timed_ms(
+                torch, lambda: km.apply_global_twiddle(br, bi, c["n"], 0),
+                reps)
+        runs.append({"run": "unfused twiddle", **twiddle})
+        del br, bi
+    finally:
+        tfft.invalidate_mesh(mesh)  # its plans hold the group
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    if gpu:
+        torch.cuda.empty_cache()
+    return {"runs": runs}, measured
+
+
+def variant_of(key: tuple) -> str:
+    """The kernel variant a `launch_shapes` key's call ran."""
+    wrapper, shape = key[0], key[1]
+    if wrapper == "stockham":
+        return "stockham"
+    if wrapper in ("rfft_leaf", "rfft_pack_leaf"):
+        return "rfft/direct" if shape[1] // 2 <= 256 else "rfft/four_step"
+    return wrapper + ("/direct" if shape[1] <= 256 else "/four_step")
+
+
+def dist_kernel_launches(cfg, measured: dict) -> dict:
+    """Measured launches of each timed option case of phase 3 over phase
+    10's runs, under its name in the `kernels` line."""
+    launches = {}
+    for _, kernel, shape, opts, name in dist_kernel_cases(cfg):
+        if name:
+            key = option_key(kernel, shape, opts.get("out_major"), opts)
+            launches[name] = sum(run[key] for run in measured.values())
+    return launches
+
+
 def nd_kernel_launches(cfg, measured: dict) -> dict:
-    """Measured launches of each of phase 9's kernel shapes over its
-    checked runs, under the names `nd_kernel_cases` times them by."""
+    """Measured launches of each of phase 9's kernel shapes over the
+    checked runs in ``measured``, under the names `nd_kernel_cases` times
+    them by."""
     launches = {}
     for _, kernel, shape, opts, name in nd_kernel_cases(cfg):
         key = ("rfft_pack_leaf" if kernel == "rfft" else kernel, shape,
@@ -1315,6 +1709,7 @@ def main(argv=None) -> int:
     t_start = time.monotonic()
     from repro_torch.core.pipeline import BlockStore
     from repro_torch.kernels import build
+    from repro_torch.kernels.fft import plan as kplan
 
     # phase 1: device
     smi = device_line() if gpu else "cpu (rehearsal)"
@@ -1425,22 +1820,41 @@ def main(argv=None) -> int:
     nd, nd_measured = nd_checks(torch, dev, gpu, cfg)
     nd["seconds"] = time.monotonic() - t0
     print(f"N-D phase: {nd['seconds']:.3f} s")
-    for name, k in nd_kernel_launches(cfg, nd_measured).items():
-        launches[name] = k
-        variant = name.split(" ")[0]
-        launches[variant] = launches.get(variant, 0) + k
+
+    # phase 10: the segmented and 1-D distributed placements
+    t0 = time.monotonic()
+    dist_summary, dist_measured = dist_checks(torch, dev, gpu, cfg)
+    dist_summary["seconds"] = time.monotonic() - t0
+    print("dist " + json.dumps(dist_summary))
+    print(f"distributed phase: {dist_summary['seconds']:.3f} s")
+
+    # the launches of phases 9 and 10: by variant, and by timed shape
+    for run in (*nd_measured.values(), *dist_measured.values()):
+        for key, k in run.items():
+            variant = variant_of(key)
+            launches[variant] = launches.get(variant, 0) + k
+    launches.update(nd_kernel_launches(cfg, {**nd_measured,
+                                             **dist_measured}))
+    launches.update(dist_kernel_launches(cfg, dist_measured))
+    # every call of phases 9 and 10 was held to its plain version in
+    # phase 3 at its own shape
+    covered = {case_key(kernel, shape, opts) for _, kernel, shape, opts, _
+               in kernel_cases(cfg, kplan.MAX_LEAF)}
+    for name, run in (*nd_measured.items(), *dist_measured.items()):
+        missing = sorted(set(run) - covered)
+        check(not missing, f"{name}: calls with no phase 3 case: {missing}")
 
     if not gpu:
         print(f"rehearsal passed in {time.monotonic() - t_start:.1f} s")
         return 0
 
-    # phase 10: the kernels line
+    # phase 11: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
               "batch_invariance": inv, "main_path": runs,
               "out_of_core": ooc, "spectrograms": spectrograms,
-              "fft_conv": conv, "nd": nd,
+              "fft_conv": conv, "nd": nd, "dist": dist_summary,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

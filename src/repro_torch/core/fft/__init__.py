@@ -1,2 +1,4 @@
-"""Placements that stream or split one transform over many plan calls: the
-out-of-core four-step (`outofcore`)."""
+"""Placements that split one transform, or a batch of them, over many
+plan calls or ranks: the out-of-core four-step (`outofcore`), the
+segmented batch split (`segmented`) and the cross-rank four-step
+(`distributed`)."""

@@ -4,7 +4,8 @@
 //                 Replaces repro/kernels/fft/matfft.py:matfft (Pallas bodies
 //                 _dft_kernel and _matfft_kernel).
 //   matfft_cols   K2: DFT along the MIDDLE axis of planar (B, L, C) f32,
-//                 stored row-major (B*C, L) or column-major (B, L, C).
+//                 or of an aligned slab of its columns, stored row-major
+//                 (B*C, L) or column-major (B, L, C).
 //                 Replaces repro/kernels/fft/matfft.py:matfft_cols (Pallas
 //                 body _col_kernel).
 //
@@ -73,6 +74,30 @@
 // A row's result depends only on its own values: every output is a fixed
 // sequence of operations on its own row, with no reduction across rows,
 // so it is the same whatever the batch size or the row's place in it.
+//
+// Two options of K1 and K2 serve the distributed four-step
+// (core/fft/distributed.py):
+//
+//   global twiddle  replaces repro/kernels/fft/matfft.py:_global_twiddle.
+//                   The store multiplies output (row, o) by W_N^m, m =
+//                   ((row0 + row) * o) mod N, N = n_global a power of two
+//                   <= 2^32: the product wraps in 32-bit unsigned
+//                   arithmetic and the mask reduces it exactly. W_N^m is
+//                   the product of two entries of the plan's tables
+//                   (kernels/fft/plan.py:global_twiddles, float64 on the
+//                   host): W_N^{(m >> k) << k} * W_N^{m & (2^k - 1)}, k =
+//                   ceil(log2 N / 2), then multiplied into the output, both
+//                   rounded as cmul rounds. The reference computes cos and
+//                   sin of an f32 angle on the fly; reading two small
+//                   tables (at most 2^16 entries each, resident in L2)
+//                   keeps the kernel equal to its plain version bit for
+//                   bit. K1's row is its row index, K2's the slab-relative
+//                   row b * ncols + c.
+//   column slab     K2 transforms only the columns [col0, col0 + ncols) of
+//                   the (B, L, C) operand, read in place (matfft.py:325):
+//                   block tiles span R = min(TILE / L, ncols) columns of
+//                   the slab, and the output is (B, L, ncols) or
+//                   (B * ncols, L).
 
 #include <cuda_runtime.h>
 
@@ -107,6 +132,29 @@ __device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
                                      float& yr, float& yi) {
   yr = __fsub_rn(__fmul_rn(ar, br), __fmul_rn(ai, bi));
   yi = __fadd_rn(__fmul_rn(ar, bi), __fmul_rn(ai, br));
+}
+
+// The global-twiddle epilogue's arguments (hr == nullptr: off): the high
+// table W_N^{j << k}, j < N >> k, the low table W_N^j, j < 2^k, the mask
+// N - 1 and the logical row of the call's row 0.
+struct GTw {
+  const float *hr, *hi, *lr, *li;
+  unsigned long long row0;
+  unsigned mask;
+  int k;
+};
+
+// v *= W_N^m, m = ((row0 + row) * o) mod N (plain version:
+// kernels/fft/matfft.py:apply_global_twiddle)
+__device__ __forceinline__ void global_twiddle(const GTw& t, long long row,
+                                               int o, float& vr, float& vi) {
+  const unsigned m =
+      ((unsigned)(t.row0 + (unsigned long long)row) * (unsigned)o) & t.mask;
+  const unsigned h = m >> t.k, l = m & ((1u << t.k) - 1u);
+  float wr, wi;
+  cmul(__ldg(t.hr + h), __ldg(t.hi + h), __ldg(t.lr + l), __ldg(t.li + l),
+       wr, wi);
+  cmul(vr, vi, wr, wi, vr, vi);
 }
 
 // Bit reversal of the low `bits` bits of v, bits <= LOG_RADIX. No loop,
@@ -416,7 +464,7 @@ rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             float* __restrict__ yr, float* __restrict__ yi, long long rows,
             Geom g, const float* __restrict__ twr,
             const float* __restrict__ twi, const float* __restrict__ er,
-            const float* __restrict__ ei, int period) {
+            const float* __restrict__ ei, int period, GTw gt) {
   extern __shared__ float smem[];
   float* sr = smem;
   float* si = smem + g.plane;
@@ -439,37 +487,40 @@ rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     if (er != nullptr) {
       const int e = (int)(row & (period - 1)) * g.n + o;
       cmul(vr, vi, __ldg(er + e), __ldg(ei + e), vr, vi);
+    } else if (gt.hr != nullptr) {
+      global_twiddle(gt, row, o, vr, vi);
     }
     yr[row * g.n + o] = vr;
     yi[row * g.n + o] = vi;
   }
 }
 
-// K2: block (b, j) transforms columns [j*R, j*R + R) of matrix b of the
-// (B, L, C) planes; L = g.n. The (L, R) tile is read R consecutive floats
-// a matrix row and held transposed (one column per shared-memory row). A
-// warp's load fills whole 32-byte sectors only when R >= 8 (L <= 512);
-// at L = 1024 (R = 4) it uses half of each sector, at L = 4096 (R = 1) an
+// K2: block (b, j) transforms columns [col0 + j*R, col0 + j*R + R) of
+// matrix b of the (B, L, C) planes, tile j of the slab of nc columns from
+// col0; L = g.n. The (L, R) tile is read R consecutive floats a matrix
+// row and held transposed (one column per shared-memory row). A warp's
+// load fills whole 32-byte sectors only when R >= 8 (L <= 512); at L =
+// 1024 (R = 4) it uses half of each sector, at L = 4096 (R = 1) an
 // eighth.
 template <bool kTwoPass>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-            float* __restrict__ yr, float* __restrict__ yi, int C,
-            int tiles_per_b, Geom g, const float* __restrict__ twr,
+            float* __restrict__ yr, float* __restrict__ yi, int C, int col0,
+            int nc, int tiles_per_b, Geom g, const float* __restrict__ twr,
             const float* __restrict__ twi, const float* __restrict__ er,
-            const float* __restrict__ ei, int col_major) {
+            const float* __restrict__ ei, int col_major, GTw gt) {
   extern __shared__ float smem[];
   float* sr = smem;
   float* si = smem + g.plane;
   const long long b = blockIdx.x / tiles_per_b;
-  const int c0 = (blockIdx.x % tiles_per_b) * g.R;
+  const int c0 = (blockIdx.x % tiles_per_b) * g.R;  // within the slab
   const int L = g.n;
   const int tot = g.R * L;
-  const long long base = b * L * (long long)C + c0;
+  const long long src = b * L * (long long)C + col0 + c0;
   for (int f = threadIdx.x; f < tot; f += NT) {
     const int r = f & (g.R - 1), l = f >> g.log_R;
-    sr[r * g.ld + l] = xr[base + (long long)l * C + r];
-    si[r * g.ld + l] = xi[base + (long long)l * C + r];
+    sr[r * g.ld + l] = xr[src + (long long)l * C + r];
+    si[r * g.ld + l] = xi[src + (long long)l * C + r];
   }
   __syncthreads();
   tile_dft<kTwoPass>(sr, si, g, twr, twi);
@@ -479,16 +530,18 @@ cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     if (col_major) {  // out[b, o, c]
       r = f & (g.R - 1);
       o = f >> g.log_R;
-      dst = base + (long long)o * C + r;
-    } else {          // out[b*C + c, o]
+      dst = (b * L + o) * (long long)nc + c0 + r;
+    } else {          // out[b*nc + c, o]
       r = f >> g.log_n;
       o = f & (L - 1);
-      dst = (b * C + c0 + r) * (long long)L + o;
+      dst = (b * nc + c0 + r) * (long long)L + o;
     }
     float vr = sr[r * g.ld + o], vi = si[r * g.ld + o];
     if (er != nullptr) {
-      const int e = (c0 + r) * L + o;
+      const int e = (col0 + c0 + r) * L + o;
       cmul(vr, vi, __ldg(er + e), __ldg(ei + e), vr, vi);
+    } else if (gt.hr != nullptr) {
+      global_twiddle(gt, b * nc + c0 + r, o, vr, vi);
     }
     yr[dst] = vr;
     yi[dst] = vi;
@@ -628,6 +681,23 @@ Geom make_geom(int n, int R, bool pad) {
 
 int smem_bytes(const Geom& g) { return 2 * g.plane * (int)sizeof(float); }
 
+// The global twiddle's kernel argument; 0 on success, else the error of a
+// bad N (a power of two up to 2^32 wanted).
+int make_gtw(const float* hr, const float* hi, const float* lr,
+             const float* li, long long n_global, long long row_off,
+             GTw& t) {
+  t = GTw{hr, hi, lr, li, (unsigned long long)row_off, 0u, 0};
+  if (hr == nullptr) return 0;
+  if (n_global < 1 || n_global > (1ll << 32) || (n_global & (n_global - 1))
+      || row_off < 0)
+    return (int)cudaErrorInvalidValue;
+  int p = 0;
+  while ((1ll << p) < n_global) ++p;
+  t.mask = (unsigned)(n_global - 1);
+  t.k = (p + 1) / 2;
+  return 0;
+}
+
 // Launches one instantiation of a kernel with the tile's shared memory.
 template <typename... Params, typename... Args>
 int launch(void (*kernel)(Params...), long long blocks, const Geom& g,
@@ -645,33 +715,49 @@ int launch(void (*kernel)(Params...), long long blocks, const Geom& g,
 extern "C" {
 
 // Returns 0, or the CUDA error code of the launch. wr, wi: the leaf table
-// W_n^k (n,).
+// W_n^k (n,). er, ei: the periodic epilogue table or null; ghr .. gli:
+// the global twiddle's tables (kernels/fft/plan.py:global_twiddles) or
+// null, with n_global and the logical row of row 0, row_off.
 int matfft_rows(const float* xr, const float* xi, float* yr, float* yi,
                 long long rows, int n, const float* wr, const float* wi,
-                const float* er, const float* ei, int period, void* stream) {
+                const float* er, const float* ei, int period,
+                const float* ghr, const float* ghi, const float* glr,
+                const float* gli, long long n_global, long long row_off,
+                void* stream) {
   if (n < 1 || n > TILE || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+  GTw gt;
+  if (const int rc = make_gtw(ghr, ghi, glr, gli, n_global, row_off, gt))
+    return rc;
   const Geom g = make_geom(n, TILE / n, false);
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
   return launch(n <= TWO_PASS_N ? rows_kernel<true> : rows_kernel<false>,
                 blocks, g, stream, xr, xi, yr, yi, rows, g, wr, wi, er, ei,
-                period);
+                period, gt);
 }
 
+// The slab [col0, col0 + nc) of the C columns: nc a power of two, col0 a
+// multiple of it; the output is (B, L, nc) col-major or (B * nc, L).
 int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
-                long long B, int L, int C, const float* wr, const float* wi,
-                const float* er, const float* ei, int col_major,
-                void* stream) {
-  if (L < 1 || L > TILE || (L & (L - 1)) || C < 1 || (C & (C - 1)))
+                long long B, int L, int C, int col0, int nc, const float* wr,
+                const float* wi, const float* er, const float* ei,
+                int col_major, const float* ghr, const float* ghi,
+                const float* glr, const float* gli, long long n_global,
+                long long row_off, void* stream) {
+  if (L < 1 || L > TILE || (L & (L - 1)) || C < 1 || (C & (C - 1)) ||
+      nc < 1 || (nc & (nc - 1)) || col0 < 0 || col0 % nc || col0 + nc > C)
     return (int)cudaErrorInvalidValue;
-  const int R = TILE / L < C ? TILE / L : C;
+  GTw gt;
+  if (const int rc = make_gtw(ghr, ghi, glr, gli, n_global, row_off, gt))
+    return rc;
+  const int R = TILE / L < nc ? TILE / L : nc;
   const Geom g = make_geom(L, R, true);
-  const int tiles_per_b = C / R;
+  const int tiles_per_b = nc / R;
   const long long blocks = B * tiles_per_b;
   if (blocks == 0) return 0;
   return launch(L <= TWO_PASS_N ? cols_kernel<true> : cols_kernel<false>,
-                blocks, g, stream, xr, xi, yr, yi, C, tiles_per_b, g, wr, wi,
-                er, ei, col_major);
+                blocks, g, stream, xr, xi, yr, yi, C, col0, nc, tiles_per_b,
+                g, wr, wi, er, ei, col_major, gt);
 }
 
 // x: real (rows, 2m), 8-byte aligned; yr, yi: (rows, m+1) with untangle,

@@ -24,23 +24,34 @@
     sr, si = q.execute_real(images)     # (8, 4096, 2049) one-sided
     yr, yi = repro_torch.fft.fft2(xr, xi)   # numpy.fft.fft2 conventions
 
+    # SPMD over a process group: every rank plans the same global spec
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    d = repro_torch.fft.plan(kind="c2c", n=1 << 30, mesh=mesh,
+                             placement="distributed", overlap=4)
+    yr, yi = d.execute(local_shard(xr, mesh), local_shard(xi, mesh))
+
 The port runs local c2c and r2c transforms of 1 to 3 axes on one device
 (the contiguous axis up to MAX_LOCAL_N points, earlier axes up to
 MAX_EARLIER_AXIS), with `fft2`/`ifft2`/`rfft2`/`irfft2` over the trailing
-two axes, and one 1-D c2c signal larger than memory out of core; see
-ROADMAP.md for the placements still to port.
+two axes; batches of them split over the ranks of a `DeviceMesh`
+(segmented); one 1-D c2c signal split over the ranks (distributed); and
+one 1-D c2c signal larger than memory out of core. See ROADMAP.md for the
+placements still to port.
 """
 
+from repro_torch.core.fft.distributed import (DistPlan, distributed_fft,
+                                              distributed_ifft, local_shard)
 from repro_torch.core.fft.outofcore import (OocPlan, OutOfCorePlan,
                                             factor_out_of_core)
 from repro_torch.fft.planner import (AsyncResult, ExecutablePlan, cache_info,
-                                     clear_plan_cache, fft2, ifft2, irfft2,
-                                     plan, rfft2)
+                                     clear_plan_cache, fft2, ifft2,
+                                     invalidate_mesh, irfft2, plan, rfft2)
 from repro_torch.fft.spec import (MAX_EARLIER_AXIS, MAX_LOCAL_N, FftSpec,
                                   resolve_placement)
 
 __all__ = [
     "AsyncResult",
+    "DistPlan",
     "ExecutablePlan",
     "FftSpec",
     "MAX_EARLIER_AXIS",
@@ -49,10 +60,14 @@ __all__ = [
     "OutOfCorePlan",
     "cache_info",
     "clear_plan_cache",
+    "distributed_fft",
+    "distributed_ifft",
     "factor_out_of_core",
     "fft2",
     "ifft2",
+    "invalidate_mesh",
     "irfft2",
+    "local_shard",
     "plan",
     "resolve_placement",
     "rfft2",

@@ -19,6 +19,11 @@ it runs one column pass) takes `axis_pass`'s transpose fallback: a
 materialized transpose, the level-1 `fft` (two K2 passes) and a
 transpose back.
 
+The cross-rank four-step (`core/fft/distributed.py`) runs its two passes
+through `fft_cols`: pass 1 with the distributed twiddle fused into the
+leaf's store (``global_twiddle``), pass 2's slabs read in place
+(``col_offset``/``ncols``).
+
 The ``layout`` option selects how level-1 pass boundaries move data:
 
   "zero_copy" (default)  the column-strided kernel (`matfft_cols`) reads
@@ -38,7 +43,8 @@ import torch
 
 from repro_torch.kernels.fft import plan as fft_plan
 from repro_torch.kernels.fft import ref as fft_ref
-from repro_torch.kernels.fft.matfft import (matfft, matfft_cols, outer_twiddle,
+from repro_torch.kernels.fft.matfft import (apply_global_twiddle, matfft,
+                                            matfft_cols, outer_twiddle,
                                             rfft_leaf, rfft_pack_leaf,
                                             rfft_twiddle,
                                             untangle_half_spectrum)
@@ -55,20 +61,21 @@ def _periodic(yr, yi, epilogue) -> Planar:
     return yr * er - yi * ei, yr * ei + yi * er
 
 
-def _leaf(xr, xi, impl: str, epilogue=None) -> Planar:
+def _leaf(xr, xi, impl: str, epilogue=None, global_twiddle=None) -> Planar:
     if impl == "matfft":
-        return matfft(xr, xi, epilogue=epilogue)
+        return matfft(xr, xi, epilogue=epilogue,
+                      global_twiddle=global_twiddle)
     if impl == "stockham":
         yr, yi = stockham_fft(xr, xi)
-        if epilogue is None:
-            return yr, yi
-        return _periodic(yr, yi, epilogue)
-    if impl == "ref":
+    elif impl == "ref":
         yr, yi = fft_ref.fft_ref(xr, xi)
-        if epilogue is None:
-            return yr, yi
+    else:
+        raise ValueError(f"unknown fft impl {impl!r}")
+    if epilogue is not None:
         return _periodic(yr, yi, epilogue)
-    raise ValueError(f"unknown fft impl {impl!r}")
+    if global_twiddle is not None:
+        return apply_global_twiddle(yr, yi, *global_twiddle)
+    return yr, yi
 
 
 # ---------------------------------------------------------------------------
@@ -77,37 +84,53 @@ def _leaf(xr, xi, impl: str, epilogue=None) -> Planar:
 
 def axis_pass(xr: torch.Tensor, xi: torch.Tensor, view, *,
               out_major: str = "row", epilogue: Planar | None = None,
-              impl: str = "matfft", layout: str = "zero_copy") -> Planar:
-    """FFT along the MIDDLE axis of a planar ``view = (B, L, C)`` reshape.
+              global_twiddle: tuple[int, int] | None = None,
+              impl: str = "matfft", layout: str = "zero_copy",
+              col_offset: int = 0, ncols: int | None = None) -> Planar:
+    """FFT along the MIDDLE axis of a planar ``view = (B, L, C)`` reshape,
+    or of the aligned column slab [col_offset, col_offset + nc) of it (nc
+    = ``ncols``, default every column from ``col_offset`` on).
 
-    ``out_major="row"`` returns (B*C, L) with row index b*C + c;
-    ``out_major="col"`` returns (B, L, C) — the result written back in
+    ``out_major="row"`` returns (B*nc, L) with row index b*nc + c;
+    ``out_major="col"`` returns (B, L, nc) — the result written back in
     column order, so a chain of passes stays transpose-free.
     ``epilogue`` is a planar (C, L) table multiplied into output row
-    (b, c) (the four-step's outer twiddle).
+    (b, c) (the four-step's outer twiddle); ``global_twiddle`` = (n_global,
+    row_off) multiplies output row r, column o by W_{n_global}^{(row_off +
+    r) * o} (the distributed four-step's twiddle). Not both.
 
     layout="zero_copy" + impl="matfft" runs the column-strided kernel
-    (`matfft_cols`) when L is one leaf; anything else materializes a
-    transpose around the row-major transform (the measured "copy"
-    baseline, and the level-2 second pass).
+    (`matfft_cols`, the slab read in place) when L is one leaf; anything
+    else slices the slab and materializes a transpose around the row-major
+    transform (the measured "copy" baseline, and the level-2 second pass).
     """
+    if epilogue is not None and global_twiddle is not None:
+        raise ValueError(
+            "axis_pass: epilogue and global_twiddle are mutually exclusive")
     B, L, C = view
     xr3 = xr.reshape(B, L, C)
     xi3 = xi.reshape(B, L, C)
+    nc = C - col_offset if ncols is None else ncols
     if (layout == "zero_copy" and impl == "matfft" and L > 1
-            and fft_plan.is_pow2(C) and fft_plan.make_plan(L).levels == 1):
-        return matfft_cols(xr3, xi3, out_major=out_major, epilogue=epilogue)
-    # fallback: materialize the transpose; columns become batch rows
-    xrt = xr3.transpose(1, 2).reshape(B * C, L)
-    xit = xi3.transpose(1, 2).reshape(B * C, L)
-    yr, yi = fft(xrt, xit, impl=impl, layout=layout)
+            and fft_plan.is_pow2(C) and fft_plan.is_pow2(nc)
+            and fft_plan.make_plan(L).levels == 1):
+        return matfft_cols(xr3, xi3, out_major=out_major, epilogue=epilogue,
+                           global_twiddle=global_twiddle,
+                           col_offset=col_offset, ncols=nc)
+    # fallback: slice the slab, materialize the transpose; columns become
+    # batch rows
+    cols = slice(col_offset, col_offset + nc)
+    xrt = xr3[:, :, cols].transpose(1, 2).reshape(B * nc, L)
+    xit = xi3[:, :, cols].transpose(1, 2).reshape(B * nc, L)
+    yr, yi = fft(xrt, xit, impl=impl, layout=layout,
+                 global_twiddle=global_twiddle)
     if epilogue is not None:
         er, ei = epilogue
-        er, ei = er.repeat(B, 1), ei.repeat(B, 1)
+        er, ei = er[cols].repeat(B, 1), ei[cols].repeat(B, 1)
         yr, yi = yr * er - yi * ei, yr * ei + yi * er
     if out_major == "col":
-        return (yr.reshape(B, C, L).transpose(1, 2).contiguous(),
-                yi.reshape(B, C, L).transpose(1, 2).contiguous())
+        return (yr.reshape(B, nc, L).transpose(1, 2).contiguous(),
+                yi.reshape(B, nc, L).transpose(1, 2).contiguous())
     return yr, yi
 
 
@@ -137,23 +160,28 @@ def four_step_zero_copy(xr: torch.Tensor, xi: torch.Tensor, n1: int, n2: int,
 
 
 def fft(xr: torch.Tensor, xi: torch.Tensor, *, impl: str = "matfft",
-        layout: str = "zero_copy") -> Planar:
+        layout: str = "zero_copy",
+        global_twiddle: tuple[int, int] | None = None) -> Planar:
     """Batched forward FFT along the last axis of planar float32 tensors.
 
     Any leading batch shape; the last-axis length must be a power of two up
-    to MAX_LEAF**3.
+    to MAX_LEAF**3. ``global_twiddle`` = (n_global, row_off) multiplies
+    row r, column o of the (rows, n) result by W_{n_global}^{(row_off + r)
+    * o}, fused into K1's store (impl "matfft"); one leaf only.
     """
     if layout not in ("zero_copy", "copy"):
         raise ValueError(f"unknown layout {layout!r}")
     batch_shape, n = xr.shape[:-1], xr.shape[-1]
-    if n == 1:
+    if n == 1:  # W^{row * 0} = 1: the global twiddle is the identity too
         return xr, xi
     fft_plan.log2i(n)
     xr2 = xr.reshape(-1, n).contiguous()
     xi2 = xi.reshape(-1, n).contiguous()
     p = fft_plan.make_plan(n)
     if p.levels == 1:
-        yr, yi = _leaf(xr2, xi2, impl)
+        yr, yi = _leaf(xr2, xi2, impl, global_twiddle=global_twiddle)
+    elif global_twiddle is not None:
+        raise ValueError("global_twiddle requires a single-level plan")
     else:
         yr, yi = _four_step(xr2, xi2, p.n1, p.n2, impl, layout)
     return yr.reshape(*batch_shape, n), yi.reshape(*batch_shape, n)
@@ -194,20 +222,26 @@ def _four_step(xr, xi, n1: int, n2: int, impl: str,
 
 
 def fft_cols(xr: torch.Tensor, xi: torch.Tensor, *, impl: str = "matfft",
-             layout: str = "zero_copy", out_major: str = "row") -> Planar:
-    """FFT each COLUMN of planar (L, C) tensors.
+             layout: str = "zero_copy", out_major: str = "row",
+             global_twiddle: tuple[int, int] | None = None,
+             col_offset: int = 0, ncols: int | None = None) -> Planar:
+    """FFT each COLUMN of planar (L, C) tensors, or of the column slab
+    [col_offset, col_offset + ncols).
 
-    Returns (C, L) row-major for ``out_major="row"`` or (L, C)
-    column-major for ``out_major="col"``: semantically ``fft(xr.T, xi.T)``,
-    but on the zero-copy path the column-strided kernel reads the operand
-    in place and writes the requested layout directly. A thin wrapper over
-    `axis_pass` with a B=1 view.
+    Returns (C', L) row-major for ``out_major="row"`` or (L, C')
+    column-major for ``out_major="col"`` (C' = ncols when a slab is
+    selected): semantically ``fft(xr.T, xi.T)``, but on the zero-copy path
+    the column-strided kernel reads the operand in place and writes the
+    requested layout directly. ``global_twiddle`` as in `axis_pass`. A
+    thin wrapper over `axis_pass` with a B=1 view.
     """
     L, C = xr.shape
-    yr, yi = axis_pass(xr, xi, (1, L, C), out_major=out_major, impl=impl,
-                       layout=layout)
+    nc = C - col_offset if ncols is None else ncols
+    yr, yi = axis_pass(xr, xi, (1, L, C), out_major=out_major,
+                       global_twiddle=global_twiddle, impl=impl,
+                       layout=layout, col_offset=col_offset, ncols=nc)
     if out_major == "col":
-        return yr.reshape(L, C), yi.reshape(L, C)
+        return yr.reshape(L, nc), yi.reshape(L, nc)
     return yr, yi
 
 

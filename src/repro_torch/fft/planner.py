@@ -4,19 +4,24 @@ analogue).
 The paper builds one batched CUFFT plan per block size and reuses it across
 every map task; `plan(...)` resolves the full strategy up front (spec.py)
 and returns a frozen `ExecutablePlan` from a process-level cache keyed on
-the resolved spec, device included. A plan's build — uploading its twiddle
-and DFT tables to the device, binding the kernel library and creating the
-plan's CUDA stream — happens once: repeat `execute` calls on the same spec
-rebuild nothing (`plan.build_counts["forward"]` stays at 1).
+the resolved spec, device included, and for the segmented and distributed
+placements the `DeviceMesh` (SPMD: every rank of the mesh plans the same
+global spec and executes on its own shard). A plan's build — uploading
+its twiddle and DFT tables to the device, binding the kernel library and
+creating the plan's CUDA stream — happens once: repeat `execute` calls on
+the same spec rebuild nothing (`plan.build_counts["forward"]` stays at
+1).
 
 An `ExecutablePlan` carries:
 
   * the resolved `FftSpec` and the level-0/1/2 factorization of its
     longest axis pass (`plan.leaf`; the contiguous axis at half length
-    for the real-input fast path);
+    for the real-input fast path), and for the distributed placement the
+    cross-rank `DistPlan` (`plan.dist`);
   * the analytic cost model: `flops`, `gemm_macs` and `hbm_bytes` (the
     roofline byte counters `fft_hbm_bytes` / `rfft_hbm_bytes` and their
-    N-D forms `fftn_hbm_bytes` / `rfftn_hbm_bytes`);
+    N-D forms `fftn_hbm_bytes` / `rfftn_hbm_bytes`), and
+    `collective_bytes` / `exposed_collective_bytes` for the exchanges;
   * `execute(xr, xi)` (c2c) / `execute_real(x)` (r2c) /
     `execute_inverse(yr, yi)` on the caller's current stream, and
     `execute_async(*operands, donate=)`, which stages host operands to the
@@ -95,18 +100,35 @@ class ExecutablePlan:
     module-level cache is what makes repeat plans free.
     """
 
-    def __init__(self, spec: FftSpec):
+    def __init__(self, spec: FftSpec, mesh=None):
         object.__setattr__(self, "_frozen", False)
         self.spec = spec
+        self.mesh = mesh
         self.device = torch.device(spec.device)
+        #: ranks over the mesh axes the plan splits its operand across
+        self.num_devices = 1
+        if mesh is not None:
+            from repro_torch.core.fft import distributed
+            self.num_devices = math.prod(distributed.axis_sizes(mesh,
+                                                                spec.axes))
         # the r2c fast path packs n reals as n/2 complex points on the
         # contiguous axis (the N-D untangle runs after the other axes)
         self._fast_r2c = (spec.kind == "r2c" and spec.impl == "matfft"
                           and spec.shape[-1] >= 4)
-        # the contiguous axis dominates; halved by the r2c packing
-        last = spec.shape[-1] // 2 if self._fast_r2c else spec.shape[-1]
-        #: level-0/1/2 factorization of the longest axis pass
-        self.leaf = kplan.make_plan(max(last, *spec.shape[:-1], 1))
+        #: cross-rank plan (distributed placement only)
+        self.dist = None
+        if spec.placement == "distributed":
+            from repro_torch.core.fft.distributed import plan_distributed
+            self.dist = plan_distributed(
+                spec.n, self.num_devices, natural_order=spec.natural_order,
+                chunks=None if spec.overlap == "off" else spec.overlap)
+            longest = max(self.dist.n1, self.dist.n2)
+        else:
+            # the contiguous axis dominates; halved by the r2c packing
+            last = spec.shape[-1] // 2 if self._fast_r2c else spec.shape[-1]
+            longest = max(last, *spec.shape[:-1], 1)
+        #: level-0/1/2 factorization of the longest (per-rank) axis pass
+        self.leaf = kplan.make_plan(longest)
         self._build_lock = threading.RLock()
         self._builds = {"forward": 0, "inverse": 0}
         self._fwd = None
@@ -154,6 +176,14 @@ class ExecutablePlan:
     @property
     def placement(self) -> str:
         return self.spec.placement
+
+    @property
+    def operand_shape(self) -> tuple:
+        """This rank's operand: the global (*batch_shape, *shape) split
+        along dim 0 over the mesh ranks ((rows/D, *shape) segmented, (n/D,)
+        distributed)."""
+        shape = self.spec.operand_shape
+        return (shape[0] // self.num_devices, *shape[1:])
 
     @property
     def levels(self) -> int:
@@ -204,6 +234,11 @@ class ExecutablePlan:
         row (`FftPlan.gemm_macs`; not the port's radix leaf). N-D: the
         sum over axis passes."""
         s = self.spec
+        if self.dist is not None:
+            # pass 1: n2 length-n1 transforms; pass 2: n1 length-n2
+            d = self.dist
+            return (d.n2 * kplan.make_plan(d.n1).gemm_macs
+                    + d.n1 * kplan.make_plan(d.n2).gemm_macs)
         if s.ndim == 1:
             return self.leaf.gemm_macs
         width = s.n // 2 if self._fast_r2c else s.n
@@ -220,8 +255,15 @@ class ExecutablePlan:
     @property
     def hbm_bytes_per_row(self) -> int:
         """Planar-f32 payload device-memory bytes per batch row (tables
-        excluded)."""
+        excluded), over every rank."""
         s = self.spec
+        if self.dist is not None:
+            # two local passes, each reading and writing 2 planes, the
+            # exchanges' buffers landing in device memory (one round trip
+            # each) and, unfused, the twiddle's own round trip
+            per_pass = 2 * 2 * _F32 * s.n
+            bytes_ = (2 + self.dist.n_exchanges) * per_pass
+            return bytes_ + (0 if s.fuse_twiddle else per_pass)
         if self._fast_r2c:
             return kplan.rfftn_hbm_bytes(s.shape)
         c2c = kplan.fftn_hbm_bytes(s.shape, s.layout)
@@ -234,6 +276,23 @@ class ExecutablePlan:
     @property
     def hbm_bytes(self) -> int:
         return self.spec.rows * self.hbm_bytes_per_row
+
+    @property
+    def collective_bytes(self) -> int:
+        """Planar payload all ranks send to each other (distributed
+        placement only; transposed-out plans skip exchange #3)."""
+        if self.dist is None:
+            return 0
+        return self.dist.d * self.dist.collective_bytes_per_device
+
+    @property
+    def exposed_collective_bytes(self) -> int:
+        """Collective bytes the overlapped engine cannot hide behind the
+        local FFTs (its fill/drain slab an exchange); all of them with
+        overlap "off"."""
+        if self.dist is None:
+            return 0
+        return self.dist.d * self.dist.exposed_collective_bytes_per_device
 
     # ------------------------------------------------------------------
     # builds
@@ -252,7 +311,12 @@ class ExecutablePlan:
     def _build_forward(self):
         s = self.spec
         dev = self.device
-        if s.impl in ("matfft", "stockham"):
+        if self.dist is not None:
+            # both passes' tables, and the twiddle's (fused or not)
+            for length in {self.dist.n1, self.dist.n2}:
+                _upload_tables(length, dev, s.impl)
+            kmatfft.global_twiddle_tables(s.n, dev)
+        elif s.impl in ("matfft", "stockham"):
             # every axis pass reads the tables of its length; the fast r2c
             # path runs the contiguous axis at n/2 (K3, or the c2c path
             # past one leaf) and untangles with the packing twiddle, with
@@ -270,17 +334,16 @@ class ExecutablePlan:
                 kstockham._lib()
             self._stream = torch.cuda.Stream(dev)
         self._builds["forward"] += 1
-
-        if s.kind == "r2c":
-            def forward(x):
-                return executors.rfftn(x, s.shape, impl=s.impl,
-                                       layout=s.layout)
-        else:
-            def forward(xr, xi):
-                return executors.fftn(xr, xi, s.shape, impl=s.impl,
-                                      layout=s.layout)
-
-        return forward
+        if self.dist is not None:
+            from repro_torch.core.fft.distributed import build_distributed
+            return build_distributed(
+                s.n, self.mesh, s.axes, impl=s.impl,
+                natural_order=s.natural_order, fuse_twiddle=s.fuse_twiddle,
+                layout=s.layout,
+                overlap=None if s.overlap == "off" else s.overlap)
+        # local, or a segmented rank's map task: the transform of its rows
+        from repro_torch.core.fft.segmented import build_segmented
+        return build_segmented(s.kind, s.shape, impl=s.impl, layout=s.layout)
 
     def _inverse(self):
         if self._inv is None:
@@ -289,6 +352,17 @@ class ExecutablePlan:
                     fwd = self._forward()
                     s = self.spec
 
+                    if s.kind == "r2c" and s.placement != "local":
+                        raise NotImplementedError(
+                            f"execute_inverse for r2c plans is local-only, "
+                            f"got placement={s.placement!r}")
+                    if self.dist is not None and not s.natural_order:
+                        raise NotImplementedError(
+                            "execute_inverse needs natural_order=True: the "
+                            "transposed-out forward returns o1-major block "
+                            "order, so the conjugation identity would "
+                            "invert a permuted spectrum; plan the inverse "
+                            "with natural_order=True")
                     if s.kind == "r2c":
                         def inverse(yr, yi):
                             return executors.irfftn(yr, yi, s.shape,
@@ -309,7 +383,7 @@ class ExecutablePlan:
 
     def _operand(self, x, what: str, shape=None) -> torch.Tensor:
         x = torch.as_tensor(x)
-        shape = self.spec.operand_shape if shape is None else shape
+        shape = self.operand_shape if shape is None else shape
         if tuple(x.shape) != shape:
             raise ValueError(
                 f"{what}: plan was built for shape {shape} "
@@ -349,8 +423,9 @@ class ExecutablePlan:
         shape[-1]//2 + 1) spectrum -> real (*batch_shape, *shape)
         signal."""
         s = self.spec
-        shape = (s.operand_shape if s.kind == "c2c"
-                 else (*s.batch_shape, *s.shape[:-1], s.shape[-1] // 2 + 1))
+        shape = self.operand_shape
+        if s.kind == "r2c":
+            shape = (*shape[:-1], s.shape[-1] // 2 + 1)
         yr = self._operand(yr, "execute_inverse", shape).to(self.device)
         yi = self._operand(yi, "execute_inverse", shape).to(self.device)
         return self._inverse()(yr, yi)
@@ -395,11 +470,13 @@ class ExecutablePlan:
 
 
 def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
-         batch_shape=(), placement: str = "auto", layout: str = "zero_copy",
-         impl: str = "matfft", precision: str = "f32", device="cuda",
-         r2c_axis: int = -1, verify: str = "off", tune: bool = False,
-         store=None, work_dir=None, budget_bytes: int | None = None,
-         job_config=None):
+         batch_shape=(), mesh=None, placement: str = "auto",
+         layout: str = "zero_copy", impl: str = "matfft",
+         precision: str = "f32", device=None, axes=None,
+         natural_order: bool = True, fuse_twiddle: bool = False,
+         overlap="auto", r2c_axis: int = -1, fallback: str = "error",
+         verify: str = "off", tune: bool = False, store=None, work_dir=None,
+         budget_bytes: int | None = None, job_config=None):
     """Resolve a transform spec and return the cached `ExecutablePlan`, or
     for ``placement="out_of_core"`` a new `OutOfCorePlan`.
 
@@ -415,60 +492,108 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         earlier axes one column-kernel pass each up to MAX_LEAF, a
         level-1 transform between two transposes up to MAX_EARLIER_AXIS.
         Scalar ``n`` and the equivalent 1-tuple give the SAME plan.
-      batch_shape: leading batch dims of the operands.
-      placement: "auto", "local" or "out_of_core" (one 1-D c2c signal
+      batch_shape: leading batch dims of the GLOBAL operand; () for one
+        signal (required for placement="distributed").
+      mesh: a `torch.distributed.device_mesh.DeviceMesh` with named dims
+        for the segmented and distributed placements. Every rank of the
+        mesh calls `plan` with the same arguments and executes on its own
+        shard of dim 0 (`core.fft.distributed.local_shard`).
+      placement: "auto" (the heuristic of `spec.resolve_placement`),
+        "local", "segmented" (the batch split over the mesh ranks, each
+        rank transforming its rows, no collectives), "distributed" (ONE
+        1-D c2c signal, the cross-rank four-step, three exchanges;
+        core/fft/distributed.py) or "out_of_core" (one 1-D c2c signal
         whose operand lives in ``store``, streamed through two bounded
-        passes of cached local plans; core/fft/outofcore.py). The
-        segmented and distributed placements are not ported yet and raise
-        `NotImplementedError`.
+        passes of cached local plans; core/fft/outofcore.py).
       layout: "zero_copy" (default) or "copy" (the measured baseline; for
         N-D the naive transpose-per-axis path).
       impl: leaf kernel: "matfft" (K1/K2, and K3 for r2c), "stockham"
         (K4; r2c then runs the full complex transform, sliced) or "ref"
         (torch.fft).
       precision: "f32".
-      device: "cuda" (default; raises when no card is present) or "cpu",
-        which runs the kernels' plain PyTorch versions.
+      device: "cuda" (the default without a mesh; raises when no card is
+        present) or "cpu", which runs the kernels' plain PyTorch versions.
+        With a mesh it defaults to the mesh's device type, and another is
+        a ValueError.
+      axes: the mesh dims to flatten (None: every dim), row-major in the
+        order given.
+      natural_order, fuse_twiddle: distributed options: False skips
+        exchange #3 and returns the o1-major TRANSPOSED_OUT order; True
+        fuses pass 1's twiddle into the leaf kernel's store.
+      overlap: the distributed exchange engine: "off" (one
+        `all_to_all_single` a plane and exchange), an int (that many
+        slabs, each exchanged as `batch_isend_irecv` rounds behind the
+        local FFTs; it must divide n1/D and n2/D) or "auto".
       r2c_axis: the transform axis that carries the real-to-complex
         halving; only the contiguous axis (-1) is supported, anything
         else is a plan-time ValueError.
       verify: ABFT mode for consumers that run the plan's invariant checks:
         "off", "parseval" or "abft". Verified and unverified plans are
         distinct cache entries.
+      fallback: "error"; "degrade" (re-plan on a shrunk mesh) is not
+        ported yet (raises, ROADMAP Queue 1 item 7b).
       tune: the measuring autotuner; not ported yet (raises).
       store, work_dir, budget_bytes, job_config: out-of-core only — the
         `BlockStore` holding the operand, the directory for tiles,
         manifests and output, the host working-set cap in bytes, and the
         streamed passes' `JobConfig` (None: the plan's default).
 
-    Same resolved spec -> the SAME plan object, with its tables already
-    on the device. Out-of-core plans carry live store state and are never
-    cached; the per-pass plans they launch are.
+    Same resolved spec (and mesh) -> the SAME plan object, with its
+    tables already on the device. Out-of-core plans carry live store state
+    and are never cached; the per-pass plans they launch are.
     """
+    if fallback not in ("error", "degrade"):
+        raise ValueError(
+            f"fallback must be 'error' or 'degrade', got {fallback!r}")
+    if fallback == "degrade":
+        raise NotImplementedError(
+            f"fallback='degrade' is not ported yet ({spec_mod.ITEM_7B})")
     if tune:
         raise NotImplementedError(
             "plan(tune=True): the autotuner is not ported yet (ROADMAP "
             "Queue 1 item 10)")
     if placement == "out_of_core":
-        return _plan_out_of_core(kind, n, shape, batch_shape, impl, device,
-                                 verify, store, work_dir, budget_bytes,
-                                 job_config)
+        if mesh is not None:
+            raise ValueError(
+                "placement='out_of_core' streams through storage on one "
+                "host; it takes no mesh=")
+        return _plan_out_of_core(kind, n, shape, batch_shape, impl,
+                                 device or "cuda", verify, store, work_dir,
+                                 budget_bytes, job_config)
     if store is not None or work_dir is not None or budget_bytes is not None:
         raise ValueError(
             "store=/work_dir=/budget_bytes= apply only to "
             "placement='out_of_core'")
+    num_devices = sizes = None
+    if mesh is not None:
+        from repro_torch.core.fft import distributed
+        if device is None:
+            device = mesh.device_type
+        elif torch.device(device).type != mesh.device_type:
+            raise ValueError(f"device={device!r} disagrees with the mesh's "
+                             f"device type {mesh.device_type!r}")
+        axes = distributed.mesh_axes(mesh, axes)
+        sizes = distributed.axis_sizes(mesh, axes)
+        num_devices = math.prod(sizes)
+    elif axes is not None:
+        raise ValueError("axes= requires mesh=")
     resolved = spec_mod.resolve(
         kind=kind, n=n, shape=shape, batch_shape=batch_shape,
         placement=placement, layout=layout, impl=impl, precision=precision,
-        device=device, r2c_axis=r2c_axis, verify=verify)
+        device=device or "cuda", r2c_axis=r2c_axis, verify=verify,
+        num_devices=num_devices, axes=axes, natural_order=natural_order,
+        fuse_twiddle=fuse_twiddle, overlap=overlap, axis_sizes=sizes)
+    # local plans do not touch the mesh: keyed mesh-free, so the same spec
+    # planned with and without a mesh is one plan
+    key = (resolved, None if resolved.placement == "local" else mesh)
     with _CACHE_LOCK:
-        cached = _PLAN_CACHE.get(resolved)
+        cached = _PLAN_CACHE.get(key)
         if cached is not None:
             _CACHE_INFO["hits"] += 1
             return cached
         _CACHE_INFO["misses"] += 1
-        p = ExecutablePlan(resolved)
-        _PLAN_CACHE[resolved] = p
+        p = ExecutablePlan(resolved, key[1])
+        _PLAN_CACHE[key] = p
         return p
 
 
@@ -568,9 +693,21 @@ def cache_info() -> dict:
         return {**_CACHE_INFO, "entries": len(_PLAN_CACHE)}
 
 
+def invalidate_mesh(mesh) -> int:
+    """Drop every cached plan keyed on ``mesh``; returns how many. Local
+    plans (keyed mesh-free) are untouched."""
+    if mesh is None:
+        return 0
+    with _CACHE_LOCK:
+        stale = [k for k in _PLAN_CACHE if k[1] is not None and k[1] == mesh]
+        for k in stale:
+            del _PLAN_CACHE[k]
+    return len(stale)
+
+
 def clear_plan_cache() -> None:
     """Drop every cached plan and reset the cache counters."""
     with _CACHE_LOCK:
         _PLAN_CACHE.clear()
-        _CACHE_INFO["hits"] = 0
-        _CACHE_INFO["misses"] = 0
+        for k in _CACHE_INFO:
+            _CACHE_INFO[k] = 0

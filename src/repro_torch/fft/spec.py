@@ -6,17 +6,34 @@ impl and precision membership, power-of-two lengths, the placement and the
 device — so strategy errors surface as one clear exception at plan time
 instead of a failure inside a kernel.
 
-The port runs the local placement of 1-D to 3-D transforms, c2c and r2c:
-``shape`` is the tuple of transform-axis lengths over the TRAILING axes of
-the operand (scalar ``n`` is 1-D sugar and normalizes to ``shape=(n,)``,
-the same cache key). The contiguous (last) axis takes the level-0/1/2
-four-step up to MAX_LOCAL_N; every earlier axis caps at MAX_EARLIER_AXIS.
-r2c rides the packed-real fast path on the contiguous axis only
-(``r2c_axis`` must normalize to -1). The out-of-core placement is bound to
-a `BlockStore`, so `repro_torch.fft.plan` builds it directly and
-`resolve()` refuses it. The segmented and distributed placements are
-recognised and raise `NotImplementedError` naming the ROADMAP item that
-ports them.
+Transforms have 1 to 3 axes, c2c and r2c: ``shape`` is the tuple of
+transform-axis lengths over the TRAILING axes of the operand (scalar ``n``
+is 1-D sugar and normalizes to ``shape=(n,)``, the same cache key). The
+contiguous (last) axis takes the level-0/1/2 four-step up to MAX_LOCAL_N;
+every earlier axis caps at MAX_EARLIER_AXIS. r2c rides the packed-real
+fast path on the contiguous axis only (``r2c_axis`` must normalize to -1).
+The out-of-core placement is bound to a `BlockStore`, so
+`repro_torch.fft.plan` builds it directly and `resolve()` refuses it.
+
+Placement resolution (`placement="auto"`), given the number of ranks D
+over the mesh axes:
+
+  no mesh                      -> "local"   (error if the shape can't fit)
+  mesh + 1-D batch of >1 rows,
+      D | rows                 -> "segmented"   (the paper's map-only regime)
+  mesh + single 1-D signal, D > 1,
+      n >= D^2                 -> "distributed" (cross-rank four-step)
+  mesh + single 2-D image, D > 1,
+      D | n0 and D | n1        -> "distributed" (the pencil, not ported
+                                  yet: ROADMAP Queue 1 item 7b)
+  mesh + anything that still
+      fits one device          -> "local"
+  otherwise                    -> ValueError
+
+The spec is the plan-cache key (with the mesh), so fields a placement
+ignores are normalized here: ``axes`` only for mesh placements,
+``natural_order``/``fuse_twiddle``/``overlap`` only for the distributed
+one (overlap "auto" is resolved to a chunk count or "off").
 
 The device replaces the JAX package's ``interpret`` switch: it defaults to
 ``"cuda"``, which must be present, and ``"cpu"`` runs the kernels' plain
@@ -47,10 +64,9 @@ MAX_LOCAL_N = 1 << 28
 # between two transposes above it
 MAX_EARLIER_AXIS = 1 << 14
 
-_NOT_YET = {
-    "segmented": "ROADMAP Queue 1 item 7",
-    "distributed": "ROADMAP Queue 1 item 7",
-}
+# the 2-D/3-D distributed pencils and fallback="degrade" come in the next
+# slice
+ITEM_7B = "ROADMAP Queue 1 item 7b"
 
 
 @dataclass(frozen=True)
@@ -61,12 +77,17 @@ class FftSpec:
     shape: tuple                  # transform-axis lengths (trailing axes;
     #                               real length for r2c)
     batch_shape: tuple            # leading batch dims
-    placement: str                # resolved: "local"
+    placement: str                # resolved: "local"|"segmented"|
+    #                               "distributed"
     layout: str                   # "zero_copy" | "copy"
     impl: str                     # "matfft" | "stockham" | "ref"
     precision: str                # "f32"
     device: str                   # resolved torch device, e.g. "cuda:0"
     verify: str = "off"           # ABFT mode: "off"|"parseval"|"abft"
+    axes: tuple | None = None     # mesh axes (segmented / distributed)
+    natural_order: bool = True    # distributed only: exchange #3 or not
+    fuse_twiddle: bool = False    # distributed only: twiddle in the leaf
+    overlap: object = "off"       # distributed only: "off" | int chunks
 
     @property
     def rows(self) -> int:
@@ -110,17 +131,63 @@ def _fits_local(shape: tuple) -> bool:
             and all(d <= MAX_EARLIER_AXIS for d in shape[:-1]))
 
 
-def resolve_placement(shape) -> str:
-    """The `placement="auto"` heuristic without a mesh: local, or an error
-    when the shape exceeds one device."""
+def resolve_placement(shape, rows: int = 1, batch_ndim: int = 0,
+                      num_devices: int | None = None) -> str:
+    """The `placement="auto"` heuristic (module docstring).
+
+    Args:
+      shape: transform shape tuple (an int is 1-D sugar).
+      rows: total batch rows (prod of batch_shape).
+      batch_ndim: len(batch_shape).
+      num_devices: ranks over the mesh axes, or None without a mesh.
+    """
     shape = (int(shape),) if isinstance(shape, int) else tuple(shape)
-    if not _fits_local(shape):
+    fits = _fits_local(shape)
+    if num_devices is None:
+        if not fits:
+            raise ValueError(
+                f"shape={shape} exceeds the single-device maximum "
+                f"(contiguous axis <= MAX_LOCAL_N={MAX_LOCAL_N}, earlier "
+                f"axes <= MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}); pass mesh= "
+                f"so the planner can pick placement='distributed'")
+        return "local"
+    if (rows > 1 and batch_ndim == 1 and fits
+            and rows % num_devices == 0):
+        # an indivisible batch cannot shard evenly; falls through to local
+        return "segmented"
+    if rows == 1 and batch_ndim == 0 and num_devices > 1:
+        if len(shape) == 1 and shape[0] >= num_devices ** 2:
+            return "distributed"
+        if (len(shape) == 2 and kplan.is_pow2(num_devices)
+                and all(d % num_devices == 0 for d in shape)):
+            return "distributed"  # pencil: shard rows, one exchange
+    if fits:
+        return "local"
+    raise ValueError(
+        f"cannot auto-place shape={shape}: larger than the single-device "
+        f"maximum but not distributable — the cross-rank engine needs a "
+        f"scalar batch_shape and a 1-D signal with n >= D^2="
+        f"{num_devices ** 2}")
+
+
+def _validate_distributed(n: int, num_devices: int, axes) -> None:
+    """The transpose-based 1-D distributed FFT constraint, surfaced early.
+
+    The four-step split n = n1 * n2 must satisfy D | n1 and D | n2 so each
+    exchange moves equal shards — i.e. n >= D^2 for pow2 D.
+    """
+    p = kplan.log2i(n)
+    if not kplan.is_pow2(num_devices):
         raise ValueError(
-            f"shape={shape} exceeds the single-device maximum (contiguous "
-            f"axis <= MAX_LOCAL_N={MAX_LOCAL_N}, earlier axes <= "
-            f"MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}); the distributed "
-            f"placement is {_NOT_YET['distributed']}")
-    return "local"
+            f"distributed placement needs a power-of-two device count "
+            f"along {axes}, got D={num_devices}")
+    pd = kplan.log2i(num_devices)
+    if p < 2 * pd:
+        raise ValueError(
+            f"distributed four-step requires D | n1 and D | n2 for the "
+            f"split n = n1*n2, i.e. n >= D^2: got n=2^{p}, D=2^{pd} over "
+            f"axes {axes}; use placement='segmented' for batches of "
+            f"block-sized transforms")
 
 
 def _normalize_shape(n, shape) -> tuple:
@@ -150,8 +217,17 @@ def _normalize_shape(n, shape) -> tuple:
 def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
             layout: str = "zero_copy", impl: str = "matfft",
             precision: str = "f32", device="cuda", shape=None,
-            r2c_axis: int = -1, verify: str = "off") -> FftSpec:
-    """Validate + normalize everything into a frozen FftSpec."""
+            r2c_axis: int = -1, verify: str = "off",
+            num_devices: int | None = None, axes=None,
+            natural_order: bool = True, fuse_twiddle: bool = False,
+            overlap="auto", axis_sizes=None) -> FftSpec:
+    """Validate + normalize everything into a frozen FftSpec.
+
+    ``num_devices`` is the number of ranks over the mesh ``axes`` (None
+    without a mesh); ``axis_sizes``, the ranks along each of ``axes``,
+    will shape the 3-D pencil's device grid (item 7b) and is checked
+    against ``num_devices`` here.
+    """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
     if verify not in VERIFY_MODES:
@@ -175,10 +251,6 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
             "placement='out_of_core' is constructed by repro_torch.fft.plan("
             "store=..., work_dir=..., budget_bytes=...) and has no "
             "resolvable FftSpec (the plan is bound to a BlockStore)")
-    if placement in _NOT_YET:
-        raise NotImplementedError(
-            f"placement={placement!r} is not ported yet "
-            f"({_NOT_YET[placement]})")
     shape = _normalize_shape(n, shape)
     ndim = len(shape)
     if kind == "r2c":
@@ -195,14 +267,72 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
     batch_shape = tuple(int(d) for d in batch_shape)
     if any(d < 1 for d in batch_shape):
         raise ValueError(f"batch_shape dims must be >= 1, got {batch_shape}")
+    if axis_sizes is not None and math.prod(axis_sizes) != num_devices:
+        raise ValueError(f"axis_sizes {tuple(axis_sizes)} do not multiply "
+                         f"to num_devices={num_devices}")
+
+    rows = math.prod(batch_shape)
     if placement == "auto":
-        placement = resolve_placement(shape)
-    elif not _fits_local(shape):
-        raise ValueError(
-            f"placement='local' caps the contiguous axis at "
-            f"MAX_LOCAL_N={MAX_LOCAL_N} and earlier axes at "
-            f"MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}, got shape={shape}")
+        placement = resolve_placement(shape, rows, len(batch_shape),
+                                      num_devices)
+    if placement == "local":
+        if not _fits_local(shape):
+            raise ValueError(
+                f"placement='local' caps the contiguous axis at "
+                f"MAX_LOCAL_N={MAX_LOCAL_N} and earlier axes at "
+                f"MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}, got shape={shape}")
+        axes = None
+    elif placement == "segmented":
+        if num_devices is None:
+            raise ValueError("placement='segmented' requires mesh=")
+        if len(batch_shape) != 1:
+            raise ValueError(
+                f"placement='segmented' shards a 1-D batch of segments; "
+                f"reshape to (batch, *shape), got batch_shape={batch_shape}")
+        if not _fits_local(shape):
+            raise ValueError(
+                f"segmented segments run device-locally, so the contiguous "
+                f"axis caps at MAX_LOCAL_N={MAX_LOCAL_N} and earlier axes "
+                f"at MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}, got shape={shape}")
+        if rows % num_devices:
+            raise ValueError(
+                f"segmented batch of {rows} rows does not shard evenly "
+                f"over {num_devices} devices (axes {axes}); pad the batch "
+                f"or use placement='local'")
+    else:  # distributed
+        if num_devices is None:
+            raise ValueError("placement='distributed' requires mesh=")
+        if batch_shape != ():
+            raise ValueError(
+                f"placement='distributed' transforms ONE global signal of "
+                f"shape {shape}; got batch_shape={batch_shape} — use "
+                f"placement='segmented' for batches")
+        if ndim > 1:
+            raise NotImplementedError(
+                f"the {ndim}-D distributed pencil is not ported yet "
+                f"({ITEM_7B})")
+        if kind != "c2c":
+            raise ValueError(
+                "kind='r2c' is not supported for 1-D "
+                "placement='distributed'; run a c2c transform of the "
+                "packed signal or use placement='segmented' for "
+                "batches of real segments")
+        _validate_distributed(shape[0], num_devices, axes)
+
+    if placement == "distributed":
+        # resolve "auto" and validate explicit chunk counts now, so the
+        # resolved spec (the cache key) never carries "auto"
+        from repro_torch.core.fft.distributed import resolve_overlap
+        chunks = resolve_overlap(shape[0], num_devices, overlap)
+        overlap = "off" if chunks is None else int(chunks)
+    else:
+        overlap = "off"
+        # the knobs of the distributed engine alone key no other plan
+        natural_order, fuse_twiddle = True, False
     return FftSpec(kind=kind, shape=shape, batch_shape=batch_shape,
                    placement=placement, layout=layout, impl=impl,
                    precision=precision, device=str(resolve_device(device)),
-                   verify=verify)
+                   verify=verify,
+                   axes=tuple(axes) if axes is not None else None,
+                   natural_order=bool(natural_order),
+                   fuse_twiddle=bool(fuse_twiddle), overlap=overlap)

@@ -24,7 +24,12 @@ every twiddle an entry of the (n,) table `plan.radix_twiddles`. Up to
 RADIX**2 = 256 points that is two passes of at most RADIX points, from
 512 to MAX_LEAF = 4096 three. The optional epilogue multiplies each
 output row by a row of a periodic table before the store; the level-1
-four-step fuses its outer twiddle there. K3 packs the real row as
+four-step fuses its outer twiddle there. The global-twiddle epilogue
+multiplies output row r, column o by W_{n_global}^m, m = ((row_off + r) *
+o) mod n_global, read from the two tables of `plan.global_twiddles`: the
+distributed four-step fuses its twiddle there. K2 may transform one
+aligned slab of its columns, read in place (``col_offset``, ``ncols``).
+K3 packs the real row as
 m = n/2 complex points on the load, runs the tile algebra at m and
 untangles the half spectrum (`untangle_half_spectrum`) in its store.
 
@@ -61,7 +66,9 @@ RADIX = 16
 Planar = tuple[torch.Tensor, torch.Tensor]
 
 # (wrapper, operand shape, out_major or None) of each kernel launch, and of
-# each call a wrapper gave to its plain version, since `reset_counts`
+# each call a wrapper gave to its plain version, since `reset_counts`; a
+# call with the global twiddle or a column slab adds a fourth entry, its
+# options: ("twiddle",), ("slab", ncols) or both
 launch_shapes: Counter = Counter()
 plain_shapes: Counter = Counter()
 
@@ -102,6 +109,14 @@ def outer_twiddle(n1: int, n2: int, device: torch.device) -> Planar:
         ("outer", n1, n2),
         lambda: tuple(a.T.copy() for a in fft_plan.twiddle_table(n1, n2, n)),
         device)
+
+
+def global_twiddle_tables(n_global: int, device: torch.device) -> tuple:
+    """The global twiddle's tables on ``device``: (hi_r, hi_i, lo_r,
+    lo_i) of `plan.global_twiddles`."""
+    return _device_table(("global", n_global),
+                         lambda: fft_plan.global_twiddles(n_global)[1:],
+                         device)
 
 
 def rfft_twiddle(n: int, device: torch.device) -> Planar:
@@ -146,6 +161,23 @@ def stockham_stages(xr, xi, twiddles) -> Planar:
         xi = torch.stack([ai + bi, ti], dim=2).reshape(rows, m)
         ms *= 2
     return xr, xi
+
+
+def apply_global_twiddle(yr, yi, n_global: int, row_off: int) -> Planar:
+    """(rows, L) planes times W_{n_global}^m at row r, column o, m =
+    ((row_off + r) * o) mod n_global, with m exact in int64: the table
+    product W^{(m >> k) << k} * W^{m & (2^k - 1)} (`plan.global_twiddles`),
+    then the output times it, rounded as the kernels' epilogue rounds.
+    The plain version of that epilogue, and the distributed four-step's
+    unfused twiddle."""
+    rows, L = yr.shape
+    hr, hi, lr, li = global_twiddle_tables(n_global, yr.device)
+    k = (fft_plan.log2i(n_global) + 1) // 2
+    r = torch.arange(row_off, row_off + rows, device=yr.device)
+    m = (r[:, None] * torch.arange(L, device=yr.device)) & (n_global - 1)
+    h, low = m >> k, m & ((1 << k) - 1)
+    tr, ti = _cmul(hr[h], hi[h], lr[low], li[low])
+    return _cmul(yr, yi, tr, ti)
 
 
 def _radix_stages(xr, xi, twr, twi, n: int) -> Planar:
@@ -198,15 +230,19 @@ def _radix_plain(xr, xi, tables) -> Planar:
 
 
 def matfft_plain(xr: torch.Tensor, xi: torch.Tensor, *,
-                 epilogue: Planar | None = None) -> Planar:
+                 epilogue: Planar | None = None,
+                 global_twiddle: tuple[int, int] | None = None) -> Planar:
     """Plain PyTorch version of `matfft`, same arguments and algebra."""
     matfft_plain.calls += 1
     rows, n = _check_rows(xr, xi, epilogue)
+    gt = _check_global_twiddle(global_twiddle, epilogue)
     yr, yi = _radix_plain(xr, xi, leaf_tables(n, xr.device))
     if epilogue is not None:
         er, ei = epilogue
         idx = torch.arange(rows, device=xr.device) % er.shape[0]
         yr, yi = _cmul(yr, yi, er[idx], ei[idx])
+    elif gt is not None:
+        yr, yi = apply_global_twiddle(yr, yi, *gt)
     return yr, yi
 
 
@@ -215,20 +251,29 @@ matfft_plain.calls = 0
 
 def matfft_cols_plain(xr: torch.Tensor, xi: torch.Tensor, *,
                       out_major: str = "row",
-                      epilogue: Planar | None = None) -> Planar:
+                      epilogue: Planar | None = None,
+                      global_twiddle: tuple[int, int] | None = None,
+                      col_offset: int = 0,
+                      ncols: int | None = None) -> Planar:
     """Plain PyTorch version of `matfft_cols`, same arguments and algebra
-    (the transposes are materialized here; the kernel makes none)."""
+    (the slab and the transposes are materialized here; the kernel makes
+    none)."""
     matfft_cols_plain.calls += 1
-    B, L, C = _check_cols(xr, xi, out_major, epilogue)
-    xrt = xr.transpose(1, 2).reshape(B * C, L)
-    xit = xi.transpose(1, 2).reshape(B * C, L)
+    B, L, C, nc = _check_cols(xr, xi, out_major, epilogue, col_offset,
+                              ncols)
+    gt = _check_global_twiddle(global_twiddle, epilogue)
+    cols = slice(col_offset, col_offset + nc)
+    xrt = xr[:, :, cols].transpose(1, 2).reshape(B * nc, L)
+    xit = xi[:, :, cols].transpose(1, 2).reshape(B * nc, L)
     yr, yi = _radix_plain(xrt, xit, leaf_tables(L, xr.device))
     if epilogue is not None:
         er, ei = epilogue
-        yr, yi = _cmul(yr, yi, er.repeat(B, 1), ei.repeat(B, 1))
+        yr, yi = _cmul(yr, yi, er[cols].repeat(B, 1), ei[cols].repeat(B, 1))
+    elif gt is not None:
+        yr, yi = apply_global_twiddle(yr, yi, *gt)
     if out_major == "col":
-        yr = yr.reshape(B, C, L).transpose(1, 2).contiguous()
-        yi = yi.reshape(B, C, L).transpose(1, 2).contiguous()
+        yr = yr.reshape(B, nc, L).transpose(1, 2).contiguous()
+        yi = yi.reshape(B, nc, L).transpose(1, 2).contiguous()
     return yr, yi
 
 
@@ -329,7 +374,10 @@ def _check_rows(xr, xi, epilogue) -> tuple[int, int]:
     return rows, n
 
 
-def _check_cols(xr, xi, out_major, epilogue) -> tuple[int, int, int]:
+def _check_cols(xr, xi, out_major, epilogue, col_offset: int = 0,
+               ncols: int | None = None) -> tuple[int, int, int, int]:
+    """(B, L, C, ncols) of a K2 call on the slab [col_offset, col_offset +
+    ncols) of (B, L, C) planes: a power of two, aligned to its width."""
     _check_planes(xr, xi, 3, "matfft_cols")
     B, L, C = xr.shape
     if fft_plan.make_plan(L).levels != 1:
@@ -338,9 +386,33 @@ def _check_cols(xr, xi, out_major, epilogue) -> tuple[int, int, int]:
         raise ValueError(f"column count must be a power of two, got {C}")
     if out_major not in ("row", "col"):
         raise ValueError(f"unknown out_major {out_major!r}")
+    nc = C - col_offset if ncols is None else ncols
+    if not fft_plan.is_pow2(nc):
+        raise ValueError(f"ncols must be a power of two, got {nc}")
+    if col_offset % nc or col_offset + nc > C:
+        raise ValueError(
+            f"column slab [{col_offset}, {col_offset + nc}) must be an "
+            f"aligned pow2 slab of the {C} columns")
     if epilogue is not None:
         _check_epilogue(epilogue, (C, L), xr.device, "matfft_cols")
-    return B, L, C
+    return B, L, C, nc
+
+
+def _check_global_twiddle(global_twiddle, epilogue) -> tuple | None:
+    """(n_global, row_off) of the global-twiddle option: n_global a power
+    of two up to 2^32 (the kernels reduce the exponent in 32-bit unsigned
+    arithmetic), row_off a host int >= 0; never with a table epilogue."""
+    if global_twiddle is None:
+        return None
+    if epilogue is not None:
+        raise ValueError("epilogue and global_twiddle are mutually "
+                         "exclusive")
+    n_global, row_off = (int(v) for v in global_twiddle)
+    fft_plan.log2i(n_global)
+    if n_global > 1 << 32 or row_off < 0:
+        raise ValueError(f"global_twiddle needs n_global <= 2^32 and "
+                         f"row_off >= 0, got {global_twiddle}")
+    return n_global, row_off
 
 
 def _check_real(x, what: str) -> tuple[int, int, int]:
@@ -372,11 +444,13 @@ _BOUND = threading.Event()
 def _lib() -> ctypes.CDLL:
     lib = build.load("matfft")
     if not _BOUND.is_set():
+        # ... the global twiddle's four tables, n_global, row_off, stream
+        gtw = [_c_ptr] * 4 + [_c_ll, _c_ll, _c_ptr]
         lib.matfft_rows.argtypes = [_c_ptr] * 4 + [_c_ll, _c_int] + \
-            [_c_ptr] * 4 + [_c_int, _c_ptr]
+            [_c_ptr] * 4 + [_c_int] + gtw
         lib.matfft_rows.restype = _c_int
-        lib.matfft_cols.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 2 + \
-            [_c_ptr] * 4 + [_c_int, _c_ptr]
+        lib.matfft_cols.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 4 + \
+            [_c_ptr] * 4 + [_c_int] + gtw
         lib.matfft_cols.restype = _c_int
         lib.matfft_rfft.argtypes = [_c_ptr] * 3 + [_c_ll, _c_int] + \
             [_c_ptr] * 4 + [_c_int, _c_ptr]
@@ -397,24 +471,40 @@ def _contiguous(*ts, what: str) -> None:
             raise ValueError(f"{what} takes contiguous tensors")
 
 
+def _global_twiddle_args(gt, device) -> list:
+    """The kernels' global-twiddle arguments: its tables' pointers,
+    n_global and row_off (null pointers and zeros without it)."""
+    if gt is None:
+        return [None] * 4 + [0, 0]
+    return [t.data_ptr() for t in global_twiddle_tables(gt[0], device)] + \
+        list(gt)
+
+
+def _launch_key(wrapper: str, shape, major, gt=None, ncols=None) -> tuple:
+    """The `launch_shapes` key of a call; with the global twiddle or a
+    column slab, a fourth entry: ("twiddle",), ("slab", ncols) or both."""
+    opts = (("twiddle",) if gt is not None else ()) + (
+        ("slab", ncols) if ncols is not None else ())
+    return (wrapper, tuple(shape), major) + ((opts,) if opts else ())
+
+
 def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
            epilogue: Planar | None = None,
-           global_twiddle=None) -> Planar:
+           global_twiddle: tuple[int, int] | None = None) -> Planar:
     """Batched forward DFT along the last axis of planar (rows, n) float32
     tensors, n a power of two <= MAX_LEAF.
 
     epilogue: optional planar (period, n) table, period a power of two;
       output row r is multiplied by ``epilogue[r % period]``.
-    global_twiddle: the distributed placement's on-the-fly twiddle; not in
-      this slice (ROADMAP Queue 1 item 7).
+    global_twiddle: optional (n_global, row_off), host ints: output row r,
+      column o is multiplied by W_{n_global}^{(row_off + r) * o}, the
+      distributed four-step's twiddle (n_global a power of two <= 2^32).
     """
-    if global_twiddle is not None:
-        raise NotImplementedError(
-            "matfft global_twiddle belongs to the distributed placement "
-            "(ROADMAP Queue 1 item 7)")
+    gt = _check_global_twiddle(global_twiddle, epilogue)
+    key = _launch_key("matfft", xr.shape, None, gt)
     if xr.device.type == "cpu":
-        plain_shapes["matfft", tuple(xr.shape), None] += 1
-        return matfft_plain(xr, xi, epilogue=epilogue)
+        plain_shapes[key] += 1
+        return matfft_plain(xr, xi, epilogue=epilogue, global_twiddle=gt)
     _check_cuda(xr, "matfft")
     rows, n = _check_rows(xr, xi, epilogue)
     er, ei = epilogue if epilogue is not None else (None, None)
@@ -427,11 +517,12 @@ def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
         er.data_ptr() if er is not None else None,
         ei.data_ptr() if ei is not None else None,
         er.shape[0] if er is not None else 1,
+        *_global_twiddle_args(gt, xr.device),
         torch.cuda.current_stream(xr.device).cuda_stream)
     if rc:
         raise RuntimeError(f"matfft kernel launch failed: CUDA error {rc}")
     matfft.launches += 1
-    launch_shapes["matfft", (rows, n), None] += 1
+    launch_shapes[key] += 1
     return yr, yi
 
 
@@ -440,49 +531,52 @@ matfft.launches = 0
 
 def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
                 out_major: str = "row", epilogue: Planar | None = None,
-                global_twiddle=None, col_offset: int = 0,
-                ncols: int | None = None) -> Planar:
+                global_twiddle: tuple[int, int] | None = None,
+                col_offset: int = 0, ncols: int | None = None) -> Planar:
     """Batched forward DFT along the MIDDLE axis of planar (B, L, C) float32
     tensors; L a power of two <= MAX_LEAF, C a power of two.
 
-    Logical batch row r = b*C + c transforms the column x[b, :, c].
-    out_major: "row" returns (B*C, L) with row b*C + c; "col" returns
-      (B, L, C) with out[b, o, c] — the transformed axis stays in place.
+    Logical batch row r = b*nc + c transforms the column x[b, :,
+    col_offset + c] of the slab of nc = ``ncols`` columns (default all
+    from ``col_offset`` on: a power of two, ``col_offset`` a multiple of
+    it), read in place from the full operand.
+    out_major: "row" returns (B*nc, L) with row b*nc + c; "col" returns
+      (B, L, nc) with out[b, o, c] — the transformed axis stays in place.
     epilogue: optional planar (C, L) table; output row (b, c) is
-      multiplied by ``epilogue[c]``.
-    global_twiddle, col_offset, ncols: the distributed placement's
-      on-the-fly twiddle and column-slab reads; not in this slice (ROADMAP
-      Queue 1 item 7).
+      multiplied by ``epilogue[col_offset + c]``.
+    global_twiddle: optional (n_global, row_off), host ints: output row
+      (b, c), column o is multiplied by W_{n_global}^{(row_off + b*nc + c)
+      * o}, the distributed four-step's twiddle.
     """
-    if global_twiddle is not None or col_offset or (
-            ncols is not None and ncols != xr.shape[-1]):
-        raise NotImplementedError(
-            "matfft_cols global_twiddle and column slabs belong to the "
-            "distributed placement (ROADMAP Queue 1 item 7)")
+    gt = _check_global_twiddle(global_twiddle, epilogue)
+    sliced = col_offset != 0 or ncols not in (None, xr.shape[-1])
+    key = _launch_key("matfft_cols", xr.shape, out_major, gt,
+                      ncols if sliced else None)
     if xr.device.type == "cpu":
-        plain_shapes["matfft_cols", tuple(xr.shape), out_major] += 1
+        plain_shapes[key] += 1
         return matfft_cols_plain(xr, xi, out_major=out_major,
-                                 epilogue=epilogue)
+                                 epilogue=epilogue, global_twiddle=gt,
+                                 col_offset=col_offset, ncols=ncols)
     _check_cuda(xr, "matfft_cols")
-    B, L, C = _check_cols(xr, xi, out_major, epilogue)
+    B, L, C, nc = _check_cols(xr, xi, out_major, epilogue, col_offset, ncols)
     er, ei = epilogue if epilogue is not None else (None, None)
     _contiguous(xr, xi, er, ei, what="matfft_cols")
     wr, wi = leaf_tables(L, xr.device)
-    shape = (B * C, L) if out_major == "row" else (B, L, C)
+    shape = (B * nc, L) if out_major == "row" else (B, L, nc)
     yr = torch.empty(shape, dtype=torch.float32, device=xr.device)
     yi = torch.empty(shape, dtype=torch.float32, device=xr.device)
     rc = _lib().matfft_cols(
         xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), B, L, C,
-        wr.data_ptr(), wi.data_ptr(),
+        col_offset, nc, wr.data_ptr(), wi.data_ptr(),
         er.data_ptr() if er is not None else None,
         ei.data_ptr() if ei is not None else None,
-        int(out_major == "col"),
+        int(out_major == "col"), *_global_twiddle_args(gt, xr.device),
         torch.cuda.current_stream(xr.device).cuda_stream)
     if rc:
         raise RuntimeError(
             f"matfft_cols kernel launch failed: CUDA error {rc}")
     matfft_cols.launches += 1
-    launch_shapes["matfft_cols", (B, L, C), out_major] += 1
+    launch_shapes[key] += 1
     return yr, yi
 
 

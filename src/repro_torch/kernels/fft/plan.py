@@ -98,6 +98,28 @@ def rfft_twiddle(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
+def global_twiddles(n: int) -> tuple[int, np.ndarray, np.ndarray,
+                                      np.ndarray, np.ndarray]:
+    """The distributed four-step's twiddle W_n^m, m < n, as two tables.
+
+    W_n^m = W_n^{(m >> k) << k} * W_n^{m & (2^k - 1)}, k = ceil(log2(n)/2):
+    returns (k, hi_r, hi_i, lo_r, lo_i), f32, the high table of n >> k
+    entries W_n^{j << k} and the low one of 2^k entries W_n^j. The leaf
+    kernels' global-twiddle epilogue (csrc/matfft.cu) multiplies one entry
+    of each, so no sin/cos is evaluated on the card.
+    """
+    k = (log2i(n) + 1) // 2
+
+    def roots(m):
+        ang = -2.0 * math.pi * (m / n)
+        return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+    hi = roots(np.arange(n >> k, dtype=np.float64) * (1 << k))
+    lo = roots(np.arange(1 << k, dtype=np.float64))
+    return (k, *hi, *lo)
+
+
+@functools.lru_cache(maxsize=None)
 def stockham_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
     """Packed per-stage twiddles for the radix-2 Stockham kernel.
 

@@ -304,3 +304,97 @@ def test_nd_zero_copy_equals_copy_bitwise_on_the_card(cuda, rng, shape):
     zc = executors.rfftn(x[0], shape)
     cp = executors.rfftn(x[0], shape, layout="copy")
     assert torch.equal(zc[0], cp[0]) and torch.equal(zc[1], cp[1])
+
+
+# the distributed four-step's options: the global twiddle (K1, K2) and
+# K2's column slab, bitwise against their plain versions
+
+def _same(got, want) -> bool:
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", LEAF_NS)
+def test_global_twiddle_kernels_equal_their_plain_versions(cuda, rng, n):
+    x = _planes(rng, (300, n), cuda)
+    for gt in ((1 << 20, 0), (1 << 32, (1 << 31) + 5), (64, 7)):
+        assert _same(km.matfft(*x, global_twiddle=gt),
+                     km.matfft_plain(*x, global_twiddle=gt))
+    x3 = _planes(rng, (3, n, 64), cuda)
+    for major in ("row", "col"):
+        for off, nc in ((0, 64), (32, 16), (5, 1)):
+            got = km.matfft_cols(*x3, out_major=major, global_twiddle=(
+                1 << 24, 4096), col_offset=off, ncols=nc)
+            want = km.matfft_cols_plain(*x3, out_major=major, global_twiddle=(
+                1 << 24, 4096), col_offset=off, ncols=nc)
+            assert _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("major", ["row", "col"])
+@pytest.mark.parametrize("off,nc,twiddle", [
+    (0, 4096, (1 << 24, 0)), (1024, 1024, None), (4095, 1, None),
+    (3072, 1024, (1 << 24, 3072))])
+def test_distributed_options_at_the_one_card_shapes(cuda, rng, major, off,
+                                                    nc, twiddle):
+    """chip_smoke.py's shapes at n = 2^24 on one rank: (1, 4096, 4096)."""
+    x = _planes(rng, (1, 4096, 4096), cuda)
+    before = km.matfft_cols.launches
+    got = km.matfft_cols(*x, out_major=major, global_twiddle=twiddle,
+                         col_offset=off, ncols=nc)
+    assert km.matfft_cols.launches == before + 1
+    assert _same(got, km.matfft_cols_plain(
+        *x, out_major=major, global_twiddle=twiddle, col_offset=off,
+        ncols=nc))
+
+
+@pytest.mark.gpu
+def test_distributed_options_at_the_eight_rank_shapes(cuda, rng):
+    """An 8-rank plan at 2^24: pass 1 (1, 4096, 512) with the twiddle at
+    each rank's row offset, pass 2 (1, 4096, 512) column-major in slabs of
+    128; and K1 with the twiddle, the copy layout's pass 1."""
+    x = _planes(rng, (1, 4096, 512), cuda)
+    for r in range(8):
+        gt = (1 << 24, r * 512)
+        assert _same(km.matfft_cols(*x, global_twiddle=gt),
+                     km.matfft_cols_plain(*x, global_twiddle=gt))
+    for j in range(4):
+        kw = dict(out_major="col", col_offset=j * 128, ncols=128)
+        assert _same(km.matfft_cols(*x, **kw),
+                     km.matfft_cols_plain(*x, **kw))
+    rows = _planes(rng, (512, 4096), cuda)
+    assert _same(km.matfft(*rows, global_twiddle=(1 << 24, 1536)),
+                 km.matfft_plain(*rows, global_twiddle=(1 << 24, 1536)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", ["off", 4])
+def test_distributed_plan_on_one_card(cuda, rng, tmp_path, overlap):
+    """A world-size-1 NCCL group: the exchanges are real NCCL calls that
+    move nothing, the passes run K2 with both options."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.fft as tfft
+    n = 1 << 20
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    try:
+        x = _planes(rng, (n,), cuda)
+        want = torch.fft.fft(torch.complex(*x).to(torch.complex128))
+        outs = []
+        for fuse in (False, True):
+            km.reset_counts()
+            p = tfft.plan(kind="c2c", n=n, mesh=mesh, placement="distributed",
+                          overlap=overlap, fuse_twiddle=fuse)
+            y = p.execute(*x)
+            assert km.matfft_cols.launches == (2 if overlap == "off" else 8)
+            assert km.matfft_cols_plain.calls == 0
+            assert _rel_err(y, (want.real, want.imag)) < TOL
+            assert _rel_err(p.execute_inverse(*y), x) < TOL
+            outs.append(y)
+        assert _same(*outs)
+    finally:
+        tfft.invalidate_mesh(mesh)  # its plans hold the group
+        dist.destroy_process_group()

@@ -1,4 +1,5 @@
-"""The port's leaf kernels K1 (`matfft`) and K2 (`matfft_cols`).
+"""The port's leaf kernels K1 (`matfft`) and K2 (`matfft_cols`), with the
+distributed four-step's options: the global twiddle and K2's column slab.
 
 On the CPU the wrappers run the plain PyTorch versions; those are held to
 the JAX package's Pallas kernels in interpret mode. The CUDA kernels
@@ -107,14 +108,61 @@ def test_plain_rows_are_independent_of_the_batch(rng):
                     (batch[0][3], batch[1][3])) < TOL
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda x: km.matfft(*x, global_twiddle=(1024, 0)), "item 7"),
-    (lambda x: km.matfft_cols(x[0].reshape(1, 16, 4), x[1].reshape(1, 16, 4),
-                              col_offset=2, ncols=2), "item 7"),
-])
-def test_distributed_options_are_not_in_this_slice(rng, call, match):
-    with pytest.raises(NotImplementedError, match=match):
-        call(_t(_planes(rng, (4, 16))))
+# the distributed four-step's options: the global-twiddle epilogue (K1, K2)
+# and K2's column slab, against the Pallas kernels' own
+
+
+@pytest.mark.parametrize("n,rows,n_global,row_off", [
+    (2, 8, 64, 0), (16, 8, 1 << 10, 0), (64, 16, 1 << 12, 3),
+    (256, 24, 1 << 20, 40), (512, 8, 1 << 18, 8), (1024, 8, 1 << 16, 8),
+    (4096, 8, 1 << 24, 4096), (256, 8, 1 << 32, (1 << 24) - 8)])
+def test_k1_plain_global_twiddle_matches_pallas(rng, n, rows, n_global,
+                                                row_off):
+    x = _planes(rng, (rows, n))
+    got = km.matfft(*_t(x), global_twiddle=(n_global, row_off))
+    want = jmatfft(*_j(x), global_twiddle=(n_global, jnp.asarray(row_off)),
+                   batch_tile=8, interpret=True)
+    assert _rel_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("L,C,col_offset,ncols", [
+    (16, 8, 4, 2), (64, 8, 0, 8), (256, 4, 2, 2), (512, 4, 3, 1),
+    (1024, 2, 1, 1), (32, 16, 8, 8), (2, 4, 0, 1)])
+@pytest.mark.parametrize("out_major", ["row", "col"])
+@pytest.mark.parametrize("twiddle", [None, (1 << 20, 0), (1 << 14, 5)])
+def test_k2_plain_slab_and_global_twiddle_match_pallas(
+        rng, L, C, col_offset, ncols, out_major, twiddle):
+    B = 3
+    x = _planes(rng, (B, L, C))
+    got = km.matfft_cols(*_t(x), out_major=out_major, global_twiddle=twiddle,
+                         col_offset=col_offset, ncols=ncols)
+    want = jmatfft_cols(
+        *_j(x), out_major=out_major, col_offset=col_offset, ncols=ncols,
+        global_twiddle=(None if twiddle is None
+                        else (twiddle[0], jnp.asarray(twiddle[1]))),
+        interpret=True)
+    assert tuple(got[0].shape) == tuple(want[0].shape)
+    assert _rel_err(got, want) < TOL
+
+
+def test_k2_plain_slab_reads_the_epilogue_at_its_offset(rng):
+    x, epi = _planes(rng, (2, 64, 8)), _planes(rng, (8, 64))
+    got = km.matfft_cols(*_t(x), epilogue=_t(epi), col_offset=4, ncols=4)
+    want = jmatfft_cols(*_j(x), epilogue=_j(epi), col_offset=4, ncols=4,
+                        interpret=True)
+    assert _rel_err(got, want) < TOL
+
+
+def test_global_twiddle_plain_is_exact_past_the_f32_angle(rng):
+    """m = (row * o) mod n_global past 2^24, where the reference's f32
+    angle rounds: the port's two tables stay within 5e-6 of float64."""
+    n_global, row_off, n = 1 << 30, (1 << 29) + 7, 256
+    x = _planes(rng, (4, n))
+    got = km.matfft(*_t(x), global_twiddle=(n_global, row_off))
+    y = np.fft.fft(x[0].astype(np.float64) + 1j * x[1], axis=-1)
+    m = ((row_off + np.arange(4)[:, None]) * np.arange(n)) % n_global
+    want = y * np.exp(-2j * np.pi * m / n_global)
+    assert _rel_err(got, (want.real, want.imag)) < TOL
 
 
 @pytest.mark.parametrize("bad,exc", [
@@ -124,6 +172,17 @@ def test_distributed_options_are_not_in_this_slice(rng, call, match):
     (lambda x: km.matfft(torch.zeros(2, 3 * 4096), torch.zeros(2, 3 * 4096)),
      ValueError),
     (lambda x: km.matfft(x[0].to("meta"), x[1].to("meta")), ValueError),
+    (lambda x: km.matfft(*x, epilogue=(x[0][:4], x[1][:4]),
+                         global_twiddle=(64, 0)), ValueError),
+    (lambda x: km.matfft(*x, global_twiddle=(1 << 33, 0)), ValueError),
+    (lambda x: km.matfft(*x, global_twiddle=(96, 0)), ValueError),
+    (lambda x: km.matfft(*x, global_twiddle=(64, -1)), ValueError),
+    (lambda x: km.matfft_cols(x[0].reshape(1, 16, 4), x[1].reshape(1, 16, 4),
+                              col_offset=1, ncols=2), ValueError),
+    (lambda x: km.matfft_cols(x[0].reshape(1, 16, 4), x[1].reshape(1, 16, 4),
+                              col_offset=0, ncols=3), ValueError),
+    (lambda x: km.matfft_cols(x[0].reshape(1, 16, 4), x[1].reshape(1, 16, 4),
+                              col_offset=4, ncols=2), ValueError),
 ])
 def test_wrappers_reject_what_the_kernel_does_not_take(rng, bad, exc):
     with pytest.raises(exc):

@@ -114,7 +114,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'repro.', 'jaxlib')))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.core.fft.outofcore' in sys.modules\n"
+        "assert {'repro_torch.core.fft.outofcore',\n"
+        "        'repro_torch.core.fft.segmented',\n"
+        "        'repro_torch.core.fft.distributed'} <= set(sys.modules)\n"
         "print('clean')\n")
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}

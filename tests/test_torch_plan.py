@@ -190,10 +190,11 @@ def test_resolve_local_nd_spec(kind):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(kind="c2c", n=256, placement="segmented"), NotImplementedError,
-     "item 7"),
-    (dict(kind="c2c", n=256, placement="distributed"), NotImplementedError,
-     "item 7"),
+    # the 2-D and 3-D pencils come with the next slice
+    (dict(kind="c2c", shape=(64, 64), placement="distributed",
+          num_devices=4), NotImplementedError, "item 7b"),
+    (dict(kind="c2c", shape=(16, 16, 16), placement="distributed",
+          num_devices=4), NotImplementedError, "item 7b"),
     # ported: plan() builds it from a store, resolve() refuses it
     (dict(kind="c2c", n=256, placement="out_of_core"), ValueError,
      "constructed by repro_torch.fft.plan.* no resolvable FftSpec"),
@@ -206,9 +207,53 @@ def test_unported_specs_name_their_roadmap_item(kw, exc, match):
             tfft.plan(device="cpu", **kw)
 
 
+def test_plan_mesh_arguments_are_checked():
+    """A mesh's device type is the plan's device; another device, axes=
+    without a mesh and a mesh for the out-of-core placement are refused
+    before the mesh is read further."""
+    class CudaMesh:
+        device_type = "cuda"
+
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        tfft.plan(kind="c2c", n=4096, mesh=CudaMesh(), device="cpu")
+    with pytest.raises(ValueError, match="axes= requires mesh="):
+        tfft.plan(kind="c2c", n=4096, axes=("data",), device="cpu")
+    with pytest.raises(ValueError, match="no mesh="):
+        tfft.plan(kind="c2c", n=4096, mesh=CudaMesh(),
+                  placement="out_of_core")
+
+
+def test_plan_fallback_degrade_is_item_7b():
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        tfft.plan(kind="c2c", n=256, fallback="degrade", device="cpu")
+    with pytest.raises(ValueError, match="fallback"):
+        tfft.plan(kind="c2c", n=256, fallback="retry", device="cpu")
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(kind="c2c", n=1000), "power of two"),
     (dict(kind="c2c", n=2 * tspec.MAX_LOCAL_N), "single-device"),
+    # the mesh placements' rules
+    (dict(kind="c2c", n=4096, placement="distributed", num_devices=6),
+     "power-of-two device count"),
+    (dict(kind="c2c", n=32, placement="distributed", num_devices=8),
+     r"n >= D\^2"),
+    (dict(kind="c2c", n=256, batch_shape=(10,), placement="segmented",
+          num_devices=4), "does not shard evenly"),
+    (dict(kind="c2c", n=256, batch_shape=(8,), placement="segmented"),
+     "requires mesh="),
+    (dict(kind="c2c", n=256, batch_shape=(2, 4), placement="segmented",
+          num_devices=2), "1-D batch"),
+    (dict(kind="c2c", n=4096, batch_shape=(2,), placement="distributed",
+          num_devices=8), "ONE global signal"),
+    (dict(kind="r2c", n=4096, placement="distributed", num_devices=8),
+     "r2c"),
+    (dict(kind="c2c", n=4096, placement="distributed", num_devices=8,
+          overlap=3), "chunks must divide"),
+    (dict(kind="c2c", n=4096, placement="distributed", num_devices=8,
+          overlap="sometimes"), "overlap must be"),
+    (dict(kind="c2c", n=4096, placement="distributed", num_devices=8,
+          axis_sizes=(4, 4)), "do not multiply"),
     (dict(kind="c2c", n=256, layout="tiled"), "layout"),
     (dict(kind="c2c", n=256, impl="cufft"), "impl"),
     (dict(kind="c2c", n=256, verify="crc"), "verify"),
@@ -217,6 +262,43 @@ def test_unported_specs_name_their_roadmap_item(kw, exc, match):
 def test_resolve_rejects_bad_specs(kw, match):
     with pytest.raises(ValueError, match=match):
         tspec.resolve(**{"device": "cpu", **kw})
+
+
+@pytest.mark.parametrize("shape", [(4096,), (64,), (1 << 26,), (64, 64),
+                                   (8, 64), (2 * tspec.MAX_LOCAL_N,)])
+@pytest.mark.parametrize("batch", [(), (8,), (6,), (2, 4)])
+@pytest.mark.parametrize("num_devices", [None, 1, 4, 8])
+def test_auto_placement_matches_the_reference(shape, batch, num_devices):
+    """The placement heuristic with and without a mesh, against the
+    reference's (the port's cap on one device is the reference's)."""
+    args = (shape, int(np.prod(batch)), len(batch), num_devices)
+    try:
+        want = jspec.resolve_placement(*args)
+    except ValueError:
+        with pytest.raises(ValueError):
+            tspec.resolve_placement(*args)
+        return
+    assert tspec.resolve_placement(*args) == want
+
+
+@pytest.mark.parametrize("n,d,overlap", [
+    (4096, 8, "auto"), (1 << 26, 8, "auto"), (1 << 26, 128, "auto"),
+    (1 << 12, 8, 4), (1 << 12, 8, 8), (1 << 20, 4, "off"),
+    (1 << 27, 2, "auto")])
+def test_distributed_spec_matches_the_reference(n, d, overlap):
+    """1-D distributed resolution: the overlap knob resolved the same way,
+    and the knobs of other placements normalized away."""
+    kw = dict(kind="c2c", n=n, placement="distributed", num_devices=d,
+              axes=("data",), overlap=overlap, fuse_twiddle=True)
+    got = tspec.resolve(device="cpu", **kw)
+    want = jspec.resolve(**kw)
+    assert (got.overlap, got.fuse_twiddle, got.natural_order, got.axes) == (
+        want.overlap, want.fuse_twiddle, want.natural_order, want.axes)
+    seg = tspec.resolve(kind="c2c", n=256, batch_shape=(d,), num_devices=d,
+                        axes=("data",), placement="segmented",
+                        fuse_twiddle=True, overlap=4, device="cpu")
+    assert (seg.overlap, seg.fuse_twiddle, seg.axes) == ("off", False,
+                                                        ("data",))
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
