@@ -185,6 +185,26 @@ FULL = {
     "dist": {"n": 1 << 24, "n_level2": 1 << 26, "chunks": 4,
              "seg_c2c": (64, 1 << 20), "seg_r2c": (4096, 1 << 16),
              "ranks": 8, "reps": 3},
+    # the pencils on the same group: (kind, shape, mesh dims), each under
+    # overlap "off" and `chunks`; an 8192-point leading axis runs
+    # axis_pass's transpose fallback
+    "pencil": {"cases": [("c2c", (8192, 8192), (1,)),
+                         ("c2c", (512, 512, 512), (1, 1)),
+                         ("r2c", (8192, 8192), (1,)),
+                         ("r2c", (512, 512, 512), (1, 1))],
+               "chunks": 4, "reps": 3},
+    # the service: benchmarks/bench_serve.py's storm (its seed, rate,
+    # clients, coalesce, queue depth, inflight and attempts; the default
+    # mix), the paper-scale mix (2, 8 and 4 MiB a request) flooded with
+    # `paper_requests`, the device loss under `loss_requests`, and the
+    # launcher with `cli_requests`
+    "serve": {"seed": 1407, "rate": 0.25, "clients": 3, "coalesce": 4,
+              "queue_depth": 40, "max_inflight": 2, "max_attempts": 4,
+              "storm_requests": 240,
+              "paper_mix": [("c2c", 1024, 256), ("c2c", 65536, 16),
+                            ("r2c", 4096, 256)],
+              "paper_requests": 600, "loss_requests": 300,
+              "cli_requests": 400},
 }
 REHEARSE = {
     "runs": [
@@ -232,6 +252,18 @@ REHEARSE = {
     "dist": {"n": 1 << 12, "n_level2": 1 << 14, "chunks": 4,
              "seg_c2c": (8, 1 << 10), "seg_r2c": (16, 1 << 14), "ranks": 8,
              "reps": 1},
+    "pencil": {"cases": [("c2c", (8192, 32), (1,)),
+                         ("c2c", (8, 16, 32), (1, 1)),
+                         ("r2c", (8192, 32), (1,)),
+                         ("r2c", (8, 16, 32), (1, 1))],
+               "chunks": 4, "reps": 1},
+    "serve": {"seed": 1407, "rate": 0.25, "clients": 3, "coalesce": 4,
+              "queue_depth": 40, "max_inflight": 2, "max_attempts": 4,
+              "storm_requests": 48,
+              "paper_mix": [("c2c", 64, 4), ("c2c", 8192, 2),
+                            ("r2c", 256, 4)],
+              "paper_requests": 24, "loss_requests": 24,
+              "cli_requests": 24},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -315,7 +347,8 @@ def kernel_cases(cfg, max_leaf: int) -> list:
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
     return (cases + ooc_kernel_cases(cfg) + nd_kernel_cases(cfg)
-            + dist_kernel_cases(cfg))
+            + dist_kernel_cases(cfg) + pencil_kernel_cases(cfg)
+            + serve_kernel_cases(cfg))
 
 
 def ooc_kernel_cases(cfg) -> list:
@@ -433,29 +466,19 @@ def dist_kernel_cases(cfg) -> list:
               for r in range(d)]
     cases += [("matfft_cols", (1, n2, n1l), "col",
                slab(j * n1l // k, n1l // k), False) for j in range(k)]
-    out, seen = [], set()
-
-    def add(wrapper, shape, opts, name):
-        kernel = "rfft" if wrapper == "rfft_leaf" else wrapper
-        frozen = (kernel, tuple(shape), tuple(sorted(opts.items())))
-        if frozen not in seen:
-            seen.add(frozen)
-            out.append((variant_of((wrapper, shape)), kernel, shape,
-                        {**opts, "dist": True}, name))
-
+    calls, names = [], {}
     for kernel, shape, major, opts, timed in cases:
         key = option_key(kernel, shape, major, opts)
-        opts = {**opts, **({"period": None} if kernel == "matfft" else
-                           {"out_major": major, "with_epilogue": False})}
-        add(kernel, shape, opts, dist_case_name(variant_of(key), key)
-            if timed else False)
+        calls.append((key, {**opts, **(
+            {"period": None} if kernel == "matfft" else
+            {"out_major": major, "with_epilogue": False})}))
+        if timed:
+            names[key] = dist_case_name(variant_of(key), key)
     # every other call of phase 10's runs, at its own shape and offsets
-    calls = [call for run in dist_runs(cfg) for call in dist_calls(*run)]
+    calls += [call for run in dist_runs(cfg) for call in dist_calls(*run)]
     calls += [call for kind in ("c2c", "r2c")
               for call in seg_calls(kind, *c[f"seg_{kind}"])]
-    for key, opts in calls:
-        add(key[0], key[1], opts, False)
-    return out
+    return calls_as_cases(calls, names)
 
 
 def case_key(kernel: str, shape, opts) -> tuple:
@@ -1492,8 +1515,8 @@ def seg_calls(kind: str, segs: int, length: int) -> list:
 
 
 def dist_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
-    """Phase 10: a world-size-1 group (NCCL on the card, gloo in the
-    rehearsal) over a one-rank ("data",) mesh. The 1-D distributed
+    """Phase 10: on the world-size-1 group of `one_rank_group`, a one-rank
+    ("data",) mesh. The 1-D distributed
     four-step at ``n`` under every overlap x fuse_twiddle x layout and at
     ``n_level2`` under both overlaps; the segmented c2c and r2c batches.
     Each run once with the counts zeroed just before and read just after,
@@ -1502,10 +1525,8 @@ def dist_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
     the local plan, bitwise; then each timed beside torch.fft (CUDA
     events, ``reps`` calls). Returns the summary and each run's measured
     calls."""
-    import datetime
     from collections import Counter
 
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     import repro_torch.fft as tfft
@@ -1514,13 +1535,6 @@ def dist_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
     c = cfg["dist"]
     reps = c["reps"]
     gen = torch.Generator(device=dev).manual_seed(4)
-    store = ROOT / "build" / "dist_store"
-    store.parent.mkdir(parents=True, exist_ok=True)
-    store.unlink(missing_ok=True)
-    dist.init_process_group("nccl" if gpu else "gloo",
-                            store=dist.FileStore(str(store), 1), rank=0,
-                            world_size=1,
-                            timeout=datetime.timedelta(seconds=60))
     mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
     runs, measured = [], {}
 
@@ -1645,8 +1659,6 @@ def dist_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
         del br, bi
     finally:
         tfft.invalidate_mesh(mesh)  # its plans hold the group
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
     if gpu:
         torch.cuda.empty_cache()
     return {"runs": runs}, measured
@@ -1662,27 +1674,574 @@ def variant_of(key: tuple) -> str:
     return wrapper + ("/direct" if shape[1] <= 256 else "/four_step")
 
 
-def dist_kernel_launches(cfg, measured: dict) -> dict:
-    """Measured launches of each timed option case of phase 3 over phase
-    10's runs, under its name in the `kernels` line."""
+# ---------------------------------------------------------------------------
+# phase 11: the 2-D/3-D pencils and fallback="degrade" on one rank
+
+
+def calls_as_cases(calls, names: dict) -> list:
+    """Phase 3 cases for kernel calls given as (`launch_shapes` key,
+    options), each once, drawn on the device; a key in ``names`` timed
+    under its name there."""
+    out, seen = [], set()
+    for key, opts in calls:
+        wrapper, shape = key[0], key[1]
+        kernel = "rfft" if wrapper.startswith("rfft") else wrapper
+        frozen = (kernel, tuple(shape), tuple(sorted(opts.items())))
+        if frozen in seen:
+            continue
+        seen.add(frozen)
+        out.append((variant_of(key), kernel, shape, {**opts, "dist": True},
+                    names.get(key, False)))
+    return out
+
+
+def shape_case_name(key: tuple) -> str:
+    """A timed shape's name in the `kernels` line: "<variant> <shape>[
+    <major>]", as phase 9 names its shapes."""
+    return f"{variant_of(key)} {tuple(key[1])}" + (
+        f" {key[2]}" if key[2] else "")
+
+
+def pencil_calls(kind: str, shape, chunks) -> list:
+    """Every kernel call of one pencil forward on one rank, worked out from
+    the shape (the executors' structure, written out independently), as
+    (`launch_shapes` key, phase 3's options): the contiguous pass (c2c:
+    the batched 1-D transform; r2c: K3's packed leaf, or the c2c path at
+    the half length past one leaf), then axis k = nd-2 .. 0 of the (half
+    width) volume: one column-major K2 pass up to MAX_LEAF, the transform
+    of its columns as rows above; with ``chunks``, k slabs of the axis's
+    columns each, a K2 slab read in place or the slab's columns sliced."""
+    from repro_torch.kernels.fft import plan as kplan
+    lead = math.prod(shape[:-1])
+    if kind == "c2c":
+        width = tuple(shape)
+        first = nd_pass_launches(lead, shape[-1])
+    else:
+        m = shape[-1] // 2
+        width = (*shape[:-1], m)
+        first = ([("rfft_pack_leaf", (lead, shape[-1]), None)]
+                 if kplan.make_plan(m).levels == 1
+                 else nd_pass_launches(lead, m))
+    out = [(key, {"untangle": False} if key[0] == "rfft_pack_leaf"
+            else pass_opts(key)) for key in first]
+    k = chunks or 1
+    for a in range(len(shape) - 2, -1, -1):
+        B, L = math.prod(width[:a]), width[a]
+        C = math.prod(width[a + 1:])
+        nc = C // k
+        for c in range(k):
+            if L <= kplan.MAX_LEAF:
+                opts = {"out_major": "col", "with_epilogue": False}
+                if chunks:
+                    opts.update(col_offset=c * nc, ncols=nc)
+                out.append((("matfft_cols", (B, L, C), "col"), opts))
+            else:
+                out += [(key, pass_opts(key))
+                        for key in nd_pass_launches(B * nc, L)]
+    return [(option_key(key[0], key[1], key[2], opts), opts)
+            for key, opts in out]
+
+
+def pencil_runs(cfg) -> list:
+    """Phase 11's runs: (kind, shape, mesh dims, chunks or None)."""
+    c = cfg["pencil"]
+    return [(kind, shape, dims, chunks) for kind, shape, dims in c["cases"]
+            for chunks in (None, c["chunks"])]
+
+
+def pencil_timed(cfg) -> frozenset:
+    """The pencils' whole-pass kernel shapes that phase 9 does not time."""
+    nd = {key for run in nd_runs(cfg).values() for key in run["launches"]}
+    return frozenset(key for kind, shape, _, chunks in pencil_runs(cfg)
+                     if chunks is None
+                     for key, _ in pencil_calls(kind, shape, None)
+                     if key not in nd)
+
+
+def pencil_kernel_cases(cfg) -> list:
+    calls = [call for kind, shape, _, chunks in pencil_runs(cfg)
+             for call in pencil_calls(kind, shape, chunks)]
+    return calls_as_cases(calls, {key: shape_case_name(key)
+                                  for key in pencil_timed(cfg)})
+
+
+def one_rank_group(torch, gpu: bool):
+    """A world-size-1 group (NCCL on the card, gloo in the rehearsal)
+    from a FileStore under build/; returns the store's path."""
+    import datetime
+
+    import torch.distributed as dist
+    store = ROOT / "build" / "dist_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl" if gpu else "gloo",
+                            store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    return store
+
+
+def pencil_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
+    """Phase 11, on phase 10's world-size-1 group: each pencil over a
+    (1,) ("data",) mesh (2-D) or a (1, 1) ("data", "model") mesh (3-D),
+    under overlap "off" and `chunks`, once with the counts zeroed just
+    before and read just after, its calls held to `pencil_calls`; bitwise
+    equal to the local plan (fftn/rfftn) at the same shape, within 5e-6
+    of torch.fft.fftn/rfftn, timed beside it. Then one rank lost:
+    ``fallback="degrade"`` returns the local plan, with one
+    plan_downgrade, the mesh's plans dropped and the same bits; without a
+    loss it logs none. Returns the summary and each run's calls."""
+    from collections import Counter
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.fft as tfft
+    from repro_torch.core.fft.distributed import pencil_shard
+    from repro_torch.core.resilience import (clear_events, events,
+                                             meshstate)
+    from repro_torch.fft import planner
+
+    c = cfg["pencil"]
+    reps = c["reps"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    meshes = {(1,): init_device_mesh(dev.type, (1,),
+                                     mesh_dim_names=("data",)),
+              (1, 1): init_device_mesh(dev.type, (1, 1),
+                                       mesh_dim_names=("data", "model"))}
+    runs, measured = [], {}
+    try:
+        for kind, shape, dims in c["cases"]:
+            mesh = meshes[dims]
+            if kind == "c2c":
+                x = (torch.randn(shape, generator=gen, device=dev),
+                     torch.randn(shape, generator=gen, device=dev))
+                xc = torch.complex(*x)
+                lib = lambda: torch.fft.fftn(xc)  # noqa: E731
+            else:
+                x = (torch.randn(shape, generator=gen, device=dev),)
+                lib = lambda: torch.fft.rfftn(x[0])  # noqa: E731
+            local = tfft.plan(kind=kind, shape=shape, device=dev)
+            fwd_local = local.execute if kind == "c2c" else local.execute_real
+            want = fwd_local(*x)
+            y_lib = lib()
+            outs = {}
+            for chunks in (None, c["chunks"]):
+                overlap = chunks or "off"
+                name = f"pencil {kind} {shape} overlap={overlap}"
+                p = tfft.plan(kind=kind, shape=shape, mesh=mesh,
+                              placement="distributed", overlap=overlap)
+                shard = tuple(pencil_shard(a, mesh) for a in x)
+                fwd = p.execute if kind == "c2c" else p.execute_real
+                reset_counts()
+                y = fwd(*shard)
+                if gpu:
+                    torch.cuda.synchronize()
+                counts, shapes = read_counts(), read_shapes(gpu)
+                measured[name] = shapes
+                nd_check_counts(gpu, name, counts, shapes, Counter(
+                    key for key, _ in pencil_calls(kind, shape, chunks)))
+                check(bool(torch.isfinite(y[0]).all()), f"{name}: "
+                      f"non-finite")
+                err = rel_err(torch.complex(*y), y_lib)
+                check(err < TOL, f"{name}: {err} vs torch.fft")
+                same = torch.equal(y[0], want[0]) and torch.equal(y[1],
+                                                                  want[1])
+                check(same, f"{name}: differs from the local plan")
+                outs[chunks] = y
+                run = {"run": name, "grid": list(p.dist.grid),
+                       "chunks": p.dist.chunks,
+                       "fast_r2c_pencil": p._fast_r2c_pencil,
+                       "rel_err": err, "local_bitwise": same,
+                       "launches": counts,
+                       "collective_bytes": p.collective_bytes,
+                       "per_leg_collective_bytes":
+                           list(p.per_leg_collective_bytes),
+                       "hbm_bytes": p.hbm_bytes}
+                if gpu:
+                    run.update(ms=timed_ms(torch, lambda: fwd(*shard), reps),
+                               library_ms=timed_ms(torch, lib, reps),
+                               local_ms=timed_ms(torch,
+                                                 lambda: fwd_local(*x),
+                                                 reps))
+                print("pencil " + json.dumps(run))
+                runs.append(run)
+            del outs, want, y_lib, x, y
+            if kind == "c2c":
+                del xc
+            if gpu:
+                torch.cuda.empty_cache()
+
+        # degrade: one rank lost, then none
+        kind, shape, dims = c["cases"][0]
+        mesh = meshes[dims]
+        x = (torch.randn(shape, generator=gen, device=dev),
+             torch.randn(shape, generator=gen, device=dev))
+        p = tfft.plan(kind=kind, shape=shape, mesh=mesh,
+                      placement="distributed", overlap="off")
+        y = p.execute(*x)
+        clear_events()
+        q = tfft.plan(kind=kind, shape=shape, mesh=mesh,
+                      placement="distributed", overlap="off",
+                      fallback="degrade")
+        check(q is p and not events("plan_downgrade"),
+              "degrade without a loss changed the plan")
+        cached = sum(1 for k in planner._PLAN_CACHE if k[1] == mesh)
+        meshstate.lose_devices([0])
+        try:
+            d = tfft.plan(kind=kind, shape=shape, mesh=mesh,
+                          placement="distributed", overlap="off",
+                          fallback="degrade")
+        finally:
+            meshstate.restore_devices()
+        ev = events("plan_downgrade")
+        left = sum(1 for k in planner._PLAN_CACHE if k[1] == mesh)
+        z = d.execute(*x)
+        same = torch.equal(y[0], z[0]) and torch.equal(y[1], z[1])
+        degrade = {"run": "degrade", "placement": d.placement,
+                   "events": [{k: e[k] for k in (
+                       "reason", "requested_placement", "resolved_placement",
+                       "from_devices", "to_devices", "plans_invalidated")}
+                       for e in ev],
+                   "cached_before": cached, "cached_after": left,
+                   "bitwise": same}
+        print("pencil " + json.dumps(degrade))
+        check(d.placement == "local" and d.mesh is None,
+              f"degrade: {d.placement}")
+        check(len(ev) == 1 and ev[0]["reason"] == "mesh_degraded",
+              f"degrade: events {ev}")
+        check(cached >= 1 and left == 0 and ev[0]["plans_invalidated"]
+              == cached, f"degrade: {cached} cached, {left} left")
+        check(same, "degrade: the local plan differs from the pencil")
+        runs.append(degrade)
+        del x, y, z
+    finally:
+        for mesh in meshes.values():
+            tfft.invalidate_mesh(mesh)  # its plans hold the group
+    if gpu:
+        torch.cuda.empty_cache()
+    return {"runs": runs}, measured
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the service
+
+
+def serve_mixes(cfg) -> dict:
+    """The request mixes of phase 12: (impls, verify modes, shapes)."""
+    from repro_torch.serve import loadgen
+    c = cfg["serve"]
+    paper = tuple(loadgen.RequestShape(*r) for r in c["paper_mix"])
+    return {"storm": (("matfft", "stockham"), ("off",), loadgen.DEFAULT_MIX),
+            "paper": (("matfft",), ("off", "abft"), paper)}
+
+
+def serve_calls(cfg) -> list:
+    """Every kernel call the service can launch in phase 12, as
+    (`launch_shapes` key, phase 3's options): for each request shape, the
+    two launch sizes of the 2-plan trick (its own rows, and coalesce x
+    rows), each with the checksum row under verify "abft"."""
+    from repro_torch.kernels.fft import plan as kplan
+    calls = []
+    for impls, modes, mix in serve_mixes(cfg).values():
+        for impl in impls:
+            for shape in mix:
+                for total in {shape.rows, cfg["serve"]["coalesce"]
+                              * shape.rows}:
+                    for extra in {0 if m == "off" else 1 for m in modes}:
+                        rows = total + extra
+                        if impl == "stockham":
+                            check(shape.n <= kplan.MAX_LEAF, "serve_calls: "
+                                  "stockham past one leaf")
+                            calls.append((("stockham", (rows, shape.n),
+                                           None), {}))
+                        elif shape.kind == "c2c":
+                            calls += [(key, pass_opts(key)) for key in
+                                      nd_pass_launches(rows, shape.n)]
+                        elif kplan.make_plan(shape.n // 2).levels == 1:
+                            key = ("rfft_leaf", (rows, shape.n), None)
+                            calls.append((key, pass_opts(key)))
+                        else:
+                            calls += [(key, pass_opts(key)) for key in
+                                      nd_pass_launches(rows, shape.n // 2)]
+    return calls
+
+
+def serve_timed(cfg) -> frozenset:
+    """The paper mix's full batches, timed in phase 3."""
+    c = cfg["serve"]
+    _, _, paper = serve_mixes(cfg)["paper"]
+    keys = set()
+    for shape in paper:
+        rows = c["coalesce"] * shape.rows
+        if shape.kind == "c2c":
+            keys.update(nd_pass_launches(rows, shape.n))
+        else:
+            keys.add(("rfft_leaf", (rows, shape.n), None))
+    return frozenset(keys)
+
+
+def serve_kernel_cases(cfg) -> list:
+    return calls_as_cases(serve_calls(cfg), {key: shape_case_name(key)
+                                             for key in serve_timed(cfg)})
+
+
+def serve_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
+    """Phase 12: the service (`repro_torch.serve`) on the card.
+
+    1. The JAX package's serve gate (benchmarks/bench_serve.py's storm):
+       an open-loop flood through a seeded 25 % fault storm over the
+       three serve sites, impl "matfft" and again "stockham": every
+       request ``ok`` and bitwise equal to `loadgen.oracle` at its launch
+       size, or a classified structured error; drained to idle.
+    2. Paper-scale traffic, no faults, verify "off" and "abft": every
+       request ``ok``, bitwise equal to the oracle and within 5e-6 of
+       torch.fft; qps, latency percentiles, batches, padded rows, plan
+       cache entries; no spec key on more than 2 plans (4 with abft).
+    3. Device loss under load, on a one-rank mesh of phase 10's group:
+       ``lose_devices([0])`` mid-run, at least one service_degrade with
+       action "replan_fallback_degrade", every request ``ok`` and
+       bitwise equal to the oracle.
+    4. `python -m repro_torch.launch.fft_serve` under a 25 % storm as a
+       subprocess: exit 0, drained, no silent drop.
+
+    Each in-process run with the counts zeroed just before and read just
+    after: a fault-free run fails on any outcome but ``ok`` (the retry
+    path would turn a kernel failure into classified errors), and no
+    plain version may run on the card. Returns the summary and each
+    run's calls."""
+    import os
+    import threading
+    from collections import Counter
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.fft as tfft
+    from repro_torch.core.resilience import (FaultInjector, FaultPlan,
+                                             RetryPolicy, clear_events,
+                                             events, meshstate)
+    from repro_torch.serve import FftService, loadgen
+
+    c = cfg["serve"]
+    device = "cuda" if gpu else "cpu"
+    mixes = serve_mixes(cfg)
+    out, measured = [], {}
+    sites = ("serve.admit", "serve.batch", "serve.execute")
+    classified = {"ok", "queue_full", "rate_limit", "inflight_cap",
+                  "admit_fault", "closed", "shed", "deadline", "failed"}
+
+    def counted(name, fn):
+        reset_counts()
+        t0 = time.monotonic()
+        result = fn()
+        wall = time.monotonic() - t0
+        counts, shapes = read_counts(), read_shapes(gpu)
+        measured[name] = shapes
+        if gpu:
+            check(counts["plain"] == 0, f"{name}: a plain version ran")
+        return result, counts, wall
+
+    def oracle_check(name, seed, records, outcomes, impl, lib_check):
+        """Every ``ok`` bitwise equal to the oracle at its launch size
+        (and within TOL of torch.fft where ``lib_check``)."""
+        worst = 0.0
+        for rec in records:
+            if outcomes[rec.rid] != "ok":
+                continue
+            ops = loadgen.request_operands(seed, rec.rid, rec.shape)
+            want = loadgen.oracle(rec.shape, ops, impl=impl,
+                                  batch_rows=rec.ticket.batch_rows,
+                                  device=device)
+            check(loadgen.bitwise_equal(rec.ticket.value, want),
+                  f"{name}: request {rec.rid} differs from its oracle")
+            if lib_check:
+                got = torch.complex(*(torch.from_numpy(a).to(dev)
+                                      for a in rec.ticket.value))
+                x = [torch.from_numpy(a).to(dev) for a in ops]
+                lib = (torch.fft.fft(torch.complex(*x), dim=-1)
+                       if rec.shape.kind == "c2c"
+                       else torch.fft.rfft(x[0], dim=-1))
+                worst = max(worst, rel_err(got, lib))
+        check(worst < TOL, f"{name}: {worst} vs torch.fft")
+        return worst
+
+    def buckets_of(counts: dict) -> dict:
+        """Outcome counts, the ok bucket as "ok_requests": the last line
+        alone may say "ok" (tests/test_torch_pipeline.py)."""
+        return {("ok_requests" if k == "ok" else k): v
+                for k, v in sorted(counts.items())}
+
+    def summary(name, service, records, outcomes, wall, counts, extra):
+        buckets = Counter(outcomes.values())
+        stats = service.stats.snapshot()
+        doc = {"run": name, "requests": len(records), "wall_s": wall,
+               "qps_completed": buckets.get("ok", 0) / wall,
+               "outcomes": buckets_of(buckets),
+               "drained_idle": service.idle(),
+               "latency": stats["latency"], "batches": stats["batches"],
+               "padded_rows": stats["padded_rows"],
+               "retries": stats["retries"],
+               "mean_requests_per_launch":
+                   stats.get("mean_requests_per_launch"),
+               "plan_cache": tfft.cache_info(), "launches": counts, **extra}
+        print("serve " + json.dumps(doc))
+        out.append(doc)
+        return doc
+
+    # 1. the serve gate
+    impls, _, mix = mixes["storm"]
+    n_req = c["storm_requests"]
+    for impl in impls:
+        name = f"storm impl={impl}"
+        tfft.clear_plan_cache()
+        clear_events()
+        injector = FaultInjector(FaultPlan.random(c["seed"], n_req,
+                                                  sites=sites,
+                                                  rate=c["rate"]))
+        service = FftService(
+            impl=impl, device=device, coalesce=c["coalesce"],
+            queue_depth=c["queue_depth"], max_inflight=c["max_inflight"],
+            injector=injector,
+            retry=RetryPolicy(max_attempts=c["max_attempts"],
+                              base_delay_s=0.0))
+
+        def storm():
+            records = loadgen.drive(service, num_requests=n_req,
+                                    clients=c["clients"], seed=c["seed"],
+                                    mix=mix)
+            outcomes = {r.rid: loadgen.classify(r) for r in records}
+            service.close(drain=True)
+            return records, outcomes
+
+        (records, outcomes), counts, wall = counted(name, storm)
+        bad = sorted(set(outcomes.values()) - classified)
+        check(not bad, f"{name}: unclassified outcomes {bad}")
+        check(len(records) == n_req and service.idle(),
+              f"{name}: not drained")
+        check("ok" in outcomes.values(), f"{name}: nothing ok")
+        oracle_check(name, c["seed"], records, outcomes, impl, False)
+        summary(name, service, records, outcomes, wall, counts,
+                {"faults": injector.summary()["fired_by_site"],
+                 "degrade_events": len(events("service_degrade"))})
+
+    # 2. paper-scale traffic, fault-free
+    impls, modes, mix = mixes["paper"]
+    n_req = c["paper_requests"]
+    for verify in modes:
+        name = f"paper verify={verify}"
+        tfft.clear_plan_cache()
+        service = FftService(impl="matfft", device=device,
+                             coalesce=c["coalesce"],
+                             queue_depth=max(n_req, 1),
+                             verify=verify)
+
+        def flood():
+            records = loadgen.drive(service, num_requests=n_req,
+                                    clients=c["clients"], seed=c["seed"],
+                                    mix=mix)
+            outcomes = {r.rid: loadgen.classify(r) for r in records}
+            service.close(drain=True)
+            return records, outcomes
+
+        (records, outcomes), counts, wall = counted(name, flood)
+        check(set(outcomes.values()) == {"ok"},
+              f"{name}: outcomes {Counter(outcomes.values())}")
+        entries = tfft.cache_info()["entries"]
+        worst = oracle_check(name, c["seed"], records, outcomes, "matfft",
+                             True)
+        check(entries <= len(mix) * (2 if verify == "off" else 4),
+              f"{name}: {entries} plans for {len(mix)} keys")
+        summary(name, service, records, outcomes, wall, counts,
+                {"verify": verify, "plans": entries,
+                 "rel_err_torch_fft": worst,
+                 "mib_per_request": [4 * 2 * r.rows * r.n / 2 ** 20 if
+                                     r.kind == "c2c" else
+                                     4 * r.rows * r.n / 2 ** 20
+                                     for r in mix]})
+
+    # 3. device loss under load, on a one-rank mesh
+    name = "device loss"
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+    tfft.clear_plan_cache()
+    clear_events()
+    n_req = c["loss_requests"]
+    _, _, mix = mixes["storm"]
+    service = FftService(impl="matfft", device=device, mesh=mesh,
+                         placement="auto", coalesce=c["coalesce"],
+                         queue_depth=max(n_req, 1))
+    lost_at = {}
+
+    def lose_mid_run():
+        while service.stats.submitted < n_req // 3:
+            time.sleep(0.001)
+        lost_at["t"] = time.monotonic()
+        meshstate.lose_devices([0])
+
+    def under_loss():
+        killer = threading.Thread(target=lose_mid_run, daemon=True)
+        killer.start()
+        records = loadgen.drive(service, num_requests=n_req,
+                                clients=c["clients"], seed=c["seed"] + 1,
+                                mix=mix, qps=2000.0)
+        killer.join()
+        outcomes = {r.rid: loadgen.classify(r) for r in records}
+        service.close(drain=True)
+        return records, outcomes
+
+    try:
+        (records, outcomes), counts, wall = counted(name, under_loss)
+    finally:
+        meshstate.restore_devices()
+        tfft.invalidate_mesh(mesh)
+    check(set(outcomes.values()) == {"ok"},
+          f"{name}: outcomes {Counter(outcomes.values())}")
+    ev = [e for e in events("service_degrade")
+          if e["reason"] == "device_loss"]
+    check(any(e["action"] == "replan_fallback_degrade" for e in ev),
+          f"{name}: no service_degrade event")
+    after = sum(1 for r in records if r.t_submit > lost_at["t"])
+    check(after > 0, f"{name}: no request after the loss")
+    oracle_check(name, c["seed"] + 1, records, outcomes, "matfft", False)
+    summary(name, service, records, outcomes, wall, counts,
+            {"requests_after_loss": after, "service_degrade": ev[:1],
+             "plan_downgrades": len(events("plan_downgrade"))})
+
+    # 4. the launcher, as a user runs it
+    name = "fft_serve"
+    spec = f"seed=7,rate={c['rate']},sites=" + "+".join(sites)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fft_serve", "--impl",
+         "matfft", "--requests", str(c["cli_requests"]), "--faults", spec,
+         "--device", device],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0, f"{name}: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    check(report["drained_idle"], f"{name}: not drained")
+    check(set(report["outcomes"]) <= classified,
+          f"{name}: outcomes {report['outcomes']}")
+    doc = {"run": name, "wall_s": wall, "requests": report["requests"],
+           "outcomes": buckets_of(report["outcomes"]),
+           "qps_completed": report["qps_completed"],
+           "latency": report["service"]["latency"],
+           "drained_idle": report["drained_idle"]}
+    print("serve " + json.dumps(doc))
+    out.append(doc)
+    return {"runs": out}, measured
+
+
+def shape_kernel_launches(cases, measured: dict) -> dict:
+    """Measured launches of each timed case of ``cases`` over the runs in
+    ``measured``, under its name in the `kernels` line."""
     launches = {}
-    for _, kernel, shape, opts, name in dist_kernel_cases(cfg):
+    for _, kernel, shape, opts, name in cases:
         if name:
-            key = option_key(kernel, shape, opts.get("out_major"), opts)
+            key = case_key(kernel, shape, opts)
             launches[name] = sum(run[key] for run in measured.values())
     return launches
 
-
-def nd_kernel_launches(cfg, measured: dict) -> dict:
-    """Measured launches of each of phase 9's kernel shapes over the
-    checked runs in ``measured``, under the names `nd_kernel_cases` times
-    them by."""
-    launches = {}
-    for _, kernel, shape, opts, name in nd_kernel_cases(cfg):
-        key = ("rfft_pack_leaf" if kernel == "rfft" else kernel, shape,
-               opts.get("out_major"))
-        launches[name] = sum(run[key] for run in measured.values())
-    return launches
 
 
 def main(argv=None) -> int:
@@ -1821,26 +2380,51 @@ def main(argv=None) -> int:
     nd["seconds"] = time.monotonic() - t0
     print(f"N-D phase: {nd['seconds']:.3f} s")
 
-    # phase 10: the segmented and 1-D distributed placements
-    t0 = time.monotonic()
-    dist_summary, dist_measured = dist_checks(torch, dev, gpu, cfg)
-    dist_summary["seconds"] = time.monotonic() - t0
-    print("dist " + json.dumps(dist_summary))
-    print(f"distributed phase: {dist_summary['seconds']:.3f} s")
+    # phases 10-12 on one world-size-1 group (NCCL on the card)
+    import torch.distributed as dist
+    store = one_rank_group(torch, gpu)
+    try:
+        # phase 10: the segmented and 1-D distributed placements
+        t0 = time.monotonic()
+        dist_summary, dist_measured = dist_checks(torch, dev, gpu, cfg)
+        dist_summary["seconds"] = time.monotonic() - t0
+        print("dist " + json.dumps(dist_summary))
+        print(f"distributed phase: {dist_summary['seconds']:.3f} s")
 
-    # the launches of phases 9 and 10: by variant, and by timed shape
-    for run in (*nd_measured.values(), *dist_measured.values()):
+        # phase 11: the 2-D/3-D pencils and fallback="degrade"
+        t0 = time.monotonic()
+        pencil, pencil_measured = pencil_checks(torch, dev, gpu, cfg)
+        pencil["seconds"] = time.monotonic() - t0
+        print(f"pencil phase: {pencil['seconds']:.3f} s")
+
+        # phase 12: the service
+        t0 = time.monotonic()
+        serve, serve_measured = serve_checks(torch, dev, gpu, cfg)
+        serve["seconds"] = time.monotonic() - t0
+        print(f"service phase: {serve['seconds']:.3f} s")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    # the launches of phases 9-12: by variant, and by timed shape
+    measured = {**nd_measured, **dist_measured, **pencil_measured,
+                **serve_measured}
+    for run in measured.values():
         for key, k in run.items():
             variant = variant_of(key)
             launches[variant] = launches.get(variant, 0) + k
-    launches.update(nd_kernel_launches(cfg, {**nd_measured,
-                                             **dist_measured}))
-    launches.update(dist_kernel_launches(cfg, dist_measured))
-    # every call of phases 9 and 10 was held to its plain version in
-    # phase 3 at its own shape
+    launches.update(shape_kernel_launches(nd_kernel_cases(cfg), measured))
+    launches.update(shape_kernel_launches(dist_kernel_cases(cfg),
+                                          dist_measured))
+    launches.update(shape_kernel_launches(pencil_kernel_cases(cfg),
+                                          pencil_measured))
+    launches.update(shape_kernel_launches(serve_kernel_cases(cfg),
+                                          serve_measured))
+    # every call of phases 9-12 was held to its plain version in phase 3
+    # at its own shape
     covered = {case_key(kernel, shape, opts) for _, kernel, shape, opts, _
                in kernel_cases(cfg, kplan.MAX_LEAF)}
-    for name, run in (*nd_measured.items(), *dist_measured.items()):
+    for name, run in measured.items():
         missing = sorted(set(run) - covered)
         check(not missing, f"{name}: calls with no phase 3 case: {missing}")
 
@@ -1848,13 +2432,14 @@ def main(argv=None) -> int:
         print(f"rehearsal passed in {time.monotonic() - t_start:.1f} s")
         return 0
 
-    # phase 11: the kernels line
+    # phase 13: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
               "batch_invariance": inv, "main_path": runs,
               "out_of_core": ooc, "spectrograms": spectrograms,
               "fft_conv": conv, "nd": nd, "dist": dist_summary,
+              "pencil": pencil, "serve": serve,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -1,5 +1,6 @@
-"""Cross-device (level 2) four-step FFT of one 1-D signal on
-`torch.distributed`.
+"""Cross-device (level 2) transforms on `torch.distributed`: the four-step
+FFT of one 1-D signal, and the pencil decomposition of one 2-D/3-D volume
+(`build_pencil`, `build_pencil_r2c`, after the four-step's engines).
 
 The paper's §VI future work ("paralleling an FFT across a server cluster")
 on a process group: the Hadoop cluster becomes the flattened axes of a
@@ -49,6 +50,16 @@ the same tables (`kernels/fft/matfft.apply_global_twiddle`).
 Constraints: N, N1, N2 powers of two with D | N1 and D | N2 (N >= D^2),
 validated at plan time by `repro_torch.fft.spec`; overlap chunks divide
 N1/D and N2/D.
+
+The pencil (2-D: the leading axis over the flattened ranks, ONE
+exchange; 3-D: axis 0 over the first mesh dim and axis 1 over the
+second, two exchanges, each over its own sub-ring) reuses `_Exchange`:
+a leg's `all_to_all_single` packs the split axis to dim 0 and unpacks
+into the assembled axis (`_repencil`); its overlapped slabs read the
+assembled volume in place through K2's column slab. Each rank holds its
+`pencil_shard` of the input and gets its block of the output, the grid
+rotated one axis right; the r2c pencil returns the global one-sided
+spectrum on every rank (its untangle pairs bins across ranks).
 """
 
 from __future__ import annotations
@@ -125,18 +136,21 @@ def plan_distributed(n: int, num_devices: int, *, natural_order: bool = True,
                     natural_order=bool(natural_order), chunks=chunks)
 
 
-def resolve_overlap(n: int, num_devices: int, overlap) -> int | None:
-    """Resolve the ``overlap`` knob for the 1-D engine: "off"/None ->
-    None; "auto" -> OVERLAP_AUTO_CHUNKS where the slab pipeline can pay
-    for itself, else None; an int is validated (it must divide both
-    per-rank slab widths n1/D and n2/D) and honoured."""
+def _resolve_overlap_knob(n_total: int, num_devices: int, slab_widths,
+                          overlap, widths_desc: str) -> int | None:
+    """The ``overlap`` knob of both exchange engines.
+
+    "off"/None -> None. "auto" -> OVERLAP_AUTO_CHUNKS where the slab
+    pipeline can pay for itself (n_total >= OVERLAP_AUTO_MIN_N, ring size
+    <= OVERLAP_RING_MAX_D, slabs at least 2 wide), else None. An int is
+    validated (it must divide every per-rank slab width, so each round
+    moves equal pieces) and honoured even where "auto" would decline.
+    """
     if overlap is None or overlap == "off":
         return None
-    plan = plan_distributed(n, num_devices)
-    n1l, n2l = plan.n1 // plan.d, plan.n2 // plan.d
-    min_w = min(n1l, n2l)
+    min_w = min(slab_widths)
     if overlap == "auto":
-        if (n < OVERLAP_AUTO_MIN_N
+        if (n_total < OVERLAP_AUTO_MIN_N
                 or num_devices > OVERLAP_RING_MAX_D or min_w < 2):
             return None
         return min(OVERLAP_AUTO_CHUNKS, min_w)
@@ -144,12 +158,24 @@ def resolve_overlap(n: int, num_devices: int, overlap) -> int | None:
         raise ValueError(
             f"overlap must be 'auto', 'off', or a chunk count (int); "
             f"got {overlap!r}")
-    if overlap < 1 or n1l % overlap or n2l % overlap:
+    if overlap < 1 or any(w % overlap for w in slab_widths):
         raise ValueError(
-            f"overlap={overlap} chunks must divide both per-device slab "
-            f"widths n1/D={n1l} and n2/D={n2l} (n={n}, D={num_devices}) "
-            f"so every round moves equal slabs")
+            f"overlap={overlap} chunks must divide {widths_desc} so every "
+            f"round moves equal slabs")
     return overlap
+
+
+def resolve_overlap(n: int, num_devices: int, overlap) -> int | None:
+    """Resolve the ``overlap`` knob for the 1-D engine: chunks must divide
+    both per-rank slab widths n1/D and n2/D."""
+    if overlap is None or overlap == "off":
+        return None
+    plan = plan_distributed(n, num_devices)
+    n1l, n2l = plan.n1 // plan.d, plan.n2 // plan.d
+    return _resolve_overlap_knob(
+        n, num_devices, (n1l, n2l), overlap,
+        f"both per-device slab widths n1/D={n1l} and n2/D={n2l} "
+        f"(n={n}, D={num_devices})")
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +214,18 @@ def flat_ranks(mesh, axes) -> list:
                             for i, a in enumerate(names))]
     kept = [a for a in names if a in axes]
     return ranks.permute([kept.index(a) for a in axes]).reshape(-1).tolist()
+
+
+def axis_index(mesh, axes, rank: int) -> int:
+    """The flat index of global ``rank`` over ``axes`` (row-major over the
+    axes in the order given): ``lax.axis_index(axes)`` on that rank."""
+    names = mesh.mesh_dim_names
+    coord = (mesh.mesh == rank).nonzero()[0].tolist()
+    f = 0
+    for a in axes:
+        i = names.index(a)
+        f = f * mesh.size(i) + coord[i]
+    return f
 
 
 def local_shard(x, mesh, axes=None):
@@ -405,6 +443,459 @@ def build_distributed(n: int, mesh, axes=("data", "model"), *,
         return out[0].reshape(-1), out[1].reshape(-1)
 
     return local_monolithic if overlap is None else local_overlapped
+
+
+# ---------------------------------------------------------------------------
+# N-D pencils: the leading axes sharded over a rank grid, ndim-1 exchanges
+
+
+@dataclass(frozen=True)
+class PencilPlan:
+    """Cross-rank plan for an N-D pencil-decomposed transform.
+
+    The (n0, ..., n_{nd-1}) volume shards its leading nd-1 axes over a
+    rank grid (2-D: the flattened mesh, grid=(D,); 3-D: one mesh dim per
+    sharded axis, grid=(d0, d1)); each rank FFTs its local rows of the
+    contiguous last axis, then ``ndim-1`` re-pencil exchange legs each
+    re-shard one transformed axis and un-shard the next axis to transform.
+    2-D runs ONE exchange against the 1-D engine's three; 3-D runs two.
+    """
+
+    shape: tuple      # (n0, ..., n_{nd-1}) global volume
+    d: int            # total ranks along the FFT axes
+    grid: tuple = None  # ranks per exchange leg k (shards axis k)
+    chunks: int | None = None  # overlapped slabs; None = all_to_all
+
+    def __post_init__(self):
+        if self.grid is None:  # 2-D: one flattened ring
+            object.__setattr__(self, "grid", (self.d,))
+
+    @property
+    def n(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def n_exchanges(self) -> int:
+        return len(self.shape) - 1
+
+    @property
+    def bytes_per_exchange_per_device(self) -> int:
+        """Planar f32 payload each rank moves in ONE exchange leg (every
+        leg re-pencils the whole local volume, so legs are equal)."""
+        return 2 * 4 * self.n // self.d
+
+    @property
+    def per_leg_bytes_per_device(self) -> tuple:
+        """Per-leg payload in leg order (axis nd-2 first, axis 0 last)."""
+        return (self.bytes_per_exchange_per_device,) * self.n_exchanges
+
+    @property
+    def collective_bytes_per_device(self) -> int:
+        return self.n_exchanges * self.bytes_per_exchange_per_device
+
+    @property
+    def per_leg_exposed_bytes_per_device(self) -> tuple:
+        """Structurally exposed (fill/drain) payload per leg."""
+        return tuple(b // (self.chunks or 1)
+                     for b in self.per_leg_bytes_per_device)
+
+    @property
+    def exposed_collective_bytes_per_device(self) -> int:
+        """The fill/drain slab an exchange (see `DistPlan`'s twin)."""
+        return self.collective_bytes_per_device // (self.chunks or 1)
+
+
+def pencil_grid(shape, num_devices: int, axis_sizes=None) -> tuple:
+    """Rank-grid factors of the pencil legs of an N-D ``shape``.
+
+    2-D pencils flatten every mesh dim into one exchange ring (grid=(D,)).
+    3-D volumes shard BOTH leading axes, one mesh dim each: the caller
+    supplies the ranks along each mesh dim (in ``axes`` order), so the
+    grid matches the mesh's structure.
+    """
+    nd = len(shape)
+    if nd == 2:
+        return (int(num_devices),)
+    if axis_sizes is None:
+        raise ValueError(
+            f"{nd}-D pencil volumes shard the {nd - 1} leading axes over a "
+            f"rank grid: plan with a mesh (its dims become the grid, e.g. "
+            f"a (4, 2) mesh for shape={shape})")
+    grid = tuple(int(g) for g in axis_sizes)
+    if len(grid) != nd - 1:
+        raise ValueError(
+            f"{nd}-D pencil needs exactly {nd - 1} mesh axes (one rank-grid "
+            f"factor per sharded leading axis of shape={shape}); got "
+            f"{len(grid)} axes of sizes {grid}")
+    return grid
+
+
+def pencil_r2c_half(shape, grid, impl: str):
+    """The packed half-width pencil shape of a real-input transform, or
+    None where the flop-halved path does not apply (a last axis under 4,
+    an impl other than "matfft", or a leg that cannot split the half
+    width).
+
+    The r2c pencil rides the rfftn packing: the contiguous pass transforms
+    n_last/2 packed complex points, every exchange leg moves the half
+    width, and ONE N-D untangle on the global result recovers the real
+    spectrum.
+    """
+    shape = tuple(int(d) for d in shape)
+    if impl != "matfft" or shape[-1] < 4:
+        return None
+    half = (*shape[:-1], shape[-1] // 2)
+    for k, g in enumerate(int(g) for g in grid):
+        if half[k] % g or half[k + 1] % g:
+            return None
+    return half
+
+
+def plan_pencil(shape, num_devices: int, *, grid=None,
+                chunks: int | None = None) -> PencilPlan:
+    shape = tuple(int(d) for d in shape)
+    if len(shape) < 2:
+        raise ValueError(f"pencil decomposition needs >= 2 axes, "
+                         f"got shape={shape}")
+    fft_plan.log2i(num_devices)
+    if grid is None:
+        grid = pencil_grid(shape, num_devices)
+    grid = tuple(int(g) for g in grid)
+    if math.prod(grid) != num_devices:
+        raise ValueError(
+            f"pencil rank grid {grid} must multiply to the rank count "
+            f"D={num_devices}")
+    for g in grid:
+        fft_plan.log2i(g)
+    for k, g in enumerate(grid):
+        # leg k shards axis k on input and splits axis k+1 on exchange
+        if shape[k] % g or shape[k + 1] % g:
+            raise ValueError(
+                f"pencil decomposition needs grid[{k}]={g} to divide both "
+                f"axis {k} (the input shard) and axis {k + 1} (the "
+                f"exchange split) of shape={shape}")
+    return PencilPlan(shape=shape, d=num_devices, grid=grid, chunks=chunks)
+
+
+def resolve_overlap_pencil(shape, num_devices: int, overlap, *,
+                           grid=None) -> int | None:
+    """Resolve the ``overlap`` knob for the pencil exchanges: chunks must
+    divide every per-leg per-rank slab width shape[k+1]/grid[k] (for 2-D
+    the n1/D of the ONE exchange)."""
+    shape = tuple(int(d) for d in shape)
+    plan = plan_pencil(shape, num_devices, grid=grid)
+    widths = tuple(shape[k + 1] // g for k, g in enumerate(plan.grid))
+    return _resolve_overlap_knob(
+        plan.n, max(plan.grid), widths, overlap,
+        f"every per-leg exchange slab width "
+        f"{'n1/D=%d' % widths[0] if len(widths) == 1 else widths} "
+        f"(shape={shape}, grid={plan.grid})")
+
+
+def pencil_groups(shape, mesh, axes=None) -> tuple[tuple, tuple]:
+    """The mesh dims each exchange leg runs over, and the rank grid.
+
+    2-D: every dim of ``axes`` flattens into ONE ring. 3-D: exactly one
+    mesh dim per sharded leading axis; leg k exchanges over its own
+    sub-ring (`DeviceMesh.get_group(dim)`) while the other grid axis stays
+    put.
+    """
+    names = mesh_axes(mesh, axes)
+    nd = len(shape)
+    if nd == 2:
+        groups = (names,)
+    else:
+        if len(names) != nd - 1:
+            raise ValueError(
+                f"{nd}-D pencil needs exactly {nd - 1} mesh axes (one "
+                f"rank-grid axis per sharded leading axis of "
+                f"shape={tuple(shape)}); got axes {names}")
+        groups = tuple((a,) for a in names)
+    grid = tuple(math.prod(axis_sizes(mesh, g)) for g in groups)
+    return groups, grid
+
+
+def pencil_shard(x, mesh, axes=None, *, out: bool = False):
+    """This rank's block of a global pencil volume ``x`` (its dims are
+    the transform shape).
+
+    ``out=False``: the input layout, the counterpart of ``P(*groups,
+    None)``: axis 0 over the flat index of the first group and, for 3-D,
+    axis 1 over the second. ``out=True``: the output layout, ``P(None,
+    *groups)``, the grid rotated one axis right. A rank outside the mesh
+    holds no block (ValueError).
+    """
+    groups, grid = pencil_groups(x.shape, mesh, axes)
+    first = 1 if out else 0
+    me = dist.get_rank()
+    for k, g in enumerate(groups):
+        ranks = flat_ranks(mesh, g)
+        size = x.shape[first + k] // grid[k]
+        x = x.narrow(first + k, ranks.index(me) * size, size)
+    return x
+
+
+def build_gather(mesh, axes, shape):
+    """``gather(yr, yi)``: the global (``shape``) planes from every rank's
+    output block (`pencil_shard(..., out=True)` layout), on every rank of
+    the mesh; one `all_gather` a plane."""
+    groups, grid = pencil_groups(shape, mesh, axes)
+    ex = _Exchange(mesh, mesh_axes(mesh, axes))
+    coords = []  # each group rank's grid coordinate
+    for i in range(ex.d):
+        rank = dist.get_global_rank(ex.group, i)
+        coords.append(tuple(axis_index(mesh, g, rank) for g in groups))
+
+    def gather(yr, yi):
+        out = []
+        for y in (yr, yi):
+            got = [torch.empty_like(y) for _ in range(ex.d)]
+            dist.all_gather(got, y.contiguous(), group=ex.group)
+            full = torch.empty(shape, dtype=y.dtype, device=y.device)
+            for c, block in zip(coords, got):
+                view = full
+                for k, f in enumerate(c):
+                    size = shape[1 + k] // grid[k]
+                    view = view.narrow(1 + k, f * size, size)
+                view.copy_(block)
+            out.append(full)
+        return out[0], out[1]
+
+    return gather
+
+
+def _repencil(ex, a, shape: tuple, split: int, concat: int):
+    """One monolithic exchange over ``ex``'s ring: axis ``split`` of the
+    local volume (``shape``) cut into D pieces, piece j to flat index j,
+    and the pieces received concatenated along axis ``concat`` in source
+    order. `all_to_all_single` splits dim 0 only, so the split axis is
+    packed to dim 0 before the call and the concat axis unpacked after.
+    Returns the new volume and its shape."""
+    d = ex.d
+    cut = (*shape[:split], d, shape[split] // d, *shape[split + 1:])
+    send = a.reshape(cut).movedim(split, 0).contiguous()
+    recv = ex.all_to_all(send)  # (d, *piece): recv[j] from flat index j
+    new = list(shape)
+    new[split] //= d
+    new[concat] *= d
+    return recv.movedim(0, concat).reshape(new), tuple(new)
+
+
+def _pencil_legs(shape, grid, exchanges, *, impl, layout, overlap):
+    """The exchange legs shared by the c2c and r2c pencils: a function of
+    the local planar volume ``loc0`` (leading axes sharded, the last
+    already transformed) that runs legs k = nd-2 .. 0 (local `fftn`'s
+    axis order, so the composition is bitwise equal to it): leg k
+    re-shards the transformed axis k+1 over grid[k] and assembles axis k,
+    whose pass then runs through `axis_pass` with a column-major store.
+    Monolithic (`_repencil`) or, with ``overlap`` chunks, the overlapped
+    slabs; both give the same bits, since every slab pass reads the
+    assembled volume in place through K2's ``col_offset``/``ncols``.
+    """
+    from repro_torch.fft import executors as fft_ex
+
+    shape = tuple(int(x) for x in shape)
+    nd = len(shape)
+    loc0 = tuple(shape[i] // grid[i] for i in range(nd - 1)) + (shape[-1],)
+
+    def axis_k_pass(ar, ai, S, k, col_offset=0, ncols=None):
+        """Axis k of the local volume S through `axis_pass`'s (B, L, C)
+        view, back in volume form (a slab narrows axis k+1)."""
+        B, L, C = math.prod(S[:k]), S[k], math.prod(S[k + 1:])
+        nc = C - col_offset if ncols is None else ncols
+        yr, yi = fft_ex.axis_pass(ar, ai, (B, L, C), out_major="col",
+                                  impl=impl, layout=layout,
+                                  col_offset=col_offset, ncols=nc)
+        rest = math.prod(S[k + 2:])
+        out = (*S[:k], L, nc // rest, *S[k + 2:])
+        return yr.reshape(out), yi.reshape(out)
+
+    def monolithic_leg(ar, ai, S, k):
+        ex = exchanges[k]
+        ar, S2 = _repencil(ex, ar, S, k + 1, k)
+        ai, _ = _repencil(ex, ai, S, k + 1, k)
+        ar, ai = axis_k_pass(ar, ai, S2, k)
+        return ar, ai, S2
+
+    def overlapped_leg(ar, ai, S, k):
+        ex = exchanges[k]
+        dk, me, kc = ex.d, ex.me, overlap
+        w = S[k + 1] // dk  # per-destination width on axis k+1
+        wc = w // kc
+        acc_shape = list(S)
+        acc_shape[k] *= dk  # the whole axis k assembles
+        acc_shape[k + 1] = w
+        acc_shape = tuple(acc_shape)
+        piece = list(S)
+        piece[k + 1] = wc
+        rest = math.prod(acc_shape[k + 2:])
+        dev = ar.device
+
+        def planes(shape_):
+            return tuple(torch.empty(shape_, dtype=torch.float32, device=dev)
+                         for _ in range(2))
+
+        acc, out = planes(acc_shape), planes(acc_shape)
+
+        def region(t, s, c):  # source s's piece of slab c in the volume
+            return t.narrow(k, s * S[k], S[k]).narrow(k + 1, c * wc, wc)
+
+        # slab c: the axis-(k+1) columns [dest*w + c*wc, ... + wc) of this
+        # leg's input go to ring member ``dest``; pieces arrive in their
+        # own contiguous buffers and are copied into the volume once in
+        def start(c):
+            def take(dest):
+                return tuple(a.narrow(k + 1, dest * w + c * wc, wc)
+                             .contiguous() for a in (ar, ai))
+
+            recv = {s: planes(tuple(piece)) for s in range(dk) if s != me}
+            for b, t in zip(acc, take(me)):
+                region(b, me, c).copy_(t)
+            return c, recv, ex.start(take, recv.__getitem__)
+
+        def finish(c, recv, handle):
+            ex.finish(handle)
+            for s, got in recv.items():
+                for b, t in zip(acc, got):
+                    region(b, s, c).copy_(t)
+
+        # double buffer: slab c+1's rounds go out before slab c's pass
+        pending = start(0)
+        for c in range(kc):
+            nxt = start(c + 1) if c + 1 < kc else None
+            finish(*pending)
+            cr, ci = axis_k_pass(acc[0], acc[1], acc_shape, k,
+                                 col_offset=c * wc * rest, ncols=wc * rest)
+            for o, t in zip(out, (cr, ci)):
+                o.narrow(k + 1, c * wc, wc).copy_(t)
+            pending = nxt
+        return out[0], out[1], acc_shape
+
+    leg = monolithic_leg if overlap is None else overlapped_leg
+
+    def legs(ar, ai):
+        S = loc0
+        for k in range(nd - 2, -1, -1):
+            ar, ai, S = leg(ar, ai, S, k)
+        return ar, ai
+
+    return legs, loc0
+
+
+def build_pencil(shape, mesh, axes=("data", "model"), *,
+                 impl: str = "matfft", layout: str = "zero_copy",
+                 overlap: int | None = None):
+    """The N-D pencil transform of an (n0, .., nk) volume over ``mesh``:
+    returns ``forward(xr, xi)``, which takes this rank's planar input
+    block and returns its output block.
+
+    Data layout (rank grid per `pencil_groups`, planar re/im):
+
+      input   leading axes sharded over the grid (2-D: rows over D; 3-D:
+              axis 0 over d0, axis 1 over d1), last axis whole
+              (`pencil_shard`)
+      pass    the local FFT of each row (contiguous axis, level 0/1/2)
+      legs    ndim-1 re-pencil exchanges, axis nd-2 down to axis 0
+              (`_pencil_legs`)
+      output  the natural-order N-D spectrum, the grid rotated one axis
+              right (`pencil_shard(..., out=True)`)
+
+    Both exchange engines give the same bits, and the leg order is local
+    `fftn`'s, so the result is bitwise equal to the local plan.
+    ``overlap`` is the resolved chunk count (`resolve_overlap_pencil`).
+    """
+    from repro_torch.fft import executors as fft_ex
+
+    shape = tuple(int(x) for x in shape)
+    groups, grid = pencil_groups(shape, mesh, axes)
+    plan_pencil(shape, math.prod(grid), grid=grid, chunks=overlap)
+    exchanges = [_Exchange(mesh, g) for g in groups]
+    legs, _ = _pencil_legs(shape, grid, exchanges, impl=impl, layout=layout,
+                           overlap=overlap)
+
+    def forward(xr, xi):
+        ar, ai = fft_ex.fft(xr, xi, impl=impl, layout=layout)
+        return legs(ar, ai)
+
+    return forward
+
+
+def build_pencil_r2c(shape, mesh, axes=("data", "model"), *,
+                     impl: str = "matfft", layout: str = "zero_copy",
+                     overlap: int | None = None):
+    """The flop-halved real-input pencil: the rfftn packing, distributed.
+
+    The local contiguous pass reads each real row as n_last/2 packed
+    complex points (`executors.rfft_pack_pass`, the kernels of the local
+    rfftn), then the exchange legs of `build_pencil` run on the half-width
+    volume, halving every leg's bytes and every axis pass. Returns
+    ``forward(x)``: this rank's real input block -> its block of the RAW
+    packed half spectrum (output layout). The caller applies the ONE N-D
+    untangle on the global half spectrum (`build_gather`), as local
+    rfftn does, so the composition is bitwise equal to it. Only valid
+    where `pencil_r2c_half` is not None; ``overlap`` is resolved against
+    the half shape.
+    """
+    from repro_torch.fft import executors as fft_ex
+
+    shape = tuple(int(x) for x in shape)
+    groups, grid = pencil_groups(shape, mesh, axes)
+    half = pencil_r2c_half(shape, grid, impl)
+    if half is None:
+        raise ValueError(
+            f"no flop-halved r2c pencil for shape={shape}, grid={grid}, "
+            f"impl={impl!r} (see pencil_r2c_half)")
+    plan_pencil(half, math.prod(grid), grid=grid, chunks=overlap)
+    exchanges = [_Exchange(mesh, g) for g in groups]
+    legs, loc0 = _pencil_legs(half, grid, exchanges, impl=impl,
+                              layout=layout, overlap=overlap)
+    n_last = shape[-1]
+
+    def forward(x):
+        rows = math.prod(loc0[:-1])
+        zr, zi = fft_ex.rfft_pack_pass(x.reshape(rows, n_last), n_last,
+                                       impl=impl, layout=layout)
+        return legs(zr.reshape(loc0), zi.reshape(loc0))
+
+    return forward
+
+
+def build_pencil_reverse(shape, mesh, axes=("data", "model"), *,
+                         impl: str = "matfft", layout: str = "zero_copy"):
+    """The pencil run backwards, for the inverse through the conjugation
+    identity: ``forward(yr, yi)`` takes this rank's block in the OUTPUT
+    layout and returns the forward DFT in the INPUT layout. Axis 0 (whole
+    there) is transformed first; leg k then exchanges over groups[k]
+    (split axis k, concat axis k+1) and axis k+1 is transformed, the last
+    axis as rows. Monolithic exchanges only."""
+    from repro_torch.fft import executors as fft_ex
+
+    shape = tuple(int(x) for x in shape)
+    nd = len(shape)
+    groups, grid = pencil_groups(shape, mesh, axes)
+    exchanges = [_Exchange(mesh, g) for g in groups]
+    out0 = (shape[0], *(shape[k + 1] // grid[k] for k in range(nd - 1)))
+
+    def axis_pass(ar, ai, S, k):
+        view = (math.prod(S[:k]), S[k], math.prod(S[k + 1:]))
+        yr, yi = fft_ex.axis_pass(ar, ai, view, out_major="col", impl=impl,
+                                  layout=layout)
+        return yr.reshape(S), yi.reshape(S)
+
+    def forward(yr, yi):
+        S = out0
+        ar, ai = axis_pass(yr, yi, S, 0)
+        for k in range(nd - 1):
+            ar, S2 = _repencil(exchanges[k], ar, S, k, k + 1)
+            ai, _ = _repencil(exchanges[k], ai, S, k, k + 1)
+            S = S2
+            if k + 1 == nd - 1:
+                ar, ai = fft_ex.fft(ar, ai, impl=impl, layout=layout)
+            else:
+                ar, ai = axis_pass(ar, ai, S, k + 1)
+        return ar, ai
+
+    return forward
 
 
 def distributed_fft(xr, xi, mesh, axes=("data", "model"), **kw):

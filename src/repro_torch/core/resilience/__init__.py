@@ -17,6 +17,11 @@ one subsystem that can be *proven* under systematic failure
   * `faults`    — a deterministic, seeded `FaultPlan`/`FaultInjector` with
                   named injection sites threaded through every failure
                   domain, so chaos runs are exactly reproducible.
+  * `meshstate` — the logical device-health registry behind
+                  `repro_torch.fft.plan(..., fallback="degrade")`:
+                  simulated rank loss shrinks or empties the mesh and the
+                  planner re-plans on the healthy ranks, or locally,
+                  instead of launching collectives that would hang.
   * `events`    — the in-process event log (downgrades, device loss,
                   repairs) that tests and the chaos gate assert on.
   * `verify`    — ABFT invariants (Parseval energy, linearity checksum
@@ -38,6 +43,7 @@ from repro_torch.core.resilience.faults import (KINDS, SITES, FaultInjector,
                                           FaultPlan, FaultRule,
                                           InjectedFault, maybe_corrupt,
                                           maybe_fire, perturb_array)
+from repro_torch.core.resilience import meshstate
 from repro_torch.core.resilience.retry import RetryPolicy, RetryState
 from repro_torch.core.resilience.verify import (VERIFY_MODES, SilentCorruption,
                                           check_checksum, check_parseval)
@@ -60,6 +66,7 @@ __all__ = [
     "events",
     "maybe_corrupt",
     "maybe_fire",
+    "meshstate",
     "perturb_array",
     "record_event",
     "set_event_capacity",

@@ -28,8 +28,8 @@ Injection sites (each threaded through its owning layer):
   stream.writeback    writeback worker, before per-block encode + write
   maponly.attempt     serial map-task attempt entry
   mesh.device         not raised: rule ``index`` names a mesh device
-                      ordinal to mark lost (the device-loss hook that
-                      consumes it arrives with the distributed placement;
+                      ordinal to mark lost in `meshstate` (consumed by
+                      `FaultInjector.apply_device_loss`; the planner's
                       ``fallback="degrade"`` re-plans around it)
   ooc.shuffle         out-of-core pass-1 transposed-shuffle tile write
                       (core/fft/outofcore.py; index = r*C + c tile id)
@@ -348,6 +348,23 @@ class FaultInjector:
         deterministic however blocks happen to be grouped)."""
         for i in indices:
             self.fire(site, i)
+
+    def apply_device_loss(self, mesh) -> tuple:
+        """Mark this plan's ``mesh.device`` ordinals lost in `meshstate`:
+        ordinal o is the o-th global rank of ``mesh.mesh`` in row-major
+        order.
+
+        Returns the ranks marked. Call once before (or mid-) job; the
+        planner's ``fallback="degrade"`` consults the registry.
+        """
+        ordinals = self.plan.device_loss()
+        if not ordinals:
+            return ()
+        from repro_torch.core.resilience import meshstate
+        ranks = mesh.mesh.reshape(-1).tolist()
+        ids = tuple(ranks[o] for o in ordinals if o < len(ranks))
+        meshstate.lose_devices(ids)
+        return ids
 
     # ------------------------------------------------------------ telemetry
     @property

@@ -29,18 +29,27 @@
     d = repro_torch.fft.plan(kind="c2c", n=1 << 30, mesh=mesh,
                              placement="distributed", overlap=4)
     yr, yi = d.execute(local_shard(xr, mesh), local_shard(xi, mesh))
+    v = repro_torch.fft.plan(kind="c2c", shape=(512, 512, 512), mesh=mesh2,
+                             placement="distributed")   # a (d0, d1) mesh
+    yr, yi = v.execute(pencil_shard(xr, mesh2), pencil_shard(xi, mesh2))
+    repro_torch.fft.plan(..., mesh=mesh, fallback="degrade")  # lost ranks
 
 The port runs local c2c and r2c transforms of 1 to 3 axes on one device
 (the contiguous axis up to MAX_LOCAL_N points, earlier axes up to
 MAX_EARLIER_AXIS), with `fft2`/`ifft2`/`rfft2`/`irfft2` over the trailing
 two axes; batches of them split over the ranks of a `DeviceMesh`
-(segmented); one 1-D c2c signal split over the ranks (distributed); and
-one 1-D c2c signal larger than memory out of core. See ROADMAP.md for the
-placements still to port.
+(segmented); one 1-D c2c signal split over the ranks (distributed), or
+one 2-D/3-D c2c or r2c volume (the pencil: its leading axes over the
+rank grid, ndim-1 exchanges); and one 1-D c2c signal larger than memory
+out of core. ``fallback="degrade"`` re-plans around ranks marked lost in
+`repro_torch.core.resilience.meshstate`. `repro_torch.serve` puts a
+fault-tolerant dynamic-batching service in front of these plans.
 """
 
-from repro_torch.core.fft.distributed import (DistPlan, distributed_fft,
-                                              distributed_ifft, local_shard)
+from repro_torch.core.fft.distributed import (DistPlan, PencilPlan,
+                                              distributed_fft,
+                                              distributed_ifft, local_shard,
+                                              pencil_shard)
 from repro_torch.core.fft.outofcore import (OocPlan, OutOfCorePlan,
                                             factor_out_of_core)
 from repro_torch.fft.planner import (AsyncResult, ExecutablePlan, cache_info,
@@ -58,6 +67,7 @@ __all__ = [
     "MAX_LOCAL_N",
     "OocPlan",
     "OutOfCorePlan",
+    "PencilPlan",
     "cache_info",
     "clear_plan_cache",
     "distributed_fft",
@@ -68,6 +78,7 @@ __all__ = [
     "invalidate_mesh",
     "irfft2",
     "local_shard",
+    "pencil_shard",
     "plan",
     "resolve_placement",
     "rfft2",

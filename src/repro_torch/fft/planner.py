@@ -17,11 +17,12 @@ An `ExecutablePlan` carries:
   * the resolved `FftSpec` and the level-0/1/2 factorization of its
     longest axis pass (`plan.leaf`; the contiguous axis at half length
     for the real-input fast path), and for the distributed placement the
-    cross-rank `DistPlan` (`plan.dist`);
+    cross-rank `DistPlan` (1-D) or `PencilPlan` (2-D/3-D; `plan.dist`);
   * the analytic cost model: `flops`, `gemm_macs` and `hbm_bytes` (the
     roofline byte counters `fft_hbm_bytes` / `rfft_hbm_bytes` and their
     N-D forms `fftn_hbm_bytes` / `rfftn_hbm_bytes`), and
-    `collective_bytes` / `exposed_collective_bytes` for the exchanges;
+    `collective_bytes` / `exposed_collective_bytes` and their per-leg
+    forms for the exchanges;
   * `execute(xr, xi)` (c2c) / `execute_real(x)` (r2c) /
     `execute_inverse(yr, yi)` on the caller's current stream, and
     `execute_async(*operands, donate=)`, which stages host operands to the
@@ -114,15 +115,38 @@ class ExecutablePlan:
         # the r2c fast path packs n reals as n/2 complex points on the
         # contiguous axis (the N-D untangle runs after the other axes)
         self._fast_r2c = (spec.kind == "r2c" and spec.impl == "matfft"
-                          and spec.shape[-1] >= 4)
+                          and spec.shape[-1] >= 4
+                          and spec.placement != "distributed")
+        # the flop-halved r2c pencil: the packed half-width volume through
+        # every pass and leg; set below where the grid admits it
+        self._fast_r2c_pencil = False
+        #: rank grid of a pencil plan (its axis k sharded over grid[k])
+        self.grid = None
         #: cross-rank plan (distributed placement only)
         self.dist = None
         if spec.placement == "distributed":
-            from repro_torch.core.fft.distributed import plan_distributed
-            self.dist = plan_distributed(
-                spec.n, self.num_devices, natural_order=spec.natural_order,
-                chunks=None if spec.overlap == "off" else spec.overlap)
-            longest = max(self.dist.n1, self.dist.n2)
+            from repro_torch.core.fft import distributed
+            chunks = None if spec.overlap == "off" else spec.overlap
+            if spec.ndim == 1:
+                self.dist = distributed.plan_distributed(
+                    spec.n, self.num_devices,
+                    natural_order=spec.natural_order, chunks=chunks)
+                longest = max(self.dist.n1, self.dist.n2)
+            else:
+                self.grid = distributed.pencil_grid(
+                    spec.shape, self.num_devices,
+                    distributed.axis_sizes(mesh, spec.axes))
+                eff_shape = spec.shape
+                if spec.kind == "r2c":
+                    half = distributed.pencil_r2c_half(spec.shape,
+                                                       self.grid, spec.impl)
+                    if half is not None:
+                        self._fast_r2c_pencil = True
+                        eff_shape = half
+                self.dist = distributed.plan_pencil(
+                    eff_shape, self.num_devices, grid=self.grid,
+                    chunks=chunks)
+                longest = max(eff_shape)
         else:
             # the contiguous axis dominates; halved by the r2c packing
             last = spec.shape[-1] // 2 if self._fast_r2c else spec.shape[-1]
@@ -181,9 +205,29 @@ class ExecutablePlan:
     def operand_shape(self) -> tuple:
         """This rank's operand: the global (*batch_shape, *shape) split
         along dim 0 over the mesh ranks ((rows/D, *shape) segmented, (n/D,)
-        distributed)."""
+        1-D distributed); a pencil's input block, axis k over grid[k]
+        (`core.fft.distributed.pencil_shard`)."""
         shape = self.spec.operand_shape
+        if self.grid is not None:
+            return (*(d // g for d, g in zip(shape, self.grid)),
+                    *shape[len(self.grid):])
         return (shape[0] // self.num_devices, *shape[1:])
+
+    @property
+    def output_shape(self) -> tuple:
+        """This rank's forward output: the operand's shape (the last axis
+        one-sided for r2c); a c2c pencil's output block is the grid
+        rotated one axis right, and an r2c pencil returns the whole
+        global one-sided spectrum on every rank."""
+        s = self.spec
+        if s.kind == "r2c":
+            shape = (self.spec.operand_shape if self.grid is not None
+                     else self.operand_shape)
+            return (*shape[:-1], s.shape[-1] // 2 + 1)
+        if self.grid is not None:
+            return (s.shape[0], *(d // g for d, g in zip(s.shape[1:],
+                                                         self.grid)))
+        return self.operand_shape
 
     @property
     def levels(self) -> int:
@@ -213,7 +257,7 @@ class ExecutablePlan:
         n = s.n
         if n <= 1:
             return 0.0
-        if not self._fast_r2c:
+        if not (self._fast_r2c or self._fast_r2c_pencil):
             return 5.0 * n * math.log2(n)
         m = s.shape[-1] // 2  # >= 2
         if s.ndim == 1:
@@ -234,15 +278,17 @@ class ExecutablePlan:
         row (`FftPlan.gemm_macs`; not the port's radix leaf). N-D: the
         sum over axis passes."""
         s = self.spec
-        if self.dist is not None:
+        if s.ndim == 1 and self.dist is not None:
             # pass 1: n2 length-n1 transforms; pass 2: n1 length-n2
             d = self.dist
             return (d.n2 * kplan.make_plan(d.n1).gemm_macs
                     + d.n1 * kplan.make_plan(d.n2).gemm_macs)
         if s.ndim == 1:
             return self.leaf.gemm_macs
-        width = s.n // 2 if self._fast_r2c else s.n
-        last = s.shape[-1] // 2 if self._fast_r2c else s.shape[-1]
+        # per-axis passes; the same for local, segmented and pencil plans
+        fast = self._fast_r2c or self._fast_r2c_pencil
+        width = s.n // 2 if fast else s.n
+        last = s.shape[-1] // 2 if fast else s.shape[-1]
         macs = (width // last) * kplan.make_plan(last).gemm_macs
         for ax_len in s.shape[:-1]:
             macs += (width // ax_len) * kplan.make_plan(ax_len).gemm_macs
@@ -257,6 +303,24 @@ class ExecutablePlan:
         """Planar-f32 payload device-memory bytes per batch row (tables
         excluded), over every rank."""
         s = self.spec
+        if self.dist is not None and s.ndim > 1:
+            # the pencil: ndim local passes, and each of the ndim-1 legs'
+            # buffers landing in device memory (one round trip a leg)
+            per_pass = 2 * 2 * _F32 * s.n
+            legs = s.ndim - 1
+            m1 = s.shape[-1] // 2 + 1
+            if self._fast_r2c_pencil:
+                # every pass and leg moves the packed HALF volume; the
+                # global untangle re-reads the half planes and writes the
+                # m+1-bin one-sided spectrum
+                return ((s.ndim + legs) * (per_pass // 2)
+                        + 2 * _F32 * (s.n // 2)
+                        + 2 * _F32 * (s.n // s.shape[-1]) * m1)
+            bytes_ = (s.ndim + legs) * per_pass
+            if s.kind == "r2c":
+                # the c2c pencil, then the one-sided slice
+                bytes_ += 2 * _F32 * (s.n // s.shape[-1]) * m1
+            return bytes_
         if self.dist is not None:
             # two local passes, each reading and writing 2 planes, the
             # exchanges' buffers landing in device memory (one round trip
@@ -294,6 +358,24 @@ class ExecutablePlan:
             return 0
         return self.dist.d * self.dist.exposed_collective_bytes_per_device
 
+    @property
+    def per_leg_collective_bytes(self) -> tuple:
+        """Payload all ranks send in each exchange leg, in leg order (a
+        pencil's axis nd-2 first; the 1-D engine's three exchanges); sums
+        to `collective_bytes`; () for other placements."""
+        if self.dist is None:
+            return ()
+        return tuple(self.dist.d * b
+                     for b in self.dist.per_leg_bytes_per_device)
+
+    @property
+    def per_leg_exposed_collective_bytes(self) -> tuple:
+        """`exposed_collective_bytes` leg by leg."""
+        if self.dist is None:
+            return ()
+        return tuple(self.dist.d * b
+                     for b in self.dist.per_leg_exposed_bytes_per_device)
+
     # ------------------------------------------------------------------
     # builds
 
@@ -311,11 +393,24 @@ class ExecutablePlan:
     def _build_forward(self):
         s = self.spec
         dev = self.device
-        if self.dist is not None:
+        if self.mesh is not None and self.mesh.get_coordinate() is None:
+            raise ValueError(
+                f"rank {torch.distributed.get_rank()} is not part of this "
+                f"plan's mesh (a rank left out of a shrunk mesh): it holds "
+                f"no shard and runs nothing")
+        if self.dist is not None and s.ndim == 1:
             # both passes' tables, and the twiddle's (fused or not)
             for length in {self.dist.n1, self.dist.n2}:
                 _upload_tables(length, dev, s.impl)
             kmatfft.global_twiddle_tables(s.n, dev)
+        elif self.dist is not None:
+            # each axis pass at its (packed) length; the global untangle's
+            # packing twiddle
+            if s.impl in ("matfft", "stockham"):
+                for length in set(self.dist.shape):
+                    _upload_tables(length, dev, s.impl)
+            if self._fast_r2c_pencil:
+                kmatfft.rfft_twiddle(s.shape[-1], dev)
         elif s.impl in ("matfft", "stockham"):
             # every axis pass reads the tables of its length; the fast r2c
             # path runs the contiguous axis at n/2 (K3, or the c2c path
@@ -334,6 +429,8 @@ class ExecutablePlan:
                 kstockham._lib()
             self._stream = torch.cuda.Stream(dev)
         self._builds["forward"] += 1
+        if self.dist is not None and s.ndim > 1:
+            return self._build_pencil()
         if self.dist is not None:
             from repro_torch.core.fft.distributed import build_distributed
             return build_distributed(
@@ -344,6 +441,39 @@ class ExecutablePlan:
         # local, or a segmented rank's map task: the transform of its rows
         from repro_torch.core.fft.segmented import build_segmented
         return build_segmented(s.kind, s.shape, impl=s.impl, layout=s.layout)
+
+    def _build_pencil(self):
+        """The 2-D/3-D pencil: c2c maps this rank's input block to its
+        output block; r2c maps its real input block to the GLOBAL one-sided
+        spectrum, on every rank: the untangle pairs bin k with the bin
+        flipped along every axis, which another rank holds, so the packed
+        half spectrum is gathered first and ONE N-D untangle runs on it,
+        where local rfftn runs it (bitwise equal to local rfftn)."""
+        from repro_torch.core.fft import distributed
+        s = self.spec
+        kw = dict(impl=s.impl, layout=s.layout,
+                  overlap=None if s.overlap == "off" else s.overlap)
+        if s.kind == "c2c":
+            return distributed.build_pencil(s.shape, self.mesh, s.axes, **kw)
+        gather = distributed.build_gather(self.mesh, s.axes, self.dist.shape)
+        if self._fast_r2c_pencil:
+            half = distributed.build_pencil_r2c(s.shape, self.mesh, s.axes,
+                                                **kw)
+
+            def forward(x):
+                zr, zi = gather(*half(x))
+                vr, vi = kmatfft.rfft_twiddle(s.shape[-1], x.device)
+                return executors._untangle_nd(zr, zi, vr, vi, s.ndim)
+            return forward
+        pencil = distributed.build_pencil(s.shape, self.mesh, s.axes, **kw)
+        m1 = s.shape[-1] // 2 + 1
+
+        def forward(x):
+            # the grid cannot split the half width, or the impl has no
+            # packed pass: the c2c pencil, then the one-sided slice
+            yr, yi = gather(*pencil(x, torch.zeros_like(x)))
+            return yr[..., :m1].contiguous(), yi[..., :m1].contiguous()
+        return forward
 
     def _inverse(self):
         if self._inv is None:
@@ -368,6 +498,17 @@ class ExecutablePlan:
                             return executors.irfftn(yr, yi, s.shape,
                                                     impl=s.impl,
                                                     layout=s.layout)
+                    elif self.grid is not None:
+                        # the pencil backwards: output layout in, input
+                        # layout out (monolithic exchanges)
+                        from repro_torch.core.fft import distributed
+                        rev = distributed.build_pencil_reverse(
+                            s.shape, self.mesh, s.axes, impl=s.impl,
+                            layout=s.layout)
+
+                        def inverse(yr, yi):
+                            ar, ai = rev(yr, -yi)
+                            return ar / s.n, -ai / s.n
                     else:
                         def inverse(yr, yi):
                             # conjugation identity on the forward
@@ -422,10 +563,7 @@ class ExecutablePlan:
         (*batch_shape, *shape). r2c: one-sided (*batch_shape, *shape[:-1],
         shape[-1]//2 + 1) spectrum -> real (*batch_shape, *shape)
         signal."""
-        s = self.spec
-        shape = self.operand_shape
-        if s.kind == "r2c":
-            shape = (*shape[:-1], s.shape[-1] // 2 + 1)
+        shape = self.output_shape
         yr = self._operand(yr, "execute_inverse", shape).to(self.device)
         yi = self._operand(yi, "execute_inverse", shape).to(self.device)
         return self._inverse()(yr, yi)
@@ -501,8 +639,10 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
       placement: "auto" (the heuristic of `spec.resolve_placement`),
         "local", "segmented" (the batch split over the mesh ranks, each
         rank transforming its rows, no collectives), "distributed" (ONE
-        1-D c2c signal, the cross-rank four-step, three exchanges;
-        core/fft/distributed.py) or "out_of_core" (one 1-D c2c signal
+        1-D c2c signal, the cross-rank four-step, three exchanges; or ONE
+        2-D/3-D c2c or r2c volume, the pencil, ndim-1 exchanges, each rank
+        holding its `pencil_shard`; core/fft/distributed.py) or
+        "out_of_core" (one 1-D c2c signal
         whose operand lives in ``store``, streamed through two bounded
         passes of cached local plans; core/fft/outofcore.py).
       layout: "zero_copy" (default) or "copy" (the measured baseline; for
@@ -523,15 +663,27 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
       overlap: the distributed exchange engine: "off" (one
         `all_to_all_single` a plane and exchange), an int (that many
         slabs, each exchanged as `batch_isend_irecv` rounds behind the
-        local FFTs; it must divide n1/D and n2/D) or "auto".
+        local FFTs; it must divide n1/D and n2/D, or for a pencil every
+        leg's slab width shape[k+1]/grid[k]) or "auto".
       r2c_axis: the transform axis that carries the real-to-complex
         halving; only the contiguous axis (-1) is supported, anything
         else is a plan-time ValueError.
       verify: ABFT mode for consumers that run the plan's invariant checks:
         "off", "parseval" or "abft". Verified and unverified plans are
         distinct cache entries.
-      fallback: "error"; "degrade" (re-plan on a shrunk mesh) is not
-        ported yet (raises, ROADMAP Queue 1 item 7b).
+      fallback: "error" (default) raises when the requested strategy
+        cannot be built; "degrade" re-plans instead when the mesh has lost
+        ranks (core/resilience/meshstate.py) or the mesh-bound strategy is
+        unsatisfiable: first on the largest healthy power-of-two sub-mesh
+        (`meshstate.shrunk_mesh`, at the requested placement, then
+        "auto"), then locally. Every downgrade drops the mesh's cached
+        plans (`invalidate_mesh`) and records a "plan_downgrade" event.
+        In SPMD every rank must mark the same losses and call `plan`
+        together (building the sub-mesh's groups is collective). A rank
+        left out of the sub-mesh gets the same plan but holds no shard:
+        executing it raises ValueError. The degraded LOCAL plan takes the
+        GLOBAL operand, as the mesh-free plan always does: a caller that
+        passes its shard gets a shape error, not a wrong answer.
       tune: the measuring autotuner; not ported yet (raises).
       store, work_dir, budget_bytes, job_config: out-of-core only — the
         `BlockStore` holding the operand, the directory for tiles,
@@ -545,9 +697,6 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
     if fallback not in ("error", "degrade"):
         raise ValueError(
             f"fallback must be 'error' or 'degrade', got {fallback!r}")
-    if fallback == "degrade":
-        raise NotImplementedError(
-            f"fallback='degrade' is not ported yet ({spec_mod.ITEM_7B})")
     if tune:
         raise NotImplementedError(
             "plan(tune=True): the autotuner is not ported yet (ROADMAP "
@@ -564,25 +713,89 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         raise ValueError(
             "store=/work_dir=/budget_bytes= apply only to "
             "placement='out_of_core'")
-    num_devices = sizes = None
     if mesh is not None:
-        from repro_torch.core.fft import distributed
         if device is None:
             device = mesh.device_type
         elif torch.device(device).type != mesh.device_type:
             raise ValueError(f"device={device!r} disagrees with the mesh's "
                              f"device type {mesh.device_type!r}")
+
+    def degrade(reason: str):
+        """The degradation chain: the shrunk healthy mesh, then local.
+
+        Returns the downgraded plan, or None when every candidate fails
+        (the caller raises its own error). The mesh's cached plans are
+        dropped first: they hold collectives over ranks that no longer
+        answer.
+        """
+        from repro_torch.core.resilience import meshstate
+        from repro_torch.core.resilience.events import record_event
+        dropped = invalidate_mesh(mesh)
+        sub = meshstate.shrunk_mesh(mesh)
+        candidates = []
+        if sub is not None:
+            candidates.append((sub, placement))
+            if placement not in ("auto", "local"):
+                candidates.append((sub, "auto"))
+        candidates.append((None, "local"))
+        for sub_mesh, sub_placement in candidates:
+            try:
+                p = plan(kind=kind, n=n, shape=shape,
+                         batch_shape=batch_shape, mesh=sub_mesh,
+                         placement=sub_placement, layout=layout, impl=impl,
+                         precision=precision, device=device, axes=None,
+                         natural_order=natural_order,
+                         fuse_twiddle=fuse_twiddle, overlap=overlap,
+                         r2c_axis=r2c_axis, fallback="error", verify=verify)
+            except (ValueError, NotImplementedError):
+                continue
+            record_event(
+                "plan_downgrade", reason=reason,
+                requested_placement=placement,
+                resolved_placement=p.placement,
+                from_devices=int(mesh.mesh.numel()),
+                to_devices=(int(sub_mesh.mesh.numel())
+                            if sub_mesh is not None else 0),
+                epoch=meshstate.epoch(), plans_invalidated=dropped)
+            return p
+        return None
+
+    if fallback == "degrade" and mesh is not None:
+        from repro_torch.core.resilience import meshstate
+        if not meshstate.mesh_healthy(mesh):
+            p = degrade("mesh_degraded")
+            if p is not None:
+                return p
+            raise RuntimeError(
+                f"fallback='degrade': no viable plan for a mesh with "
+                f"{len(meshstate.healthy_devices(mesh))}/"
+                f"{mesh.mesh.numel()} healthy ranks")
+
+    num_devices = sizes = None
+    if mesh is not None:
+        from repro_torch.core.fft import distributed
         axes = distributed.mesh_axes(mesh, axes)
         sizes = distributed.axis_sizes(mesh, axes)
         num_devices = math.prod(sizes)
     elif axes is not None:
         raise ValueError("axes= requires mesh=")
-    resolved = spec_mod.resolve(
-        kind=kind, n=n, shape=shape, batch_shape=batch_shape,
-        placement=placement, layout=layout, impl=impl, precision=precision,
-        device=device or "cuda", r2c_axis=r2c_axis, verify=verify,
-        num_devices=num_devices, axes=axes, natural_order=natural_order,
-        fuse_twiddle=fuse_twiddle, overlap=overlap, axis_sizes=sizes)
+    try:
+        resolved = spec_mod.resolve(
+            kind=kind, n=n, shape=shape, batch_shape=batch_shape,
+            placement=placement, layout=layout, impl=impl,
+            precision=precision, device=device or "cuda",
+            r2c_axis=r2c_axis, verify=verify, num_devices=num_devices,
+            axes=axes, natural_order=natural_order,
+            fuse_twiddle=fuse_twiddle, overlap=overlap, axis_sizes=sizes)
+    except ValueError:
+        # a mesh-bound strategy that cannot be satisfied (too few ranks for
+        # the split, say): degrade walks the same chain instead of raising;
+        # a mesh-free failure is a spec error, with nothing to degrade to
+        if fallback == "degrade" and mesh is not None:
+            p = degrade("resolve_failed")
+            if p is not None:
+                return p
+        raise
     # local plans do not touch the mesh: keyed mesh-free, so the same spec
     # planned with and without a mesh is one plan
     key = (resolved, None if resolved.placement == "local" else mesh)

@@ -24,16 +24,22 @@ over the mesh axes:
   mesh + single 1-D signal, D > 1,
       n >= D^2                 -> "distributed" (cross-rank four-step)
   mesh + single 2-D image, D > 1,
-      D | n0 and D | n1        -> "distributed" (the pencil, not ported
-                                  yet: ROADMAP Queue 1 item 7b)
+      D | n0 and D | n1        -> "distributed" (the pencil: shard rows,
+                                  ONE exchange)
   mesh + anything that still
       fits one device          -> "local"
   otherwise                    -> ValueError
 
+(3-D pencil volumes are explicit only: `placement="distributed"` with a
+mesh whose dims form the rank grid; the heuristic does not see the
+mesh's structure, so 3-D shapes that fit one device auto-place "local".)
+
 The spec is the plan-cache key (with the mesh), so fields a placement
 ignores are normalized here: ``axes`` only for mesh placements,
-``natural_order``/``fuse_twiddle``/``overlap`` only for the distributed
-one (overlap "auto" is resolved to a chunk count or "off").
+``overlap`` only for the distributed one (overlap "auto" is resolved to a
+chunk count or "off"), ``natural_order``/``fuse_twiddle`` only for the
+1-D distributed one (the pencil has no outer twiddle and is always in
+natural order).
 
 The device replaces the JAX package's ``interpret`` switch: it defaults to
 ``"cuda"``, which must be present, and ``"cpu"`` runs the kernels' plain
@@ -64,10 +70,6 @@ MAX_LOCAL_N = 1 << 28
 # between two transposes above it
 MAX_EARLIER_AXIS = 1 << 14
 
-# the 2-D/3-D distributed pencils and fallback="degrade" come in the next
-# slice
-ITEM_7B = "ROADMAP Queue 1 item 7b"
-
 
 @dataclass(frozen=True)
 class FftSpec:
@@ -85,8 +87,8 @@ class FftSpec:
     device: str                   # resolved torch device, e.g. "cuda:0"
     verify: str = "off"           # ABFT mode: "off"|"parseval"|"abft"
     axes: tuple | None = None     # mesh axes (segmented / distributed)
-    natural_order: bool = True    # distributed only: exchange #3 or not
-    fuse_twiddle: bool = False    # distributed only: twiddle in the leaf
+    natural_order: bool = True    # 1-D distributed only: exchange #3
+    fuse_twiddle: bool = False    # 1-D distributed only: twiddle in leaf
     overlap: object = "off"       # distributed only: "off" | int chunks
 
     @property
@@ -190,6 +192,47 @@ def _validate_distributed(n: int, num_devices: int, axes) -> None:
             f"block-sized transforms")
 
 
+def _validate_pencil(shape: tuple, num_devices: int, axes,
+                     grid=None) -> None:
+    """The N-D pencil constraints, surfaced early.
+
+    Each exchange leg k shards axis k on input and splits axis k+1, so
+    grid[k] must divide both (for the flattened 2-D grid, both axes must
+    be divisible by D). Every earlier axis runs as one axis pass a rank,
+    so it caps at MAX_EARLIER_AXIS (the JAX package's MAX_LEAF; the
+    port's axes past its own 4096 leaf run `axis_pass`'s transpose
+    fallback); the contiguous axis runs the local path (MAX_LOCAL_N).
+    """
+    if not kplan.is_pow2(num_devices):
+        raise ValueError(
+            f"distributed placement needs a power-of-two device count "
+            f"along {axes}, got D={num_devices}")
+    if grid is None:
+        grid = (num_devices,) * (len(shape) - 1)
+    for ax_i, d in enumerate(shape):
+        # the grid factors touching axis i: leg i-1 splits it, leg i
+        # shards it; both must divide (2-D: the one flattened factor D)
+        for g in {grid[k] for k in (ax_i - 1, ax_i) if 0 <= k < len(grid)}:
+            if not kplan.is_pow2(g):
+                raise ValueError(
+                    f"pencil rank-grid factors must be powers of two, got "
+                    f"grid={grid} (axes {axes})")
+            if d % g:
+                raise ValueError(
+                    f"distributed pencil shapes need every sharded axis "
+                    f"divisible by D: axis {ax_i} of shape {shape} is {d}, "
+                    f"not divisible by D={g} (grid={grid}, axes {axes})")
+    for ax_i, d in enumerate(shape[:-1]):
+        if d > MAX_EARLIER_AXIS:
+            raise ValueError(
+                f"pencil axis {ax_i} runs as one axis pass a rank, so it "
+                f"caps at MAX_EARLIER_AXIS={MAX_EARLIER_AXIS}; got {d}")
+    if shape[-1] > MAX_LOCAL_N:
+        raise ValueError(
+            f"pencil axis {len(shape) - 1} runs the local path, so it caps "
+            f"at MAX_LOCAL_N={MAX_LOCAL_N}; got {shape[-1]}")
+
+
 def _normalize_shape(n, shape) -> tuple:
     if (n is None) == (shape is None):
         raise ValueError(
@@ -225,8 +268,8 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
 
     ``num_devices`` is the number of ranks over the mesh ``axes`` (None
     without a mesh); ``axis_sizes``, the ranks along each of ``axes``,
-    will shape the 3-D pencil's device grid (item 7b) and is checked
-    against ``num_devices`` here.
+    shapes the 3-D pencil's rank grid (1-D and 2-D placements ignore it)
+    and is checked against ``num_devices`` here.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
@@ -307,27 +350,42 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
                 f"placement='distributed' transforms ONE global signal of "
                 f"shape {shape}; got batch_shape={batch_shape} — use "
                 f"placement='segmented' for batches")
-        if ndim > 1:
-            raise NotImplementedError(
-                f"the {ndim}-D distributed pencil is not ported yet "
-                f"({ITEM_7B})")
-        if kind != "c2c":
-            raise ValueError(
-                "kind='r2c' is not supported for 1-D "
-                "placement='distributed'; run a c2c transform of the "
-                "packed signal or use placement='segmented' for "
-                "batches of real segments")
-        _validate_distributed(shape[0], num_devices, axes)
+        if ndim == 1:
+            if kind != "c2c":
+                raise ValueError(
+                    "kind='r2c' is not supported for 1-D "
+                    "placement='distributed'; run a c2c transform of the "
+                    "packed signal or use placement='segmented' for "
+                    "batches of real segments")
+            _validate_distributed(shape[0], num_devices, axes)
+        else:
+            # the N-D pencil (2-D: one flattened ring; 3-D: one mesh dim
+            # per sharded leading axis, which pencil_grid checks)
+            from repro_torch.core.fft.distributed import pencil_grid
+            grid = pencil_grid(shape, num_devices, axis_sizes)
+            _validate_pencil(shape, num_devices, axes, grid)
 
     if placement == "distributed":
         # resolve "auto" and validate explicit chunk counts now, so the
         # resolved spec (the cache key) never carries "auto"
-        from repro_torch.core.fft.distributed import resolve_overlap
-        chunks = resolve_overlap(shape[0], num_devices, overlap)
+        from repro_torch.core.fft import distributed as dist_mod
+        if ndim == 1:
+            chunks = dist_mod.resolve_overlap(shape[0], num_devices, overlap)
+        else:
+            # the flop-halved r2c pencil exchanges the HALF width, so its
+            # chunks resolve against the half shape
+            eff_shape = shape
+            if kind == "r2c":
+                eff_shape = (dist_mod.pencil_r2c_half(shape, grid, impl)
+                             or shape)
+            chunks = dist_mod.resolve_overlap_pencil(
+                eff_shape, num_devices, overlap, grid=grid)
         overlap = "off" if chunks is None else int(chunks)
     else:
         overlap = "off"
-        # the knobs of the distributed engine alone key no other plan
+    if placement != "distributed" or ndim > 1:
+        # the knobs of the 1-D distributed engine alone key no other plan
+        # (the pencil has no outer twiddle and is always natural-order)
         natural_order, fuse_twiddle = True, False
     return FftSpec(kind=kind, shape=shape, batch_shape=batch_shape,
                    placement=placement, layout=layout, impl=impl,

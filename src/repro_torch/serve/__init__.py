@@ -1,0 +1,25 @@
+"""`repro_torch.serve` — FFT as a service: `FftService`, the bounded,
+deadline-aware dynamic-batching front end over the plan cache, and
+`loadgen`, its synthetic open-loop workload and fault-free oracle."""
+
+from repro_torch.serve.fft_service import (
+    DeadlineExceeded,
+    FftService,
+    FftTicket,
+    RequestFailed,
+    ServiceClosed,
+    ServiceError,
+    ServiceOverload,
+    ServiceStats,
+)
+
+__all__ = [
+    "DeadlineExceeded",
+    "FftService",
+    "FftTicket",
+    "RequestFailed",
+    "ServiceClosed",
+    "ServiceError",
+    "ServiceOverload",
+    "ServiceStats",
+]

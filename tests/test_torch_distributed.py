@@ -17,6 +17,7 @@ collective fails the module, never the whole run.
 import datetime
 import fcntl
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +39,27 @@ COST_CASES = [(nat, fuse, ov) for nat in (True, False)
               for fuse in (False, True) for ov in ("off", 4)]
 COST_FIELDS = ("hbm_bytes", "collective_bytes", "exposed_collective_bytes",
                "flops", "gemm_macs")
+# the pencils: tests/test_pencil_nd.py's 3-D volume on the (4, 2) mesh, and
+# tests/test_fft2_plan.py's images on the 8-rank ("data",) mesh; a leading
+# axis past the port's 4096 leaf (axis_pass's transpose fallback)
+SHAPE3 = (16, 32, 64)
+SHAPE2 = (64, 64)
+SHAPE2_R2C = (64, 256)
+SHAPE2_LONG = (8192, 32)
+PENCIL_COST = ("hbm_bytes", "collective_bytes", "exposed_collective_bytes",
+               "per_leg_collective_bytes", "per_leg_exposed_collective_bytes",
+               "flops", "gemm_macs")
+# (kind, shape, mesh, overlap) of each pencil cost case
+PENCIL_COST_CASES = [(kind, shape, m, ov) for kind in ("c2c", "r2c")
+                     for shape, m in ((SHAPE3, "mesh"), (SHAPE2, "mesh8"),
+                                      (SHAPE2_R2C, "mesh8"))
+                     for ov in ("off", 2)]
+# (result, kind, input, shape, mesh) of each pencil run on both sides
+PENCIL_RUNS = [("pen3", "c2c", "pen3", SHAPE3, "mesh"),
+               ("pen3_r2c", "r2c", "pen3_real", SHAPE3, "mesh"),
+               ("pen2", "c2c", "pen2", SHAPE2, "mesh8"),
+               ("pen2_r2c", "r2c", "pen2_r2c", SHAPE2_R2C, "mesh8"),
+               ("pen2_slice", "r2c", "pen2_real", SHAPE2, "mesh8")]
 
 
 def _inputs(path: Path) -> None:
@@ -49,7 +71,13 @@ def _inputs(path: Path) -> None:
     np.savez(path, d64=planes(64), d4096=planes(4096), d65536=planes(65536),
              x=planes(N_OPT), seg=planes(16, 512),
              seg_real=rng.standard_normal((16, 512)).astype(np.float32),
-             selftest=planes(4096))
+             selftest=planes(4096), pen3=planes(*SHAPE3),
+             pen3_real=rng.standard_normal(SHAPE3).astype(np.float32),
+             pen2=planes(*SHAPE2),
+             pen2_real=rng.standard_normal(SHAPE2).astype(np.float32),
+             pen2_r2c=rng.standard_normal(SHAPE2_R2C).astype(np.float32),
+             pen2_long=planes(*SHAPE2_LONG), loss=planes(4096),
+             dead=planes(32, 256))
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +125,40 @@ def _reference(inputs: str, out: str) -> None:
     p = fft_api.plan(kind="c2c", n=4096, mesh=mesh8, placement="distributed",
                      overlap="off", interpret=True)
     keep("selftest", p.execute(*map(jnp.asarray, x["selftest"])))
+
+    # the pencils (tests/test_pencil_nd.py, tests/test_fft2_plan.py). The
+    # reference's r2c pencil plans, but raises ShardingTypeError on this
+    # JAX when it runs (its N-D untangle rolls a sharded dim of the global
+    # result); its own gate holds it bitwise to the local rfftn plan, so
+    # the r2c runs take that plan's output
+    meshes = {"mesh": mesh, "mesh8": mesh8}
+    for name, kind, key, shape, m in PENCIL_RUNS:
+        where = (dict(placement="local") if kind == "r2c" else dict(
+            mesh=meshes[m], placement="distributed", overlap="off"))
+        p = fft_api.plan(kind=kind, shape=shape, **where)
+        keep(name, p.execute_real(jnp.asarray(x[key])) if kind == "r2c"
+             else p.execute(*map(jnp.asarray, x[key])))
+    res["pencil_cost"] = np.array(json.dumps([
+        [np.ravel(getattr(fft_api.plan(
+            kind=kind, shape=shape, mesh=meshes[m], placement="distributed",
+            overlap=ov), f)).tolist() for f in PENCIL_COST]
+        for kind, shape, m, ov in PENCIL_COST_CASES]))
+
+    # tests/test_chaos.py's partial loss: ranks 6 and 7 of an 8-rank mesh
+    from repro.core.resilience import (FaultInjector, FaultPlan,
+                                       clear_events, events, meshstate)
+    mesh_x = compat.make_mesh((8,), ("x",))
+    fft_api.plan(kind="c2c", n=4096, mesh=mesh_x, placement="distributed")
+    inj = FaultInjector(FaultPlan.random(0, 0, rate=0.0, device_loss=(6, 7)))
+    clear_events()
+    inj.apply_device_loss(mesh_x)
+    p = fft_api.plan(kind="c2c", n=4096, mesh=mesh_x,
+                     placement="distributed", fallback="degrade")
+    keep("loss", p.execute(*map(jnp.asarray, x["loss"])))
+    res["loss_info"] = np.array(json.dumps([
+        p.placement, int(p.mesh.devices.size),
+        [e["reason"] for e in events("plan_downgrade")]]))
+    meshstate.restore_devices()
     # which shard each mesh position holds: (data, model, shard index)
     coords = {d.id: idx for idx, d in np.ndenumerate(mesh.devices)}
     for axes in (("data", "model"), ("model", "data")):
@@ -295,6 +357,109 @@ def _worker(rank: int, store: str, inputs: str, out: str) -> None:
                           "exposed": p.exposed_collective_bytes,
                           "total": p.collective_bytes}
 
+        # the pencils: each run under both engines, its output assembled
+        # from every rank's block by the coordinate (worked out here, not
+        # by the port's layout helpers), held to the local plan
+        meshes = {"mesh": mesh, "mesh8": mesh8}
+
+        def block(m, shape, out):
+            """This rank's slices of a global volume: input axis 0 (output
+            axis 1) over the flat index of every dim for 2-D; axis i (i + 1)
+            over mesh dim i for 3-D."""
+            coord = m.get_coordinate()
+            sizes = [m.size(i) for i in range(m.ndim)]
+            if len(shape) == 2:
+                f = 0
+                for c, size in zip(coord, sizes):
+                    f = f * size + c
+                grid = [(f, math.prod(sizes))]
+            else:
+                grid = list(zip(coord, sizes))
+            sl = [slice(None)] * len(shape)
+            for k, (f, g) in enumerate(grid):
+                w = shape[k + out] // g
+                sl[k + out] = slice(f * w, (f + 1) * w)
+            return tuple(sl)
+
+        def assemble(y, m, shape):
+            got = [None] * WORLD
+            dist.all_gather_object(got, (block(m, shape, 1),
+                                         [t.numpy() for t in y]))
+            full = np.zeros((2, *shape), np.float32)
+            for sl, planes in got:
+                for k in range(2):
+                    full[k][sl] = planes[k]
+            return full
+
+        pencil = {}
+        for name, kind, key, shape, m in (
+                *PENCIL_RUNS, ("pen2_long", "c2c", "pen2_long", SHAPE2_LONG,
+                               "mesh8")):
+            mm, xin = meshes[m], x[key]
+            sl = block(mm, shape, 0)
+            local = tfft.plan(kind=kind, shape=shape, device="cpu")
+            want = np.stack([t.numpy() for t in (
+                local.execute(*xin) if kind == "c2c"
+                else local.execute_real(xin))])
+            outs, case = {}, {}
+            for ov in ("off", 2):
+                p = tfft.plan(kind=kind, shape=shape, mesh=mm,
+                              placement="distributed", overlap=ov)
+                calls.clear()
+                if kind == "c2c":
+                    y = p.execute(xin[0][sl], xin[1][sl])
+                    case[f"calls_{ov}"] = dict(calls)
+                    outs[ov] = assemble(y, mm, shape)
+                    if ov == "off":
+                        back = p.execute_inverse(*y)
+                        case["roundtrip"] = max(float(
+                            (b - a[sl]).abs().max() / a.abs().max())
+                            for a, b in zip(xin, back))
+                        p.execute(xin[0][sl], xin[1][sl])
+                        case["builds"] = p.build_counts["forward"]
+                else:
+                    y = p.execute_real(xin[sl])  # global, on every rank
+                    case[f"calls_{ov}"] = dict(calls)
+                    outs[ov] = np.stack([t.numpy() for t in y])
+                case[f"fast_{ov}"] = p._fast_r2c_pencil
+            res[name] = outs["off"]
+            case.update(
+                local_bitwise=all(np.array_equal(o, want)
+                                  for o in outs.values()),
+                engines_bitwise=bool(np.array_equal(outs["off"], outs[2])),
+                grid=list(p.dist.grid), d=p.dist.d,
+                n_exchanges=p.dist.n_exchanges)
+            pencil[name] = case
+        info["pencil"] = pencil
+        info["pencil_cost"] = [
+            [np.ravel(getattr(tfft.plan(
+                kind=kind, shape=shape, mesh=meshes[m],
+                placement="distributed", overlap=ov), f)).tolist()
+             for f in PENCIL_COST]
+            for kind, shape, m, ov in PENCIL_COST_CASES]
+        # tests/test_fft2_plan.py's one exchange leg, on 512 x 512
+        legs = {}
+        for ov in ("off", 2):
+            p = tfft.plan(kind="c2c", shape=(512, 512), mesh=mesh8,
+                          placement="distributed", overlap=ov)
+            legs[str(ov)] = [p.dist.n_exchanges, p.collective_bytes,
+                             p.exposed_collective_bytes]
+        legs["1-D"] = tfft.plan(kind="c2c", n=512 * 512, mesh=mesh8,
+                                placement="distributed",
+                                overlap="off").collective_bytes
+        info["one_leg"] = legs
+        # tests/test_pencil_nd.py's spec errors that need the mesh
+        errors = {}
+        for what, kw in (("axis_count", dict(shape=SHAPE3, axes=("data",))),
+                         ("indivisible", dict(shape=(8, 2, 64)))):
+            try:
+                tfft.plan(kind="c2c", mesh=mesh, placement="distributed",
+                          **kw)
+                errors[what] = None
+            except ValueError as e:
+                errors[what] = str(e)
+        info["pencil_errors"] = errors
+
         # rank order: this rank's coordinate and the shard it holds
         order = {}
         for axes in (("data", "model"), ("model", "data")):
@@ -304,6 +469,77 @@ def _worker(rank: int, store: str, inputs: str, out: str) -> None:
         ranks = [None] * WORLD
         dist.all_gather_object(ranks, order)
         info["order"] = {k: sorted(r[k] for r in ranks) for k in order}
+
+        # tests/test_chaos.py's partial loss: ranks 6 and 7 lost, every
+        # rank marks them and re-plans; ranks 0-3 form the shrunk mesh
+        from repro_torch.core.resilience import (FaultInjector, FaultPlan,
+                                                 clear_events, events,
+                                                 meshstate)
+        from repro_torch.fft import planner
+        tfft.clear_plan_cache()
+        mesh_x = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("x",))
+        tfft.plan(kind="c2c", n=4096, mesh=mesh_x, placement="distributed")
+        inj = FaultInjector(FaultPlan.random(0, 0, rate=0.0,
+                                             device_loss=(6, 7)))
+        clear_events()
+        marked = inj.apply_device_loss(mesh_x)
+        p = tfft.plan(kind="c2c", n=4096, mesh=mesh_x,
+                      placement="distributed", fallback="degrade")
+        member = p.mesh.get_coordinate() is not None
+        if member:
+            y = p.execute(*(tfft.local_shard(a, p.mesh) for a in x["loss"]))
+            order = flat_ranks(p.mesh, mesh_axes(p.mesh))
+            parts = []
+            for t in y:
+                got = [torch.empty_like(t) for _ in order]
+                dist.all_gather(got, t, group=p.mesh.get_group())
+                parts.append(torch.cat([got[dist.get_group_rank(
+                    p.mesh.get_group(), r)] for r in order]).numpy())
+            res["loss"] = np.stack(parts)
+            refused = None
+        else:
+            try:
+                p.execute(*(a[:1024] for a in x["loss"]))
+                refused = False
+            except ValueError:
+                refused = True
+        loss = {"marked": list(marked), "placement": p.placement,
+                "devices": int(p.mesh.mesh.numel()),
+                "ranks": p.mesh.mesh.tolist(), "member": member,
+                "refused": refused,
+                "events": [e["reason"] for e in events("plan_downgrade")],
+                "stale_keys": sum(1 for k in planner._PLAN_CACHE
+                                  if k[1] is not None
+                                  and k[1].mesh.numel() == WORLD)}
+        meshstate.restore_devices()
+        every = [None] * WORLD
+        dist.all_gather_object(every, loss)
+        info["loss"] = every
+
+        # tests/test_resilience.py's dead mesh: every rank lost, the
+        # segmented plan degrades to local
+        tfft.clear_plan_cache()
+        batch = 4 * WORLD
+        tfft.plan(kind="c2c", n=256, batch_shape=(batch,), mesh=mesh_x,
+                  placement="segmented")
+        dead = {"cached": tfft.cache_info()["entries"]}
+        clear_events()
+        meshstate.lose_devices(mesh_x.mesh.reshape(-1).tolist())
+        try:
+            p = tfft.plan(kind="c2c", n=256, batch_shape=(batch,),
+                          mesh=mesh_x, placement="segmented",
+                          fallback="degrade")
+        finally:
+            meshstate.restore_devices()
+        ev = events("plan_downgrade")
+        dead.update(placement=p.placement, mesh=p.mesh is None,
+                    events=[{k: e[k] for k in (
+                        "reason", "requested_placement",
+                        "resolved_placement", "plans_invalidated",
+                        "from_devices", "to_devices")} for e in ev],
+                    mesh_free=all(k[1] is None for k in planner._PLAN_CACHE))
+        res["dead"] = np.stack([t.numpy() for t in p.execute(*x["dead"])])
+        info["dead"] = dead
         if rank == 0:
             np.savez(Path(out) / "port.npz", **res)
             (Path(out) / "port.json").write_text(json.dumps(info))
@@ -555,6 +791,248 @@ def test_dist_plan_bytes_match_the_reference(n, d, natural, chunks):
                  "per_leg_bytes_per_device",
                  "per_leg_exposed_bytes_per_device"):
         assert getattr(got, name) == getattr(want, name), name
+
+
+# ---------------------------------------------------------------------------
+# the N-D pencils: tests/test_pencil_nd.py and tests/test_fft2_plan.py
+
+
+def _numpy_pencil(x, name):
+    kind, key, shape = {r[0]: (r[1], r[2], r[3]) for r in PENCIL_RUNS}[name]
+    if kind == "c2c":
+        return _split(np.fft.fftn(x[key][0].astype(np.float64)
+                                  + 1j * x[key][1]))
+    return _split(np.fft.rfftn(x[key].astype(np.float64)))
+
+
+@pytest.mark.parametrize("name", [r[0] for r in PENCIL_RUNS])
+def test_pencil_matches_numpy_and_the_reference(runs, name):
+    """Each pencil on 8 gloo ranks within 5e-6 of the reference's on 8
+    forced host devices (for r2c, the reference's local rfftn: its r2c
+    pencil raises on this JAX, ROADMAP Queue 3) and of numpy's
+    fftn/rfftn."""
+    ref, port, _, x = runs
+    assert port[name].shape == ref[name].shape
+    assert _rel_err(port[name], ref[name]) < TOL
+    assert _rel_err(port[name], _numpy_pencil(x, name)) < TOL
+
+
+@pytest.mark.parametrize("name", [r[0] for r in PENCIL_RUNS] + ["pen2_long"])
+def test_pencil_bitwise_vs_local_and_between_engines(runs, name):
+    """The pencil runs local fftn's axis order on the same kernels: the
+    monolithic and the overlapped engines (2 slabs) equal the local plan
+    bit for bit (tests/test_pencil_nd.py::test_bitwise_vs_local_fftn,
+    ::test_3d_bitwise_vs_local_rfftn, ::test_2d_bitwise_vs_local_rfftn);
+    pen2_long's axis 0 (8192) runs axis_pass's transpose fallback, its
+    slabs sliced at their offsets."""
+    _, _, info, _ = runs
+    case = info["pencil"][name]
+    assert case["local_bitwise"] and case["engines_bitwise"], case
+
+
+def test_pencil_exchange_calls(runs):
+    """A 2-D pencil runs ONE exchange leg, a 3-D one two: one
+    all_to_all_single a plane and leg for the monolithic engine; two
+    slabs of D-1 rounds (of the leg's ring) a leg for the overlapped."""
+    _, _, info, _ = runs
+    pen = info["pencil"]
+    assert pen["pen2"]["calls_off"] == {"all_to_all_single": 2}
+    assert pen["pen2"]["calls_2"] == {"batch_isend_irecv": 2,
+                                      "sends": 2 * (WORLD - 1) * 2,
+                                      "rounds": 2 * (WORLD - 1)}
+    assert pen["pen3"]["calls_off"] == {"all_to_all_single": 4}
+    # leg 1 over "model" (2 ranks), leg 0 over "data" (4 ranks)
+    assert pen["pen3"]["calls_2"] == {"batch_isend_irecv": 4,
+                                      "sends": 2 * 2 * (1 + 3),
+                                      "rounds": 2 * (1 + 3)}
+    # r2c: the same legs, then one all_gather a plane for the untangle
+    assert pen["pen3_r2c"]["calls_off"] == {"all_to_all_single": 4}
+
+
+def test_pencil_grid_follows_mesh_axes(runs):
+    _, _, info, _ = runs
+    pen = info["pencil"]
+    assert pen["pen3"]["grid"] == [4, 2] and pen["pen3"]["d"] == 8
+    assert pen["pen3"]["n_exchanges"] == 2
+    assert pen["pen2"]["grid"] == [8] and pen["pen2"]["n_exchanges"] == 1
+
+
+def test_pencil_inverse_roundtrip_and_one_build(runs):
+    _, _, info, _ = runs
+    for name in ("pen3", "pen2", "pen2_long"):
+        case = info["pencil"][name]
+        assert case["roundtrip"] < 1e-5 and case["builds"] == 1, case
+
+
+def test_r2c_pencil_is_flop_halved(runs):
+    _, _, info, _ = runs
+    for name in ("pen3_r2c", "pen2_r2c", "pen2_slice"):
+        assert info["pencil"][name]["fast_off"], name
+        assert info["pencil"][name]["fast_2"], name
+
+
+def test_pencil_cost_model_matches_the_reference(runs):
+    """hbm_bytes, collective_bytes (total and per leg, exposed too), flops
+    and gemm_macs of every pencil plan equal the reference plans'; the
+    per-leg bytes sum to the totals; the packed r2c pencil moves half the
+    c2c pencil's exchange bytes (tests/test_pencil_nd.py)."""
+    ref, _, info, _ = runs
+    got = info["pencil_cost"]
+    assert got == json.loads(str(ref["pencil_cost"]))
+    fields = dict(enumerate(PENCIL_COST))
+    for case, row in zip(PENCIL_COST_CASES, got):
+        v = {fields[i]: row[i] for i in range(len(row))}
+        assert sum(v["per_leg_collective_bytes"]) == \
+            v["collective_bytes"][0], case
+        assert sum(v["per_leg_exposed_collective_bytes"]) == \
+            v["exposed_collective_bytes"][0], case
+        assert len(v["per_leg_collective_bytes"]) == len(case[1]) - 1
+    half = len(PENCIL_COST_CASES) // 2
+    for c2c, r2c in zip(got[:half], got[half:]):
+        assert r2c[1][0] * 2 == c2c[1][0]
+        assert r2c[5][0] < 0.75 * c2c[5][0] and r2c[6][0] < 0.75 * c2c[6][0]
+
+
+def test_pencil_plan_one_exchange_leg(runs):
+    _, _, info, _ = runs
+    legs = info["one_leg"]
+    assert legs["off"] == [1, 2 * 4 * 512 * 512, 2 * 4 * 512 * 512]
+    assert legs["2"][1] == legs["off"][1] and legs["2"][2] * 2 == legs["2"][1]
+    assert legs["1-D"] == 3 * legs["off"][1]
+
+
+def test_pencil_spec_errors_with_a_mesh(runs):
+    _, _, info, _ = runs
+    errors = info["pencil_errors"]
+    assert errors["axis_count"] and "mesh axes" in errors["axis_count"]
+    assert errors["indivisible"] and "axis 1" in errors["indivisible"]
+
+
+def test_pencil_r2c_slice_path(runs):
+    """tests/test_fft2_plan.py's r2c pencil of a 64 x 64 image on 8 ranks:
+    the one-sided (64, 33) spectrum, one exchange leg."""
+    _, port, info, x = runs
+    assert port["pen2_slice"].shape == (2, 64, 33)
+    want = _split(np.fft.rfft2(x["pen2_real"].astype(np.float64)))
+    assert _rel_err(port["pen2_slice"], want) < TOL
+    assert info["pencil"]["pen2_slice"]["n_exchanges"] == 1
+
+
+def _spec(**kw):
+    from repro_torch.fft import spec as tspec
+    return tspec.resolve(**{"kind": "c2c", "device": "cpu", **kw})
+
+
+def _jspec(**kw):
+    from repro.fft import spec as jspec
+    return jspec.resolve(**{"kind": "c2c", **kw})
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(shape=(4, 64)), "axis 0.*not divisible by D"),
+    (dict(shape=(64, 4)), "axis 1.*not divisible by D"),
+    (dict(shape=(64, 64), num_devices=6), "power-of-two device count"),
+    (dict(shape=(8, 8, 8)), "3-D"),
+    (dict(shape=SHAPE3, axes=None), "mesh"),
+])
+def test_pencil_spec_errors(kw, match):
+    """tests/test_fft2_plan.py's and tests/test_pencil_nd.py's plan-time
+    errors, raised by both packages."""
+    kw = {"placement": "distributed", "num_devices": 8, "axes": ("data",),
+          **kw}
+    for resolve in (_spec, _jspec):
+        with pytest.raises(ValueError, match=match):
+            resolve(**kw)
+
+
+def test_pencil_axis0_cap():
+    """The reference caps a pencil's leading axes at its 16384 leaf; the
+    port at MAX_EARLIER_AXIS, the same length: it accepts every spec the
+    reference accepts."""
+    from repro_torch.fft import spec as tspec
+    kw = dict(placement="distributed", num_devices=8, axes=("data",))
+    assert tspec.MAX_EARLIER_AXIS == 1 << 14
+    for resolve in (_spec, _jspec):
+        assert resolve(shape=(1 << 14, 64), **kw).placement == "distributed"
+    with pytest.raises(ValueError, match="MAX_EARLIER_AXIS"):
+        _spec(shape=(1 << 15, 64), **kw)
+    with pytest.raises(ValueError, match="MAX_LEAF"):
+        _jspec(shape=(1 << 15, 64), **kw)
+
+
+def test_pencil_normalizes_twiddle_knobs():
+    kw = dict(shape=(64, 64), placement="distributed", num_devices=8,
+              axes=("data",), natural_order=False, fuse_twiddle=True)
+    for s in (_spec(**kw), _jspec(**kw)):
+        # the pencil has no outer twiddle and is always natural-order
+        assert s.natural_order is True and s.fuse_twiddle is False
+
+
+@pytest.mark.parametrize("args", [
+    ((64, 64), 1, 0, None), ((64, 64), 16, 1, 8), ((64, 64), 3, 1, 8),
+    ((64, 64), 1, 0, 8), ((4, 64), 1, 0, 8), (1 << 20, 1, 0, 8),
+    (1024, 16, 1, None), ((16, 16, 16), 1, 0, 8)])
+def test_resolve_placement_2d_matches_the_reference(args):
+    from repro.fft.spec import resolve_placement as jplace
+    from repro_torch.fft.spec import resolve_placement
+    assert resolve_placement(*args) == jplace(*args)
+
+
+@pytest.mark.parametrize("shape,d,overlap", [
+    ((64, 64), 8, "auto"), ((16384, 16384), 8, "auto"), ((64, 64), 8, 4),
+    ((64, 64), 8, "off"), (SHAPE3, 8, 2), ((8192, 8192), 1, "auto"),
+    ((512, 512, 512), 1, "auto")])
+def test_pencil_overlap_resolution_matches_the_reference(shape, d, overlap):
+    from repro.core.fft.distributed import resolve_overlap_pencil as jres
+    from repro_torch.core.fft.distributed import resolve_overlap_pencil
+    grid = (4, 2) if shape == SHAPE3 else (
+        (1, 1) if len(shape) == 3 else None)
+    assert resolve_overlap_pencil(shape, d, overlap, grid=grid) == \
+        jres(shape, d, overlap, grid=grid)
+
+
+@pytest.mark.parametrize("bad", [0, -1, 3, 16, "weird", 2.5, True])
+def test_pencil_overlap_rejects_bad_chunks(bad):
+    from repro_torch.core.fft.distributed import resolve_overlap_pencil
+    with pytest.raises(ValueError, match="overlap"):
+        resolve_overlap_pencil((64, 64), 8, bad)
+
+
+# ---------------------------------------------------------------------------
+# fallback="degrade": tests/test_chaos.py and tests/test_resilience.py
+
+
+def test_device_loss_degrades_to_shrunk_mesh(runs):
+    """Ranks 6 and 7 lost: every rank re-plans on the 4-rank healthy
+    sub-mesh, its output within 5e-6 of the reference's on its 4-device
+    sub-mesh, one downgrade logged, the stale 8-rank plan gone; the
+    ranks left out hold no shard and refuse to execute."""
+    ref, port, info, x = runs
+    assert json.loads(str(ref["loss_info"])) == [
+        "distributed", 4, ["mesh_degraded"]]
+    for r, loss in enumerate(info["loss"]):
+        assert loss["marked"] == [6, 7]
+        assert (loss["placement"], loss["devices"]) == ("distributed", 4)
+        assert loss["ranks"] == [0, 1, 2, 3]
+        assert loss["events"] == ["mesh_degraded"]
+        assert loss["stale_keys"] == 0
+        assert loss["member"] == (r < 4)
+        assert loss["refused"] == (None if r < 4 else True)
+    assert _rel_err(port["loss"], ref["loss"]) < TOL
+    assert _rel_err(port["loss"], _split(_numpy_fft(x["loss"]))) < TOL
+
+
+def test_plan_degrade_falls_back_to_local_on_dead_mesh(runs):
+    _, port, info, x = runs
+    dead = info["dead"]
+    assert dead["cached"] == 1
+    assert dead["placement"] == "local" and dead["mesh"]
+    assert dead["events"] == [{
+        "reason": "mesh_degraded", "requested_placement": "segmented",
+        "resolved_placement": "local", "plans_invalidated": 1,
+        "from_devices": WORLD, "to_devices": 0}]
+    assert dead["mesh_free"]
+    assert _rel_err(port["dead"], _split(_numpy_fft(x["dead"]))) < TOL
 
 
 if __name__ == "__main__":

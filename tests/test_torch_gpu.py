@@ -398,3 +398,83 @@ def test_distributed_plan_on_one_card(cuda, rng, tmp_path, overlap):
     finally:
         tfft.invalidate_mesh(mesh)  # its plans hold the group
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape,dims", [
+    ("c2c", (512, 256), (1,)), ("c2c", (8192, 64), (1,)),
+    ("c2c", (64, 32, 128), (1, 1)), ("r2c", (512, 256), (1,)),
+    ("r2c", (64, 32, 128), (1, 1))])
+@pytest.mark.parametrize("overlap", ["off", 4])
+def test_pencil_plan_on_one_card(cuda, rng, tmp_path, kind, shape, dims,
+                                 overlap):
+    """The 2-D and 3-D pencils on a world-size-1 NCCL group, a (1,) or (1,
+    1) mesh: bitwise equal to the local plan, the kernels launched, no
+    plain version; then a lost rank degrades the plan to the local one,
+    with one plan_downgrade."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.fft as tfft
+    from repro_torch.core.resilience import clear_events, events, meshstate
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", dims,
+                            mesh_dim_names=("data", "model")[:len(dims)])
+    try:
+        if kind == "c2c":
+            x = _planes(rng, shape, cuda)
+        else:
+            x = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                  ).to(cuda),)
+        km.reset_counts()
+        p = tfft.plan(kind=kind, shape=shape, mesh=mesh,
+                      placement="distributed", overlap=overlap)
+        run = p.execute if kind == "c2c" else p.execute_real
+        y = run(*x)
+        assert km.matfft_cols.launches > 0
+        assert not km.plain_shapes
+        local = tfft.plan(kind=kind, shape=shape, device=cuda)
+        assert _same(y, (local.execute if kind == "c2c"
+                         else local.execute_real)(*x))
+        clear_events()
+        meshstate.lose_devices([0])
+        try:
+            d = tfft.plan(kind=kind, shape=shape, mesh=mesh,
+                          placement="distributed", overlap=overlap,
+                          fallback="degrade")
+        finally:
+            meshstate.restore_devices()
+        assert d is local and len(events("plan_downgrade")) == 1
+    finally:
+        tfft.invalidate_mesh(mesh)  # its plans hold the group
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["matfft", "stockham"])
+@pytest.mark.parametrize("verify", ["off", "abft"])
+def test_service_on_the_card(cuda, impl, verify):
+    """The service's launches on the card: every request of the default
+    mix ok and bitwise equal to the oracle at its launch size, and within
+    5e-6 of torch.fft; no plain version ran."""
+    from repro_torch.serve import FftService, loadgen
+    km.reset_counts()
+    service = FftService(impl=impl, device="cuda", coalesce=4,
+                         verify=verify)
+    records = loadgen.drive(service, num_requests=48, clients=3, seed=5)
+    assert [loadgen.classify(r) for r in records] == ["ok"] * 48
+    service.close(drain=True)
+    assert service.idle() and not km.plain_shapes
+    for rec in records:
+        ops = loadgen.request_operands(5, rec.rid, rec.shape)
+        want = loadgen.oracle(rec.shape, ops, impl=impl,
+                              batch_rows=rec.ticket.batch_rows)
+        assert loadgen.bitwise_equal(rec.ticket.value, want)
+        if rec.shape.kind == "c2c":
+            lib = np.fft.fft(ops[0].astype(np.float64) + 1j * ops[1])
+        else:
+            lib = np.fft.rfft(ops[0].astype(np.float64))
+        got = rec.ticket.value[0] + 1j * rec.ticket.value[1].astype(
+            np.float64)
+        assert np.abs(got - lib).max() / np.abs(lib).max() < TOL

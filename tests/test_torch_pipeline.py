@@ -109,6 +109,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch, repro_torch.launch.fft_job, chip_smoke\n"
+        "import repro_torch.serve, repro_torch.launch.fft_serve\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
@@ -116,7 +117,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert not bad, bad\n"
         "assert {'repro_torch.core.fft.outofcore',\n"
         "        'repro_torch.core.fft.segmented',\n"
-        "        'repro_torch.core.fft.distributed'} <= set(sys.modules)\n"
+        "        'repro_torch.core.fft.distributed',\n"
+        "        'repro_torch.core.resilience.meshstate',\n"
+        "        'repro_torch.serve.fft_service',\n"
+        "        'repro_torch.serve.loadgen',\n"
+        "        'repro_torch.launch.fft_serve'} <= set(sys.modules)\n"
         "print('clean')\n")
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}

@@ -190,11 +190,6 @@ def test_resolve_local_nd_spec(kind):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    # the 2-D and 3-D pencils come with the next slice
-    (dict(kind="c2c", shape=(64, 64), placement="distributed",
-          num_devices=4), NotImplementedError, "item 7b"),
-    (dict(kind="c2c", shape=(16, 16, 16), placement="distributed",
-          num_devices=4), NotImplementedError, "item 7b"),
     # ported: plan() builds it from a store, resolve() refuses it
     (dict(kind="c2c", n=256, placement="out_of_core"), ValueError,
      "constructed by repro_torch.fft.plan.* no resolvable FftSpec"),
@@ -205,6 +200,27 @@ def test_unported_specs_name_their_roadmap_item(kw, exc, match):
     if kw.get("placement") == "out_of_core":  # and plan() needs store=
         with pytest.raises(ValueError, match="requires store="):
             tfft.plan(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,grid", [
+    # the 2-D pencil: one flattened ring; the 3-D one: a mesh dim an axis
+    (dict(kind="c2c", shape=(64, 64), placement="distributed",
+          num_devices=4), (4,)),
+    (dict(kind="c2c", shape=(16, 16, 16), placement="distributed",
+          num_devices=4, axis_sizes=(2, 2)), (2, 2)),
+])
+def test_pencil_specs_resolve_with_their_grid(kw, grid):
+    from repro.core.fft.distributed import pencil_grid as jgrid
+    from repro_torch.core.fft.distributed import pencil_grid
+    s = tspec.resolve(device="cpu", overlap="off", natural_order=False,
+                      fuse_twiddle=True, **kw)
+    want = jspec.resolve(overlap="off", natural_order=False,
+                         fuse_twiddle=True, **kw)
+    assert (s.placement, s.overlap, s.natural_order, s.fuse_twiddle) == (
+        want.placement, want.overlap, want.natural_order, want.fuse_twiddle)
+    assert s.placement == "distributed" and s.natural_order
+    args = (s.shape, kw["num_devices"], kw.get("axis_sizes"))
+    assert pencil_grid(*args) == jgrid(*args) == grid
 
 
 def test_plan_mesh_arguments_are_checked():
@@ -224,8 +240,11 @@ def test_plan_mesh_arguments_are_checked():
 
 
 def test_plan_fallback_degrade_is_item_7b():
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tfft.plan(kind="c2c", n=256, fallback="degrade", device="cpu")
+    """fallback="degrade" without a mesh has nothing to degrade: it plans
+    as "error" does, the same cached plan; an unknown fallback raises."""
+    p = tfft.plan(kind="c2c", n=256, fallback="degrade", device="cpu")
+    assert p is tfft.plan(kind="c2c", n=256, device="cpu")
+    assert p.placement == "local"
     with pytest.raises(ValueError, match="fallback"):
         tfft.plan(kind="c2c", n=256, fallback="retry", device="cpu")
 
