@@ -63,8 +63,16 @@ Phases (any failed check exits non-zero):
      against torch.fft, the calls the wrappers record (wrapper, shape,
      major) held to those worked out from the shapes; rfft2's N-D
      untangle and re-entangle timed alone;
- 10. the `kernels` JSON line: phase 3's numbers and the main-path
-     launches (phases 4, 6, 7 and 9).
+ 10-12. the mesh placements, the pencils and the service on a one-rank
+     group (`dist_checks`, `pencil_checks`, `serve_checks`);
+ 13. the measuring autotuner on the same group (`tuner_checks`):
+     `plan(tune=True)` for the block job's spec, the service's paper mix,
+     fft2 and the distributed four-step (each tuned plan bitwise equal to
+     the default plan, the two timed), `tune_out_of_core`, `fft_job
+     --tune` twice (the second run a wisdom hit) and the facade selftest;
+     phase 3 also checks K1-K4 at the tiles the tuner can pick;
+ 14. the `kernels` JSON line: phase 3's numbers and the main-path
+     launches (phases 4, 6, 7 and 9-13).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result.
@@ -205,6 +213,10 @@ FULL = {
                             ("r2c", 4096, 256)],
               "paper_requests": 600, "loss_requests": 300,
               "cli_requests": 400},
+    # the tuner: the block job's (rows, fft_len), and the timing calls of
+    # the tuned and default plans; the other specs are the service's paper
+    # mix, the N-D phase's fft2 and the distributed phase's n
+    "tune": {"block": (32768, 1024), "reps": 3},
 }
 REHEARSE = {
     "runs": [
@@ -264,6 +276,7 @@ REHEARSE = {
                             ("r2c", 256, 4)],
               "paper_requests": 24, "loss_requests": 24,
               "cli_requests": 24},
+    "tune": {"block": (64, 1024), "reps": 1},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -346,9 +359,46 @@ def kernel_cases(cfg, max_leaf: int) -> list:
                           untangle and n in (512, 1024)))
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
-    return (cases + ooc_kernel_cases(cfg) + nd_kernel_cases(cfg)
-            + dist_kernel_cases(cfg) + pencil_kernel_cases(cfg)
-            + serve_kernel_cases(cfg))
+    return (cases + tile_kernel_cases(cfg) + ooc_kernel_cases(cfg)
+            + nd_kernel_cases(cfg) + dist_kernel_cases(cfg)
+            + pencil_kernel_cases(cfg) + serve_kernel_cases(cfg))
+
+
+def tile_kernel_cases(cfg) -> list:
+    """K1, K3 (m = n) and K4 at n = 256, 1024 and 4096, and K2 at L = 256
+    and 1024, at the batch tiles the tuner can pick: the default and its
+    half, quarter and one row (K2: column) a block, each distinct tile
+    once, at ``points`` points. Untimed (a winner's tile is timed in the
+    tuner phase)."""
+    from repro_torch.kernels.fft import plan as kplan
+    points = cfg["points"]
+
+    def tiles(full):
+        return sorted({kplan.tile_rows(full, t)
+                       for t in (full // 2 or 1, full // 4 or 1, 1)}
+                      - {full}) + [None]
+
+    cases = []
+    for n in (256, 1024, 4096):
+        full = kplan.MAX_LEAF // n
+        two = n <= 256
+        for t in tiles(full):
+            cases += [
+                ("matfft/direct" if two else "matfft/four_step", "matfft",
+                 (points // n, n), {"period": None, "tile": t}, False),
+                ("rfft/direct" if two else "rfft/four_step", "rfft",
+                 (points // (2 * n), 2 * n), {"untangle": True, "tile": t},
+                 False),
+                ("stockham", "stockham", (points // n, n), {"tile": t},
+                 False)]
+    for L in (256, 1024):
+        for t in tiles(min(kplan.MAX_LEAF // L, L)):
+            cases.append(("matfft_cols/direct" if L <= 256 else
+                          "matfft_cols/four_step", "matfft_cols",
+                          (max(points // (L * L), 1), L, L),
+                          {"out_major": "row", "with_epilogue": True,
+                           "tile": t}, False))
+    return cases
 
 
 def ooc_kernel_cases(cfg) -> list:
@@ -427,9 +477,11 @@ def dist_split(n: int) -> tuple[int, int]:
 
 def option_key(kernel: str, shape, major, opts) -> tuple:
     """A call's `matfft.launch_shapes` key: (wrapper, shape, major), and
-    with the global twiddle or a column slab, a fourth entry naming them."""
+    with the global twiddle, a column slab or a narrowed batch tile, a
+    fourth entry naming them."""
     tags = (("twiddle",) if opts.get("global_twiddle") else ()) + (
-        ("slab", opts["ncols"]) if opts.get("ncols") else ())
+        ("slab", opts["ncols"]) if opts.get("ncols") else ()) + (
+        ("tile", opts["tile"]) if opts.get("tile") else ())
     return (kernel, tuple(shape), major) + ((tags,) if tags else ())
 
 
@@ -539,16 +591,19 @@ def case_work(km, ks, kplan, kernel: str, shape, opts, epi, dev):
     return nbytes, flops
 
 
-def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
+def run_cases(torch, dev, cfg, gpu: bool, cases,
+              seed: int = 0) -> tuple[list, dict]:
+    """Each case's kernel against its plain version (bitwise on the card)
+    and torch.fft; the timed ones timed beside their bound, plain version
+    and torch.fft. Returns (checks, timing by name)."""
     import numpy as np
 
-    from repro_torch.fft import executors
     from repro_torch.kernels.fft import matfft as km
     from repro_torch.kernels.fft import plan as kplan
     from repro_torch.kernels.fft import stockham as ks
 
-    rng = np.random.default_rng(0)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     reps = cfg["reps"]
 
     # on_device: phase 9's shapes, drawn on the device from ``gen``; the
@@ -585,8 +640,7 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         return torch.exp((-2j * math.pi / n_global) * m.double())
 
     checks, timing = [], {}
-    for variant, kernel, shape, opts, timed in kernel_cases(
-            cfg, kplan.MAX_LEAF):
+    for variant, kernel, shape, opts, timed in cases:
         epi = None
         # phases 9 and 10's shapes (up to 2^27 points) drawn on the device
         nd = opts.get("nd", False) or opts.get("dist", False)
@@ -594,6 +648,9 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         # the distributed four-step's options (dist_kernel_cases)
         kw = {k: opts[k] for k in ("global_twiddle", "col_offset", "ncols")
               if opts.get(k) is not None}
+        # the batch tile (rows a block; K2: col_tile), narrowed
+        tile = ({"col_tile" if kernel == "matfft_cols" else "batch_tile":
+                 opts["tile"]} if opts.get("tile") else {})
         gt = opts.get("global_twiddle")
         if kernel == "matfft":
             xr, xi = planes(shape, nd)
@@ -601,9 +658,10 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             rows, n = shape
             epi = (unit_table((opts["period"], n), nd) if opts["period"]
                    else None)
-            run = lambda: km.matfft(xr, xi, epilogue=epi, **kw)  # noqa
+            base = lambda **t: km.matfft(  # noqa: E731
+                xr, xi, epilogue=epi, **kw, **t)
             plain = lambda: km.matfft_plain(  # noqa: E731
-                xr, xi, epilogue=epi, **kw)
+                xr, xi, epilogue=epi, **kw, **tile)
             lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
             y = lib()
             if gt:
@@ -620,10 +678,10 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
             rows = B * nc
             epi = unit_table((C, n), nd) if opts["with_epilogue"] else None
             major = opts["out_major"]
-            run = lambda: km.matfft_cols(  # noqa: E731
-                xr, xi, out_major=major, epilogue=epi, **kw)
+            base = lambda **t: km.matfft_cols(  # noqa: E731
+                xr, xi, out_major=major, epilogue=epi, **kw, **t)
             plain = lambda: km.matfft_cols_plain(  # noqa: E731
-                xr, xi, out_major=major, epilogue=epi, **kw)
+                xr, xi, out_major=major, epilogue=epi, **kw, **tile)
             lib = lambda: torch.fft.fft(xc, dim=1)  # noqa: E731
             y = lib().transpose(1, 2).reshape(rows, n)
             if gt:
@@ -638,13 +696,14 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         elif kernel == "rfft":
             x = real(shape, nd)
             if opts["untangle"]:
-                run = lambda: km.rfft_leaf(x)  # noqa: E731
-                plain = lambda: km.rfft_leaf_plain(x)  # noqa: E731
+                base = lambda **t: km.rfft_leaf(x, **t)  # noqa: E731
+                plain = lambda: km.rfft_leaf_plain(x, **tile)  # noqa: E731
                 lib = lambda: torch.fft.rfft(x, dim=-1)  # noqa: E731
             else:  # the packed half spectrum: the DFT of x[0::2] + i x[1::2]
                 xc = torch.complex(x[:, 0::2], x[:, 1::2])
-                run = lambda: km.rfft_pack_leaf(x)  # noqa: E731
-                plain = lambda: km.rfft_pack_leaf_plain(x)  # noqa: E731
+                base = lambda **t: km.rfft_pack_leaf(x, **t)  # noqa: E731
+                plain = lambda: km.rfft_pack_leaf_plain(  # noqa: E731
+                    x, **tile)
                 lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
                 # timed: the one-sided transform of the same real rows
                 lib_time = lambda: torch.fft.rfft(x, dim=-1)  # noqa: E731
@@ -653,11 +712,13 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
         else:
             xr, xi = planes(shape, nd)
             xc = torch.complex(xr, xi)
-            run = lambda: ks.stockham_fft(xr, xi)  # noqa: E731
-            plain = lambda: ks.stockham_fft_plain(xr, xi)  # noqa: E731
+            base = lambda **t: ks.stockham_fft(xr, xi, **t)  # noqa: E731
+            plain = lambda: ks.stockham_fft_plain(  # noqa: E731
+                xr, xi, **tile)
             lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
             y = lib()
             want = (y.real, y.imag)
+        run = lambda: base(**tile)  # noqa: E731
         got = run() if gpu else plain()
         ref = plain()
         got_c = torch.complex(*got)
@@ -697,9 +758,36 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                 "library_ms": timed_ms(torch, lib_time or lib, reps),
                 "bound_ms": max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
-        del run, plain, lib, lib_time
+            if tile:  # the same call at the default tile, for comparison
+                timing[timed if isinstance(timed, str) else variant][
+                    "default_tile_ms"] = timed_ms(torch, base, reps)
+        del run, base, plain, lib, lib_time
         if (nd or opts.get("dist")) and gpu:
             torch.cuda.empty_cache()
+    return checks, timing
+
+
+def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
+    """Phase 3: `kernel_cases` through `run_cases`, then batch invariance
+    and zero_copy == copy."""
+    import numpy as np
+
+    from repro_torch.fft import executors
+    from repro_torch.kernels.fft import matfft as km
+    from repro_torch.kernels.fft import plan as kplan
+    from repro_torch.kernels.fft import stockham as ks
+
+    checks, timing = run_cases(torch, dev, cfg, gpu,
+                               kernel_cases(cfg, kplan.MAX_LEAF))
+    rng = np.random.default_rng(1)
+
+    def real(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    def planes(shape):
+        a = rng.standard_normal((2, *shape), dtype=np.float32)
+        return (torch.from_numpy(a[0]).to(dev), torch.from_numpy(a[1]).to(dev))
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise;
     # K1, K3 and K4 at lengths of two and of three passes or groups (K3 at
@@ -758,7 +846,9 @@ def kernel_line(timing: dict, launches: dict) -> list:
              **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                   "bitwise_plain", "ms_runs", "plain_ms",
                                   "plain_ms_runs",
-                                  "library_ms", "bound_ms", "bound_by")}}
+                                  "library_ms", "bound_ms", "bound_by")},
+             **({"default_tile_ms": t["default_tile_ms"]}
+                if "default_tile_ms" in t else {})}
             for name, t in timing.items()]
 
 
@@ -2231,6 +2321,304 @@ def serve_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
     out.append(doc)
     return {"runs": out}, measured
 
+# ---------------------------------------------------------------------------
+# phase 13: the measuring autotuner
+
+
+def tune_specs(cfg) -> list:
+    """(name, plan arguments) of the tuner phase: the block job's spec, the
+    service's paper mix, fft2 over the N-D phase's images, and on the
+    one-rank mesh ("mesh": True) the 1-D distributed four-step, the
+    segmented c2c batch of phase 10 and the first pencil of phase 11."""
+    rows, n = cfg["tune"]["block"]
+    specs = [("block_job", dict(kind="c2c", n=n, batch_shape=(rows,)))]
+    specs += [(f"serve {kind} {n} x {rows}",
+               dict(kind=kind, n=n, batch_shape=(rows,)))
+              for kind, n, rows in cfg["serve"]["paper_mix"]]
+    batch, shape = cfg["nd"]["fft2"]
+    specs.append(("fft2", dict(kind="c2c", shape=shape, batch_shape=batch)))
+    specs.append(("distributed", dict(kind="c2c", n=cfg["dist"]["n"],
+                                      placement="distributed", mesh=True)))
+    segs, length = cfg["dist"]["seg_c2c"]
+    specs.append(("segmented", dict(kind="c2c", n=length,
+                                    batch_shape=(segs,),
+                                    placement="segmented", mesh=True)))
+    kind, shape, _ = cfg["pencil"]["cases"][0]
+    specs.append(("pencil", dict(kind=kind, shape=shape,
+                                 placement="distributed", mesh=True)))
+    return specs
+
+
+def key_opts(key: tuple) -> dict:
+    """Phase 3's options for a recorded call with no global twiddle
+    (`pass_opts`; K3 packed or not by its wrapper), with its column slab
+    (at offset 0: the same kernel at the same shape) and its narrowed
+    batch tile."""
+    opts = pass_opts(key)
+    if key[0] == "rfft_pack_leaf":
+        opts = {"untangle": False}
+    tags = key[3] if len(key) > 3 else ()
+    check("twiddle" not in tags, f"key_opts: a twiddle call {key}")
+    if "slab" in tags:
+        opts.update(col_offset=0, ncols=tags[tags.index("slab") + 1])
+    if "tile" in tags:
+        opts["tile"] = tags[tags.index("tile") + 1]
+    return opts
+
+
+def tile_case_name(key: tuple) -> str:
+    """A winner's narrowed-tile call in the `kernels` line: "<variant>
+    <shape>[ <major>] tile <rows a block>"."""
+    tags = key[3]
+    return (shape_case_name(key[:3])
+            + f" tile {tags[tags.index('tile') + 1]}")
+
+
+def fft_want(torch, kind: str, shape, ops):
+    """torch.fft of a plan's operand: the trailing ``len(shape)`` axes."""
+    dims = tuple(range(-len(shape), 0))
+    if kind == "r2c":
+        return torch.fft.rfftn(ops[0], dim=dims)
+    return torch.fft.fftn(torch.complex(*ops), dim=dims)
+
+
+def tuner_checks(torch, dev, gpu: bool, cfg, work: Path):
+    """Phase 13, on phase 10's world-size-1 group.
+
+    1. ``plan(tune=True, wisdom_path=...)`` for each of `tune_specs`: the
+       candidates (measured and modeled ms), the winner and any
+       disagreement printed; the same call again a wisdom hit with no
+       measurement (the same plan); at the full shape the tuned plan's
+       output bitwise equal to the default plan's and within 5e-6 of
+       torch.fft, its launches read (a kernel launched, no plain version),
+       and the tuned and default plans timed in turns (default, tuned,
+       tuned, default).
+    2. ``tune_out_of_core`` at phase 6's at-scale size and budget.
+    3. ``fft_job --tune --wisdom-path`` twice as subprocesses (the serial
+       job of phase 5's configuration): the first measures, the second
+       measures nothing and hits the wisdom, with the same merged bytes,
+       each block within 5e-6 of torch.fft.
+    4. ``python -m repro_torch.fft.selftest`` as a subprocess: exit 0.
+
+    Every call the tuned plans made at a shape or tile phase 3 did not
+    check is checked here (`run_cases`), and each narrowed tile a winner
+    picked is timed under its own name. Returns (summary, launches by run,
+    the keys checked here, timing).
+    """
+    import os
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.fft as tfft
+    from repro_torch.fft import tuner
+    from repro_torch.kernels.fft import plan as kplan
+
+    device = "cuda" if gpu else "cpu"
+    work.mkdir(parents=True, exist_ok=True)
+    mesh = init_device_mesh(device, (1,), mesh_dim_names=("data",))
+    wp = str(work / "wisdom.json")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    reps = cfg["tune"]["reps"]
+    covered = {case_key(k, s, o) for _, k, s, o, _
+               in kernel_cases(cfg, kplan.MAX_LEAF)}
+    runs, measured, calls, names = [], {}, [], {}
+
+    def sync():
+        if gpu:
+            torch.cuda.synchronize()
+
+    for name, kw in tune_specs(cfg):
+        kw = dict(kw)
+        if kw.pop("mesh", False):
+            kw["mesh"] = mesh
+        else:
+            kw["device"] = device
+        tuner.reset_tune_stats()
+        t0 = time.monotonic()
+        tuned = tfft.plan(**kw, tune=True, wisdom_path=wp)
+        tune_s = time.monotonic() - t0
+        first = tuner.tune_stats()
+        check(first["measurements"] >= 1 and first["wisdom_hits"] == 0,
+              f"tune {name}: {first}")
+        again = tfft.plan(**kw, tune=True, wisdom_path=wp)
+        second = tuner.tune_stats()
+        check(again is tuned and second["wisdom_hits"] == 1
+              and second["measurements"] == first["measurements"],
+              f"tune {name}: the second plan measured: {second}")
+        entry = tuner.WisdomStore.get(wp).lookup(
+            tuner.wisdom_key(tuned.spec, kw.get("mesh")))
+        default = tfft.plan(**kw)
+        s = tuned.spec
+        ops = tuple(torch.randn(tuned.operand_shape, generator=gen,
+                                device=dev)
+                    for _ in range(1 if s.kind == "r2c" else 2))
+        fn = "execute_real" if s.kind == "r2c" else "execute"
+        reset_counts()
+        y = getattr(tuned, fn)(*ops)
+        sync()
+        counts = read_counts()
+        shapes = read_shapes(gpu)
+        if gpu:
+            check(sum(v for k, v in counts.items() if k != "plain") > 0,
+                  f"tune {name}: no kernel launched")
+            check(counts["plain"] == 0,
+                  f"tune {name}: a plain version ran")
+        y0 = getattr(default, fn)(*ops)
+        bitwise = all(torch.equal(a, b) for a, b in zip(y, y0))
+        check(bitwise, f"tune {name}: tuned and default plans differ")
+        want = fft_want(torch, s.kind, s.shape, ops)
+        err = rel_err(torch.complex(*y), want)
+        check(err < TOL, f"tune {name}: {err} vs torch.fft")
+        del y, y0, want
+        t_default, t_tuned = [float("nan")], [float("nan")]
+        if gpu:  # default, tuned, tuned, default: one card, one call
+            t_default = [timed_ms(
+                torch, lambda: getattr(default, fn)(*ops), reps)]
+            t_tuned = [timed_ms(torch, lambda: getattr(tuned, fn)(*ops),
+                                reps) for _ in range(2)]
+            t_default.append(timed_ms(
+                torch, lambda: getattr(default, fn)(*ops), reps))
+        del ops
+        winner = {"layout": s.layout, "overlap": s.overlap,
+                  "batch_tile": s.batch_tile}
+        doc = {"run": name, "shape": list(s.shape),
+               "batch_shape": list(s.batch_shape), "winner": winner,
+               "disagreement": entry["disagreement"],
+               "meas_shape": entry["meas_shape"],
+               "meas_batch": entry["meas_batch"],
+               "candidates": [
+                   {**c["knobs"], "measured_ms": c["measured_s"] * 1e3,
+                    "modeled_ms": c["modeled_s"] * 1e3}
+                   for c in entry["candidates"]],
+               "tune_s": tune_s, "measurements": first["measurements"],
+               "bitwise_default": bitwise, "rel_err_torch_fft": err,
+               "tuned_ms": min(t_tuned), "tuned_ms_runs": t_tuned,
+               "default_ms": min(t_default), "default_ms_runs": t_default,
+               "launches": {repr(k): v for k, v in shapes.items()}}
+        print("tune " + json.dumps(doc))
+        runs.append(doc)
+        measured[f"tune {name}"] = shapes
+        if s.placement == "distributed" and s.ndim == 1:
+            run_calls = dist_calls(s.n, None if s.overlap == "off"
+                                   else s.overlap, s.fuse_twiddle, s.layout)
+        else:
+            run_calls = [(key, key_opts(key)) for key in shapes]
+        for key, opts in run_calls:
+            narrowed = len(key) > 3 and "tile" in key[3]
+            if key not in covered or narrowed:
+                calls.append((key, opts))
+            if narrowed:  # a winner's tile: timed under its own name
+                names[key] = tile_case_name(key)
+        if gpu:
+            torch.cuda.empty_cache()
+
+    # 2. the out-of-core panel height at phase 6's at-scale size
+    c = cfg["ooc"]
+    n, budget = 1 << c["log2_n"], c["budget_mb"] << 20
+    block_bytes = min(tfft.factor_out_of_core(n, budget).pass1_panel_bytes,
+                      1 << 22)
+    scale, rep = tuner.tune_out_of_core(n, budget, impl="matfft",
+                                        block_bytes=block_bytes,
+                                        wisdom_path=wp, device=device)
+    again, rep2 = tuner.tune_out_of_core(n, budget, impl="matfft",
+                                         block_bytes=block_bytes,
+                                         wisdom_path=wp, device=device)
+    check(scale in tuner.OOC_PANEL_SCALES and again == scale
+          and rep2.wisdom_hit and rep2.measurements == 0,
+          f"tune_out_of_core: {scale}, {again}, {rep2}")
+    doc = {"run": "out_of_core", "n": n, "budget_bytes": budget,
+           "block_bytes": block_bytes, "winner": rep.winner,
+           "disagreement": rep.disagreement,
+           "candidates": [{**c["knobs"], "measured_s": c["measured_s"],
+                           "modeled_s": c["modeled_s"]}
+                          for c in rep.candidates]}
+    print("tune " + json.dumps(doc))
+    runs.append(doc)
+
+    # 3. fft_job --tune, twice, as a user runs it
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    job_wp = str(work / "wisdom_job.json")
+    jobs = []
+    for i in range(2):
+        job_work = work / f"job{i}"
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.fft_job",
+             *cfg["serial"], "--tune", "--wisdom-path", job_wp, "--device",
+             device, "--work-dir", str(job_work)], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"fft_job --tune run {i}: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        report = json.loads(proc.stdout)
+        jobs.append({"wall_s": time.monotonic() - t0,
+                     "job_s": report["job_s"], "tuner": report["tuner"],
+                     "plan_cache": report["plan_cache"],
+                     "merged_bytes": report["merged_bytes"]})
+    first, second = (j["tuner"] for j in jobs)
+    check(first["measurements"] > 0, f"fft_job --tune: {first}")
+    check(second["measurements"] == 0 and second["wisdom_hits"] >= 1,
+          f"fft_job --tune again: {second}")
+    merged = [(work / f"job{i}" / "merged.bin").read_bytes()
+              for i in range(2)]
+    check(merged[0] == merged[1], "fft_job --tune: the runs' outputs differ")
+    fft_len = int(cfg["serial"][cfg["serial"].index("--fft-len") + 1])
+    worst = check_job_output(torch, dev, work / "job1", fft_len)
+    doc = {"run": "fft_job --tune", "args": cfg["serial"], "jobs": jobs,
+           "same_merged_bytes": True, "worst_block_rel_err": worst}
+    print("tune " + json.dumps(doc))
+    runs.append(doc)
+    del merged
+
+    # 4. the facade selftest
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.fft.selftest", "--device",
+         device], env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    print(proc.stdout.strip())
+    check(proc.returncode == 0, f"selftest: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    runs.append({"run": "selftest", "wall_s": time.monotonic() - t0,
+                 "cases": sum(1 for ln in proc.stdout.splitlines()
+                              if " OK " in ln)})
+
+    # the one exchange a card has: all_to_all_single of 256 MiB on the
+    # one-rank group (a copy on the card), for the model's ici rate
+    a2a_bps = float("nan")
+    if gpu:
+        import torch.distributed as dist
+        send = torch.empty(64 << 20, device=dev)
+        recv = torch.empty_like(send)
+        a2a_bps = send.nbytes / (timed_ms(
+            torch, lambda: dist.all_to_all_single(recv, send), reps) * 1e-3)
+        del send, recv
+    runs.append({"run": "all_to_all_single 256 MiB", "bytes_s": a2a_bps})
+
+    # every call the tuned plans made that phase 3 did not check
+    cases = calls_as_cases(calls, names)
+    checks, timing = run_cases(torch, dev, cfg, gpu, cases, seed=7)
+    checked = {case_key(k, s, o) for _, k, s, o, _ in cases}
+    return ({"runs": runs, "checks": checks, "a2a_bytes_s": a2a_bps},
+            measured, checked, timing)
+
+
+def model_rates(timing: dict, ooc_run: dict, a2a_bps: float) -> dict:
+    """The tuner model's CUDA rates as this run measures them
+    (fft/tuner.py MODEL_RATES): K1b's main-path case's flops and bytes over
+    its time; the one-rank all_to_all_single's bytes over its time; the
+    at-scale out-of-core run's storage traffic over its read and write
+    thread-seconds, and its other stage thread-seconds over its jobs."""
+    k1 = timing["matfft/four_step"]
+    sec = k1["ms"] * 1e-3
+    stages = ooc_run["stage_s"].values()
+    io_s = sum(st["read"] + st["write"] for st in stages)
+    other_s = sum(v for st in stages for k, v in st.items()
+                  if k not in ("read", "write"))
+    return {"peak_flops": k1["flops"] / sec, "hbm_bps": k1["bytes"] / sec,
+            "ici_bps": a2a_bps, "disk_bps": ooc_run["io"]["total"] / io_s,
+            "job_overhead_s": other_s / sum(ooc_run["attempts"].values())}
+
+
 
 def shape_kernel_launches(cases, measured: dict) -> dict:
     """Measured launches of each timed case of ``cases`` over the runs in
@@ -2402,13 +2790,23 @@ def main(argv=None) -> int:
         serve, serve_measured = serve_checks(torch, dev, gpu, cfg)
         serve["seconds"] = time.monotonic() - t0
         print(f"service phase: {serve['seconds']:.3f} s")
+
+        # phase 13: the measuring autotuner
+        t0 = time.monotonic()
+        try:
+            tune, tune_measured, tune_checked, tune_timing = tuner_checks(
+                torch, dev, gpu, cfg, work_root / "tune")
+        finally:
+            shutil.rmtree(work_root / "tune", ignore_errors=True)
+        tune["seconds"] = time.monotonic() - t0
+        print(f"tuner phase: {tune['seconds']:.3f} s")
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
 
     # the launches of phases 9-12: by variant, and by timed shape
     measured = {**nd_measured, **dist_measured, **pencil_measured,
-                **serve_measured}
+                **serve_measured, **tune_measured}
     for run in measured.values():
         for key, k in run.items():
             variant = variant_of(key)
@@ -2420,10 +2818,15 @@ def main(argv=None) -> int:
                                           pencil_measured))
     launches.update(shape_kernel_launches(serve_kernel_cases(cfg),
                                           serve_measured))
-    # every call of phases 9-12 was held to its plain version in phase 3
-    # at its own shape
+    for key in {k for run in tune_measured.values() for k in run
+                if len(k) > 3 and "tile" in k[3]}:
+        launches[tile_case_name(key)] = sum(
+            run[key] for run in tune_measured.values())
+    timing.update(tune_timing)
+    # every call of phases 9-13 was held to its plain version in phase 3
+    # (the tuner's other calls in phase 13) at its own shape
     covered = {case_key(kernel, shape, opts) for _, kernel, shape, opts, _
-               in kernel_cases(cfg, kplan.MAX_LEAF)}
+               in kernel_cases(cfg, kplan.MAX_LEAF)} | tune_checked
     for name, run in measured.items():
         missing = sorted(set(run) - covered)
         check(not missing, f"{name}: calls with no phase 3 case: {missing}")
@@ -2432,14 +2835,18 @@ def main(argv=None) -> int:
         print(f"rehearsal passed in {time.monotonic() - t_start:.1f} s")
         return 0
 
-    # phase 13: the kernels line
+    rates = model_rates(timing, ooc["at_scale"], tune["a2a_bytes_s"])
+    print("model rates " + json.dumps(rates))
+
+    # phase 14: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
               "batch_invariance": inv, "main_path": runs,
               "out_of_core": ooc, "spectrograms": spectrograms,
               "fft_conv": conv, "nd": nd, "dist": dist_summary,
-              "pencil": pencil, "serve": serve,
+              "pencil": pencil, "serve": serve, "tune": tune,
+              "model_rates": rates,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

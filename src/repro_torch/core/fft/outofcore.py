@@ -793,10 +793,13 @@ def plan_out_of_core(n: int, store: BlockStore, work_dir: os.PathLike,
                      budget_bytes: int, impl: str = "matfft",
                      config: JobConfig | None = None,
                      verify: str = "off",
-                     device="cuda") -> OutOfCorePlan:
-    """Factor + bind: the `placement="out_of_core"` entry point."""
+                     device="cuda", panel_scale: int = 1) -> OutOfCorePlan:
+    """Factor + bind: the `placement="out_of_core"` entry point.
+    ``panel_scale`` is `factor_out_of_core`'s panel-height knob, which the
+    autotuner sets (`repro_torch.fft.tuner.tune_out_of_core`)."""
     factors = factor_out_of_core(n, budget_bytes,
-                                 block_bytes=store.block_bytes)
+                                 block_bytes=store.block_bytes,
+                                 panel_scale=panel_scale)
     return OutOfCorePlan(factors, store, work_dir, impl=impl, config=config,
                          verify=verify, device=device)
 

@@ -16,18 +16,21 @@ from __future__ import annotations
 
 
 def build_segmented(kind: str, shape: tuple, *, impl: str = "matfft",
-                    layout: str = "zero_copy"):
+                    layout: str = "zero_copy",
+                    batch_tile: int | None = None):
     """The map task of a (rows/D, *shape) shard: kind="c2c" maps planar
     (xr, xi) -> (yr, yi), kind="r2c" real x -> the planar one-sided
-    spectrum, over the trailing ``len(shape)`` axes."""
+    spectrum, over the trailing ``len(shape)`` axes; ``batch_tile`` goes to
+    every leaf kernel (`executors`)."""
     from repro_torch.fft import executors as fft_ex
 
+    kw = dict(impl=impl, layout=layout, batch_tile=batch_tile)
     if kind == "c2c":
         def forward(xr, xi):
-            return fft_ex.fftn(xr, xi, shape, impl=impl, layout=layout)
+            return fft_ex.fftn(xr, xi, shape, **kw)
     elif kind == "r2c":
         def forward(x):
-            return fft_ex.rfftn(x, shape, impl=impl, layout=layout)
+            return fft_ex.rfftn(x, shape, **kw)
     else:
         raise ValueError(f"unknown kind {kind!r} for segmented placement")
     return forward

@@ -98,6 +98,18 @@
 //                   block tiles span R = min(TILE / L, ncols) columns of
 //                   the slab, and the output is (B, L, ncols) or
 //                   (B * ncols, L).
+//
+// The batch tile. Each launcher takes bt, the rows (K2: columns) a block
+// may stage, the JAX package's batch_tile and col_tile (matfft.py:172,
+// :325): 0 keeps the default tile above (K1: TILE / n, K2: min(TILE / L,
+// ncols), K3: TILE / m); a smaller bt narrows it to bt rounded down to a
+// power of two (tile_rows). Tiles only narrow: a wider one would need
+// more shared memory than make_geom sizes. The kernel bodies read the
+// tile as g.R and guard every row with r < R, so a narrow tile leaves
+// threads idle and does nothing else: every point is computed by the same
+// operations in the same order, and the output is the same bits at every
+// tile. The grid grows as the tile narrows; the autotuner
+// (fft/tuner.py) measures whether more, smaller blocks pay.
 
 #include <cuda_runtime.h>
 
@@ -681,6 +693,15 @@ Geom make_geom(int n, int R, bool pad) {
 
 int smem_bytes(const Geom& g) { return 2 * g.plane * (int)sizeof(float); }
 
+// Rows (K2: columns) a block stages: the default tile ``full`` (a power of
+// two), narrowed to bt rounded down to a power of two when 0 < bt < full.
+int tile_rows(int full, int bt) {
+  if (bt <= 0 || bt >= full) return full;
+  int r = 1;
+  while (2 * r <= bt) r *= 2;
+  return r;
+}
+
 // The global twiddle's kernel argument; 0 on success, else the error of a
 // bad N (a power of two up to 2^32 wanted).
 int make_gtw(const float* hr, const float* hi, const float* lr,
@@ -717,18 +738,19 @@ extern "C" {
 // Returns 0, or the CUDA error code of the launch. wr, wi: the leaf table
 // W_n^k (n,). er, ei: the periodic epilogue table or null; ghr .. gli:
 // the global twiddle's tables (kernels/fft/plan.py:global_twiddles) or
-// null, with n_global and the logical row of row 0, row_off.
+// null, with n_global and the logical row of row 0, row_off. bt: the
+// batch tile (tile_rows; 0 for the default).
 int matfft_rows(const float* xr, const float* xi, float* yr, float* yi,
                 long long rows, int n, const float* wr, const float* wi,
                 const float* er, const float* ei, int period,
                 const float* ghr, const float* ghi, const float* glr,
                 const float* gli, long long n_global, long long row_off,
-                void* stream) {
+                int bt, void* stream) {
   if (n < 1 || n > TILE || (n & (n - 1))) return (int)cudaErrorInvalidValue;
   GTw gt;
   if (const int rc = make_gtw(ghr, ghi, glr, gli, n_global, row_off, gt))
     return rc;
-  const Geom g = make_geom(n, TILE / n, false);
+  const Geom g = make_geom(n, tile_rows(TILE / n, bt), false);
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
   return launch(n <= TWO_PASS_N ? rows_kernel<true> : rows_kernel<false>,
@@ -737,20 +759,21 @@ int matfft_rows(const float* xr, const float* xi, float* yr, float* yi,
 }
 
 // The slab [col0, col0 + nc) of the C columns: nc a power of two, col0 a
-// multiple of it; the output is (B, L, nc) col-major or (B * nc, L).
+// multiple of it; the output is (B, L, nc) col-major or (B * nc, L). bt:
+// the column tile (tile_rows; 0 for the default).
 int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
                 long long B, int L, int C, int col0, int nc, const float* wr,
                 const float* wi, const float* er, const float* ei,
                 int col_major, const float* ghr, const float* ghi,
                 const float* glr, const float* gli, long long n_global,
-                long long row_off, void* stream) {
+                long long row_off, int bt, void* stream) {
   if (L < 1 || L > TILE || (L & (L - 1)) || C < 1 || (C & (C - 1)) ||
       nc < 1 || (nc & (nc - 1)) || col0 < 0 || col0 % nc || col0 + nc > C)
     return (int)cudaErrorInvalidValue;
   GTw gt;
   if (const int rc = make_gtw(ghr, ghi, glr, gli, n_global, row_off, gt))
     return rc;
-  const int R = TILE / L < nc ? TILE / L : nc;
+  const int R = tile_rows(TILE / L < nc ? TILE / L : nc, bt);
   const Geom g = make_geom(L, R, true);
   const int tiles_per_b = nc / R;
   const long long blocks = B * tiles_per_b;
@@ -762,13 +785,14 @@ int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
 
 // x: real (rows, 2m), 8-byte aligned; yr, yi: (rows, m+1) with untangle,
 // (rows, m) without; wr, wi: the leaf table at length m; vr, vi: the
-// packing twiddle W_{2m}^k (m,).
+// packing twiddle W_{2m}^k (m,); bt: the batch tile (tile_rows; 0 for the
+// default).
 int matfft_rfft(const float* x, float* yr, float* yi, long long rows, int m,
                 const float* wr, const float* wi, const float* vr,
-                const float* vi, int untangle, void* stream) {
+                const float* vi, int untangle, int bt, void* stream) {
   if (m < 2 || m > TILE || (m & (m - 1)) || ((size_t)x & 7))
     return (int)cudaErrorInvalidValue;
-  const Geom g = make_geom(m, TILE / m, false);
+  const Geom g = make_geom(m, tile_rows(TILE / m, bt), false);
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
   return launch(m <= TWO_PASS_N ? rfft_kernel<true> : rfft_kernel<false>,

@@ -34,6 +34,12 @@
     yr, yi = v.execute(pencil_shard(xr, mesh2), pencil_shard(xi, mesh2))
     repro_torch.fft.plan(..., mesh=mesh, fallback="degrade")  # lost ranks
 
+    # measured plan choice, kept as wisdom: a second process measures
+    # nothing (cache_info()["wisdom_hits"])
+    t = repro_torch.fft.plan(kind="c2c", n=1024, batch_shape=(32768,),
+                             tune=True, wisdom_path="wisdom.json")
+    t.spec.layout, t.spec.batch_tile     # the winner's knobs
+
 The port runs local c2c and r2c transforms of 1 to 3 axes on one device
 (the contiguous axis up to MAX_LOCAL_N points, earlier axes up to
 MAX_EARLIER_AXIS), with `fft2`/`ifft2`/`rfft2`/`irfft2` over the trailing
@@ -44,6 +50,8 @@ rank grid, ndim-1 exchanges); and one 1-D c2c signal larger than memory
 out of core. ``fallback="degrade"`` re-plans around ranks marked lost in
 `repro_torch.core.resilience.meshstate`. `repro_torch.serve` puts a
 fault-tolerant dynamic-batching service in front of these plans.
+``python -m repro_torch.fft.selftest`` plans and runs one case of each
+placement.
 """
 
 from repro_torch.core.fft.distributed import (DistPlan, PencilPlan,
@@ -57,6 +65,8 @@ from repro_torch.fft.planner import (AsyncResult, ExecutablePlan, cache_info,
                                      invalidate_mesh, irfft2, plan, rfft2)
 from repro_torch.fft.spec import (MAX_EARLIER_AXIS, MAX_LOCAL_N, FftSpec,
                                   resolve_placement)
+from repro_torch.fft.tuner import (TuneConfig, TuneReport, WisdomStore,
+                                   reset_tune_stats, tune_stats)
 
 __all__ = [
     "AsyncResult",
@@ -80,6 +90,11 @@ __all__ = [
     "local_shard",
     "pencil_shard",
     "plan",
+    "reset_tune_stats",
     "resolve_placement",
     "rfft2",
+    "TuneConfig",
+    "TuneReport",
+    "tune_stats",
+    "WisdomStore",
 ]

@@ -51,7 +51,10 @@ from repro_torch.kernels.fft import stockham as kstockham
 _F32 = 4  # bytes per planar float32 element
 
 _PLAN_CACHE: dict = {}
-_CACHE_INFO = {"hits": 0, "misses": 0}
+# wisdom_hits counts tune=True plans whose knobs came from the wisdom file
+# with zero measurements (fft/tuner.py); such a plan that is built anew is
+# still a cache miss
+_CACHE_INFO = {"hits": 0, "misses": 0, "wisdom_hits": 0}
 # map-only jobs plan() from worker threads (core/pipeline): the
 # check-then-act on the cache must be atomic or the first same-shaped
 # blocks each build their own plan
@@ -440,7 +443,8 @@ class ExecutablePlan:
                 overlap=None if s.overlap == "off" else s.overlap)
         # local, or a segmented rank's map task: the transform of its rows
         from repro_torch.core.fft.segmented import build_segmented
-        return build_segmented(s.kind, s.shape, impl=s.impl, layout=s.layout)
+        return build_segmented(s.kind, s.shape, impl=s.impl, layout=s.layout,
+                               batch_tile=s.batch_tile)
 
     def _build_pencil(self):
         """The 2-D/3-D pencil: c2c maps this rank's input block to its
@@ -451,7 +455,7 @@ class ExecutablePlan:
         where local rfftn runs it (bitwise equal to local rfftn)."""
         from repro_torch.core.fft import distributed
         s = self.spec
-        kw = dict(impl=s.impl, layout=s.layout,
+        kw = dict(impl=s.impl, layout=s.layout, batch_tile=s.batch_tile,
                   overlap=None if s.overlap == "off" else s.overlap)
         if s.kind == "c2c":
             return distributed.build_pencil(s.shape, self.mesh, s.axes, **kw)
@@ -495,16 +499,16 @@ class ExecutablePlan:
                             "with natural_order=True")
                     if s.kind == "r2c":
                         def inverse(yr, yi):
-                            return executors.irfftn(yr, yi, s.shape,
-                                                    impl=s.impl,
-                                                    layout=s.layout)
+                            return executors.irfftn(
+                                yr, yi, s.shape, impl=s.impl,
+                                layout=s.layout, batch_tile=s.batch_tile)
                     elif self.grid is not None:
                         # the pencil backwards: output layout in, input
                         # layout out (monolithic exchanges)
                         from repro_torch.core.fft import distributed
                         rev = distributed.build_pencil_reverse(
                             s.shape, self.mesh, s.axes, impl=s.impl,
-                            layout=s.layout)
+                            layout=s.layout, batch_tile=s.batch_tile)
 
                         def inverse(yr, yi):
                             ar, ai = rev(yr, -yi)
@@ -610,10 +614,11 @@ class ExecutablePlan:
 def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
          batch_shape=(), mesh=None, placement: str = "auto",
          layout: str = "zero_copy", impl: str = "matfft",
-         precision: str = "f32", device=None, axes=None,
-         natural_order: bool = True, fuse_twiddle: bool = False,
+         precision: str = "f32", device=None, batch_tile: int | None = None,
+         axes=None, natural_order: bool = True, fuse_twiddle: bool = False,
          overlap="auto", r2c_axis: int = -1, fallback: str = "error",
-         verify: str = "off", tune: bool = False, store=None, work_dir=None,
+         verify: str = "off", tune: bool = False, wisdom_path=None,
+         tune_config=None, store=None, work_dir=None,
          budget_bytes: int | None = None, job_config=None):
     """Resolve a transform spec and return the cached `ExecutablePlan`, or
     for ``placement="out_of_core"`` a new `OutOfCorePlan`.
@@ -655,6 +660,11 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         present) or "cpu", which runs the kernels' plain PyTorch versions.
         With a mesh it defaults to the mesh's device type, and another is
         a ValueError.
+      batch_tile: the rows (K2: columns) a leaf kernel's block stages; None
+        keeps each kernel's default (MAX_LEAF points a block), a smaller
+        value narrows it to a power of two (`kernels.fft.plan.tile_rows`).
+        The same bits at every tile; part of the cache key. The 1-D
+        distributed engine does not take it (as in the JAX package).
       axes: the mesh dims to flatten (None: every dim), row-major in the
         order given.
       natural_order, fuse_twiddle: distributed options: False skips
@@ -684,7 +694,19 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         executing it raises ValueError. The degraded LOCAL plan takes the
         GLOBAL operand, as the mesh-free plan always does: a caller that
         passes its shard gets a shape error, not a wrong answer.
-      tune: the measuring autotuner; not ported yet (raises).
+      tune: measure instead of model (`repro_torch.fft.tuner`): time the
+        candidate layouts, batch tiles and overlap chunk counts at a
+        representative shape, resolve the winner's knobs BEFORE the cache
+        key (a plan with the same knobs spelled out is the same plan), and
+        record the decision as wisdom keyed on the spec, the mesh's
+        fingerprint and the card. A wisdom hit measures nothing
+        (`cache_info()["wisdom_hits"]`). Out of core it picks
+        ``panel_scale`` (`tuner.tune_out_of_core`). On a mesh every rank
+        gets the same knobs.
+      wisdom_path: the wisdom file (default
+        ~/.cache/repro_torch_fft/wisdom.json); tune=True only.
+      tune_config: a `tuner.TuneConfig` (seed, repeats, timer, measurer,
+        model rates); tune=True only.
       store, work_dir, budget_bytes, job_config: out-of-core only — the
         `BlockStore` holding the operand, the directory for tiles,
         manifests and output, the host working-set cap in bytes, and the
@@ -697,10 +719,6 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
     if fallback not in ("error", "degrade"):
         raise ValueError(
             f"fallback must be 'error' or 'degrade', got {fallback!r}")
-    if tune:
-        raise NotImplementedError(
-            "plan(tune=True): the autotuner is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
     if placement == "out_of_core":
         if mesh is not None:
             raise ValueError(
@@ -708,7 +726,8 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
                 "host; it takes no mesh=")
         return _plan_out_of_core(kind, n, shape, batch_shape, impl,
                                  device or "cuda", verify, store, work_dir,
-                                 budget_bytes, job_config)
+                                 budget_bytes, job_config, tune, wisdom_path,
+                                 tune_config)
     if store is not None or work_dir is not None or budget_bytes is not None:
         raise ValueError(
             "store=/work_dir=/budget_bytes= apply only to "
@@ -743,7 +762,8 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
                 p = plan(kind=kind, n=n, shape=shape,
                          batch_shape=batch_shape, mesh=sub_mesh,
                          placement=sub_placement, layout=layout, impl=impl,
-                         precision=precision, device=device, axes=None,
+                         precision=precision, device=device,
+                         batch_tile=batch_tile, axes=None,
                          natural_order=natural_order,
                          fuse_twiddle=fuse_twiddle, overlap=overlap,
                          r2c_axis=r2c_axis, fallback="error", verify=verify)
@@ -779,6 +799,24 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         num_devices = math.prod(sizes)
     elif axes is not None:
         raise ValueError("axes= requires mesh=")
+    if tune:
+        # measure, then plan: the winner's knobs resolve into the spec
+        # before the cache key
+        from repro_torch.fft import tuner
+        knobs, report = tuner.tune(
+            kind=kind, n=n, shape=shape, batch_shape=batch_shape, mesh=mesh,
+            axes=axes, num_devices=num_devices, axis_sizes=sizes,
+            placement=placement, layout=layout, impl=impl,
+            precision=precision, device=device or "cuda",
+            batch_tile=batch_tile, natural_order=natural_order,
+            fuse_twiddle=fuse_twiddle, overlap=overlap, r2c_axis=r2c_axis,
+            verify=verify, wisdom_path=wisdom_path, config=tune_config)
+        layout = knobs.get("layout", layout)
+        batch_tile = knobs.get("batch_tile", batch_tile)
+        overlap = knobs.get("overlap", overlap)
+        if report.wisdom_hit:
+            with _CACHE_LOCK:
+                _CACHE_INFO["wisdom_hits"] += 1
     try:
         resolved = spec_mod.resolve(
             kind=kind, n=n, shape=shape, batch_shape=batch_shape,
@@ -786,7 +824,8 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
             precision=precision, device=device or "cuda",
             r2c_axis=r2c_axis, verify=verify, num_devices=num_devices,
             axes=axes, natural_order=natural_order,
-            fuse_twiddle=fuse_twiddle, overlap=overlap, axis_sizes=sizes)
+            fuse_twiddle=fuse_twiddle, overlap=overlap, axis_sizes=sizes,
+            batch_tile=batch_tile)
     except ValueError:
         # a mesh-bound strategy that cannot be satisfied (too few ranks for
         # the split, say): degrade walks the same chain instead of raising;
@@ -811,8 +850,10 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
 
 
 def _plan_out_of_core(kind, n, shape, batch_shape, impl, device, verify,
-                      store, work_dir, budget_bytes, job_config):
-    """Validate the out-of-core arguments and bind the plan to ``store``."""
+                      store, work_dir, budget_bytes, job_config, tune=False,
+                      wisdom_path=None, tune_config=None):
+    """Validate the out-of-core arguments and bind the plan to ``store``;
+    with ``tune``, the tuner picks its panel height."""
     if kind != "c2c":
         raise ValueError(
             "placement='out_of_core' streams the four-step c2c "
@@ -839,9 +880,19 @@ def _plan_out_of_core(kind, n, shape, batch_shape, impl, device, verify,
             "holding the operand), work_dir= (tiles/manifests/output), "
             "and budget_bytes= (the host working-set cap)")
     from repro_torch.core.fft.outofcore import plan_out_of_core
+    panel_scale = 1
+    if tune:
+        from repro_torch.fft import tuner
+        panel_scale, rep = tuner.tune_out_of_core(
+            int(n), int(budget_bytes), impl=impl,
+            block_bytes=getattr(store, "block_bytes", None),
+            wisdom_path=wisdom_path, config=tune_config, device=device)
+        if rep.wisdom_hit:
+            with _CACHE_LOCK:
+                _CACHE_INFO["wisdom_hits"] += 1
     return plan_out_of_core(int(n), store, work_dir, int(budget_bytes),
                             impl=impl, config=job_config, verify=verify,
-                            device=device)
+                            device=device, panel_scale=panel_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -901,7 +952,10 @@ def irfft2(yr, yi, shape=None, **kw):
 
 
 def cache_info() -> dict:
-    """Process-level plan-cache stats: {entries, hits, misses}."""
+    """Process-level plan-cache stats: {entries, hits, misses,
+    wisdom_hits}. ``wisdom_hits`` counts tune=True plans whose knobs came
+    from the wisdom file with zero measurements; a wisdom hit that builds
+    a new plan is a miss as well."""
     with _CACHE_LOCK:
         return {**_CACHE_INFO, "entries": len(_PLAN_CACHE)}
 

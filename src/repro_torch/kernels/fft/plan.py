@@ -32,6 +32,19 @@ import numpy as np
 MAX_LEAF = 4096
 
 
+def tile_rows(full: int, batch_tile: int | None) -> int:
+    """Rows (K2: columns) a leaf kernel's block stages: the default tile
+    ``full`` (a power of two: MAX_LEAF // n rows, for K2 at most the slab's
+    columns), narrowed to ``batch_tile`` rounded down to a power of two
+    when it is smaller (csrc/matfft.cu:tile_rows). The batch tile only
+    narrows: ``None`` and anything >= ``full`` keep the default."""
+    if batch_tile is None or batch_tile >= full:
+        return full
+    if batch_tile < 1:
+        raise ValueError(f"batch_tile must be >= 1, got {batch_tile}")
+    return 1 << (int(batch_tile).bit_length() - 1)
+
+
 def is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 

@@ -18,6 +18,11 @@ With ``--out-of-core`` the job is instead ONE 2^log2-n-point c2c whose
 operand lives in the store, streamed through two bounded passes under
 ``--budget-mb`` of host working set (core/fft/outofcore.py).
 
+``--tune`` plans through the measuring autotuner (`repro_torch.fft.tuner`):
+the serial job's block plan, or the out-of-core panel height. The winner is
+kept as wisdom in ``--wisdom-path``, so a second run measures nothing; the
+report's ``tuner`` entry carries the tuner's counters.
+
 The transforms run on the CUDA card (``--device cuda``, the default; no
 card is an error) or, with ``--device cpu``, through the kernels' plain
 PyTorch versions. Both modes report per-stage clocks
@@ -77,7 +82,7 @@ class _TimedStore:
 
 
 def serial_map_fn(fft_len: int, impl: str, add, verify: str = "off",
-                  device="cuda"):
+                  device="cuda", tune: bool = False, wisdom_path=None):
     """The synchronous per-block map task, with per-stage clocks.
 
     Stage names match the stream executor's so the two paths are
@@ -96,7 +101,8 @@ def serial_map_fn(fft_len: int, impl: str, add, verify: str = "off",
         # every same-shaped block hits the process-level plan cache: the
         # tables are uploaded once, the cufftPlanMany amortization
         p = fft_api.plan(kind="c2c", n=fft_len, batch_shape=re.shape[:-1],
-                         impl=impl, verify=verify, device=device)
+                         impl=impl, verify=verify, device=device, tune=tune,
+                         wisdom_path=wisdom_path)
         yr, yi = p.execute(re, im)
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the serial path's per-block sync
@@ -128,7 +134,7 @@ def parseval_verify_fn(fft_len: int):
 
 def run_job(store: BlockStore, out_dir, *, fft_len: int, impl: str,
             cfg: JobConfig, pipelined: bool, verify: str = "off",
-            device="cuda"):
+            device="cuda", tune: bool = False, wisdom_path=None):
     """Run the FFT job serial or pipelined; returns (job, stats, stage_s)."""
     if pipelined:
         job = MapOnlyJob(store, out_dir, config=cfg, pipelined=True,
@@ -149,7 +155,8 @@ def run_job(store: BlockStore, out_dir, *, fft_len: int, impl: str,
     if verify != "off":
         cfg = replace(cfg, verify_fn=parseval_verify_fn(fft_len))
     job = MapOnlyJob(_TimedStore(store, add), out_dir,
-                     serial_map_fn(fft_len, impl, add, verify, device),
+                     serial_map_fn(fft_len, impl, add, verify, device, tune,
+                                   wisdom_path),
                      config=cfg)
     stats = job.run()
     return job, stats, stage_s
@@ -201,7 +208,8 @@ def run_out_of_core(args, device: torch.device) -> dict:
     plan = fft_api.plan(kind="c2c", n=n, placement="out_of_core",
                         store=store, work_dir=work / "ooc", impl=args.impl,
                         budget_bytes=budget, job_config=cfg,
-                        verify=args.verify, device=device)
+                        verify=args.verify, device=device, tune=args.tune,
+                        wisdom_path=args.wisdom_path)
     t0 = time.monotonic()
     stats = plan.execute()
     t_job = time.monotonic() - t0
@@ -217,7 +225,7 @@ def run_out_of_core(args, device: torch.device) -> dict:
         "verify": args.verify,
         "corruption_detected": len(events("verify_failed")),
         "corruption_recomputed": stats.pass1.retries + stats.pass2.retries,
-        "factors": factors.as_dict(),
+        "factors": plan.factors.as_dict(),
         "block_bytes": block_bytes,
         "budget_bytes": budget,
         "operand_over_budget_x": factors.operand_bytes / budget,
@@ -229,7 +237,16 @@ def run_out_of_core(args, device: torch.device) -> dict:
         "store": store.stats.as_dict(),
         "faults": injector.summary() if injector is not None else None,
         "plan_cache": fft_api.cache_info(),
+        "tuner": _tuner_stats(args.tune),
     }
+
+
+def _tuner_stats(tune: bool):
+    """The tuner's counters for the report; None without --tune."""
+    if not tune:
+        return None
+    from repro_torch.fft import tuner
+    return tuner.tune_stats()
 
 
 def main(argv=None) -> dict:
@@ -286,7 +303,19 @@ def main(argv=None) -> dict:
                     help="out-of-core transform size, log2 of points")
     ap.add_argument("--budget-mb", type=int, default=16,
                     help="out-of-core working-set budget in MiB")
+    ap.add_argument("--tune", action="store_true",
+                    help="measuring autotuner: pick the serial job's layout "
+                         "and batch tile (or the out-of-core panel height) "
+                         "by measurement and keep the winner as wisdom, so "
+                         "a later run measures nothing; the report carries "
+                         "the tuner's counters")
+    ap.add_argument("--wisdom-path", default=None,
+                    help="wisdom file for --tune (default "
+                         "~/.cache/repro_torch_fft/wisdom.json)")
     args = ap.parse_args(argv)
+    if args.tune and args.pipelined and not args.out_of_core:
+        ap.error("--tune plans the serial job's blocks or the out-of-core "
+                 "panels; the pipelined stream plans its own batches")
     device = resolve_device(args.device)  # no card: fail before any work
 
     if args.out_of_core:
@@ -325,7 +354,9 @@ def main(argv=None) -> dict:
     job, stats, stage_s = run_job(store, work / "out", fft_len=args.fft_len,
                                   impl=args.impl, cfg=cfg,
                                   pipelined=args.pipelined,
-                                  verify=args.verify, device=device)
+                                  verify=args.verify, device=device,
+                                  tune=args.tune,
+                                  wisdom_path=args.wisdom_path)
     t_job = time.monotonic() - t0
     t0 = time.monotonic()
     nbytes = job.merge(work / "merged.bin")
@@ -380,6 +411,7 @@ def main(argv=None) -> dict:
         "predicted_s_8_workers": model.predict(n, 1, 8),
         "predicted_s_64_workers": model.predict(n, 8, 8),
         "plan_cache": fft_api.cache_info(),
+        "tuner": _tuner_stats(args.tune),
     }
     print(json.dumps(report, indent=1))
     return report

@@ -460,6 +460,88 @@ def _worker(rank: int, store: str, inputs: str, out: str) -> None:
                 errors[what] = str(e)
         info["pencil_errors"] = errors
 
+        # the tuner on 8 ranks: a measurer under which each rank has
+        # another fastest overlap; one decision for the mesh, written once
+        from repro_torch.fft import tuner
+        writes = []
+        real_record = tuner.WisdomStore.record
+
+        def counted_record(store, key, entry):
+            writes.append(key)
+            return real_record(store, key, entry)
+
+        def skewed(plan, cfg):
+            s = plan.spec
+            i = ["off", 2, 4, 8].index(s.overlap)
+            return (1.0 + 0.1 * ((i - rank) % 4)
+                    + (0.05 if s.layout == "copy" else 0.0)
+                    + 0.01 * ((rank + (s.batch_tile or 0)) % 3))
+
+        tuner.WisdomStore.record = counted_record
+        tuned = {}
+        try:
+            cfg = tuner.TuneConfig(measurer=skewed)
+            wp = str(Path(out) / "tune_wisdom.json")
+            for name, kw, xin in (("dist", dict(n=N_OPT), x["x"]),
+                                  ("pencil3", dict(shape=SHAPE3),
+                                   x["pen3"])):
+                if name == "dist":
+                    shard = [tfft.local_shard(a, mesh) for a in xin]
+                else:
+                    sl = block(mesh, SHAPE3, 0)
+                    shard = [a[sl] for a in xin]
+                plan_kw = dict(kind="c2c", mesh=mesh,
+                               placement="distributed", **kw)
+                tuner.reset_tune_stats()
+                p = tfft.plan(**plan_kw, tune=True, wisdom_path=wp,
+                              tune_config=cfg)
+                first = tuner.tune_stats()
+                y = p.execute(*shard)
+                y0 = tfft.plan(**plan_kw).execute(*shard)
+                tfft.clear_plan_cache()
+                again = tfft.plan(**plan_kw, tune=True, wisdom_path=wp,
+                                  tune_config=cfg)
+                second = tuner.tune_stats()
+                tuned[name] = {
+                    "knobs": [p.spec.layout, p.spec.overlap,
+                              p.spec.batch_tile],
+                    "own": ["off", 2, 4, 8][rank % 4],
+                    "bitwise_default": all(torch.equal(a, b)
+                                           for a, b in zip(y, y0)),
+                    "measurements": first["measurements"],
+                    "second_measurements": (second["measurements"]
+                                            - first["measurements"]),
+                    "wisdom_hits": second["wisdom_hits"],
+                    "same_again": again.spec == p.spec}
+        finally:
+            tuner.WisdomStore.record = real_record
+        every = [None] * WORLD
+        dist.all_gather_object(every, {**tuned, "writes": len(writes)})
+        info["tune"] = every
+
+        # benchmarks/bench_tune.py's 3-D pencil gate: with a matched batch
+        # tile, both engines bitwise equal to the local fftn (with and
+        # without the tile), two legs, the per-leg bytes summing up
+        want = [np.stack([t.numpy() for t in tfft.plan(
+            kind="c2c", shape=SHAPE3, device="cpu", batch_tile=bt).execute(
+                *x["pen3"])]) for bt in (2, None)]
+        sl = block(mesh, SHAPE3, 0)
+        gate = {}
+        for ov in ("off", 2):
+            p = tfft.plan(kind="c2c", shape=SHAPE3, mesh=mesh,
+                          placement="distributed", batch_tile=2, overlap=ov)
+            got = assemble(p.execute(x["pen3"][0][sl], x["pen3"][1][sl]),
+                           mesh, SHAPE3)
+            gate[f"bitwise_overlap_{ov}"] = all(np.array_equal(got, w)
+                                                for w in want)
+        p3 = tfft.plan(kind="c2c", shape=SHAPE3, mesh=mesh,
+                       placement="distributed", overlap="off")
+        gate["n_exchanges"] = p3.dist.n_exchanges
+        gate["per_leg_bytes_sum"] = (
+            len(p3.per_leg_collective_bytes) == p3.dist.n_exchanges
+            and sum(p3.per_leg_collective_bytes) == p3.collective_bytes)
+        info["bench_tune_pencil3"] = gate
+
         # rank order: this rank's coordinate and the shard it holds
         order = {}
         for axes in (("data", "model"), ("model", "data")):
@@ -1000,6 +1082,34 @@ def test_pencil_overlap_rejects_bad_chunks(bad):
 
 # ---------------------------------------------------------------------------
 # fallback="degrade": tests/test_chaos.py and tests/test_resilience.py
+
+
+def test_tuner_one_decision_on_eight_ranks(runs):
+    """Under a measurer that gives each rank another fastest overlap, every
+    rank takes the same knobs (each candidate timed at its slowest rank),
+    the tuned plans run without a hang and equal the default plans bit for
+    bit, rank 0 alone writes the wisdom (once a spec), and the second plan
+    is a wisdom hit on every rank with no measurement."""
+    _, _, info, _ = runs
+    every = info["tune"]
+    for name in ("dist", "pencil3"):
+        assert len({json.dumps(r[name]["knobs"]) for r in every}) == 1
+        assert len({r[name]["own"] for r in every}) == 4
+        for r in every:
+            assert r[name]["bitwise_default"], (name, r)
+            assert r[name]["measurements"] > 1
+            assert r[name]["second_measurements"] == 0
+            assert r[name]["wisdom_hits"] == 1 and r[name]["same_again"]
+    assert [r["writes"] for r in every] == [2] + [0] * (WORLD - 1)
+
+
+def test_bench_tune_pencil3d_bitwise_vs_local_fftn(runs):
+    """benchmarks/bench_tune.py's third gate on the (4, 2) mesh."""
+    _, _, info, _ = runs
+    gate = info["bench_tune_pencil3"]
+    assert gate == {"bitwise_overlap_off": True, "bitwise_overlap_2": True,
+                    "n_exchanges": len(SHAPE3) - 1,
+                    "per_leg_bytes_sum": True}
 
 
 def test_device_loss_degrades_to_shrunk_mesh(runs):

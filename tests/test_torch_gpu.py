@@ -478,3 +478,90 @@ def test_service_on_the_card(cuda, impl, verify):
         got = rec.ticket.value[0] + 1j * rec.ticket.value[1].astype(
             np.float64)
         assert np.abs(got - lib).max() / np.abs(lib).max() < TOL
+
+
+# ---------------------------------------------------------------------------
+# the batch tile: K1-K4 at every tile the tuner can pick, bitwise
+
+
+def _tiles(full: int) -> list:
+    """The default tile, its half and quarter, and one row a block."""
+    return list(dict.fromkeys((None, full // 2 or 1, full // 4 or 1, 1)))
+
+
+def _same(got, want) -> bool:
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 256, 1024, 4096])
+def test_k1_k3_k4_batch_tiles_equal_their_plain_versions(cuda, rng, n):
+    """Every tile gives the plain version's bits (rows independent), over
+    a ragged last block; a narrowed tile is recorded in the launch key."""
+    rows = 1001
+    x = _planes(rng, (rows, n), cuda)
+    xr = torch.from_numpy(rng.standard_normal((rows, 2 * n))
+                          .astype(np.float32)).to(cuda)
+    want = km.matfft_plain(*x)
+    want_rfft = km.rfft_leaf_plain(xr)
+    want_pack = km.rfft_pack_leaf_plain(xr)
+    want_k4 = ks.stockham_fft_plain(*x)
+    full = tplan.MAX_LEAF // n
+    for bt in _tiles(full):
+        km.launch_shapes.clear()
+        assert _same(km.matfft(*x, batch_tile=bt), want), bt
+        assert _same(km.rfft_leaf(xr, batch_tile=bt), want_rfft), bt
+        assert _same(km.rfft_pack_leaf(xr, batch_tile=bt), want_pack), bt
+        assert _same(ks.stockham_fft(*x, batch_tile=bt), want_k4), bt
+        r = tplan.tile_rows(full, bt)
+        opts = () if r == full else (("tile", r),)
+        assert km.launch_shapes[("matfft", (rows, n), None, *opts)] == 1
+        assert km.launch_shapes[("stockham", (rows, n), None, *opts)] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,C,off,nc", [(256, 256, 0, None),
+                                        (1024, 64, 0, None),
+                                        (256, 64, 32, 16),
+                                        (4096, 8, 4, 4)])
+@pytest.mark.parametrize("out_major", ["row", "col"])
+def test_k2_col_tiles_equal_the_plain_version(cuda, rng, L, C, off, nc,
+                                              out_major):
+    x = _planes(rng, (3, L, C), cuda)
+    epi = _planes(rng, (C, L), cuda)
+    kw = dict(out_major=out_major, epilogue=epi, col_offset=off, ncols=nc)
+    want = km.matfft_cols_plain(*x, **kw)
+    full = min(tplan.MAX_LEAF // L, nc or C - off)
+    for ct in _tiles(full):
+        assert _same(km.matfft_cols(*x, col_tile=ct, **kw), want), ct
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,rows", [("c2c", 1024, 8192),
+                                         ("c2c", 1 << 16, 16),
+                                         ("r2c", 4096, 256)])
+def test_tuned_plan_on_the_card(cuda, rng, tmp_path, kind, n, rows):
+    """plan(tune=True) measures on the card, equals the default plan bit
+    for bit, and a second call is a wisdom hit with no measurement."""
+    import repro_torch.fft as tfft
+    from repro_torch.fft import tuner
+    wp = str(tmp_path / "wisdom.json")
+    tuner.reset_tune_stats()
+    kw = dict(kind=kind, n=n, batch_shape=(rows,))
+    tuned = tfft.plan(**kw, tune=True, wisdom_path=wp)
+    stats = tuner.tune_stats()
+    assert stats["measurements"] >= 2
+    default = tfft.plan(**kw)
+    if kind == "r2c":
+        x = (torch.from_numpy(rng.standard_normal((rows, n))
+                              .astype(np.float32)).to(cuda),)
+        run = "execute_real"
+    else:
+        x = _planes(rng, (rows, n), cuda)
+        run = "execute"
+    assert _same(getattr(tuned, run)(*x), getattr(default, run)(*x))
+    tfft.clear_plan_cache()
+    again = tfft.plan(**kw, tune=True, wisdom_path=wp)
+    assert tuner.tune_stats()["measurements"] == stats["measurements"]
+    assert tfft.cache_info()["wisdom_hits"] == 1
+    assert again.spec == tuned.spec

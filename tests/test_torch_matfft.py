@@ -187,3 +187,55 @@ def test_global_twiddle_plain_is_exact_past_the_f32_angle(rng):
 def test_wrappers_reject_what_the_kernel_does_not_take(rng, bad, exc):
     with pytest.raises(exc):
         bad(_t(_planes(rng, (4, 16))))
+
+
+# the batch tile: the reference's batch_tile / col_tile against the port's
+# at two tiles; each kernel's output cannot depend on it
+
+
+@pytest.mark.parametrize("n", [16, 256, 1024])
+@pytest.mark.parametrize("tile", [1, 8])
+def test_k1_and_k3_batch_tile_match_pallas(rng, n, tile):
+    from repro.kernels.fft.matfft import rfft_leaf as jrfft_leaf
+    rows = 20  # ragged against both tiles
+    x = _planes(rng, (rows, n))
+    got = km.matfft(*_t(x), batch_tile=tile)
+    want = jmatfft(*_j(x), batch_tile=tile, interpret=True)
+    assert _rel_err(got, want) < TOL
+    assert _rel_err(got, km.matfft(*_t(x))) == 0.0
+    xr = rng.standard_normal((rows, 2 * n)).astype(np.float32)
+    got = km.rfft_leaf(torch.from_numpy(xr), batch_tile=tile)
+    want = jrfft_leaf(jnp.asarray(xr), batch_tile=tile, interpret=True)
+    assert _rel_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("L,C", [(16, 64), (256, 32)])
+@pytest.mark.parametrize("tile", [2, 8])
+@pytest.mark.parametrize("out_major", ["row", "col"])
+def test_k2_col_tile_matches_pallas(rng, L, C, tile, out_major):
+    x = _planes(rng, (2, L, C))
+    got = km.matfft_cols(*_t(x), out_major=out_major, col_tile=tile)
+    want = jmatfft_cols(*_j(x), out_major=out_major, col_tile=tile,
+                        interpret=True)
+    assert _rel_err(got, want) < TOL
+    assert _rel_err(got, km.matfft_cols(*_t(x), out_major=out_major)) == 0.0
+
+
+def test_a_narrowed_tile_enters_the_launch_key(rng):
+    """The launch records tell the tile apart: a tile below the default is
+    the key's fourth entry, one at or above it is the default's key."""
+    from repro_torch.kernels.fft import plan as tplan
+    x = _t(_planes(rng, (8, 1024)))
+    km.reset_counts()
+    km.matfft(*x, batch_tile=2)
+    km.matfft(*x, batch_tile=4)
+    km.matfft(*x, batch_tile=64)
+    x3 = _t(_planes(rng, (2, 256, 64)))
+    km.matfft_cols(*x3, col_tile=5, col_offset=32, ncols=32)
+    assert dict(km.plain_shapes) == {
+        ("matfft", (8, 1024), None, ("tile", 2)): 1,
+        ("matfft", (8, 1024), None): 2,
+        ("matfft_cols", (2, 256, 64), "row", ("slab", 32, "tile", 4)): 1}
+    assert tplan.tile_rows(4, None) == 4 and tplan.tile_rows(16, 5) == 4
+    with pytest.raises(ValueError, match="batch_tile"):
+        tplan.tile_rows(16, 0)

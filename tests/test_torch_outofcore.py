@@ -181,8 +181,16 @@ def test_planner_validates_out_of_core_args(tmp_path):
         tfft.plan(kind="c2c", batch_shape=(2,), **kw)
     with pytest.raises(ValueError, match="ONE 1-D signal"):
         tfft.plan(kind="c2c", **{**kw, "n": None, "shape": (64, 64)})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfft.plan(kind="c2c", tune=True, **kw)
+    # tune=True validates the same arguments first, then picks the panel
+    # height (the tuner's out-of-core knob) and binds the plan to it
+    with pytest.raises(ValueError, match="out_of_core"):
+        tfft.plan(kind="r2c", tune=True, **kw)
+    tuned = tfft.plan(kind="c2c", tune=True,
+                      wisdom_path=tmp_path / "wisdom.json", **kw)
+    # the store's blocks are one full panel each, so smaller panels would
+    # split a block: panel_scale 1 is the only candidate
+    assert tuned.factors == factor_out_of_core(
+        N, BUDGET, block_bytes=store.block_bytes)
     with pytest.raises(ValueError, match="store"):
         tfft.plan(kind="c2c", n=N, placement="out_of_core",
                   work_dir=tmp_path / "o", budget_bytes=BUDGET, device="cpu")
@@ -452,7 +460,7 @@ def test_ingest_slices_equal_one_draw(tmp_path, monkeypatch):
 
 def test_fft_job_out_of_core_cli(tmp_path, capsys):
     """`fft_job --out-of-core --device cpu` end to end: the reference
-    launcher's report keys (less its tuner's) plus the device, the
+    launcher's report keys plus the device, the
     ingested bytes equal to one draw of the seed, and the merged spectrum
     equal to the oracle bit for bit."""
     argv = ["--out-of-core", "--log2-n", "14", "--budget-mb", "1",
@@ -462,8 +470,8 @@ def test_fft_job_out_of_core_cli(tmp_path, capsys):
     capsys.readouterr()
     jjob.main([*argv, "--impl", "ref", "--work-dir", str(tmp_path / "ref")])
     ref_report = json.loads(capsys.readouterr().out)
-    assert set(report) == (set(ref_report) - {"tuner"}) | {"device",
-                                                           "device_name"}
+    assert set(report) == set(ref_report) | {"device", "device_name"}
+    assert report["tuner"] is None  # no --tune: the tuner is not imported
     assert report["device"] == report["device_name"] == "cpu"
     assert report["factors"] == ref_report["factors"]
     assert report["stats"]["io"]["total"] == report["factors"]["io_bytes"]

@@ -421,9 +421,14 @@ def test_serve_abft_quarantines_group_and_recomputes(impl):
                   for _ in range(2)) for _ in range(4)]
     storm = FaultPlan((FaultRule("serve.execute", 0, kind="corrupt"),))
     clear_events()
+    # the four requests are queued before the batcher starts, so it forms
+    # two full groups of coalesce=2 whatever the host's timing: the
+    # corrupted first launch holds two requests
     svc = FftService(impl=impl, device="cpu", coalesce=2,
-                     injector=FaultInjector(storm), verify="abft")
+                     injector=FaultInjector(storm), verify="abft",
+                     start=False)
     tickets = [svc.submit("c2c", xr, xi) for xr, xi in reqs]
+    svc.start()
     for t in tickets:
         assert t.wait(60)
     svc.close(drain=True)
