@@ -71,8 +71,24 @@ Phases (any failed check exits non-zero):
      the default plan, the two timed), `tune_out_of_core`, `fft_job
      --tune` twice (the second run a wisdom hit) and the facade selftest;
      phase 3 also checks K1-K4 at the tiles the tuner can pick;
- 14. the `kernels` JSON line: phase 3's numbers and the main-path
-     launches (phases 4, 6, 7 and 9-13).
+ 14. benchmarks/bench_pipeline.py's gate (`pipeline_gate`): serial,
+     pipelined and the threaded map-only job over a `ThrottledStore` of
+     128 MiB (250 MB/s disk model), best of 3, under impl "ref" and
+     "matfft": pipelined faster than serial, ``overlap_x`` > 1, the merged
+     outputs bitwise equal, "matfft"'s within 5e-6 of "ref"'s, and every
+     K1 call held to its plain version in phase 3;
+ 15. the service over 4 ranks on the one card (`mesh_serve_checks`): this
+     process is rank 0 of a gloo group, three `--follower` subprocesses
+     the others; phase 12's paper mix under verify "off" (segmented
+     launches, each rank its shard) and "abft" (local launches on rank
+     0), every request bitwise equal to the one-rank output at its launch
+     size, every follower launching the kernels; rank 0's seconds in
+     each step of its segmented launches and the clients' submit time
+     printed beside ``qps_completed``;
+ 16. `python -m repro_torch.launch.fft_dryrun` as a subprocess (the
+     256-rank mesh; no card, no process group), and its 512-rank records;
+ 17. the `kernels` JSON line: phase 3's numbers and the main-path
+     launches (phases 4, 6, 7, 9-15, the followers' included).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result.
@@ -217,6 +233,15 @@ FULL = {
     # the tuned and default plans; the other specs are the service's paper
     # mix, the N-D phase's fft2 and the distributed phase's n
     "tune": {"block": (32768, 1024), "reps": 3},
+    # benchmarks/bench_pipeline.py's gate: its store (MiB, fft_len,
+    # segments a block), stream settings and best-of count, under the
+    # bench's impl "ref" and under "matfft"
+    "pipeline": {"size_mb": 128, "fft_len": 1024, "segments_per_block": 512,
+                 "coalesce": 4, "inflight": 3, "iters": 3,
+                 "impls": ("ref", "matfft")},
+    # the service over `ranks` processes on the one card, at phase 12's
+    # paper mix and request count
+    "mesh_serve": {"ranks": 4},
 }
 REHEARSE = {
     "runs": [
@@ -277,6 +302,13 @@ REHEARSE = {
               "paper_requests": 24, "loss_requests": 24,
               "cli_requests": 24},
     "tune": {"block": (64, 1024), "reps": 1},
+    # 8 blocks of 1 MiB on a disk modeled at 25 MB/s, so that the disk
+    # outweighs the plain versions' compute on the CPU as it outweighs
+    # the kernels on the card
+    "pipeline": {"size_mb": 8, "fft_len": 1024, "segments_per_block": 128,
+                 "coalesce": 4, "inflight": 3, "iters": 2, "disk_mb_s": 25,
+                 "impls": ("ref", "matfft")},
+    "mesh_serve": {"ranks": 4},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -334,8 +366,8 @@ def kernel_cases(cfg, max_leaf: int) -> list:
     (2^20 points: 2 blocks x 16 segments as (32, 1024, 1024); 2^16: 4 x 128
     as (512, 256, 256)), all at 2^25 points; K3 at a spectrogram block's
     frames (65535 x 512, 32767 x 1024); K4 at the stockham run's batch
-    (32768 x 1024). Then the out-of-core runs' K1/K2 calls at their own
-    shapes (`ooc_kernel_cases`)."""
+    (32768 x 1024). Then the tuner's tiles, and the calls of phases 6 and
+    9-15 at their own shapes (`ooc_kernel_cases` and the others)."""
     points = cfg["points"]
     cases = []
     for n in (256, 512, 1024, 2048, max_leaf):
@@ -361,7 +393,8 @@ def kernel_cases(cfg, max_leaf: int) -> list:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
     return (cases + tile_kernel_cases(cfg) + ooc_kernel_cases(cfg)
             + nd_kernel_cases(cfg) + dist_kernel_cases(cfg)
-            + pencil_kernel_cases(cfg) + serve_kernel_cases(cfg))
+            + pencil_kernel_cases(cfg) + serve_kernel_cases(cfg)
+            + pipeline_kernel_cases(cfg) + mesh_serve_kernel_cases(cfg))
 
 
 def tile_kernel_cases(cfg) -> list:
@@ -2225,14 +2258,16 @@ def serve_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
                              verify=verify)
 
         def flood():
+            t0 = time.monotonic()
             records = loadgen.drive(service, num_requests=n_req,
                                     clients=c["clients"], seed=c["seed"],
                                     mix=mix)
+            submit_s = time.monotonic() - t0
             outcomes = {r.rid: loadgen.classify(r) for r in records}
             service.close(drain=True)
-            return records, outcomes
+            return records, outcomes, submit_s
 
-        (records, outcomes), counts, wall = counted(name, flood)
+        (records, outcomes, submit_s), counts, wall = counted(name, flood)
         check(set(outcomes.values()) == {"ok"},
               f"{name}: outcomes {Counter(outcomes.values())}")
         entries = tfft.cache_info()["entries"]
@@ -2241,7 +2276,7 @@ def serve_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
         check(entries <= len(mix) * (2 if verify == "off" else 4),
               f"{name}: {entries} plans for {len(mix)} keys")
         summary(name, service, records, outcomes, wall, counts,
-                {"verify": verify, "plans": entries,
+                {"verify": verify, "plans": entries, "submit_s": submit_s,
                  "rel_err_torch_fft": worst,
                  "mib_per_request": [4 * 2 * r.rows * r.n / 2 ** 20 if
                                      r.kind == "c2c" else
@@ -2602,6 +2637,411 @@ def tuner_checks(torch, dev, gpu: bool, cfg, work: Path):
             measured, checked, timing)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: benchmarks/bench_pipeline.py's gate
+
+
+def pipeline_stores(cfg) -> list:
+    """(segments, segments a block) of phase 14's two stores: the warm-up
+    store of one full batch (``coalesce`` blocks) and the timed one of
+    ``size_mb``."""
+    c = cfg["pipeline"]
+    per_block = c["segments_per_block"]
+    n_seg = c["size_mb"] * (1 << 20) // (8 * c["fft_len"])
+    return [(c["coalesce"] * per_block, per_block),
+            (n_seg, min(per_block, n_seg))]
+
+
+def pipeline_calls(cfg) -> list:
+    """Every kernel call phase 14's impl "matfft" can launch, as
+    (`launch_shapes` key, phase 3's options): a batch of one to
+    ``coalesce`` full blocks of either store (the stream launches a short
+    group when its queue runs dry; serial and threaded jobs one block),
+    or its one short last block."""
+    c = cfg["pipeline"]
+    rows = set()
+    for n_seg, per_block in pipeline_stores(cfg):
+        rows.update(k * per_block for k in range(1, c["coalesce"] + 1))
+        if n_seg % per_block:
+            rows.add(n_seg % per_block)
+    return [(key, pass_opts(key)) for r in sorted(rows)
+            for key in nd_pass_launches(r, c["fft_len"])]
+
+
+def pipeline_kernel_cases(cfg) -> list:
+    return calls_as_cases(pipeline_calls(cfg), {})
+
+
+def pipeline_gate(torch, dev, gpu: bool, cfg, work: Path) -> tuple[dict,
+                                                                    dict]:
+    """bench_pipeline's three modes over one `ThrottledStore` (every block
+    read and write sleeps bytes / ``disk_mb_s``, the bench's `DISK_MB_S`
+    unless the configuration says), best of ``iters`` each after a
+    warm-up on a store of one full batch, under each impl: pipelined
+    faster than serial, its stages overlapping (``overlap_x`` > 1) and the
+    three merged outputs bitwise equal; impl "matfft"'s within 5e-6 of
+    impl "ref"'s. Each impl's warm-up and timed runs have the counts
+    zeroed just before and read just after; on the card impl "matfft"
+    launches K1 and no plain version runs. Returns the summary and, for
+    each impl, its calls (`read_shapes`)."""
+    import numpy as np
+
+    import repro_torch.fft as tfft
+    from repro_torch.core.pipeline import BlockStore, JobConfig
+    from repro_torch.core.pipeline.records import segment_block_bytes
+    from repro_torch.core.pipeline.testing import DISK_MB_S, ThrottledStore
+    from repro_torch.launch.fft_job import run_job as run_fft_job
+
+    c = cfg["pipeline"]
+    device = "cuda" if gpu else "cpu"
+    modes = {
+        "serial": (False, JobConfig(workers=1, speculation=False)),
+        "pipelined": (True, JobConfig(readers=4, writers=4,
+                                      coalesce=c["coalesce"],
+                                      inflight=c["inflight"],
+                                      speculation=False,
+                                      poll_interval_s=0.005)),
+        "maponly_threaded": (False, JobConfig(workers=4, speculation=False)),
+    }
+
+    disk_mb_s = c.get("disk_mb_s", DISK_MB_S)
+
+    def make_store(root: Path, n_seg: int, per_block: int):
+        sig = np.random.default_rng(0).standard_normal(
+            (n_seg, c["fft_len"], 2)).astype(np.float32)
+        store = BlockStore(root, block_bytes=segment_block_bytes(
+            c["fft_len"], per_block))
+        store.put_bytes(sig.tobytes())
+        store = ThrottledStore.open(root)
+        store.disk_mb_s = disk_mb_s
+        return store
+
+    def run_mode(store, out: Path, mode: str, impl: str) -> dict:
+        shutil.rmtree(out / f"out_{mode}", ignore_errors=True)
+        pipelined, job_cfg = modes[mode]
+        t0 = time.monotonic()
+        job, stats, stage_s = run_fft_job(
+            store, out / f"out_{mode}", fft_len=c["fft_len"], impl=impl,
+            cfg=job_cfg, pipelined=pipelined, device=device)
+        wall = time.monotonic() - t0
+        merged = out / f"merged_{mode}.bin"
+        job.merge(merged)
+        total = sum(stage_s.values())
+        return {"wall_s": wall,
+                "throughput_mb_s": store.total_bytes / (1 << 20) / wall,
+                "stage_s": stage_s, "overlap_x": total / wall,
+                "overlap_efficiency": max(stage_s.values()) / wall,
+                "batches": stats.batches, "blocks": stats.blocks_done,
+                "merged": merged}
+
+    (warm_seg, warm_block), (n_seg, per_block) = pipeline_stores(cfg)
+    warm = make_store(work / "warm_in", warm_seg, warm_block)
+    store = make_store(work / "in", n_seg, per_block)
+    out, measured = {"disk_sim_mb_s": disk_mb_s, "config": dict(c)}, {}
+    ref = None
+    for impl in c["impls"]:
+        tfft.clear_plan_cache()
+        reset_counts()
+        for mode in modes:
+            run_mode(warm, work / "warm", mode, impl)
+        results = {}
+        for mode in modes:
+            for _ in range(c["iters"]):
+                r = run_mode(store, work, mode, impl)
+                best = results.get(mode)
+                if best is None or r["wall_s"] < best["wall_s"]:
+                    results[mode] = r
+        counts = read_counts()
+        measured[f"pipeline impl={impl}"] = read_shapes(gpu)
+        merged = {m: r.pop("merged").read_bytes() for m, r in results.items()}
+        ser, pipe = results["serial"], results["pipelined"]
+        checks = {
+            "pipelined_throughput_gt_serial":
+                pipe["throughput_mb_s"] > ser["throughput_mb_s"],
+            "pipelined_stages_overlap": pipe["overlap_x"] > 1.0,
+            "outputs_bitwise_identical":
+                all(v == merged["serial"] for v in merged.values())}
+        got = np.frombuffer(merged["serial"], dtype=np.float32)
+        if impl == "ref":
+            ref = got
+        else:
+            err = float(np.abs(got - ref).max()) / (
+                float(np.abs(ref).max()) or 1.0)
+            checks["within_tol_of_ref"] = err < TOL
+        doc = {"impl": impl, **results,
+               "speedup_vs_serial_x": (pipe["throughput_mb_s"]
+                                       / ser["throughput_mb_s"]),
+               "checks": checks, "launches": counts}
+        if impl != "ref":
+            doc["rel_err_vs_ref"] = err
+        print("pipeline " + json.dumps(doc))
+        out[impl] = doc
+        for name, ok in checks.items():
+            check(ok, f"pipeline gate impl={impl}: {name}")
+        if impl == "matfft":
+            check_main_path(gpu, "pipeline gate impl=matfft", counts,
+                            "matfft")
+        elif gpu:
+            check(counts["plain"] == 0, "pipeline gate: a plain version ran")
+    return out, measured
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the service over several ranks on the one card
+
+
+def mesh_serve_calls(cfg) -> list:
+    """The kernel calls of phase 15 past those of phase 12: each rank's
+    shard of a segmented launch of the paper mix (verify "off"; with
+    "abft" the checksum row leaves the batch indivisible and rank 0 runs
+    phase 12's launch alone), as (`launch_shapes` key, phase 3's
+    options)."""
+    from repro_torch.kernels.fft import plan as kplan
+    ranks = cfg["mesh_serve"]["ranks"]
+    _, _, paper = serve_mixes(cfg)["paper"]
+    calls = []
+    for shape in paper:
+        for total in {shape.rows, cfg["serve"]["coalesce"] * shape.rows}:
+            if total % ranks:
+                continue
+            rows = total // ranks
+            if shape.kind == "c2c":
+                keys = nd_pass_launches(rows, shape.n)
+            elif kplan.make_plan(shape.n // 2).levels == 1:
+                keys = [("rfft_leaf", (rows, shape.n), None)]
+            else:
+                keys = nd_pass_launches(rows, shape.n // 2)
+            calls += [(key, pass_opts(key)) for key in keys]
+    return calls
+
+
+def mesh_serve_kernel_cases(cfg) -> list:
+    return calls_as_cases(mesh_serve_calls(cfg), {})
+
+
+def mesh_serve_service(cfg, gpu: bool, mesh, verify: str):
+    """The service every rank of phase 15 constructs, the same on each."""
+    from repro_torch.serve import FftService
+    c = cfg["serve"]
+    return FftService(impl="matfft", device="cuda" if gpu else "cpu",
+                      mesh=mesh, coalesce=c["coalesce"],
+                      queue_depth=max(c["paper_requests"], 1), verify=verify)
+
+
+def mesh_serve_group(torch, gpu: bool, cfg, store: Path, rank: int):
+    """Join phase 15's gloo group of ``ranks`` processes (every one on the
+    one card) and return its 1-D ("data",) mesh."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    ranks = cfg["mesh_serve"]["ranks"]
+    dist.init_process_group("gloo", store=dist.FileStore(str(store), ranks),
+                            rank=rank, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=120))
+    return init_device_mesh("cuda" if gpu else "cpu", (ranks,),
+                            mesh_dim_names=("data",))
+
+
+def mesh_serve_follower(rank: int, store: str, out: str, gpu: bool) -> int:
+    """A follower of phase 15 (``chip_smoke.py --follower``): construct each
+    run's service, obey rank 0 until its stop, and write the kernel calls
+    this process launched (the plain versions' in the rehearsal)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    cfg = FULL if gpu else REHEARSE
+    mesh = mesh_serve_group(torch, gpu, cfg, Path(store), rank)
+    runs = []
+    try:
+        for verify in serve_mixes(cfg)["paper"][1]:
+            reset_counts()
+            service = mesh_serve_service(cfg, gpu, mesh, verify)
+            service.close()
+            runs.append({"verify": verify,
+                         "shard_launches": service.stats.batches,
+                         "counts": read_counts(),
+                         "shapes": [[list(k), v] for k, v in
+                                    read_shapes(gpu).items()]})
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps({
+        "rank": rank, "runs": runs,
+        "device": torch.cuda.get_device_name(0) if gpu else "cpu"}))
+    return 0
+
+
+def mesh_serve_checks(torch, dev, gpu: bool, cfg, work: Path,
+                      one_rank: list) -> tuple[dict, dict, dict]:
+    """Phase 15: the service over ``ranks`` processes on the one card, one
+    gloo group (NCCL takes no two ranks on one card; the service's plans
+    here are segmented and local, which run no collective, and its control
+    channel is gloo on CPU tensors). This process is rank 0 and submits;
+    the followers are ``chip_smoke.py --follower`` subprocesses. Phase
+    12's paper mix under verify "off" and "abft", each run with the counts
+    zeroed just before and read just after: every request ``ok``, bitwise
+    equal to `loadgen.oracle` at its launch size (the one-rank service's
+    output at the same launch rows: the kernels are batch invariant and
+    segmented == local), within 5e-6 of torch.fft; with "off" every
+    follower launched the kernels. ``qps_completed``, the latency
+    percentiles and the clients' ``submit_s`` beside phase 12's one-rank
+    runs, with rank 0's seconds in each launch step
+    (`FftService.mesh_seconds`). Returns the summary,
+    rank 0's calls, and the followers' launches by `launch_shapes` key."""
+    import os
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    from repro_torch.serve import loadgen
+
+    c = cfg["serve"]
+    ranks = cfg["mesh_serve"]["ranks"]
+    device = "cuda" if gpu else "cpu"
+    _, modes, mix = serve_mixes(cfg)["paper"]
+    n_req = c["paper_requests"]
+    store = work / "store"
+    work.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for r in range(1, ranks):
+        log = open(work / f"rank{r}.log", "w")
+        procs.append((r, log, subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--follower",
+             str(r), "--store", str(store), "--out",
+             str(work / f"rank{r}.json"), *([] if gpu else ["--rehearse"])],
+            env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)))
+    out, measured = {"ranks": ranks, "runs": []}, {}
+    try:
+        mesh = mesh_serve_group(torch, gpu, cfg, store, 0)
+        try:
+            for verify in modes:
+                name = f"mesh serve verify={verify}"
+                service = mesh_serve_service(cfg, gpu, mesh, verify)
+                launches = Counter()
+                plan_for = service._plan_for
+
+                def recorded(kind, shape, total, plan_for=plan_for,
+                             launches=launches):
+                    p = plan_for(kind, shape, total)
+                    launches[p.placement] += 1
+                    return p
+
+                service._plan_for = recorded
+                reset_counts()
+                t0 = time.monotonic()
+                records = loadgen.drive(service, num_requests=n_req,
+                                        clients=c["clients"], seed=c["seed"],
+                                        mix=mix)
+                submit_s = time.monotonic() - t0
+                outcomes = {q.rid: loadgen.classify(q) for q in records}
+                service.close(drain=True)
+                wall = time.monotonic() - t0
+                counts, shapes = read_counts(), read_shapes(gpu)
+                measured[name] = shapes
+                if gpu:
+                    check(counts["plain"] == 0, f"{name}: a plain version ran")
+                check(set(outcomes.values()) == {"ok"},
+                      f"{name}: outcomes {Counter(outcomes.values())}")
+                worst = 0.0
+                for q in records:
+                    ops = loadgen.request_operands(c["seed"], q.rid, q.shape)
+                    want = loadgen.oracle(q.shape, ops, impl="matfft",
+                                          batch_rows=q.ticket.batch_rows,
+                                          device=device)
+                    check(loadgen.bitwise_equal(q.ticket.value, want),
+                          f"{name}: request {q.rid} differs from the "
+                          f"one-rank output at its launch size")
+                    got = torch.complex(*(torch.from_numpy(a).to(dev)
+                                          for a in q.ticket.value))
+                    x = [torch.from_numpy(a).to(dev) for a in ops]
+                    lib = (torch.fft.fft(torch.complex(*x), dim=-1)
+                           if q.shape.kind == "c2c"
+                           else torch.fft.rfft(x[0], dim=-1))
+                    worst = max(worst, rel_err(got, lib))
+                check(worst < TOL, f"{name}: {worst} vs torch.fft")
+                stats = service.stats.snapshot()
+                one = next(d for d in one_rank
+                           if d["run"] == f"paper verify={verify}")
+                doc = {"run": name, "ranks": ranks, "requests": len(records),
+                       "wall_s": wall, "qps_completed": len(records) / wall,
+                       "submit_s": submit_s,
+                       "rank0_mesh_s": service.mesh_seconds(),
+                       "latency": stats["latency"],
+                       "batches": stats["batches"],
+                       "placements": dict(launches),
+                       "one_rank_qps_completed": one["qps_completed"],
+                       "one_rank_submit_s": one["submit_s"],
+                       "one_rank_latency": one["latency"],
+                       "rel_err_torch_fft": worst, "launches": counts}
+                print("mesh serve " + json.dumps(doc))
+                out["runs"].append(doc)
+        finally:
+            dist.destroy_process_group()
+        followers = {}
+        for r, log, proc in procs:
+            rc = proc.wait(timeout=300)
+            log.close()
+            check(rc == 0, f"follower {r}: exit {rc}: "
+                  f"{(work / f'rank{r}.log').read_text()[-2000:]}")
+            followers[r] = json.loads((work / f"rank{r}.json").read_text())
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    follower_calls = Counter()
+    for r, doc in followers.items():
+        for run in doc["runs"]:
+            calls = Counter({(k[0], tuple(k[1]), k[2]): v
+                             for k, v in run["shapes"]})
+            follower_calls.update(calls)
+            if run["verify"] == "off":
+                check(run["shard_launches"] > 0 and sum(calls.values()) > 0,
+                      f"follower {r}: no kernel launched")
+            if gpu:
+                check(run["counts"]["plain"] == 0,
+                      f"follower {r}: a plain version ran")
+        out[f"follower_{r}"] = [
+            {k: run[k] for k in ("verify", "shard_launches", "counts")}
+            for run in doc["runs"]]
+    print("mesh serve followers " + json.dumps(
+        {r: out[f"follower_{r}"] for r in followers}))
+    return out, measured, follower_calls
+
+
+# ---------------------------------------------------------------------------
+# phase 16: fft_dryrun's analytic records
+
+
+def dryrun_records() -> dict:
+    """`python -m repro_torch.launch.fft_dryrun` as a user runs it (the
+    256-rank mesh; no process group, no card), then the 512-rank mesh's
+    records in this process."""
+    import os
+
+    from repro_torch.launch import fft_dryrun
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fft_dryrun"],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"fft_dryrun: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    out = {"single_pod": {
+        "seconds": time.monotonic() - t0,
+        "records": [json.loads(line) for line in proc.stdout.splitlines()]}}
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["multi_pod"] = {"records": fft_dryrun.main(["--mesh",
+                                                        "multi_pod"])}
+    for mesh, doc in out.items():
+        check(len(doc["records"]) == 8,
+              f"fft_dryrun --mesh {mesh}: {len(doc['records'])} records")
+    return out
+
+
 def model_rates(timing: dict, ooc_run: dict, a2a_bps: float) -> dict:
     """The tuner model's CUDA rates as this run measures them
     (fft/tuner.py MODEL_RATES): K1b's main-path case's flops and bytes over
@@ -2637,6 +3077,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny sizes on the CPU through the plain versions "
                          "(checks control flow; prints no result line)")
+    ap.add_argument("--follower", type=int, default=None,
+                    help="run as this rank of phase 15's service (started "
+                         "by phase 15 itself, with --store and --out)")
+    ap.add_argument("--store", help="phase 15's FileStore (--follower)")
+    ap.add_argument("--out", help="a follower's report (--follower)")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2649,6 +3094,8 @@ def main(argv=None) -> int:
     if gpu and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.follower is not None:
+        return mesh_serve_follower(args.follower, args.store, args.out, gpu)
     cfg = FULL if gpu else REHEARSE
     dev = torch.device("cuda", 0) if gpu else torch.device("cpu")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2804,9 +3251,35 @@ def main(argv=None) -> int:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
 
-    # the launches of phases 9-12: by variant, and by timed shape
+    # phase 14: bench_pipeline's gate on the throttled disk
+    t0 = time.monotonic()
+    try:
+        pipeline, pipeline_measured = pipeline_gate(
+            torch, dev, gpu, cfg, work_root / "pipeline")
+    finally:
+        shutil.rmtree(work_root / "pipeline", ignore_errors=True)
+    pipeline["seconds"] = time.monotonic() - t0
+    print(f"pipeline phase: {pipeline['seconds']:.3f} s")
+
+    # phase 15: the service over several ranks on the one card
+    t0 = time.monotonic()
+    try:
+        mesh_serve, mesh_measured, follower_calls = mesh_serve_checks(
+            torch, dev, gpu, cfg, work_root / "mesh_serve", serve["runs"])
+    finally:
+        shutil.rmtree(work_root / "mesh_serve", ignore_errors=True)
+    mesh_serve["seconds"] = time.monotonic() - t0
+    print(f"mesh service phase: {mesh_serve['seconds']:.3f} s")
+
+    # phase 16: fft_dryrun's analytic records
+    dryrun = dryrun_records()
+    for mesh, doc in dryrun.items():
+        print(f"dryrun {mesh} " + json.dumps(doc))
+
+    # the launches of phases 9-15: by variant, and by timed shape
     measured = {**nd_measured, **dist_measured, **pencil_measured,
-                **serve_measured, **tune_measured}
+                **serve_measured, **tune_measured, **pipeline_measured,
+                **mesh_measured, "mesh serve followers": follower_calls}
     for run in measured.values():
         for key, k in run.items():
             variant = variant_of(key)
@@ -2823,7 +3296,7 @@ def main(argv=None) -> int:
         launches[tile_case_name(key)] = sum(
             run[key] for run in tune_measured.values())
     timing.update(tune_timing)
-    # every call of phases 9-13 was held to its plain version in phase 3
+    # every call of phases 9-15 was held to its plain version in phase 3
     # (the tuner's other calls in phase 13) at its own shape
     covered = {case_key(kernel, shape, opts) for _, kernel, shape, opts, _
                in kernel_cases(cfg, kplan.MAX_LEAF)} | tune_checked
@@ -2838,7 +3311,7 @@ def main(argv=None) -> int:
     rates = model_rates(timing, ooc["at_scale"], tune["a2a_bytes_s"])
     print("model rates " + json.dumps(rates))
 
-    # phase 14: the kernels line
+    # phase 17: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
@@ -2846,7 +3319,8 @@ def main(argv=None) -> int:
               "out_of_core": ooc, "spectrograms": spectrograms,
               "fft_conv": conv, "nd": nd, "dist": dist_summary,
               "pencil": pencil, "serve": serve, "tune": tune,
-              "model_rates": rates,
+              "pipeline": pipeline, "mesh_serve": mesh_serve,
+              "dryrun": dryrun, "model_rates": rates,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

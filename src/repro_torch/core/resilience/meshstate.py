@@ -15,16 +15,21 @@ launching collectives that would hang.
 The registry is process-local. In an SPMD program every rank must mark
 the same losses, in the same order, because a shrunk mesh's process
 groups are created collectively: every rank of the default group builds
-them, the lost and the left-out ones included.
+them, the lost and the left-out ones included. A caller that must plan on
+the same losses it has told the other ranks about holds the registry
+still meanwhile (`held`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 from repro_torch.core.resilience.events import record_event
 
 _LOCK = threading.Lock()
+# held by `held()`: losses and restores from other threads wait for it
+_HOLD = threading.RLock()
 _LOST: set = set()   # global ranks considered dead
 _EPOCH = 0           # bumps on every loss/restore (cache-invalidation tag)
 # shrunk meshes built so far, by (device type, ranks, dim name): building
@@ -38,7 +43,7 @@ def lose_devices(device_ids) -> None:
     ids = {int(d) for d in device_ids}
     if not ids:
         return
-    with _LOCK:
+    with _HOLD, _LOCK:
         _LOST.update(ids)
         _EPOCH += 1
         epoch = _EPOCH
@@ -48,7 +53,7 @@ def lose_devices(device_ids) -> None:
 def restore_devices(device_ids=None) -> None:
     """Heal global ranks (None = all): test/benchmark teardown."""
     global _EPOCH
-    with _LOCK:
+    with _HOLD, _LOCK:
         if device_ids is None:
             healed = sorted(_LOST)
             _LOST.clear()
@@ -60,6 +65,15 @@ def restore_devices(device_ids=None) -> None:
         _EPOCH += 1
         epoch = _EPOCH
     record_event("device_restore", device_ids=healed, epoch=epoch)
+
+
+@contextlib.contextmanager
+def held():
+    """Keep the registry as it is while the block runs: `lose_devices` and
+    `restore_devices` from other threads wait until it ends. The holding
+    thread may still change it."""
+    with _HOLD:
+        yield
 
 
 def lost_devices() -> frozenset:

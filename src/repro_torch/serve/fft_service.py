@@ -60,18 +60,54 @@ bitwise-correct result or a classified structured error
 (tests/test_torch_service.py, and the service phase of chip_smoke.py on
 the card).
 
-The service runs on one device: ``device="cuda"`` (the default) launches
-the hand-written kernels, ``device="cpu"`` their plain PyTorch versions.
-A ``mesh`` must hold one rank: every rank of an SPMD mesh would have to
-form the same batches in the same order, and the batcher's grouping
-depends on timing (`MULTI_RANK`).
+``device="cuda"`` (the default) launches the hand-written kernels,
+``device="cpu"`` their plain PyTorch versions.
+
+Over a mesh of more than one rank the service is SPMD, with one
+controller. Every rank of the mesh constructs ``FftService(mesh=...)``
+with the same arguments. The mesh's first rank ("rank 0") alone admits,
+groups, sheds, retries, verifies and resolves tickets; every other rank
+is a follower, whose `start` runs a loop that obeys rank 0 and whose
+`submit` raises. The batcher's grouping depends on timing, so rank 0
+decides each launch and tells the followers (`ControlChannel`, a gloo
+group of the mesh's ranks built at construction, so its messages never
+interleave with the collectives of plans, the tuner or
+`meshstate.shrunk_mesh`):
+
+  launch   a launch whose plan resolves to ``segmented``: rank 0 sends the
+           spec (kind, shape, total rows), scatters each rank its
+           contiguous dim-0 shard of the gathered operands
+           (`core.fft.distributed.local_shard`'s order), every rank runs
+           the same cached plan's `execute_async` on its shard, and rank 0
+           gathers the realized rows in global order before writeback —
+           ABFT, Parseval and the fault sites see exactly what a one-rank
+           service sees. A launch that resolves ``local`` (the ABFT
+           checksum row, an indivisible batch) runs on rank 0 alone.
+  order    every collective of the service is started by one thread a
+           rank (rank 0's batcher, the follower loop), the gather as an
+           ``async_op`` handle that writeback waits on, so the ranks start
+           them in one order at any ``max_inflight``.
+  health   rank 0 puts the lost ranks into every message and re-sends them
+           before it plans on a changed set; each follower marks them
+           (`meshstate.lose_devices`) and every rank then builds the
+           shrunk mesh together (its groups are collective) before anyone
+           plans with ``fallback="degrade"``. A rank left out of the shrunk
+           mesh keeps taking part in the channel.
+  idle     rank 0 sends a no-op when nothing else went out for a quarter
+           of the channel's timeout, so an idle follower never times out.
+  stop     rank 0's `close` ends the followers; a follower's `close` (or
+           its context exit) waits for that message.
 """
 
 from __future__ import annotations
 
+import contextlib
+import datetime
+import json
 import math
 import queue
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
@@ -88,9 +124,8 @@ from repro_torch.core.resilience.retry import RetryPolicy
 from repro_torch.fft import spec as spec_mod
 
 SHED_POLICIES = ("oldest_deadline", "smallest_batch")
-# a service over a mesh of more ranks needs a rank-0 batcher that
-# broadcasts each launch (spec key, rows, operands) to follower ranks
-MULTI_RANK = "ROADMAP Queue 1 item 14"
+# the fixed size of a control message: JSON, zero-padded
+MSG_BYTES = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +213,160 @@ class RequestFailed(ServiceError):
 
 
 # ---------------------------------------------------------------------------
+# the control channel of a service over more than one rank
+
+
+def encode_message(msg: dict) -> torch.Tensor:
+    """A control message as the fixed-size uint8 tensor the channel
+    broadcasts: its JSON, zero-padded to `MSG_BYTES`."""
+    data = json.dumps(msg, separators=(",", ":")).encode()
+    if len(data) > MSG_BYTES:
+        raise ValueError(f"control message of {len(data)} bytes exceeds "
+                         f"MSG_BYTES={MSG_BYTES}")
+    buf = torch.zeros(MSG_BYTES, dtype=torch.uint8)
+    buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    return buf
+
+
+def decode_message(buf: torch.Tensor) -> dict:
+    """Inverse of `encode_message` (JSON holds no zero byte)."""
+    return json.loads(bytes(buf.numpy()).rstrip(b"\0"))
+
+
+class ControlChannel:
+    """Rank 0's messages, shards and gathers over a gloo group of the mesh's
+    ranks, on CPU tensors. Built collectively (`dist.new_group`): every
+    rank of the default group constructs it at the same point.
+
+    ``rank`` is this process's index in the group (0 is the controller);
+    ``timeout_s`` bounds every operation, so rank 0 sends a no-op after
+    ``keepalive_s`` (a quarter of it) of silence. ``seconds`` sums the
+    wall time of each of rank 0's steps of a segmented launch: "shard"
+    (cutting the operands), "send", "scatter" and "gather_wait" (a
+    writeback's wait for every rank's rows).
+    """
+
+    def __init__(self, mesh, timeout_s: float):
+        import torch.distributed as dist
+        self.ranks = [int(r) for r in mesh.mesh.reshape(-1).tolist()]
+        self.group = dist.new_group(
+            self.ranks, backend="gloo",
+            timeout=datetime.timedelta(seconds=timeout_s))
+        self.rank = dist.get_rank(self.group)
+        if self.rank < 0:
+            raise ValueError(f"rank {dist.get_rank()} is not part of the "
+                             f"service's mesh {self.ranks}")
+        self.root = self.ranks[0]
+        self.keepalive_s = timeout_s / 4
+        self.last_send = time.monotonic()
+        # rank 0: one message and its collectives go out together
+        self.lock = threading.RLock()
+        self.seconds = dict.fromkeys(
+            ("shard", "send", "scatter", "gather_wait"), 0.0)
+        self._seconds_lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def timed(self, step: str):
+        """Add the block's wall time to ``seconds[step]``."""
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            with self._seconds_lock:
+                self.seconds[step] += time.monotonic() - t0
+
+    def send(self, msg: dict) -> None:
+        """Rank 0: broadcast ``msg`` to every follower."""
+        import torch.distributed as dist
+        with self.timed("send"):
+            dist.broadcast(encode_message(msg), src=self.root,
+                           group=self.group)
+        self.last_send = time.monotonic()
+
+    def recv(self) -> dict:
+        """A follower: the next message from rank 0."""
+        import torch.distributed as dist
+        buf = torch.empty(MSG_BYTES, dtype=torch.uint8)
+        dist.broadcast(buf, src=self.root, group=self.group)
+        return decode_message(buf)
+
+    def scatter(self, shape, parts=None) -> torch.Tensor:
+        """Rank 0 passes ``parts`` (one float32 tensor of ``shape`` a group
+        rank); every rank returns its own."""
+        import torch.distributed as dist
+        out = torch.empty(shape, dtype=torch.float32)
+        with self.timed("scatter"):
+            dist.scatter(out, None if parts is None else list(parts),
+                         src=self.root, group=self.group)
+        return out
+
+    def gather(self, part: torch.Tensor):
+        """Every rank sends ``part``; returns the ``async_op`` work handle
+        and, on rank 0, the list it fills (one entry a group rank)."""
+        import torch.distributed as dist
+        got = ([torch.empty_like(part) for _ in self.ranks]
+               if self.rank == 0 else None)
+        work = dist.gather(part, got, dst=self.root, group=self.group,
+                           async_op=True)
+        return work, got
+
+    def close(self) -> None:
+        """After the stop message: wait for every rank, then drop the
+        group."""
+        import torch.distributed as dist
+        dist.barrier(group=self.group)
+        dist.destroy_process_group(self.group)
+
+
+def _shard_shapes(kind: str, shape: tuple, total: int, devices: int):
+    """A segmented launch's per-rank operand (planes, rows/D, *shape) and
+    output (2, rows/D, *one-sided for r2c) shapes."""
+    rows = total // devices
+    out_row = (shape if kind == "c2c"
+               else (*shape[:-1], shape[-1] // 2 + 1))
+    return ((2 if kind == "c2c" else 1, rows, *shape), (2, rows, *out_row))
+
+
+class _MeshResult:
+    """A segmented launch over the mesh, as rank 0 sees it: its own shard's
+    `AsyncResult` (None when rank 0 holds no shard) and the gather of every
+    rank's realized rows. `realize` returns the global host planes.
+
+    Each gathered part is the flat output shard with one status value
+    appended (0: the rank computed its shard)."""
+
+    def __init__(self, local, error, work, parts, order, out_shape,
+                 channel):
+        self.local, self.error = local, error
+        self.work, self.parts = work, parts
+        self.order = order          # group rank holding shard s, for each s
+        self.out_shape = out_shape  # (2, rows/D, *row shape)
+        self.channel = channel
+
+    def realize(self):
+        try:
+            own = None if self.local is None else self.local.realize()
+        finally:
+            with self.channel.timed("gather_wait"):
+                self.work.wait()
+        if self.error is not None:
+            raise self.error
+        shards = []
+        for i in self.order:
+            if i == 0 and own is not None:
+                shards.append(own)
+                continue
+            flat = self.parts[i]
+            if float(flat[-1]) != 0.0:
+                raise RuntimeError(f"follower {i} of the service's mesh "
+                                   f"failed its shard")
+            planes = flat[:-1].reshape(self.out_shape).numpy()
+            shards.append((planes[0], planes[1]))
+        return tuple(np.concatenate([sh[k] for sh in shards])
+                     for k in range(2))
+
+
+# ---------------------------------------------------------------------------
 
 
 class FftTicket:
@@ -235,7 +424,8 @@ class FftTicket:
 
 @dataclass
 class ServiceStats:
-    """Thread-safe service counters; snapshot() adds latency percentiles."""
+    """Thread-safe service counters; snapshot() adds latency percentiles.
+    On a follower rank only ``batches`` moves: the shards it ran."""
 
     submitted: int = 0
     admitted: int = 0
@@ -341,9 +531,12 @@ class FftService:
     Args:
       impl/layout/device: forwarded to every `repro_torch.fft.plan` call;
         ``device`` defaults to "cuda" ("cpu" runs the plain versions).
-      mesh/placement: optional one-rank `DeviceMesh` for segmented specs
-        (a mesh of more ranks is a ValueError, `MULTI_RANK`); placement
-        defaults to "auto" (mesh-free requests resolve local).
+      mesh/placement: optional `DeviceMesh` for segmented specs; placement
+        defaults to "auto" (mesh-free requests resolve local). Over more
+        than one rank every rank constructs the service, rank 0 admits
+        and the others follow (module docstring).
+      control_timeout_s: the bound on every operation of the control
+        channel (a mesh of more than one rank only).
       queue_depth: admission bound — a submit is rejected with
         `ServiceOverload(reason="queue_full")` once this many admitted
         requests are outstanding (queued, batching, in flight, or
@@ -395,7 +588,8 @@ class FftService:
                  shed_fraction: float = 0.25,
                  retry: RetryPolicy | None = None, degrade: bool = True,
                  injector=None, poll_interval_s: float = 0.001,
-                 verify: str = "off", start: bool = True):
+                 verify: str = "off", control_timeout_s: float = 60.0,
+                 start: bool = True):
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
         if coalesce < 1:
@@ -403,12 +597,6 @@ class FftService:
         if shed_policy not in SHED_POLICIES:
             raise ValueError(f"unknown shed_policy {shed_policy!r}; "
                              f"expected one of {SHED_POLICIES}")
-        if mesh is not None and mesh.mesh.numel() != 1:
-            raise ValueError(
-                f"FftService takes a mesh of one rank, got "
-                f"{mesh.mesh.numel()}: a service over more ranks needs a "
-                f"rank-0 batcher that broadcasts each launch to the "
-                f"others ({MULTI_RANK})")
         self.impl = impl
         self.device = str(spec_mod.resolve_device(
             mesh.device_type if mesh is not None and device is None
@@ -455,18 +643,33 @@ class FftService:
         self._mesh_epoch = None
         self._batcher: threading.Thread | None = None
         self._writers = ThreadPoolExecutor(max_workers=max(writers, 1))
+        #: the control channel over a mesh of more than one rank (None:
+        #: this process is the whole service); ``rank`` 0 is the controller
+        self._channel = None
+        self.rank = 0
+        if mesh is not None and mesh.mesh.numel() > 1:
+            self._channel = ControlChannel(mesh, control_timeout_s)
+            self.rank = self._channel.rank
+        self._lost_seen = frozenset()  # the lost ranks last sent or obeyed
+        self._followers_stopped = False
+        self._follower_error: BaseException | None = None
         if start:
             self.start()
 
     # ------------------------------------------------------------- lifecycle
 
     def start(self) -> None:
-        if self._batcher is not None and self._batcher.is_alive():
+        """Rank 0 (or a one-rank service): start the batcher. A follower:
+        start the loop that obeys rank 0 until its stop message."""
+        if self._batcher is not None and (self._batcher.is_alive()
+                                          or self.rank != 0):
             return
         if self._closing.is_set():
             raise ServiceClosed("service has been closed")
-        self._batcher = threading.Thread(
-            target=self._batch_loop, name="fft-service-batcher", daemon=True)
+        loop, name = ((self._batch_loop, "fft-service-batcher")
+                      if self.rank == 0
+                      else (self._follow_loop, "fft-service-follower"))
+        self._batcher = threading.Thread(target=loop, name=name, daemon=True)
         self._batcher.start()
 
     def __enter__(self):
@@ -474,6 +677,14 @@ class FftService:
 
     def __exit__(self, *exc):
         self.close(drain=exc == (None, None, None))
+
+    def mesh_seconds(self) -> dict | None:
+        """Over more than one rank, rank 0's summed seconds in each step
+        of its segmented launches (`ControlChannel.seconds`); else None."""
+        if self._channel is None:
+            return None
+        with self._channel._seconds_lock:
+            return dict(self._channel.seconds)
 
     def idle(self) -> bool:
         """True when nothing is queued, pending, or in flight."""
@@ -485,17 +696,32 @@ class FftService:
 
     def close(self, drain: bool = True, timeout: float | None = 30.0) -> None:
         """Stop admitting; drain (launch everything queued, wait for every
-        outcome) or cancel pending with `ServiceClosed`. Idempotent."""
+        outcome) or cancel pending with `ServiceClosed`. Idempotent.
+
+        Rank 0's close also stops the followers. A follower's close waits
+        for that stop, however long rank 0 serves (the channel's timeout
+        bounds each wait, not ``timeout``), and raises `ServiceError` if
+        its loop failed."""
+        if self.rank != 0:
+            self.start()
+            self._batcher.join()
+            self._writers.shutdown(wait=True)
+            if self._follower_error is not None:
+                raise ServiceError(
+                    f"follower {self.rank} of the service's mesh failed: "
+                    f"{self._follower_error!r}") from self._follower_error
+            return
         self._closing.set()
         if not drain:
             self._stopped.set()
         if self._batcher is not None:
-            # start() was never called (start=False tests): resolve the
-            # queue here so close() leaves no ticket forever-pending
             self._batcher.join(timeout=timeout)
         else:
+            # start() was never called (start=False tests): resolve the
+            # queue here so close() leaves no ticket forever-pending
             self._stopped.set()
             self._flush_cancelled()
+            self._stop_followers()
         self._writers.shutdown(wait=True)
         if self._batcher is None or not self._batcher.is_alive():
             self._flush_cancelled()
@@ -524,8 +750,13 @@ class FftService:
         kind="c2c" takes planar ``(xr, xi)``; kind="r2c" takes real
         ``(x,)``. The trailing ``shape`` axes (default: the last axis) are
         the transform; leading axes collapse into batch rows. Rejections
-        resolve the ticket immediately with a structured error.
+        resolve the ticket immediately with a structured error. Only rank
+        0 admits: a follower's submit raises `ServiceError`.
         """
+        if self.rank != 0:
+            raise ServiceError(
+                f"rank {self.rank} of the service's mesh is a follower: "
+                f"only rank 0 admits requests")
         now = self._clock()
         with self._admit_lock:
             seq = self._seq
@@ -662,9 +893,16 @@ class FftService:
     # --------------------------------------------------------------- batcher
 
     def _plan(self, key, total_rows: int):
+        """The plan of a ``total_rows`` launch; over more than one rank,
+        after rank 0 has sent the lost ranks it plans on (`_sync_health`;
+        the caller holds `_held`)."""
+        self._sync_health()
+        return self._plan_for(key.kind, key.shape, total_rows)
+
+    def _plan_for(self, kind: str, shape: tuple, total_rows: int):
         import repro_torch.fft as fft_api
         return fft_api.plan(
-            kind=key.kind, shape=key.shape, batch_shape=(total_rows,),
+            kind=kind, shape=shape, batch_shape=(total_rows,),
             impl=self.impl, device=self.device, layout=self.layout,
             mesh=self.mesh, placement=self.placement,
             fallback="degrade" if self.degrade else "error",
@@ -681,7 +919,9 @@ class FftService:
         runs zeros through each plan once, so its tables are on the
         device, its kernels built and bound and its stream created. After
         warmup, the first real request for a profiled spec causes ZERO
-        plan-cache misses and zero builds.
+        plan-cache misses and zero builds. Over more than one rank this
+        warms rank 0 (its shard of a segmented plan); followers build at
+        their first launch.
 
         Returns a summary: specs seen, plans warmed, and the cache_info
         snapshot afterwards.
@@ -703,8 +943,11 @@ class FftService:
             specs += 1
             for total in sorted({rows + extra,
                                  self.coalesce * rows + extra}):
-                p = self._plan(key, total)
-                ops = [np.zeros((total, *key.shape), np.float32)
+                with self._held():
+                    p = self._plan(key, total)
+                if p.mesh is not None and p.mesh.get_coordinate() is None:
+                    continue  # rank 0 holds no shard of a shrunk mesh
+                ops = [np.zeros(p.operand_shape, np.float32)
                        for _ in range(1 if kind == "r2c" else 2)]
                 if kind == "r2c":
                     p.execute_real(*ops)
@@ -720,14 +963,16 @@ class FftService:
         while True:
             try:
                 if self._step():
-                    return
+                    break
             except Exception as e:  # crash containment: fail only what we
                 # hold, recover to an empty-but-serving state
                 self.stats.bump("crash_recoveries")
                 record_event("service_crash_recovered", error=repr(e))
+        self._stop_followers()
 
     def _step(self) -> bool:
         """One batcher iteration; True = drained and done, exit the loop."""
+        self._keepalive()
         self._drain_events()
         self._check_mesh_epoch()
         self._sweep_deadlines()
@@ -868,6 +1113,7 @@ class FftService:
             t._t_formed = now
             t.attempts += 1
         while not self._inflight.acquire(timeout=self.poll_interval_s):
+            self._keepalive()
             self._drain_events()
             if self._stopped.is_set():
                 for t in group.tickets:
@@ -924,9 +1170,13 @@ class FftService:
                 group.verify_weights = w
                 group.verify_rows = total
         pad_rows = total - rows * len(group.tickets)
-        plan = self._plan(key, total + extra)
-        t0 = self._clock()
-        out = plan.execute_async(*ops)
+        with self._held():
+            plan = self._plan(key, total + extra)
+            t0 = self._clock()
+            if self._channel is not None and plan.placement == "segmented":
+                out = self._launch_on_mesh(plan, ops)
+            else:
+                out = plan.execute_async(*ops)
         for t in group.tickets:
             t._t_launch = t0
             t.batch_rows = total + extra
@@ -1058,6 +1308,151 @@ class FftService:
                 self._complete(t, error=RequestFailed(stage, t.attempts, err))
         if retry:
             self._events.put(("retry", retry))
+
+    # --------------------------------------------------- the mesh protocol
+
+    @contextlib.contextmanager
+    def _held(self):
+        """Over more than one rank: the lost ranks stay as they are, and no
+        other thread of rank 0 sends, until the block ends."""
+        if self._channel is None:
+            yield
+            return
+        from repro_torch.core.resilience import meshstate
+        with meshstate.held(), self._channel.lock:
+            yield
+
+    def _mesh_lost(self) -> frozenset:
+        from repro_torch.core.resilience import meshstate
+        return meshstate.lost_devices() & frozenset(self._channel.ranks)
+
+    def _send(self, op: str, **fields) -> None:
+        """Rank 0: one message to every follower, carrying the mesh's lost
+        ranks; a change in them is obeyed at once (`_obey_health`)."""
+        from repro_torch.core.resilience import meshstate
+        with self._held():
+            lost = self._mesh_lost()
+            self._channel.send({"op": op, "lost": sorted(lost),
+                                "epoch": meshstate.epoch(), **fields})
+            self._obey_health(lost)
+
+    def _obey_health(self, lost: frozenset) -> None:
+        """Every rank, at the same message: a follower marks the lost ranks
+        rank 0 sent, then all build the shrunk mesh together (collective),
+        before anyone plans on it."""
+        if lost == self._lost_seen:
+            return
+        from repro_torch.core.resilience import meshstate
+        if self.rank != 0:
+            own = self._mesh_lost()
+            meshstate.restore_devices(own - lost)
+            meshstate.lose_devices(lost - own)
+        self._lost_seen = lost
+        if lost:
+            meshstate.shrunk_mesh(self.mesh)
+
+    def _sync_health(self) -> None:
+        """Rank 0, before it plans: tell the followers of a changed set of
+        lost ranks (the caller holds `_held`)."""
+        if self._channel is not None and self._mesh_lost() != self._lost_seen:
+            self._send("health")
+
+    def _keepalive(self) -> None:
+        """Rank 0: a no-op after a quarter of the channel's timeout of
+        silence, so an idle follower's wait never times out."""
+        ch = self._channel
+        if ch is not None and (time.monotonic() - ch.last_send
+                               >= ch.keepalive_s):
+            self._send("noop")
+
+    def _stop_followers(self) -> None:
+        if self._channel is None or self._followers_stopped:
+            return
+        self._followers_stopped = True
+        self._send("stop")
+        self._channel.close()
+
+    def _launch_on_mesh(self, plan, ops) -> _MeshResult:
+        """Rank 0: send a segmented launch, scatter the shards, run its own
+        and start the gather (the caller holds `_held`)."""
+        from repro_torch.core.fft import distributed
+        ch = self._channel
+        total, k = ops[0].shape[0], plan.num_devices
+        in_shape, out_shape = _shard_shapes(plan.kind, plan.shape, total, k)
+        rows = in_shape[1]
+        shard_of = {g: distributed.axis_index(plan.mesh, plan.spec.axes, g)
+                    for g in plan.mesh.mesh.reshape(-1).tolist()}
+        parts, order, filler = [], [None] * k, None
+        with ch.timed("shard"):
+            stacked = np.stack(ops)
+            for i, g in enumerate(ch.ranks):
+                s = shard_of.get(g)
+                if s is None:  # outside a shrunk mesh: it holds no shard
+                    if filler is None:
+                        filler = torch.zeros(in_shape)
+                    parts.append(filler)
+                    continue
+                parts.append(torch.from_numpy(np.ascontiguousarray(
+                    stacked[:, s * rows:(s + 1) * rows])))
+                order[s] = i
+        self._send("launch", kind=plan.kind, shape=list(plan.shape),
+                   rows=total, devices=k)
+        own = ch.scatter(in_shape, parts)
+        local = error = None
+        if 0 in order:
+            try:
+                local = plan.execute_async(*own.unbind(0))
+            except Exception as e:  # the gather must still go out
+                error = e
+        work, got = ch.gather(torch.zeros(math.prod(out_shape) + 1))
+        return _MeshResult(local, error, work, got, order, out_shape, ch)
+
+    def _follow_loop(self) -> None:
+        """A follower: obey rank 0's messages until its stop."""
+        try:
+            while True:
+                msg = self._channel.recv()
+                self._obey_health(frozenset(msg["lost"]))
+                if msg["op"] == "stop":
+                    break
+                if msg["op"] == "launch":
+                    self._follow_launch(msg)
+            self._channel.close()
+        except Exception as e:  # close() raises it
+            self._follower_error = e
+            record_event("service_follower_failed", rank=self.rank,
+                         error=repr(e))
+
+    def _follow_launch(self, msg: dict) -> None:
+        """A follower's part of one segmented launch: plan as rank 0 did,
+        take its shard, run it and send the realized rows back, with a
+        status value that tells rank 0 whether it computed them."""
+        kind, shape = msg["kind"], tuple(msg["shape"])
+        total, k = msg["rows"], msg["devices"]
+        in_shape, out_shape = _shard_shapes(kind, shape, total, k)
+        out = torch.zeros(math.prod(out_shape) + 1)
+        out[-1] = 1.0
+        try:
+            plan = self._plan_for(kind, shape, total)
+            if (plan.placement, plan.num_devices) != ("segmented", k):
+                raise RuntimeError(
+                    f"rank {self.rank} planned {plan.placement!r} on "
+                    f"{plan.num_devices} ranks, rank 0 segmented on {k}")
+        except Exception as e:
+            plan = None
+            record_event("service_follower_failed", rank=self.rank,
+                         error=repr(e))
+        shard = self._channel.scatter(in_shape)
+        if plan is not None and plan.mesh.get_coordinate() is not None:
+            try:
+                yr, yi = plan.execute_async(*shard.unbind(0)).realize()
+                out[:-1] = torch.from_numpy(np.stack([yr, yi])).reshape(-1)
+                out[-1] = 0.0
+                self.stats.bump("batches")
+            except Exception as e:
+                record_event("service_follower_failed", rank=self.rank,
+                             error=repr(e))
+        self._channel.gather(out)[0].wait()
 
     # ------------------------------------------------------------ completion
 

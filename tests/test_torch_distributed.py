@@ -55,6 +55,13 @@ PENCIL_COST_CASES = [(kind, shape, m, ov) for kind in ("c2c", "r2c")
                                       (SHAPE2_R2C, "mesh8"))
                      for ov in ("off", 2)]
 # (result, kind, input, shape, mesh) of each pencil run on both sides
+# the service over the mesh: requests of (rows, n), submitted before
+# start() so the batcher's grouping is fixed (two launches of 4), under
+# each (mesh, verify) case; bench_serve's storm at a small size
+SVC_REQUESTS = 8
+SVC_SHAPE = (16, 256)
+SVC_CASES = [("mesh", "off"), ("mesh", "abft"), ("mesh8", "off")]
+SVC_STORM_REQUESTS = 96
 PENCIL_RUNS = [("pen3", "c2c", "pen3", SHAPE3, "mesh"),
                ("pen3_r2c", "r2c", "pen3_real", SHAPE3, "mesh"),
                ("pen2", "c2c", "pen2", SHAPE2, "mesh8"),
@@ -77,7 +84,9 @@ def _inputs(path: Path) -> None:
              pen2_real=rng.standard_normal(SHAPE2).astype(np.float32),
              pen2_r2c=rng.standard_normal(SHAPE2_R2C).astype(np.float32),
              pen2_long=planes(*SHAPE2_LONG), loss=planes(4096),
-             dead=planes(32, 256))
+             dead=planes(32, 256),
+             svc=rng.standard_normal((SVC_REQUESTS, 2, *SVC_SHAPE))
+             .astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +168,29 @@ def _reference(inputs: str, out: str) -> None:
         p.placement, int(p.mesh.devices.size),
         [e["reason"] for e in events("plan_downgrade")]]))
     meshstate.restore_devices()
+
+    # the service over the mesh: each launch's (rows, placement)
+    from repro.serve import FftService
+    for name, verify in SVC_CASES:
+        service = FftService(impl="matfft", mesh=meshes[name], coalesce=4,
+                             verify=verify, start=False)
+        launches = []
+        real = service._plan
+
+        def recorded(key, total, real=real, launches=launches):
+            p = real(key, total)
+            launches.append([total, p.placement])
+            return p
+
+        service._plan = recorded
+        tickets = [service.submit("c2c", *q) for q in x["svc"]]
+        service.start()
+        outs = [t.result(timeout=300) for t in tickets]
+        service.close(drain=True)
+        case = f"svc_{name}_{verify}"
+        res[case] = np.stack([np.stack([np.asarray(a) for a in o])
+                              for o in outs])
+        res[case + "_launches"] = np.array(json.dumps(launches))
     # which shard each mesh position holds: (data, model, shard index)
     coords = {d.id: idx for idx, d in np.ndenumerate(mesh.devices)}
     for axes in (("data", "model"), ("model", "data")):
@@ -622,12 +654,142 @@ def _worker(rank: int, store: str, inputs: str, out: str) -> None:
                     mesh_free=all(k[1] is None for k in planner._PLAN_CACHE))
         res["dead"] = np.stack([t.numpy() for t in p.execute(*x["dead"])])
         info["dead"] = dead
+
+        # the service over the mesh: every rank constructs it, rank 0
+        # admits and the others follow
+        _serve_on_the_mesh(rank, x, meshes, res, info)
         if rank == 0:
             np.savez(Path(out) / "port.npz", **res)
             (Path(out) / "port.json").write_text(json.dumps(info))
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def _serve_on_the_mesh(rank, x, meshes, res, info) -> None:
+    """The port's service on 8 ranks: the reference's cases, the storm
+    with faults, and ranks 6-7 lost between two rounds of requests."""
+    import torch.distributed as dist
+
+    import repro_torch.fft as tfft
+    from repro_torch.core.resilience import (FaultInjector, FaultPlan,
+                                             RetryPolicy, clear_events,
+                                             events, meshstate)
+    from repro_torch.serve import FftService, loadgen
+
+    reqs = x["svc"].numpy()
+    mine = {}  # what each rank saw, gathered at the end
+
+    def recording(service):
+        launches = []
+        real = service._plan_for
+
+        def recorded(kind, shape, total):
+            p = real(kind, shape, total)
+            launches.append([total, p.placement, p.num_devices])
+            return p
+
+        service._plan_for = recorded
+        return launches
+
+    def run_round(service):
+        tickets = [service.submit("c2c", *q) for q in reqs]
+        service.start()
+        return [t.result(timeout=60) for t in tickets]
+
+    for name, verify in SVC_CASES:
+        case = f"svc_{name}_{verify}"
+        service = FftService(mesh=meshes[name], impl="matfft", device="cpu",
+                             coalesce=4, verify=verify, start=False)
+        if rank != 0:
+            service.close()
+            mine[case] = service.stats.batches
+            continue
+        launches = recording(service)
+        outs = run_round(service)
+        service.close(drain=True)
+        one = FftService(impl="matfft", device="cpu", coalesce=4,
+                         verify=verify, start=False)
+        want = run_round(one)
+        one.close(drain=True)
+        res[case] = np.stack([np.stack(o) for o in outs])
+        info[case] = {"launches": launches,
+                      "one_rank_bitwise": all(loadgen.bitwise_equal(a, b)
+                                              for a, b in zip(outs, want))}
+        mine[case] = service.stats.batches
+
+    # benchmarks/bench_serve.py's storm, at a small size
+    sites = ("serve.admit", "serve.batch", "serve.execute")
+    injector = (FaultInjector(FaultPlan.random(
+        1407, SVC_STORM_REQUESTS, sites=sites, rate=0.25))
+        if rank == 0 else None)
+    service = FftService(mesh=meshes["mesh8"], impl="matfft", device="cpu",
+                         coalesce=4, queue_depth=40, max_inflight=2,
+                         injector=injector, start=False,
+                         retry=RetryPolicy(max_attempts=4, base_delay_s=0.0))
+    if rank == 0:
+        launches = recording(service)
+        service.start()
+        records = loadgen.drive(service, num_requests=SVC_STORM_REQUESTS,
+                                clients=3, seed=1407)
+        outcomes = {r.rid: loadgen.classify(r) for r in records}
+        service.close(drain=True)
+        info["svc_storm"] = {
+            "outcomes": dict(Counter(outcomes.values())),
+            "idle": service.idle(), "fired": injector.total_fired,
+            "placements": dict(Counter(p for _, p, _ in launches)),
+            "ok_bitwise": all(
+                loadgen.bitwise_equal(r.ticket.value, loadgen.oracle(
+                    r.shape, loadgen.request_operands(1407, r.rid, r.shape),
+                    impl="matfft", batch_rows=r.ticket.batch_rows,
+                    device="cpu"))
+                for r in records if outcomes[r.rid] == "ok")}
+    else:
+        service.close()
+    mine["svc_storm"] = service.stats.batches
+
+    # tests/test_chaos.py's partial loss under the service: rank 0 marks
+    # ranks 6-7 lost between two rounds; the second round re-plans on the
+    # shrunk mesh of ranks 0-3
+    tfft.clear_plan_cache()
+    clear_events()
+    service = FftService(mesh=meshes["mesh8"], impl="matfft", device="cpu",
+                         coalesce=4, start=False)
+    if rank == 0:
+        launches = recording(service)
+        before = run_round(service)
+        marked = FaultInjector(FaultPlan.random(
+            0, 0, rate=0.0, device_loss=(6, 7))).apply_device_loss(
+                meshes["mesh8"])
+        deadline = time.monotonic() + 30
+        while (not events("service_degrade")
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        after = [service.submit("c2c", *q) for q in reqs]
+        after = [t.result(timeout=60) for t in after]
+        service.close(drain=True)
+        res["svc_loss"] = np.stack([np.stack(o) for o in after])
+        info["svc_loss"] = {
+            "marked": list(marked), "launches": launches,
+            "degrade": [[e["reason"], e["action"]]
+                        for e in events("service_degrade")],
+            "same_as_before": all(loadgen.bitwise_equal(a, b)
+                                  for a, b in zip(before, after))}
+        error = None
+    else:
+        try:
+            service.close()
+            error = None
+        except Exception as e:
+            error = repr(e)
+    mine["svc_loss"] = {
+        "shard_launches": service.stats.batches, "error": error,
+        "lost": sorted(meshstate.lost_devices()),
+        "downgrades": [e["to_devices"] for e in events("plan_downgrade")]}
+    meshstate.restore_devices()
+    every = [None] * WORLD
+    dist.all_gather_object(every, mine)
+    info["svc_ranks"] = every
 
 
 # ---------------------------------------------------------------------------
@@ -1150,3 +1312,73 @@ if __name__ == "__main__":
         _reference(*sys.argv[2:])
     else:
         _worker(int(sys.argv[2]), *sys.argv[3:])
+
+
+# ---------------------------------------------------------------------------
+# the service over the mesh (ROADMAP Queue 1 item 14)
+
+
+@pytest.mark.parametrize("name,verify", SVC_CASES)
+def test_service_on_the_mesh_matches_the_reference(runs, name, verify):
+    """The same requests through the reference's service on 8 host devices
+    and the port's on 8 ranks: each output within TOL, the same launches at
+    the same placements (segmented, or local with the ABFT checksum row),
+    and bitwise equal to the port's one-rank service."""
+    ref, port, info, x = runs
+    case = f"svc_{name}_{verify}"
+    for got, want, q in zip(port[case], ref[case], x["svc"]):
+        assert _rel_err(got, want) < TOL
+        assert _rel_err(got, _split(_numpy_fft(q))) < TOL
+    ref_launches = json.loads(str(ref[case + "_launches"]))
+    assert [la[:2] for la in info[case]["launches"]] == ref_launches
+    rows = 4 * SVC_SHAPE[0] + (verify == "abft")
+    assert ref_launches == [[rows, "segmented" if verify == "off"
+                             else "local"]] * 2
+    assert info[case]["one_rank_bitwise"]
+
+
+@pytest.mark.parametrize("name,verify", SVC_CASES)
+def test_service_followers_run_segmented_shards_only(runs, name, verify):
+    _, _, info, _ = runs
+    case = f"svc_{name}_{verify}"
+    batches = [r[case] for r in info["svc_ranks"]]
+    assert batches[0] == 2  # rank 0 counts every launch
+    assert batches[1:] == [2 if verify == "off" else 0] * (WORLD - 1)
+
+
+def test_service_storm_on_eight_ranks(runs):
+    """bench_serve's storm with faults: every ok bitwise equal to its
+    oracle, every other request classified, drained, followers alive."""
+    _, _, info, _ = runs
+    storm = info["svc_storm"]
+    classified = {"ok", "queue_full", "rate_limit", "inflight_cap",
+                  "admit_fault", "closed", "shed", "deadline", "failed"}
+    assert sum(storm["outcomes"].values()) == SVC_STORM_REQUESTS
+    assert set(storm["outcomes"]) <= classified
+    assert storm["outcomes"].get("ok", 0) > 0 and storm["fired"] > 0
+    assert storm["ok_bitwise"] and storm["idle"]
+    # full batches split over the ranks, singletons on rank 0
+    assert storm["placements"].get("segmented", 0) > 0
+    assert all(r["svc_storm"] > 0 for r in info["svc_ranks"][1:])
+
+
+def test_service_rank_loss_degrades_to_the_shrunk_mesh(runs):
+    _, port, info, x = runs
+    loss = info["svc_loss"]
+    assert loss["marked"] == [6, 7]
+    assert ["device_loss", "replan_fallback_degrade"] in loss["degrade"]
+    rows = 4 * SVC_SHAPE[0]
+    assert loss["launches"] == ([[rows, "segmented", WORLD]] * 2
+                                + [[rows, "segmented", 4]] * 2)
+    assert loss["same_as_before"]
+    for got, q in zip(port["svc_loss"], x["svc"]):
+        assert _rel_err(got, _split(_numpy_fft(q))) < TOL
+    for r, seen in enumerate(info["svc_ranks"]):
+        assert seen["svc_loss"]["lost"] == [6, 7]
+        if r == 0:
+            continue
+        # every follower exited cleanly; ranks 1-3 ran both rounds' shards
+        assert seen["svc_loss"]["error"] is None
+        assert seen["svc_loss"]["shard_launches"] == (4 if r < 4 else 2)
+        # each launch after the loss re-planned on the shrunk mesh
+        assert seen["svc_loss"]["downgrades"] == [4, 4]

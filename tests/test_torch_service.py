@@ -8,15 +8,24 @@ to the loadgen oracle), a parity case against the reference's service on
 the same loadgen seed (each ``ok`` result within 5e-6), the batch
 invariance of the port's kernels (ROADMAP Queue 1 item 9) and the
 `fft_serve --device cpu` launcher. The device-loss case runs on a
-world-size-1 gloo group.
+world-size-1 gloo group. A service over two ranks runs once per module,
+as two subprocesses of this file on a gloo group (``python
+test_torch_service.py rank <rank> <store> <dir>``): a follower's submit
+raises, an idle gap past the control channel's timeout keeps the
+follower alive, and its close waits for rank 0's stop. The 8-rank cases
+are in tests/test_torch_distributed.py.
 """
 
 import contextlib
 import datetime
 import io
 import json
+import os
+import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,9 +37,11 @@ from repro_torch.core.resilience import (FaultInjector, FaultPlan,
                                          meshstate)
 from repro_torch.core.resilience.faults import FaultRule, InjectedFault
 from repro_torch.serve import loadgen
-from repro_torch.serve.fft_service import (DeadlineExceeded, FftService,
-                                           RequestFailed, ServiceClosed,
-                                           ServiceOverload)
+from repro_torch.serve.fft_service import (MSG_BYTES, DeadlineExceeded,
+                                           FftService, RequestFailed,
+                                           ServiceClosed, ServiceError,
+                                           ServiceOverload, decode_message,
+                                           encode_message)
 
 # the suite runs one process per core (xdist): keep torch to one thread
 torch.set_num_threads(1)
@@ -333,13 +344,123 @@ def test_device_loss_logs_degrade_and_keeps_serving(service_of, impl,
             meshstate.restore_devices()
 
 
-def test_mesh_of_more_ranks_names_its_roadmap_item():
-    class TwoRanks:
-        device_type = "cpu"
-        mesh = torch.arange(2)
+# ------------------------------------------------ a service over two ranks
 
-    with pytest.raises(ValueError, match="item 14"):
-        FftService(mesh=TwoRanks(), device="cpu", start=False)
+# the control channel's timeout in the two-rank run: it also bounds the
+# group's set-up and every shard, so it leaves room for a loaded host
+IDLE_TIMEOUT_S = 3.0
+
+
+@pytest.mark.parametrize("msg", [
+    {"op": "noop", "lost": [], "epoch": 0},
+    {"op": "launch", "lost": [6, 7], "epoch": 3, "kind": "r2c",
+     "shape": [8, 512], "rows": 64, "devices": 4},
+    {"op": "stop", "lost": list(range(512)), "epoch": 2 ** 40},
+])
+def test_control_message_codec_round_trips(msg):
+    buf = encode_message(msg)
+    assert buf.dtype == torch.uint8 and tuple(buf.shape) == (MSG_BYTES,)
+    assert decode_message(buf.clone()) == msg
+
+
+def test_control_message_larger_than_its_buffer_raises():
+    with pytest.raises(ValueError, match="MSG_BYTES"):
+        encode_message({"op": "noop", "pad": "x" * MSG_BYTES})
+
+
+def _two_rank_worker(rank: int, store: str, out: str) -> None:
+    """One rank of a two-rank service on a gloo group (`two_ranks`)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("data",))
+        service = FftService(mesh=mesh, impl="matfft", device="cpu",
+                             coalesce=2, start=False,
+                             control_timeout_s=IDLE_TIMEOUT_S)
+        doc = {"rank": service.rank}
+        if rank == 0:
+            service.start()
+            tickets = [service.submit("c2c", *_ops(4, seed=0))]
+            tickets[0].result(timeout=30)
+            time.sleep(4 * IDLE_TIMEOUT_S)  # idle past the timeout
+            tickets.append(service.submit("c2c", *_ops(4, seed=1)))
+            tickets[1].result(timeout=30)
+            service.close(drain=True)
+            doc["mesh_seconds"] = service.mesh_seconds()
+            shape = loadgen.RequestShape("c2c", N, 4)
+            doc["bitwise"] = [loadgen.bitwise_equal(t.result(), loadgen.oracle(
+                shape, _ops(4, seed=i), impl="matfft",
+                batch_rows=t.batch_rows, device="cpu"))
+                for i, t in enumerate(tickets)]
+        else:
+            try:
+                service.submit("c2c", *_ops(4))
+                doc["submit_error"] = None
+            except ServiceError as e:
+                doc["submit_error"] = str(e)
+            t0 = time.monotonic()
+            service.close()
+            doc["close_s"] = time.monotonic() - t0
+            doc["shard_launches"] = service.stats.batches
+        Path(out, f"rank{rank}.json").write_text(json.dumps(doc))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """Both ranks of a two-rank service, as subprocesses of this file; each
+    writes what it saw."""
+    tmp = tmp_path_factory.mktemp("two_ranks")
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join(
+        [str(Path(__file__).resolve().parents[1] / "src"),
+         os.environ.get("PYTHONPATH", "")])}
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "rank", str(r), str(tmp / "store"),
+         str(tmp)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def test_follower_submit_raises_only_rank0_admits(two_ranks):
+    follower = two_ranks[1]
+    assert follower["rank"] == 1
+    assert "only rank 0 admits" in follower["submit_error"]
+
+
+def test_idle_gap_past_the_channel_timeout_keeps_followers_alive(two_ranks):
+    leader, follower = two_ranks
+    # both launches were segmented, the second after the idle gap
+    assert leader["bitwise"] == [True, True]
+    assert follower["shard_launches"] == 2
+
+
+def test_rank0_times_each_step_of_its_launches(two_ranks, service_of):
+    steps = two_ranks[0]["mesh_seconds"]
+    assert set(steps) == {"shard", "send", "scatter", "gather_wait"}
+    assert all(v > 0 for v in steps.values())
+    with service_of() as service:  # one rank: no channel
+        assert service.mesh_seconds() is None
+
+
+def test_follower_close_waits_for_rank0_stop(two_ranks):
+    # the follower closed at once and returned only when rank 0 stopped
+    # it, after the idle gap
+    assert two_ranks[1]["close_s"] >= 4 * IDLE_TIMEOUT_S
 
 
 # ------------------------------------------------------------------ closing
@@ -594,3 +715,8 @@ def test_fft_serve_launcher_on_the_cpu():
     assert "silent_drop" not in report["outcomes"]
     assert not any(k.startswith("unclassified") for k in report["outcomes"])
     assert report["faults"]["total_fired"] > 0
+
+
+if __name__ == "__main__":
+    # python test_torch_service.py rank <rank> <store> <out dir>
+    _two_rank_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
