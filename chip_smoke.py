@@ -87,7 +87,21 @@ Phases (any failed check exits non-zero):
      printed beside ``qps_completed``;
  16. `python -m repro_torch.launch.fft_dryrun` as a subprocess (the
      256-rank mesh; no card, no process group), and its 512-rank records;
- 17. the `kernels` JSON line: phase 3's numbers and the main-path
+ 17. LM serving (`lm_checks`): `repro_torch.launch.serve.main` and
+     `ServeEngine` at the full width of qwen2-0.5b (batch 8, prompt 512,
+     64 new tokens) and gemma3-1b (batch 4, prompt 1024 past its window
+     of 512, 32 new tokens) in bf16, from seeded random parameters:
+     (a) the tokens' shape and range; (b) in float32 and float64 twins
+     over the same parameters, every decode step's logits within 1e-4 of
+     the teacher-forced forward's and the greedy tokens its argmax;
+     (c) qwen2-0.5b's prefill on the card within 1e-4 of the port's own
+     run on the host; (d) the bf16 first-token logits against the
+     float32 twin within a stated bound. qwen2-0.5b's (b) and (c) are
+     held at its first layer (its deeper logits are chaotic at the
+     reference's init); every depth is printed. Prefill and decode times,
+     tokens/s, peak memory and the weight-read bound of a decode step in
+     one `lm serve` line a model; no FFT kernel runs;
+ 18. the `kernels` JSON line: phase 3's numbers and the main-path
      launches (phases 4, 6, 7, 9-15, the followers' included).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
@@ -114,6 +128,17 @@ F32_FLOPS_S = 67e12    # H100 SXM f32 outside the tensor cores
 
 TOL_CONV = 1e-4  # fft_conv against float64 (tests/test_spectral.py's bar)
 TOL_ROUND = 1e-5  # inverse(forward(x)) against x (tests/test_fft2_plan.py)
+# LM serving: decode steps against the teacher-forced forward, and the
+# card's prefill against the host's, max|d| / max|ref| (the bar
+# tests/test_torch_lm_serve.py holds the logits to); the twins' dtypes
+LM_TOL = 1e-4
+LM_TWINS = ("float32", "float64")
+# the served bf16 first-token logits against the float32 twin at full
+# depth, measured on the H100 at 1.248 and 0.0203 (PERF.md §6).
+# qwen2-0.5b's is rounding noise at the reference's init (bf16 moves its
+# ~700 scores by ~3), so its bound says only that both are finite and of
+# one scale
+LM_SERVED_BOUND = {"qwen2-0.5b": 1.5, "gemma3-1b": 0.05}
 
 # the Pallas sites each kernel variant replaces, and its CUDA source
 REPLACES = {
@@ -242,6 +267,26 @@ FULL = {
     # the service over `ranks` processes on the one card, at phase 12's
     # paper mix and request count
     "mesh_serve": {"ranks": 4},
+    # LM serving at full width: each model's batch, prompt and new tokens,
+    # the cuts of its depth the twins also run at, the depth (b) and (c)
+    # are held at (None: all its layers) and the twins they are held in,
+    # and the bound on its served first-token logits against the float32
+    # twin (d); the card-against-host prefill at (arch, batch, prompt).
+    # At the reference's init qwen2-0.5b's scores reach ~700, so from its
+    # second layer on a 1e-7 change of a layer's input (the float32 norms
+    # and score tiles) moves its logits by 1e-4 (2 layers) to O(1) (24):
+    # its checks hold at its first layer, whose input is the same in both
+    # paths (PERF.md §6)
+    "lm": {"models": [
+        {"arch": "qwen2-0.5b", "batch": 8, "prompt": 512, "new": 64,
+         "depths": (2, 1), "gate_layers": 1, "gate_twins": ("float64",),
+         "served_bound": LM_SERVED_BOUND["qwen2-0.5b"]},
+        {"arch": "gemma3-1b", "batch": 4, "prompt": 1024, "new": 32,
+         "depths": (), "gate_layers": None,
+         "gate_twins": ("float32", "float64"),
+         "served_bound": LM_SERVED_BOUND["gemma3-1b"]}],
+        "reduced": False, "cpu_check": ("qwen2-0.5b", 1, 32),
+        "seed": 0, "reps": 3},
 }
 REHEARSE = {
     "runs": [
@@ -309,6 +354,17 @@ REHEARSE = {
                  "coalesce": 4, "inflight": 3, "iters": 2, "disk_mb_s": 25,
                  "impls": ("ref", "matfft")},
     "mesh_serve": {"ranks": 4},
+    # the reduced configs (float32); prompt 80 passes gemma3's reduced
+    # window of 64; qwen2's checks held at 1 of its 2 layers
+    "lm": {"models": [
+        {"arch": "qwen2-0.5b", "batch": 2, "prompt": 80, "new": 8,
+         "depths": (1,), "gate_layers": 1, "gate_twins": LM_TWINS,
+         "served_bound": LM_TOL},
+        {"arch": "gemma3-1b", "batch": 2, "prompt": 80, "new": 8,
+         "depths": (), "gate_layers": None, "gate_twins": LM_TWINS,
+         "served_bound": LM_TOL}],
+        "reduced": True, "cpu_check": ("qwen2-0.5b", 1, 32),
+        "seed": 0, "reps": 1},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -3042,6 +3098,296 @@ def dryrun_records() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: LM serving
+
+
+def lm_twin(model, dtype: str, layers: int | None = None):
+    """``model`` computing in ``dtype`` over the same parameter tensors;
+    with ``layers``, only its first ``layers`` layers (views of the
+    stacked blocks)."""
+    import dataclasses
+
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(model.cfg, dtype=dtype, cache_dtype=dtype,
+                              num_layers=layers or model.cfg.num_layers)
+    state = model.state_dict()
+    if layers:
+        period = len(cfg.layer_pattern)
+        check(layers <= model.cfg.pattern_groups()[0] * period,
+              f"a cut to {layers} layers reaches the tail")
+        full, tail = cfg.pattern_groups()
+        cut = {}
+        for name, t in state.items():
+            if name.startswith("tail."):
+                continue
+            if name.startswith("blocks."):
+                _, j, rest = name.split(".", 2)
+                if int(j) < tail:
+                    cut[f"tail.{j}.{rest}"] = t[full]
+                if not full:
+                    continue
+                t = t[:full]
+            cut[name] = t
+        state = cut
+    twin = TransformerLM(cfg, device="meta")
+    twin.load_state_dict(state, assign=True)
+    return twin
+
+
+def lm_generate(torch, model, tokens, new: int):
+    """`ServeEngine.generate`'s prefill and greedy decode, keeping each
+    step's logits: tokens (B, new) and logits (B, new, V)."""
+    with torch.inference_mode():
+        s = tokens.shape[1]
+        logits, caches = model.prefill({"tokens": tokens}, cache_len=s + new)
+        steps = [logits[:, -1]]
+        out = [torch.argmax(steps[-1], dim=-1)[:, None].to(tokens.dtype)]
+        for t in range(new - 1):
+            logits, caches = model.decode_step(caches, out[-1], s + t)
+            steps.append(logits[:, -1])
+            out.append(torch.argmax(steps[-1],
+                                    dim=-1)[:, None].to(tokens.dtype))
+        return torch.cat(out, dim=1), torch.stack(steps, dim=1)
+
+
+def lm_teacher_forced(torch, model, tokens, out):
+    """`forward`'s logits over prompt + generated tokens at the positions
+    whose next token each decode step chose: (B, new, V)."""
+    with torch.inference_mode():
+        full = torch.cat([tokens, out[:, :-1]], dim=1)
+        return model.forward({"tokens": full})[:, tokens.shape[1] - 1:]
+
+
+def step_rel_errs(got, want) -> list:
+    """max |got - want| / max |want| for each step of (B, steps, V)."""
+    num = (got - want).abs().amax(dim=(0, 2))
+    return (num / want.abs().amax(dim=(0, 2))).tolist()
+
+
+def lm_timed_ms(torch, gpu: bool, fn, reps: int) -> float:
+    """Mean ms of one call: CUDA events on the card, the host clock in the
+    rehearsal (a CPU number, never written as a device time)."""
+    if gpu:
+        return timed_ms(torch, fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def lm_model_checks(torch, dev, gpu: bool, cfg: dict, spec: dict) -> dict:
+    """Phase 17 for one model of ``cfg["models"]``: the launcher, then the
+    engine's tokens (a), the decode steps against the teacher-forced
+    forward in the twins (b), the served dtype's first-token logits
+    against the float32 twin (d), and the times."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve import ServeEngine
+
+    seed, reps = cfg["seed"], cfg["reps"]
+    arch, batch, prompt, new = (spec[k] for k in ("arch", "batch", "prompt",
+                                                  "new"))
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--new-tokens", str(new), "--seed", str(seed),
+            "--device", dev.type] + (["--reduced"] if cfg["reduced"] else [])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = serve_cli.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"lm launch [{arch}] {line}")
+    launch_tokens = report.pop("tokens").cpu()
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+
+    mcfg = get_config(arch)
+    if cfg["reduced"]:
+        mcfg = mcfg.reduced()
+    model = TransformerLM(mcfg, device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(
+        rng.integers(1, mcfg.vocab_size, (batch, prompt))).to(dev)
+    engine = ServeEngine(model)
+
+    # (a) and the steady-state generate, after a warm-up call
+    engine.generate({"tokens": tokens}, new)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    gen_ms = lm_timed_ms(torch, gpu, lambda: engine.generate(
+        {"tokens": tokens}, new), 1)
+    out = engine.generate({"tokens": tokens}, new)
+    peak = torch.cuda.max_memory_allocated() if gpu else None
+    check(tuple(out.shape) == (batch, new) and out.dtype == tokens.dtype,
+          f"lm {arch}: tokens {tuple(out.shape)} {out.dtype}")
+    check(bool(((out >= 0) & (out < mcfg.vocab_size)).all()),
+          f"lm {arch}: a token out of range")
+
+    # prefill and decode times
+    @torch.inference_mode()
+    def prefill():
+        return model.prefill({"tokens": tokens}, cache_len=prompt + new)
+
+    prefill_ms = lm_timed_ms(torch, gpu, prefill, reps)
+
+    @torch.inference_mode()
+    def decode_all():
+        _, caches = prefill()
+        for t in range(new - 1):
+            model.decode_step(caches, out[:, t:t + 1], prompt + t)
+
+    decode_ms = (lm_timed_ms(torch, gpu, decode_all, reps)
+                 - prefill_ms) / (new - 1)
+    weights = model.weights()
+
+    def leaves(tree):
+        return ([x for v in tree.values() for x in leaves(v)]
+                if isinstance(tree, dict) else [tree])
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(weights))
+    kv_bytes = sum(t.numel() * t.element_size() for t in leaves(
+        model.init_cache(batch, prompt + new)))
+    with torch.inference_mode():
+        first = model.prefill({"tokens": tokens},
+                              cache_len=prompt + new)[0][:, -1]
+
+    summary = {
+        "arch": arch, "batch": batch, "prompt": prompt, "new_tokens": new,
+        "params": sum(p.numel() for p in model.parameters()),
+        "dtype": mcfg.dtype, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": decode_ms, "generate_ms": gen_ms,
+        "tok_s": batch * new / (gen_ms * 1e-3),
+        "launcher_first_s": report["first_s"],
+        "launcher_steady_s": report["steady_s"],
+        "launcher_tok_s": report["tok_s"],
+        "tokens_equal_launcher": bool(torch.equal(out.cpu(), launch_tokens)),
+        "peak_bytes": peak, "weight_bytes": weight_bytes,
+        "kv_bytes": kv_bytes,
+        "decode_bound_ms": weight_bytes / HBM_BYTES_S * 1e3,
+        "twins": {}}
+    summary["decode_x_bound"] = decode_ms / summary["decode_bound_ms"]
+    del weights
+
+    # (b) and (d): each twin over the same parameters, at full depth and at
+    # each cut of ``spec["depths"]``
+    for layers in [None, *spec["depths"]]:
+        at = {}
+        for dtype in LM_TWINS:
+            twin = lm_twin(model, dtype, layers)
+            out_t, steps = lm_generate(torch, twin, tokens, new)
+            check(torch.equal(out_t, ServeEngine(twin).generate(
+                {"tokens": tokens}, new)), f"lm {arch} {dtype}: the "
+                  f"engine's tokens differ from its own steps'")
+            want = lm_teacher_forced(torch, twin, tokens, out_t)
+            errs = step_rel_errs(steps, want)
+            at[dtype] = {
+                "decode_vs_forward": max(errs),
+                "worst_step": int(np.argmax(errs)),
+                "tokens_equal_forward_argmax": bool(torch.equal(
+                    out_t, want.argmax(dim=-1).to(out_t.dtype))),
+                "first": steps[:, 0]}
+            del twin, steps, want
+        if layers:
+            with torch.inference_mode():
+                served = lm_twin(model, mcfg.dtype, layers).prefill(
+                    {"tokens": tokens})[0][:, -1]
+        else:
+            served = first
+        for dtype, d in at.items():
+            d["served_first_token"] = rel_err(served.float(), d["first"])
+        at["float32_vs_float64_first_token"] = rel_err(
+            at["float32"].pop("first"), at["float64"].pop("first"))
+        summary["twins"][str(layers or mcfg.num_layers)] = at
+        gc.collect()
+        if gpu:
+            torch.cuda.empty_cache()
+
+    # the gates: (b) at the depth it is held at, (d) at full depth
+    held = summary["twins"][str(spec["gate_layers"] or mcfg.num_layers)]
+    served = summary["twins"][str(mcfg.num_layers)]["float32"][
+        "served_first_token"]
+    for dtype in spec["gate_twins"]:
+        check(held[dtype]["decode_vs_forward"] < LM_TOL,
+              f"lm {arch} {dtype}: decode steps "
+              f"{held[dtype]['decode_vs_forward']} from the forward")
+        check(held[dtype]["tokens_equal_forward_argmax"],
+              f"lm {arch} {dtype}: greedy tokens differ from the forward's "
+              f"argmax")
+    check(served < spec["served_bound"], f"lm {arch}: {mcfg.dtype} "
+          f"first-token logits {served} from the float32 twin")
+    del model, engine
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    return summary
+
+
+def lm_cpu_check(torch, dev, cfg: dict) -> dict:
+    """(c): the card's twin prefill logits against the port's own CPU run on
+    the same parameters, at ``cfg["cpu_check"]``'s model, batch and prompt,
+    at full depth and at each cut of the model's ``depths``; held at its
+    gated depth in each of its gated twins."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+
+    arch, batch, prompt = cfg["cpu_check"]
+    spec = next(m for m in cfg["models"] if m["arch"] == arch)
+    mcfg = get_config(arch)
+    if cfg["reduced"]:
+        mcfg = mcfg.reduced()
+    model = TransformerLM(mcfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(cfg["seed"]))
+    rng = np.random.default_rng(cfg["seed"])
+    tokens = torch.from_numpy(rng.integers(1, mcfg.vocab_size,
+                                           (batch, prompt)))
+    host = TransformerLM(mcfg, device="meta")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                         assign=True)
+    out = {"arch": arch, "batch": batch, "prompt": prompt}
+    for layers in [None, *spec["depths"]]:
+        at = out[str(layers or mcfg.num_layers)] = {}
+        for dtype in LM_TWINS:
+            with torch.inference_mode():
+                card = lm_twin(model, dtype, layers).prefill(
+                    {"tokens": tokens.to(dev)})[0].cpu()
+                cpu = lm_twin(host, dtype, layers).prefill(
+                    {"tokens": tokens})[0]
+            at[dtype] = rel_err(card, cpu)
+    held = out[str(spec["gate_layers"] or mcfg.num_layers)]
+    for dtype in spec["gate_twins"]:
+        check(held[dtype] < LM_TOL,
+              f"lm {arch} {dtype}: card prefill {held[dtype]} from the host's")
+    return out
+
+
+def lm_checks(torch, dev, gpu: bool, cfg: dict) -> dict:
+    """Phase 17: LM serving through `repro_torch.launch.serve` and
+    `ServeEngine` for each model of ``cfg["models"]``, and (c). No FFT
+    kernel runs."""
+    reset_counts()
+    runs = []
+    for spec in cfg["models"]:
+        t0 = time.monotonic()
+        summary = lm_model_checks(torch, dev, gpu, cfg, spec)
+        summary["seconds"] = time.monotonic() - t0
+        print("lm serve " + json.dumps(summary))
+        runs.append(summary)
+    cpu = lm_cpu_check(torch, dev, cfg)
+    print("lm card vs cpu " + json.dumps(cpu))
+    counts = read_counts()
+    check(not any(counts.values()), f"LM serving ran an FFT kernel: {counts}")
+    return {"runs": runs, "card_vs_cpu": cpu}
+
+
 def model_rates(timing: dict, ooc_run: dict, a2a_bps: float) -> dict:
     """The tuner model's CUDA rates as this run measures them
     (fft/tuner.py MODEL_RATES): K1b's main-path case's flops and bytes over
@@ -3276,6 +3622,12 @@ def main(argv=None) -> int:
     for mesh, doc in dryrun.items():
         print(f"dryrun {mesh} " + json.dumps(doc))
 
+    # phase 17: LM serving
+    t0 = time.monotonic()
+    lm = lm_checks(torch, dev, gpu, cfg["lm"])
+    lm["seconds"] = time.monotonic() - t0
+    print(f"LM serving phase: {lm['seconds']:.3f} s")
+
     # the launches of phases 9-15: by variant, and by timed shape
     measured = {**nd_measured, **dist_measured, **pencil_measured,
                 **serve_measured, **tune_measured, **pipeline_measured,
@@ -3311,7 +3663,7 @@ def main(argv=None) -> int:
     rates = model_rates(timing, ooc["at_scale"], tune["a2a_bytes_s"])
     print("model rates " + json.dumps(rates))
 
-    # phase 17: the kernels line
+    # phase 18: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
@@ -3320,7 +3672,7 @@ def main(argv=None) -> int:
               "fft_conv": conv, "nd": nd, "dist": dist_summary,
               "pencil": pencil, "serve": serve, "tune": tune,
               "pipeline": pipeline, "mesh_serve": mesh_serve,
-              "dryrun": dryrun, "model_rates": rates,
+              "dryrun": dryrun, "lm": lm, "model_rates": rates,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -1,0 +1,281 @@
+"""Attention: GQA with chunked (flash-style) softmax, SWA, qk-norm, caches.
+
+The JAX package's algorithm in torch ops, step for step:
+  * the query axis is split into static chunks, and each q-chunk visits
+    only its statically bounded kv range (causal chunks stop at the chunk
+    end, SWA chunks start at the trailing window), in kv blocks padded to
+    a whole number; padding and masked scores are set to ``NEG`` and
+    their probabilities zeroed, the running sum clamped at 1e-20;
+  * GQA uses a grouped einsum (B,S,KV,G,hd), so KV heads are never
+    repeated in memory;
+  * the probabilities are cast to v's dtype before the PV product, and the
+    output to q's dtype;
+  * decode supports full caches and ring-buffer SWA caches, written in
+    place at ``pos`` (``pos % window`` for a ring).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import rms_norm, rope
+from repro_torch.models.scanning import maybe_scan
+from repro_torch.sharding.rules import ParamSpec
+
+NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+
+
+def attn_specs(cfg, stacked: tuple[int, ...] = (), cross: bool = False) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pre = tuple("layers" for _ in stacked)
+    out = {
+        "wq": ParamSpec(stacked + (d, h, hd), pre + ("d_model", "heads", "head_dim")),
+        "wk": ParamSpec(stacked + (d, kv, hd), pre + ("d_model", "kv_heads", "head_dim")),
+        "wv": ParamSpec(stacked + (d, kv, hd), pre + ("d_model", "kv_heads", "head_dim")),
+        "wo": ParamSpec(stacked + (h, hd, d), pre + ("heads", "head_dim", "d_model")),
+    }
+    if cfg.qkv_bias and not cross:
+        out["bq"] = ParamSpec(stacked + (h, hd), pre + ("heads", "head_dim"), init="zeros")
+        out["bk"] = ParamSpec(stacked + (kv, hd), pre + ("kv_heads", "head_dim"), init="zeros")
+        out["bv"] = ParamSpec(stacked + (kv, hd), pre + ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm and not cross:
+        out["q_norm"] = ParamSpec(stacked + (hd,), pre + ("head_dim",), init="ones")
+        out["k_norm"] = ParamSpec(stacked + (hd,), pre + ("head_dim",), init="ones")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# projections
+
+
+def _proj(x, w):
+    """x (B,S,d) @ w (d,H,hd) -> (B,S,H,hd), in x's dtype."""
+    return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+
+
+def _out_proj(out, w, dt):
+    """out (B,S,H,hd) @ w (H,hd,d) -> (B,S,d)."""
+    return torch.einsum("bshk,hkd->bsd", out, w.to(dt))
+
+
+def _qkv(cfg, p, x, pos_offset, theta):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope'd + normed."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias and "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if theta is not None:
+        s = x.shape[1]
+        positions = pos_offset + torch.arange(s, device=x.device)
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# chunked softmax attention core
+
+
+def _chunk_body(q, k, v, q_pos, k_pos, scale, window, causal):
+    """One (q_chunk x kv_chunk) tile of scores, masked.
+
+    q: (B, qc, KV, G, hd); k, v: (B, kc, KV, hd).
+    """
+    s = torch.einsum("bqkgh,btkh->bkgqt", q, k).float() * scale
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    return torch.where(mask[None, None, None], s, NEG)  # (1,1,1,qc,kc)
+
+
+def _pad_seq(x, n: int):
+    """Zero-pad (B, S, ...) to S + n along dim 1."""
+    if not n:
+        return x
+    pad = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    return torch.cat([x, pad], dim=1)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, pos_offset=0,
+                      q_chunk=2048, kv_chunk=1024, scale=None):
+    """Flash-style attention. q (B,Sq,H,hd); k,v (B,Skv,KV,hd) -> (B,Sq,H,hd).
+
+    ``pos_offset``: global position of q[0] minus position of k[0]
+    (0 for self-attention over the same spans).
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(b, sq, kvh, g, hd)
+    dev = q.device
+
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    out_blocks = []
+    for q0 in range(0, sq, q_chunk):
+        qc = min(q_chunk, sq - q0)
+        q_blk = qg[:, q0:q0 + qc]
+        q_pos = pos_offset + q0 + torch.arange(qc, device=dev)
+
+        # Static kv bounds for this q chunk (the FLOP-honesty trick).
+        hi = min(skv, _ceil_to(pos_offset + q0 + qc, kv_chunk)) if causal else skv
+        lo = 0
+        if window is not None:
+            lo = max(0, _floor_to(pos_offset + q0 - window + 1, kv_chunk))
+        n_blk = -(-(hi - lo) // kv_chunk)
+        pad = n_blk * kv_chunk - (hi - lo)
+        k_rng = _pad_seq(k[:, lo:hi], pad)
+        v_rng = _pad_seq(v[:, lo:hi], pad)
+        k_st = k_rng.reshape(b, n_blk, kv_chunk, kvh, hd).transpose(0, 1)
+        v_st = v_rng.reshape(b, n_blk, kv_chunk, kvh, hd).transpose(0, 1)
+
+        def step(carry, blk_in, q_blk=q_blk, q_pos=q_pos, lo=lo, hi=hi):
+            m, l, acc = carry
+            k_blk, v_blk, idx = blk_in
+            k_pos = lo + idx * kv_chunk + torch.arange(kv_chunk, device=dev)
+            s = _chunk_body(q_blk, k_blk, v_blk, q_pos, k_pos, scale,
+                            window, causal)
+            # also mask kv padding beyond hi
+            s = torch.where((k_pos < hi)[None, None, None, None, :], s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            p = torch.where(s <= NEG / 2, 0.0, p)
+            corr = torch.exp(m - m_new)
+            l_new = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqt,btkh->bkgqh", p.to(v_blk.dtype), v_blk)
+            acc_new = acc * corr[..., None] + pv.float()
+            return (m_new, l_new, acc_new), None
+
+        m0 = torch.full((b, kvh, g, qc), NEG, dtype=torch.float32, device=dev)
+        l0 = torch.zeros((b, kvh, g, qc), dtype=torch.float32, device=dev)
+        a0 = torch.zeros((b, kvh, g, qc, hd), dtype=torch.float32, device=dev)
+        (m, l, acc), _ = maybe_scan(
+            step, (m0, l0, a0),
+            (k_st, v_st, torch.arange(n_blk, device=dev)))
+        out = acc / torch.clamp(l, min=1e-20)[..., None]
+        # (B,KV,G,qc,hd) -> (B,qc,KV,G,hd) -> (B,qc,H,hd)
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, qc, h, hd)
+        out_blocks.append(out.to(q.dtype))
+    return torch.cat(out_blocks, dim=1) if len(out_blocks) > 1 else out_blocks[0]
+
+
+def _ceil_to(x, m):
+    return -(-x // m) * m
+
+
+def _floor_to(x, m):
+    return (x // m) * m
+
+
+# ---------------------------------------------------------------------------
+# block-level entry points
+
+
+def self_attention(cfg, p, x, *, window=None, theta=None, pos_offset=0,
+                   causal=True, return_kv=False):
+    """Training / prefill self-attention over x (B,S,d)."""
+    theta = cfg.rope_theta if theta is None else theta
+    q, k, v = _qkv(cfg, p, x, pos_offset, theta)
+    out = chunked_attention(
+        q, k, v, causal=causal, window=window, pos_offset=0,
+        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    y = _out_proj(out, p["wo"], x.dtype)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def cross_attention(cfg, p, x, enc_k, enc_v):
+    """Decoder cross-attention (whisper): no rope, no causal mask."""
+    q = _proj(x, p["wq"])
+    out = chunked_attention(
+        q, enc_k, enc_v, causal=False, window=None,
+        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    return _out_proj(out, p["wo"], x.dtype)
+
+
+def encode_kv(cfg, p, enc_out):
+    """Precompute cross-attention K/V from encoder output (cached once)."""
+    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+
+
+# ---------------------------------------------------------------------------
+# decode (one token) with full or ring cache
+
+
+def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *,
+                          window=None, theta=None):
+    """x (B,1,d), cache (B,S_cache,KV,hd), pos: int position.
+
+    Writes this token's k/v into the caches in place and returns
+    (y, cache_k, cache_v). When ``window`` is set and the cache length
+    equals the window, the cache is a ring buffer.
+    """
+    theta = cfg.rope_theta if theta is None else theta
+    b, s_cache, kvh, hd = cache_k.shape
+    h = cfg.num_heads
+    g = h // kvh
+    ring = window is not None and s_cache == window
+
+    q, k_t, v_t = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias and "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k_t = k_t + p["bk"].to(x.dtype)
+        v_t = v_t + p["bv"].to(x.dtype)
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k_t = rms_norm(k_t, p["k_norm"], cfg.norm_eps)
+    if theta is not None:
+        posv = torch.full((1,), pos, device=x.device)
+        q = rope(q, posv, theta)
+        k_t = rope(k_t, posv, theta)
+
+    slot = (pos % window) if ring else pos
+    cache_k[:, slot] = k_t[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_t[:, 0].to(cache_v.dtype)
+
+    idx = torch.arange(s_cache, device=x.device)
+    if ring:
+        age = (pos - idx) % window
+        valid = age <= min(pos, window - 1)
+    else:
+        valid = idx <= pos
+        if window is not None:
+            valid &= pos - idx < window
+
+    qg = q.reshape(b, 1, kvh, g, hd)
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, cache_k.to(q.dtype))
+    s = s.float() * (cfg.head_dim ** -0.5)
+    s = torch.where(valid[None, None, None, None, :], s, NEG)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkh->bqkgh", w.to(q.dtype),
+                       cache_v.to(q.dtype))
+    out = out.reshape(b, 1, h, hd)
+    y = _out_proj(out, p["wo"], x.dtype)
+    return y, cache_k, cache_v
+
+
+def decode_cross_attention(cfg, p, x, enc_k, enc_v):
+    """One-token cross-attention against a fixed encoder cache."""
+    b, tc, kvh, hd = enc_k.shape
+    h, g = cfg.num_heads, cfg.num_heads // enc_k.shape[2]
+    q = _proj(x, p["wq"])
+    qg = q.reshape(b, 1, kvh, g, hd)
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, enc_k.to(q.dtype))
+    s = s.float() * (cfg.head_dim ** -0.5)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkh->bqkgh", w.to(q.dtype),
+                       enc_v.to(q.dtype)).reshape(b, 1, h, hd)
+    return _out_proj(out, p["wo"], x.dtype)

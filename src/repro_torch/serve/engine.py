@@ -1,0 +1,41 @@
+"""Batched serving: prefill + greedy decode over `TransformerLM`.
+
+The model holds its parameters, so `ServeEngine.generate` takes the batch
+and the token count (the reference's also takes the parameter tree). The
+decode caches are updated in place, as the reference donates them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.transformer import TransformerLM
+
+
+class ServeEngine:
+    def __init__(self, model: TransformerLM):
+        self.model = model
+
+    def generate(self, batch, max_new_tokens: int):
+        """Greedy continuation of batch["tokens"] (B, S): (B, max_new_tokens)
+        tokens in the prompt's dtype, on the model's device."""
+        model = self.model
+        with torch.inference_mode():
+            tokens = batch["tokens"].to(model.device)
+            b, s = tokens.shape
+            p = model.cfg.num_prefix_embeds
+            cache_len = p + s + max_new_tokens
+            logits, caches = model.prefill({"tokens": tokens},
+                                           cache_len=cache_len)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(tokens.dtype)
+            out = [tok]
+            for t in range(max_new_tokens - 1):
+                logits, caches = model.decode_step(caches, tok, p + s + t)
+                tok = torch.argmax(logits[:, -1],
+                                   dim=-1)[:, None].to(tokens.dtype)
+                out.append(tok)
+            return torch.cat(out, dim=1)
+
+
+def greedy_generate(model, batch, max_new_tokens: int):
+    return ServeEngine(model).generate(batch, max_new_tokens)

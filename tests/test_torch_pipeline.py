@@ -121,7 +121,18 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.core.resilience.meshstate',\n"
         "        'repro_torch.serve.fft_service',\n"
         "        'repro_torch.serve.loadgen',\n"
-        "        'repro_torch.launch.fft_serve'} <= set(sys.modules)\n"
+        "        'repro_torch.launch.fft_serve',\n"
+        "        'repro_torch.configs.gemma3_1b',\n"
+        "        'repro_torch.models.config',\n"
+        "        'repro_torch.models.scanning',\n"
+        "        'repro_torch.models.common',\n"
+        "        'repro_torch.models.mlp',\n"
+        "        'repro_torch.models.attention',\n"
+        "        'repro_torch.models.transformer',\n"
+        "        'repro_torch.models.convert',\n"
+        "        'repro_torch.sharding.rules',\n"
+        "        'repro_torch.serve.engine',\n"
+        "        'repro_torch.launch.serve'} <= set(sys.modules)\n"
         "print('clean')\n")
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
