@@ -88,19 +88,32 @@ Phases (any failed check exits non-zero):
  16. `python -m repro_torch.launch.fft_dryrun` as a subprocess (the
      256-rank mesh; no card, no process group), and its 512-rank records;
  17. LM serving (`lm_checks`): `repro_torch.launch.serve.main` and
-     `ServeEngine` at the full width of qwen2-0.5b (batch 8, prompt 512,
-     64 new tokens) and gemma3-1b (batch 4, prompt 1024 past its window
-     of 512, 32 new tokens) in bf16, from seeded random parameters:
-     (a) the tokens' shape and range; (b) in float32 and float64 twins
-     over the same parameters, every decode step's logits within 1e-4 of
-     the teacher-forced forward's and the greedy tokens its argmax;
-     (c) qwen2-0.5b's prefill on the card within 1e-4 of the port's own
-     run on the host; (d) the bf16 first-token logits against the
-     float32 twin within a stated bound. qwen2-0.5b's (b) and (c) are
-     held at its first layer (its deeper logits are chaotic at the
-     reference's init); every depth is printed. Prefill and decode times,
-     tokens/s, peak memory and the weight-read bound of a decode step in
-     one `lm serve` line a model; no FFT kernel runs;
+     `ServeEngine` at full width in bf16, from seeded random parameters,
+     for qwen2-0.5b (batch 8, prompt 512, 64 new tokens), gemma3-1b
+     (batch 4, prompt 1024 past its window of 512, 32 new),
+     mixtral-8x22b and llama4-scout (2 of their layers, batch 4, prompt
+     2048: one MoE group a sequence, 16 new), rwkv6-3b (batch 8, prompt
+     512, 32 new), zamba2-7b (81 layers, batch 4, prompt 1024, 16 new),
+     whisper-base (batch 8, 1500 frames, prompt 64, 64 new) and
+     internvl2-2b (batch 4, 256 patches + prompt 512, 32 new): (a) the
+     tokens' shape and range; (b) in float32 and float64 twins over the
+     same parameters, every decode step's logits within 1e-4 of the
+     teacher-forced forward's and the greedy tokens its argmax (for a MoE
+     model at the steps where neither the forward nor the prefill
+     dropped a token over capacity; the drops are counted); (c) the
+     card's prefill within 1e-4 of the port's own run on the host, for
+     qwen2 and for one model of each new block kind (rwkv6 at 2 layers,
+     zamba2's first period, mixtral at 1 layer, whisper at one encoder
+     and one decoder layer), the host model built from those layers
+     only; (d) the bf16 first-token logits against the float32 twin
+     within a stated bound. At the reference's init every model but
+     gemma3 is chaotic at full depth (attention scores in the hundreds),
+     so (b) and (c) are held at a cut where a cache or carry fault would
+     still show (the first layer; rwkv6's two; zamba2's first period)
+     and in the twin the card measured within bounds; every depth is
+     printed. Prefill and decode times, tokens/s, peak memory and the
+     weight-read bound of a decode step in one `lm serve` line a model;
+     no FFT kernel runs;
  18. the `kernels` JSON line: phase 3's numbers and the main-path
      launches (phases 4, 6, 7, 9-15, the followers' included).
 
@@ -134,11 +147,26 @@ TOL_ROUND = 1e-5  # inverse(forward(x)) against x (tests/test_fft2_plan.py)
 LM_TOL = 1e-4
 LM_TWINS = ("float32", "float64")
 # the served bf16 first-token logits against the float32 twin at full
-# depth, measured on the H100 at 1.248 and 0.0203 (PERF.md §6).
-# qwen2-0.5b's is rounding noise at the reference's init (bf16 moves its
-# ~700 scores by ~3), so its bound says only that both are finite and of
-# one scale
-LM_SERVED_BOUND = {"qwen2-0.5b": 1.5, "gemma3-1b": 0.05}
+# depth, measured on the H100 at 1.248 (qwen2), 0.0203 (gemma3) and
+# 0.60-1.27 for the other six (PERF.md §6). Only gemma3 has qk-norm:
+# the others' are rounding noise at the reference's init (bf16 moves
+# scores in the hundreds by units), so their bound says only that both
+# are finite and of one scale
+LM_SERVED_BOUND = {"qwen2-0.5b": 1.5, "gemma3-1b": 0.05,
+                   "mixtral-8x22b": 1.5, "llama4-scout-17b-a16e": 1.5,
+                   "rwkv6-3b": 1.5, "zamba2-7b": 1.5, "whisper-base": 1.5,
+                   "internvl2-2b": 1.5}
+# the twins each model's (b) is held in at its gated depth, and its (c),
+# from the H100 (PERF.md §6): where the float32 twin came
+# within 2x of LM_TOL (mixtral 1.4e-4, llama4 8.9e-5, zamba2's period
+# 2.1e-4 and its card prefill 1.2e-4, whisper 1.1e-4 and internvl2
+# 8.9e-5 at 1 layer) the float64 twin is held and the float32 printed
+F64 = ("float64",)
+LM_GATE_TWINS = {"mixtral-8x22b": F64, "llama4-scout-17b-a16e": F64,
+                 "rwkv6-3b": LM_TWINS, "zamba2-7b": F64,
+                 "whisper-base": F64, "internvl2-2b": F64}
+LM_CPU_GATE_TWINS = {"rwkv6-3b": LM_TWINS, "zamba2-7b": F64,
+                     "mixtral-8x22b": LM_TWINS, "whisper-base": LM_TWINS}
 
 # the Pallas sites each kernel variant replaces, and its CUDA source
 REPLACES = {
@@ -267,16 +295,19 @@ FULL = {
     # the service over `ranks` processes on the one card, at phase 12's
     # paper mix and request count
     "mesh_serve": {"ranks": 4},
-    # LM serving at full width: each model's batch, prompt and new tokens,
-    # the cuts of its depth the twins also run at, the depth (b) and (c)
-    # are held at (None: all its layers) and the twins they are held in,
-    # and the bound on its served first-token logits against the float32
-    # twin (d); the card-against-host prefill at (arch, batch, prompt).
-    # At the reference's init qwen2-0.5b's scores reach ~700, so from its
-    # second layer on a 1e-7 change of a layer's input (the float32 norms
-    # and score tiles) moves its logits by 1e-4 (2 layers) to O(1) (24):
-    # its checks hold at its first layer, whose input is the same in both
-    # paths (PERF.md §6)
+    # LM serving at full width: each model's batch, prompt and new tokens
+    # (and depth, where all its layers would not fit the card), the cuts
+    # of its depth the twins also run at (and the twins that fit at full
+    # depth), the depth (b) is held at (None: all its layers) and the
+    # twins it is held in, and the bound on its served first-token logits
+    # against the float32 twin (d). At the reference's init the attention
+    # scores reach hundreds (qwen2-0.5b ~700), so a 1e-7 change of a
+    # layer's input (the float32 norms and score tiles) moves the logits
+    # by 1e-4 (qwen2, 2 layers) to O(1) (24): (b) holds where a cache or
+    # carry fault would still show, its first layer (zamba2: its first
+    # period), and every depth is printed (PERF.md §6). A MoE model's
+    # twins run ``twin_prompt`` tokens, so that the forward over prompt +
+    # new - 1 is one group a sequence
     "lm": {"models": [
         {"arch": "qwen2-0.5b", "batch": 8, "prompt": 512, "new": 64,
          "depths": (2, 1), "gate_layers": 1, "gate_twins": ("float64",),
@@ -284,9 +315,57 @@ FULL = {
         {"arch": "gemma3-1b", "batch": 4, "prompt": 1024, "new": 32,
          "depths": (), "gate_layers": None,
          "gate_twins": ("float32", "float64"),
-         "served_bound": LM_SERVED_BOUND["gemma3-1b"]}],
-        "reduced": False, "cpu_check": ("qwen2-0.5b", 1, 32),
-        "seed": 0, "reps": 3},
+         "served_bound": LM_SERVED_BOUND["gemma3-1b"]},
+        {"arch": "mixtral-8x22b", "layers": 2, "batch": 4, "prompt": 2048,
+         "new": 16, "twin_prompt": 2033, "depths": (1,),
+         "full_twins": ("float32",), "gate_layers": 1,
+         "gate_twins": LM_GATE_TWINS["mixtral-8x22b"],
+         "served_bound": LM_SERVED_BOUND["mixtral-8x22b"]},
+        {"arch": "llama4-scout-17b-a16e", "layers": 2, "batch": 4,
+         "prompt": 2048, "new": 16, "twin_prompt": 2033, "depths": (1,),
+         "full_twins": ("float32",), "forward_rows": 1, "gate_layers": 1,
+         "gate_twins": LM_GATE_TWINS["llama4-scout-17b-a16e"],
+         "served_bound": LM_SERVED_BOUND["llama4-scout-17b-a16e"]},
+        {"arch": "rwkv6-3b", "batch": 8, "prompt": 512, "new": 32,
+         "depths": (2, 1), "gate_layers": 2,
+         "gate_twins": LM_GATE_TWINS["rwkv6-3b"],
+         "served_bound": LM_SERVED_BOUND["rwkv6-3b"]},
+        {"arch": "zamba2-7b", "batch": 4, "prompt": 1024, "new": 16,
+         "depths": (6,), "full_twins": ("float32",), "gate_layers": 6,
+         "gate_twins": LM_GATE_TWINS["zamba2-7b"],
+         "served_bound": LM_SERVED_BOUND["zamba2-7b"]},
+        {"arch": "whisper-base", "batch": 8, "prompt": 64, "new": 64,
+         "frames": 1500, "depths": (1,), "gate_layers": 1,
+         "gate_twins": LM_GATE_TWINS["whisper-base"],
+         "served_bound": LM_SERVED_BOUND["whisper-base"]},
+        {"arch": "internvl2-2b", "batch": 4, "prompt": 512, "new": 32,
+         "depths": (2, 1), "gate_layers": 1,
+         "gate_twins": LM_GATE_TWINS["internvl2-2b"],
+         "served_bound": LM_SERVED_BOUND["internvl2-2b"]}],
+        # (c): the model built on the card at ``layers`` (the encoder and
+        # the shared block whole), copied to the host, compared at each of
+        # ``depths``
+        "cpu_checks": [
+            {"arch": "qwen2-0.5b", "layers": 24, "batch": 1, "prompt": 32,
+             "depths": (24, 2, 1), "gate_layers": 1,
+             "gate_twins": ("float64",)},
+            {"arch": "rwkv6-3b", "layers": 2, "batch": 1, "prompt": 32,
+             "depths": (2, 1), "gate_layers": 2,
+             "gate_twins": LM_CPU_GATE_TWINS["rwkv6-3b"]},
+            {"arch": "zamba2-7b", "layers": 6, "batch": 1, "prompt": 32,
+             "depths": (6,), "gate_layers": 6,
+             "gate_twins": LM_CPU_GATE_TWINS["zamba2-7b"]},
+            {"arch": "mixtral-8x22b", "layers": 1, "batch": 1, "prompt": 32,
+             "depths": (1,), "gate_layers": 1,
+             "gate_twins": LM_CPU_GATE_TWINS["mixtral-8x22b"]},
+            # whole (printed: its encoder is chaotic on either side), and
+            # at one encoder and one decoder layer (held)
+            {"arch": "whisper-base", "layers": 6, "batch": 1, "prompt": 32,
+             "depths": (6, 1), "gate_layers": 6, "gate_twins": ()},
+            {"arch": "whisper-base", "layers": 1, "encoder_layers": 1,
+             "batch": 1, "prompt": 32, "depths": (1,), "gate_layers": 1,
+             "gate_twins": LM_CPU_GATE_TWINS["whisper-base"]}],
+        "reduced": False, "seed": 0, "reps": 3},
 }
 REHEARSE = {
     "runs": [
@@ -355,16 +434,49 @@ REHEARSE = {
                  "impls": ("ref", "matfft")},
     "mesh_serve": {"ranks": 4},
     # the reduced configs (float32); prompt 80 passes gemma3's reduced
-    # window of 64; qwen2's checks held at 1 of its 2 layers
+    # window of 64; qwen2's checks held at 1 of its 2 layers; a MoE
+    # model's prompt of 64 is one group (of 64), its twins' 57 + 8 - 1 too
     "lm": {"models": [
         {"arch": "qwen2-0.5b", "batch": 2, "prompt": 80, "new": 8,
          "depths": (1,), "gate_layers": 1, "gate_twins": LM_TWINS,
          "served_bound": LM_TOL},
         {"arch": "gemma3-1b", "batch": 2, "prompt": 80, "new": 8,
          "depths": (), "gate_layers": None, "gate_twins": LM_TWINS,
+         "served_bound": LM_TOL},
+        {"arch": "mixtral-8x22b", "batch": 2, "prompt": 64, "new": 8,
+         "twin_prompt": 57, "depths": (1,), "full_twins": ("float32",),
+         "gate_layers": 1, "gate_twins": LM_TWINS, "served_bound": LM_TOL},
+        {"arch": "llama4-scout-17b-a16e", "batch": 2, "prompt": 64,
+         "new": 8, "twin_prompt": 57, "depths": (1,),
+         "full_twins": ("float32",), "forward_rows": 1, "gate_layers": 1,
+         "gate_twins": LM_TWINS, "served_bound": LM_TOL},
+        {"arch": "rwkv6-3b", "batch": 2, "prompt": 37, "new": 8,
+         "depths": (1,), "gate_layers": 1, "gate_twins": LM_TWINS,
+         "served_bound": LM_TOL},
+        {"arch": "zamba2-7b", "batch": 2, "prompt": 37, "new": 8,
+         "depths": (), "full_twins": ("float32",), "gate_layers": None,
+         "gate_twins": ("float32",), "served_bound": LM_TOL},
+        {"arch": "whisper-base", "batch": 2, "prompt": 24, "new": 8,
+         "frames": 16, "depths": (1,), "gate_layers": 1,
+         "gate_twins": LM_TWINS, "served_bound": LM_TOL},
+        {"arch": "internvl2-2b", "batch": 2, "prompt": 24, "new": 8,
+         "depths": (1,), "gate_layers": 1, "gate_twins": LM_TWINS,
          "served_bound": LM_TOL}],
-        "reduced": True, "cpu_check": ("qwen2-0.5b", 1, 32),
-        "seed": 0, "reps": 1},
+        "cpu_checks": [
+            {"arch": "qwen2-0.5b", "layers": 2, "batch": 1, "prompt": 32,
+             "depths": (2, 1), "gate_layers": 1, "gate_twins": LM_TWINS},
+            {"arch": "rwkv6-3b", "layers": 2, "batch": 1, "prompt": 32,
+             "depths": (2, 1), "gate_layers": 2, "gate_twins": LM_TWINS},
+            {"arch": "zamba2-7b", "layers": 6, "batch": 1, "prompt": 32,
+             "depths": (6,), "gate_layers": 6, "gate_twins": LM_TWINS},
+            {"arch": "mixtral-8x22b", "layers": 1, "batch": 1, "prompt": 32,
+             "depths": (1,), "gate_layers": 1, "gate_twins": LM_TWINS},
+            {"arch": "whisper-base", "layers": 2, "batch": 1, "prompt": 32,
+             "depths": (2, 1), "gate_layers": 2, "gate_twins": LM_TWINS},
+            {"arch": "whisper-base", "layers": 1, "encoder_layers": 1,
+             "batch": 1, "prompt": 32, "depths": (1,), "gate_layers": 1,
+             "gate_twins": LM_TWINS}],
+        "reduced": True, "seed": 0, "reps": 1},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -3105,7 +3217,7 @@ def dryrun_records() -> dict:
 def lm_twin(model, dtype: str, layers: int | None = None):
     """``model`` computing in ``dtype`` over the same parameter tensors;
     with ``layers``, only its first ``layers`` layers (views of the
-    stacked blocks)."""
+    stacked blocks; the shared block and the encoder whole)."""
     import dataclasses
 
     from repro_torch.models.transformer import TransformerLM
@@ -3135,12 +3247,30 @@ def lm_twin(model, dtype: str, layers: int | None = None):
     return twin
 
 
-def lm_generate(torch, model, tokens, new: int):
+def lm_batch(torch, cfg, seed: int, batch: int, prompt: int, frames: int,
+             dev) -> dict:
+    """Tokens from numpy's generator, then, as the launcher draws its stub
+    inputs, ``frames`` frames for the encoder-decoder and the VLM's
+    patches (float32), on ``dev``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(1, cfg.vocab_size, (batch, prompt))}
+    if cfg.encoder_layers:
+        out["frames"] = rng.standard_normal(
+            (batch, frames, cfg.d_model)).astype(np.float32)
+    if cfg.num_prefix_embeds:
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def lm_generate(torch, model, batch: dict, new: int):
     """`ServeEngine.generate`'s prefill and greedy decode, keeping each
     step's logits: tokens (B, new) and logits (B, new, V)."""
     with torch.inference_mode():
-        s = tokens.shape[1]
-        logits, caches = model.prefill({"tokens": tokens}, cache_len=s + new)
+        tokens = batch["tokens"]
+        s = model.cfg.num_prefix_embeds + tokens.shape[1]
+        logits, caches = model.prefill(batch, cache_len=s + new)
         steps = [logits[:, -1]]
         out = [torch.argmax(steps[-1], dim=-1)[:, None].to(tokens.dtype)]
         for t in range(new - 1):
@@ -3151,18 +3281,84 @@ def lm_generate(torch, model, tokens, new: int):
         return torch.cat(out, dim=1), torch.stack(steps, dim=1)
 
 
-def lm_teacher_forced(torch, model, tokens, out):
+def lm_teacher_forced(torch, model, batch: dict, out, rows=None):
     """`forward`'s logits over prompt + generated tokens at the positions
-    whose next token each decode step chose: (B, new, V)."""
+    whose next token each decode step chose: (B, new, V). ``rows``
+    sequences a call (all when None): llama4-scout's (B, S, 202048)
+    logits do not fit beside its float64 twin, and its MoE groups are one
+    sequence each either way."""
     with torch.inference_mode():
-        full = torch.cat([tokens, out[:, :-1]], dim=1)
-        return model.forward({"tokens": full})[:, tokens.shape[1] - 1:]
+        tokens = batch["tokens"]
+        at = model.cfg.num_prefix_embeds + tokens.shape[1] - 1
+        full = {**batch, "tokens": torch.cat([tokens, out[:, :-1]], dim=1)}
+        b = tokens.shape[0]
+        rows = rows or b
+        return torch.cat([
+            model.forward({k: v[i:i + rows] for k, v in full.items()})[:, at:]
+            for i in range(0, b, rows)])
 
 
-def step_rel_errs(got, want) -> list:
-    """max |got - want| / max |want| for each step of (B, steps, V)."""
-    num = (got - want).abs().amax(dim=(0, 2))
-    return (num / want.abs().amax(dim=(0, 2))).tolist()
+def step_rel_errs(got, want):
+    """max_V |got - want| / max_{B,V} |want| for each (sequence, step) of
+    (B, steps, V): (B, steps)."""
+    return ((got - want).abs().amax(dim=2)
+            / want.abs().amax(dim=(0, 2))[None])
+
+
+@contextlib.contextmanager
+def moe_record(torch):
+    """Record every MoE dispatch run inside the block, in call order (one
+    call a layer a forward): each token's choices dropped over capacity,
+    and its router margin (the k-th minus the (k+1)-th probability; a
+    margin near 0 is a near-tie that a rounding can flip)."""
+    from repro_torch.models import moe
+    route, dispatch = moe._route, moe._dispatch_tensors
+    rec = {"dropped": [], "margin": []}
+
+    def recording_route(cfg, p, x):
+        k = cfg.num_experts_per_tok
+        probs = torch.softmax(torch.matmul(x.float(), p["router"].float()),
+                              dim=-1).sort(dim=-1, descending=True).values
+        rec["margin"].append((probs[..., k - 1] - probs[..., k]).cpu())
+        return route(cfg, p, x)
+
+    def recording_dispatch(cfg, weights, idx, n_tokens):
+        d, c = dispatch(cfg, weights, idx, n_tokens)
+        rec["dropped"].append(
+            (cfg.num_experts_per_tok - d.float().sum(dim=(-2, -1))).cpu())
+        return d, c
+
+    moe._route, moe._dispatch_tensors = recording_route, recording_dispatch
+    try:
+        yield rec
+    finally:
+        moe._route, moe._dispatch_tensors = route, dispatch
+
+
+def moe_clean(torch, prefill: list, forward: list, layers: int,
+              prompt: int, new: int):
+    """(B, new) mask of the decode steps whose logits must equal the
+    teacher-forced forward's: a step's logits at position q depend on
+    the last layer's experts at q and every earlier layer's at positions
+    <= q, so a step is clean when neither the forward nor the prefill
+    dropped a choice there (decode's groups of one token never drop).
+    ``prefill``: one record a layer, each (B, prompt); ``forward``: one a
+    layer for each forward call, each (sequences of the call, S) (a
+    group is one sequence)."""
+    pre = [d > 0 for d in prefill]
+    fwd = [torch.cat(forward[layer::layers]) > 0 for layer in range(layers)]
+    b = pre[0].shape[0]
+    mask = torch.ones((b, new), dtype=torch.bool)
+    for i in range(b):
+        tainted = any(bool(d[i].any()) for d in pre[:-1])
+        for t in range(new):
+            q = prompt - 1 + t
+            dirty = tainted or bool(fwd[-1][i, q]) or any(
+                bool(d[i, :q + 1].any()) for d in fwd[:-1])
+            if t == 0:
+                dirty = dirty or bool(pre[-1][i, q])
+            mask[i, t] = not dirty
+    return mask
 
 
 def lm_timed_ms(torch, gpu: bool, fn, reps: int) -> float:
@@ -3177,16 +3373,72 @@ def lm_timed_ms(torch, gpu: bool, fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def lm_free(torch, gpu: bool) -> None:
+    import gc
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+
+
+def lm_config(cfg: dict, spec: dict):
+    """The model config ``spec`` serves: reduced in the rehearsal, cut to
+    ``spec["layers"]`` where it says."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    mcfg = get_config(spec["arch"])
+    if cfg["reduced"]:
+        mcfg = mcfg.reduced()
+    if spec.get("layers"):
+        mcfg = dataclasses.replace(mcfg, num_layers=spec["layers"])
+    return mcfg
+
+
+def lm_twin_checks(torch, params, batch: dict, new: int, layers, dtype: str,
+                   moe: bool, rows=None) -> dict:
+    """(b) for one twin of ``params`` at one depth: decode steps against the
+    teacher-forced forward (at the steps neither dropped a token, for a
+    MoE model), the engine's tokens against its own steps'."""
+    from repro_torch.serve import ServeEngine
+    twin = lm_twin(params, dtype, layers)
+    with moe_record(torch) as rec:
+        out, steps = lm_generate(torch, twin, batch, new)
+        n_prefill = len(rec["dropped"])
+        want = lm_teacher_forced(torch, twin, batch, out, rows)
+    check(torch.equal(out, ServeEngine(twin).generate(batch, new)),
+          f"lm {twin.cfg.name} {dtype}: the engine's tokens differ from its "
+          f"own steps'")
+    errs = step_rel_errs(steps, want).cpu()
+    argmax_equal = (out == want.argmax(dim=-1).to(out.dtype)).cpu()
+    at = {}
+    if moe:
+        n_layers = twin.cfg.num_layers
+        prefill = rec["dropped"][:n_layers]
+        forward = rec["dropped"][n_prefill:]
+        clean = moe_clean(torch, prefill, forward, n_layers,
+                          batch["tokens"].shape[1], new)
+        at.update(
+            clean_steps=int(clean.sum()), steps=clean.numel(),
+            forward_dropped=int(sum(float(d.sum()) for d in forward)),
+            prefill_dropped=int(sum(float(d.sum()) for d in prefill)),
+            decode_vs_forward_all=float(errs.max()),
+            min_router_margin=float(min(m.min() for m in rec["margin"])))
+    else:
+        clean = torch.ones_like(errs, dtype=torch.bool)
+    held = errs[clean]
+    at.update(
+        decode_vs_forward=float(held.max()) if held.numel() else None,
+        worst_step=int(errs.masked_fill(~clean, -1).amax(dim=0).argmax()),
+        tokens_equal_forward_argmax=bool(argmax_equal[clean].all()),
+        first=steps[:, 0])
+    return at
+
+
 def lm_model_checks(torch, dev, gpu: bool, cfg: dict, spec: dict) -> dict:
     """Phase 17 for one model of ``cfg["models"]``: the launcher, then the
     engine's tokens (a), the decode steps against the teacher-forced
     forward in the twins (b), the served dtype's first-token logits
     against the float32 twin (d), and the times."""
-    import gc
-
-    import numpy as np
-
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.serve import ServeEngine
@@ -3197,34 +3449,32 @@ def lm_model_checks(torch, dev, gpu: bool, cfg: dict, spec: dict) -> dict:
     argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
             str(prompt), "--new-tokens", str(new), "--seed", str(seed),
             "--device", dev.type] + (["--reduced"] if cfg["reduced"] else [])
+    if spec.get("layers"):
+        argv += ["--num-layers", str(spec["layers"])]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         report = serve_cli.main(argv)
     for line in buf.getvalue().splitlines():
         print(f"lm launch [{arch}] {line}")
     launch_tokens = report.pop("tokens").cpu()
-    gc.collect()
-    if gpu:
-        torch.cuda.empty_cache()
+    lm_free(torch, gpu)
 
-    mcfg = get_config(arch)
-    if cfg["reduced"]:
-        mcfg = mcfg.reduced()
+    mcfg = lm_config(cfg, spec)
     model = TransformerLM(mcfg, device=dev,
                           generator=torch.Generator(dev).manual_seed(seed))
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(
-        rng.integers(1, mcfg.vocab_size, (batch, prompt))).to(dev)
+    # the launcher's 64 stub frames; the encoder-decoder's cell runs more
+    frames = spec.get("frames", 64)
+    inputs = lm_batch(torch, mcfg, seed, batch, prompt, frames, dev)
+    tokens = inputs["tokens"]
     engine = ServeEngine(model)
 
     # (a) and the steady-state generate, after a warm-up call
-    engine.generate({"tokens": tokens}, new)
+    engine.generate(inputs, new)
     if gpu:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    gen_ms = lm_timed_ms(torch, gpu, lambda: engine.generate(
-        {"tokens": tokens}, new), 1)
-    out = engine.generate({"tokens": tokens}, new)
+    gen_ms = lm_timed_ms(torch, gpu, lambda: engine.generate(inputs, new), 1)
+    out = engine.generate(inputs, new)
     peak = torch.cuda.max_memory_allocated() if gpu else None
     check(tuple(out.shape) == (batch, new) and out.dtype == tokens.dtype,
           f"lm {arch}: tokens {tuple(out.shape)} {out.dtype}")
@@ -3232,9 +3482,11 @@ def lm_model_checks(torch, dev, gpu: bool, cfg: dict, spec: dict) -> dict:
           f"lm {arch}: a token out of range")
 
     # prefill and decode times
+    s = mcfg.num_prefix_embeds + prompt
+
     @torch.inference_mode()
     def prefill():
-        return model.prefill({"tokens": tokens}, cache_len=prompt + new)
+        return model.prefill(inputs, cache_len=s + new)
 
     prefill_ms = lm_timed_ms(torch, gpu, prefill, reps)
 
@@ -3242,24 +3494,34 @@ def lm_model_checks(torch, dev, gpu: bool, cfg: dict, spec: dict) -> dict:
     def decode_all():
         _, caches = prefill()
         for t in range(new - 1):
-            model.decode_step(caches, out[:, t:t + 1], prompt + t)
+            model.decode_step(caches, out[:, t:t + 1], s + t)
 
     decode_ms = (lm_timed_ms(torch, gpu, decode_all, reps)
                  - prefill_ms) / (new - 1)
     weights = model.weights()
 
     def leaves(tree):
-        return ([x for v in tree.values() for x in leaves(v)]
-                if isinstance(tree, dict) else [tree])
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, (tuple, list)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves(weights))
     kv_bytes = sum(t.numel() * t.element_size() for t in leaves(
-        model.init_cache(batch, prompt + new)))
+        model.init_cache(batch, s + new)))
+    del weights
+
+    # the twins' batch: a MoE model's forward over prompt + new - 1 tokens
+    # must be whole groups, so its twins run the first ``twin_prompt``
+    # tokens (the forward then one group a sequence)
+    twin_prompt = spec.get("twin_prompt", prompt)
+    twin_inputs = {**inputs, "tokens": tokens[:, :twin_prompt]}
     with torch.inference_mode():
-        first = model.prefill({"tokens": tokens},
-                              cache_len=prompt + new)[0][:, -1]
+        first = model.prefill(twin_inputs)[0][:, -1]
 
     summary = {
-        "arch": arch, "batch": batch, "prompt": prompt, "new_tokens": new,
+        "arch": arch, "layers": mcfg.num_layers, "batch": batch,
+        "prompt": prompt, "new_tokens": new,
         "params": sum(p.numel() for p in model.parameters()),
         "dtype": mcfg.dtype, "prefill_ms": prefill_ms,
         "decode_ms_per_step": decode_ms, "generate_ms": gen_ms,
@@ -3267,122 +3529,145 @@ def lm_model_checks(torch, dev, gpu: bool, cfg: dict, spec: dict) -> dict:
         "launcher_first_s": report["first_s"],
         "launcher_steady_s": report["steady_s"],
         "launcher_tok_s": report["tok_s"],
-        "tokens_equal_launcher": bool(torch.equal(out.cpu(), launch_tokens)),
+        # the launcher draws 64 stub frames: equal only at that count
+        "tokens_equal_launcher": (bool(torch.equal(out.cpu(), launch_tokens))
+                                  if frames == 64 else None),
         "peak_bytes": peak, "weight_bytes": weight_bytes,
         "kv_bytes": kv_bytes,
         "decode_bound_ms": weight_bytes / HBM_BYTES_S * 1e3,
-        "twins": {}}
+        "twin_prompt": twin_prompt, "twins": {}}
+    if "frames" in spec:
+        summary["frames"] = frames
     summary["decode_x_bound"] = decode_ms / summary["decode_bound_ms"]
-    del weights
+    # the twins share the parameters; dropping the served model frees its
+    # cast copy of them
+    params = lm_twin(model, "float32")
+    del model, engine, inputs
+    lm_free(torch, gpu)
 
-    # (b) and (d): each twin over the same parameters, at full depth and at
-    # each cut of ``spec["depths"]``
+    # (b) and (d): each twin over the same parameters, at full depth (where
+    # its copy fits) and at each cut of ``spec["depths"]``
+    moe = bool(mcfg.num_experts)
     for layers in [None, *spec["depths"]]:
+        twins = spec.get("full_twins", LM_TWINS) if layers is None \
+            else LM_TWINS
         at = {}
-        for dtype in LM_TWINS:
-            twin = lm_twin(model, dtype, layers)
-            out_t, steps = lm_generate(torch, twin, tokens, new)
-            check(torch.equal(out_t, ServeEngine(twin).generate(
-                {"tokens": tokens}, new)), f"lm {arch} {dtype}: the "
-                  f"engine's tokens differ from its own steps'")
-            want = lm_teacher_forced(torch, twin, tokens, out_t)
-            errs = step_rel_errs(steps, want)
-            at[dtype] = {
-                "decode_vs_forward": max(errs),
-                "worst_step": int(np.argmax(errs)),
-                "tokens_equal_forward_argmax": bool(torch.equal(
-                    out_t, want.argmax(dim=-1).to(out_t.dtype))),
-                "first": steps[:, 0]}
-            del twin, steps, want
+        for dtype in twins:
+            at[dtype] = lm_twin_checks(torch, params, twin_inputs, new,
+                                       layers, dtype, moe,
+                                       spec.get("forward_rows"))
+            lm_free(torch, gpu)
         if layers:
             with torch.inference_mode():
-                served = lm_twin(model, mcfg.dtype, layers).prefill(
-                    {"tokens": tokens})[0][:, -1]
+                served = lm_twin(params, mcfg.dtype, layers).prefill(
+                    twin_inputs)[0][:, -1]
         else:
             served = first
         for dtype, d in at.items():
             d["served_first_token"] = rel_err(served.float(), d["first"])
-        at["float32_vs_float64_first_token"] = rel_err(
-            at["float32"].pop("first"), at["float64"].pop("first"))
+        if len(at) == 2:
+            at["float32_vs_float64_first_token"] = rel_err(
+                at["float32"]["first"], at["float64"]["first"])
+        for d in at.values():
+            if isinstance(d, dict):
+                d.pop("first")
         summary["twins"][str(layers or mcfg.num_layers)] = at
-        gc.collect()
-        if gpu:
-            torch.cuda.empty_cache()
+        del served
+        lm_free(torch, gpu)
 
     # the gates: (b) at the depth it is held at, (d) at full depth
     held = summary["twins"][str(spec["gate_layers"] or mcfg.num_layers)]
     served = summary["twins"][str(mcfg.num_layers)]["float32"][
         "served_first_token"]
     for dtype in spec["gate_twins"]:
-        check(held[dtype]["decode_vs_forward"] < LM_TOL,
-              f"lm {arch} {dtype}: decode steps "
-              f"{held[dtype]['decode_vs_forward']} from the forward")
+        err = held[dtype]["decode_vs_forward"]
+        check(err is not None, f"lm {arch} {dtype}: no decode step without "
+              f"a dropped token to hold")
+        check(err < LM_TOL, f"lm {arch} {dtype}: decode steps {err} from "
+              f"the forward")
         check(held[dtype]["tokens_equal_forward_argmax"],
               f"lm {arch} {dtype}: greedy tokens differ from the forward's "
               f"argmax")
     check(served < spec["served_bound"], f"lm {arch}: {mcfg.dtype} "
           f"first-token logits {served} from the float32 twin")
-    del model, engine
-    gc.collect()
-    if gpu:
-        torch.cuda.empty_cache()
+    del params
+    lm_free(torch, gpu)
     return summary
 
 
-def lm_cpu_check(torch, dev, cfg: dict) -> dict:
+def lm_cpu_check(torch, dev, cfg: dict, spec: dict) -> dict:
     """(c): the card's twin prefill logits against the port's own CPU run on
-    the same parameters, at ``cfg["cpu_check"]``'s model, batch and prompt,
-    at full depth and at each cut of the model's ``depths``; held at its
-    gated depth in each of its gated twins."""
-    import numpy as np
+    the same parameters: ``spec``'s model built on the card at
+    ``spec["layers"]`` (and ``spec["encoder_layers"]`` where it says; the
+    shared block whole), copied to the host, and compared at each of
+    ``spec["depths"]`` in each twin; held at ``spec["gate_layers"]`` in
+    its gated twins. For a MoE model a failure prints the router margins
+    of the last token."""
+    import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.models.transformer import TransformerLM
 
-    arch, batch, prompt = cfg["cpu_check"]
-    spec = next(m for m in cfg["models"] if m["arch"] == arch)
-    mcfg = get_config(arch)
-    if cfg["reduced"]:
-        mcfg = mcfg.reduced()
+    arch, batch, prompt = spec["arch"], spec["batch"], spec["prompt"]
+    mcfg = lm_config(cfg, {"arch": arch})
+    mcfg = dataclasses.replace(
+        mcfg, num_layers=spec["layers"],
+        encoder_layers=spec.get("encoder_layers", mcfg.encoder_layers))
     model = TransformerLM(mcfg, device=dev, generator=torch.Generator(
         dev).manual_seed(cfg["seed"]))
-    rng = np.random.default_rng(cfg["seed"])
-    tokens = torch.from_numpy(rng.integers(1, mcfg.vocab_size,
-                                           (batch, prompt)))
+    inputs = lm_batch(torch, mcfg, cfg["seed"], batch, prompt,
+                      spec.get("frames", 64), torch.device("cpu"))
     host = TransformerLM(mcfg, device="meta")
     host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
                          assign=True)
     out = {"arch": arch, "batch": batch, "prompt": prompt}
-    for layers in [None, *spec["depths"]]:
-        at = out[str(layers or mcfg.num_layers)] = {}
+    if mcfg.encoder_layers:
+        out["encoder_layers"] = mcfg.encoder_layers
+    margins = {}
+    for layers in spec["depths"]:
+        at = out[str(layers)] = {}
         for dtype in LM_TWINS:
             with torch.inference_mode():
                 card = lm_twin(model, dtype, layers).prefill(
-                    {"tokens": tokens.to(dev)})[0].cpu()
-                cpu = lm_twin(host, dtype, layers).prefill(
-                    {"tokens": tokens})[0]
+                    {k: v.to(dev) for k, v in inputs.items()})[0].cpu()
+                with moe_record(torch) as rec:
+                    cpu = lm_twin(host, dtype, layers).prefill(inputs)[0]
             at[dtype] = rel_err(card, cpu)
-    held = out[str(spec["gate_layers"] or mcfg.num_layers)]
+            if rec["margin"]:
+                margins[(layers, dtype)] = [float(m[..., -1].min())
+                                            for m in rec["margin"]]
+            lm_free(torch, dev.type == "cuda")
+    if margins:
+        out["last_token_router_margin"] = {
+            f"{layers} {dtype}": m for (layers, dtype), m in margins.items()}
+    held = out[str(spec["gate_layers"])]
     for dtype in spec["gate_twins"]:
         check(held[dtype] < LM_TOL,
-              f"lm {arch} {dtype}: card prefill {held[dtype]} from the host's")
+              f"lm {arch} {dtype}: card prefill {held[dtype]} from the "
+              f"host's; last token's router margin a layer: "
+              f"{margins.get((spec['gate_layers'], dtype))}")
+    del model, host
+    lm_free(torch, dev.type == "cuda")
     return out
 
 
 def lm_checks(torch, dev, gpu: bool, cfg: dict) -> dict:
     """Phase 17: LM serving through `repro_torch.launch.serve` and
-    `ServeEngine` for each model of ``cfg["models"]``, and (c). No FFT
-    kernel runs."""
+    `ServeEngine` for each model of ``cfg["models"]``, and (c) for each of
+    ``cfg["cpu_checks"]``. No FFT kernel runs."""
     reset_counts()
-    runs = []
+    runs, cpu = [], []
     for spec in cfg["models"]:
         t0 = time.monotonic()
         summary = lm_model_checks(torch, dev, gpu, cfg, spec)
         summary["seconds"] = time.monotonic() - t0
         print("lm serve " + json.dumps(summary))
         runs.append(summary)
-    cpu = lm_cpu_check(torch, dev, cfg)
-    print("lm card vs cpu " + json.dumps(cpu))
+    for spec in cfg["cpu_checks"]:
+        t0 = time.monotonic()
+        summary = lm_cpu_check(torch, dev, cfg, spec)
+        summary["seconds"] = time.monotonic() - t0
+        print("lm card vs cpu " + json.dumps(summary))
+        cpu.append(summary)
     counts = read_counts()
     check(not any(counts.values()), f"LM serving ran an FFT kernel: {counts}")
     return {"runs": runs, "card_vs_cpu": cpu}

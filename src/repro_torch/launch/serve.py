@@ -6,16 +6,21 @@
       --reduced --device cpu
 
 The model runs on the CUDA card (``--device cuda``, the default; no card
-is an error) or, with ``--device cpu``, on the host. The parameters are
-drawn from a ``torch.Generator`` seeded with ``--seed``, the prompt
-tokens from numpy's generator with the same seed. The first call and a
-second, steady-state call are timed apart, each between two
-``torch.cuda.synchronize()`` on the card.
+is an error) or, with ``--device cpu``, on the host. ``--num-layers``
+cuts the depth (a model too large for the card at its full depth runs
+at its published widths with fewer layers). The parameters are drawn
+from a ``torch.Generator`` seeded with ``--seed``; the prompt tokens,
+then the reference's stub inputs (64 frames of ``d_model`` for the
+encoder-decoder, ``num_prefix_embeds`` patches for the VLM, float32)
+from numpy's generator with the same seed, in the reference's order.
+The first call and a second, steady-state call are timed apart, each
+between two ``torch.cuda.synchronize()`` on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -40,6 +45,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the config to this many layers")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -47,12 +54,21 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     generator = torch.Generator(device).manual_seed(args.seed)
     model = TransformerLM(cfg, device=device, generator=generator)
 
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": torch.from_numpy(
         rng.integers(1, cfg.vocab_size, (args.batch, args.prompt_len)))}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, 64, cfg.d_model)).astype(np.float32))
+    if cfg.num_prefix_embeds:
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.num_prefix_embeds, cfg.d_model)).astype(
+                np.float32))
 
     engine = ServeEngine(model)
     total = args.batch * args.new_tokens

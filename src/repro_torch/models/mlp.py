@@ -1,5 +1,4 @@
-"""Dense gated MLP (SwiGLU/GeGLU). The RWKV channel mix comes with the
-``R`` layers (ROADMAP.md Queue 1 item 12b)."""
+"""Dense MLP blocks: gated (SwiGLU/GeGLU) and the RWKV channel mix."""
 
 from __future__ import annotations
 
@@ -25,3 +24,41 @@ def mlp(cfg, p, x):
     g = activate(cfg.act, torch.matmul(x, p["wg"].to(dt)))
     h = torch.matmul(x, p["wi"].to(dt))
     return torch.matmul(g * h, p["wo"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# RWKV channel mix (Finch): token-shift lerp + squared-relu FFN
+
+
+def rwkv_cmix_specs(cfg, stacked: tuple[int, ...] = ()) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    pre = tuple("layers" for _ in stacked)
+    return {
+        "mu_k": ParamSpec(stacked + (d,), pre + ("d_model",), init="ones", scale=0.5),
+        "mu_r": ParamSpec(stacked + (d,), pre + ("d_model",), init="ones", scale=0.5),
+        "wk": ParamSpec(stacked + (d, ff), pre + ("d_model", "d_ff")),
+        "wv": ParamSpec(stacked + (ff, d), pre + ("d_ff", "d_model")),
+        "wr": ParamSpec(stacked + (d, d), pre + ("d_model", "d_model")),
+    }
+
+
+def _token_shift(x, x_last=None):
+    """x_{t-1} along seq; first position sees x_last (decode carry) or 0."""
+    prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+    if x_last is not None:
+        prev[:, 0] = x_last
+    return prev
+
+
+def rwkv_cmix(cfg, p, x, x_last=None):
+    """Returns (y, new_x_last) — new_x_last is the carry for decode."""
+    dt = x.dtype
+    prev = _token_shift(x, x_last)
+    mu_k = p["mu_k"].to(dt)
+    mu_r = p["mu_r"].to(dt)
+    xk = x * mu_k + prev * (1 - mu_k)
+    xr = x * mu_r + prev * (1 - mu_r)
+    k = torch.square(torch.relu(torch.matmul(xk, p["wk"].to(dt))))
+    kv = torch.matmul(k, p["wv"].to(dt))
+    r = torch.sigmoid(torch.matmul(xr, p["wr"].to(dt)))
+    return r * kv, x[:, -1]

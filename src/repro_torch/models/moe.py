@@ -1,0 +1,136 @@
+"""Mixture-of-Experts: top-k routing with capacity-bounded GShard dispatch,
+the JAX package's tensor-parallel form (``moe_tp``) in torch ops.
+
+Tokens are cut into groups of ``min(moe_group_size, S)``; each group is
+routed (float32 router logits, softmax, top-k renormalized), dispatched
+into per-expert capacity buffers of ``cap = max(int(capacity_factor * k
+* group / E), 1)`` slots in cumsum order (tokens over an expert's
+capacity are dropped, as GShard drops them), run through every expert's
+gated MLP on its buffer, and combined back with the gate weights. The
+reference's dtypes are kept: the dispatch one-hots in bf16 and the
+tokens cast to bf16 for the dispatch product (so an expert sees x
+rounded to bf16, also in a float32 model), the combine weights float32
+cast to x's dtype. The reference maps the group function with ``vmap``;
+here the groups are one more axis of the same products, so each expert's
+weights are read once for all the groups.
+
+The expert-parallel form (``moe_ep``, an all_to_all over a mesh) comes
+with the mesh functions (ROADMAP.md Queue 1 item 12c).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import activate
+from repro_torch.sharding.rules import ParamSpec, constrain
+
+
+def moe_specs(cfg, stacked: tuple[int, ...] = ()) -> dict:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    pre = tuple("layers" for _ in stacked)
+    out = {
+        "router": ParamSpec(stacked + (d, e), pre + ("d_model", "experts")),
+        "wi": ParamSpec(stacked + (e, d, ff), pre + ("experts", "d_model", "d_ff")),
+        "wg": ParamSpec(stacked + (e, d, ff), pre + ("experts", "d_model", "d_ff")),
+        "wo": ParamSpec(stacked + (e, ff, d), pre + ("experts", "d_ff", "d_model")),
+    }
+    if cfg.shared_expert:
+        out["shared_wi"] = ParamSpec(stacked + (d, ff), pre + ("d_model", "d_ff"))
+        out["shared_wg"] = ParamSpec(stacked + (d, ff), pre + ("d_model", "d_ff"))
+        out["shared_wo"] = ParamSpec(stacked + (ff, d), pre + ("d_ff", "d_model"))
+    return out
+
+
+def _route(cfg, p, x_flat):
+    """x (..., N, d) -> (weights (..., N, k), idx (..., N, k)) with
+    renormalized softmax. Ties go to the lower expert index, as
+    ``jax.lax.top_k`` breaks them (a stable descending sort)."""
+    logits = torch.matmul(x_flat.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    k = cfg.num_experts_per_tok
+    weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, idx = weights[..., :k], idx[..., :k]
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    return weights, idx
+
+
+def _dispatch_tensors(cfg, weights, idx, n_tokens):
+    """GShard capacity dispatch for groups of ``n_tokens``: weights and idx
+    (..., N, k) -> (dispatch, combine), each (..., N, E, C).
+
+    dispatch: one-hot bf16; combine = dispatch * gate weight (float32).
+    Tokens over an expert's capacity are dropped (standard GShard; the
+    capacity_factor knob trades drop rate vs dispatch memory).
+    """
+    e = cfg.num_experts
+    k = cfg.num_experts_per_tok
+    cap = int(cfg.capacity_factor * k * n_tokens / e)
+    cap = max(cap, 1)
+
+    lead = idx.shape[:-1]  # (..., N)
+    counts = torch.zeros(lead[:-1] + (e,), dtype=torch.int64,
+                         device=idx.device)
+    dispatch = torch.zeros(lead + (e, cap), dtype=torch.bfloat16,
+                           device=idx.device)
+    combine = torch.zeros(lead + (e, cap), dtype=torch.float32,
+                          device=idx.device)
+    for j in range(k):  # k <= 2 for all assigned archs
+        mask_j = F.one_hot(idx[..., j], e)                          # (N, E)
+        pos_j = torch.cumsum(mask_j, dim=-2) - 1 + counts[..., None, :]
+        counts = counts + mask_j.sum(dim=-2)
+        keep = (pos_j < cap) & (mask_j > 0)                         # (N, E)
+        oh = F.one_hot(torch.clamp(pos_j, 0, cap - 1),
+                       cap).to(torch.bfloat16)                      # (N, E, C)
+        oh = oh * keep[..., None].to(torch.bfloat16)
+        dispatch = dispatch + oh
+        combine = combine + oh.float() * weights[..., j, None, None]
+    return dispatch, combine
+
+
+def _expert_ffn(cfg, p, xe):
+    """xe (E, ..., d) -> (E, ..., d) through per-expert gated MLPs, one
+    batched product an expert over all its rows. With
+    ``moe_force_weight_gather`` the reference pins the cast weights'
+    sharding; `constrain` is the identity on one device."""
+    dt = xe.dtype
+
+    def wcast(w, axes_sharded, axes_full):
+        w = w.to(dt)
+        if cfg.moe_force_weight_gather:
+            w = constrain(constrain(w, axes_sharded), axes_full)
+        return w
+
+    wi = wcast(p["wi"], ("experts", "d_model", "d_ff"), ("experts", None, "d_ff"))
+    wg = wcast(p["wg"], ("experts", "d_model", "d_ff"), ("experts", None, "d_ff"))
+    wo = wcast(p["wo"], ("experts", "d_ff", "d_model"), ("experts", "d_ff", None))
+    rows = xe.reshape(xe.shape[0], -1, xe.shape[-1])                # (E, R, d)
+    g = activate(cfg.act, torch.bmm(rows, wg))
+    h = torch.bmm(rows, wi)
+    return torch.bmm(g * h, wo).reshape(xe.shape)
+
+
+def moe_tp(cfg, p, x):
+    """Tensor-parallel MoE over x (B, S, d); B * S must be a whole number
+    of groups."""
+    b, s, d = x.shape
+    gs = min(cfg.moe_group_size, s)
+    if (b * s) % gs:
+        raise ValueError(f"MoE: {b} x {s} tokens are not a whole number of "
+                         f"groups of {gs}")
+    n_groups = (b * s) // gs
+    xg = x.reshape(n_groups, gs, d)
+
+    w, idx = _route(cfg, p, xg)
+    dispatch, combine = _dispatch_tensors(cfg, w, idx, gs)       # (G,N,E,C)
+    xe = torch.einsum("gnec,gnd->egcd", dispatch, xg.to(torch.bfloat16))
+    ye = _expert_ffn(cfg, p, xe.to(x.dtype))                     # (E,G,C,d)
+    y = torch.einsum("gnec,egcd->gnd", combine.to(x.dtype), ye)
+    y = y.reshape(b, s, d)
+    if cfg.shared_expert:
+        dt = x.dtype
+        g = activate(cfg.act, torch.matmul(x, p["shared_wg"].to(dt)))
+        h = torch.matmul(x, p["shared_wi"].to(dt))
+        y = y + torch.matmul(g * h, p["shared_wo"].to(dt))
+    return y

@@ -1,0 +1,122 @@
+"""RWKV6 "Finch" time-mix block (arXiv:2404.05892), the JAX package's
+block in torch ops.
+
+Data-dependent decay w_t = exp(-exp(base + LoRA(x_shift))) feeding the
+chunked linear-attention core, token-shift lerps, a per-head bonus u, a
+grouped output norm and output gating. As in the reference, the r/k/v/g
+token-shift mixes are static learned lerps (Finch also LoRA-modulates
+them); the decay path is the released model's.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.attention import _pad_seq
+from repro_torch.models.linear_attn import chunked_gla, step_gla
+from repro_torch.models.mlp import _token_shift
+from repro_torch.sharding.rules import ParamSpec
+
+DECAY_LORA = 64
+
+
+def rwkv_tmix_specs(cfg, stacked: tuple[int, ...] = ()) -> dict:
+    d = cfg.d_model
+    h = cfg.num_heads
+    dk = d // h
+    pre = tuple("layers" for _ in stacked)
+
+    def mat(shape, axes, **kw):
+        return ParamSpec(stacked + shape, pre + axes, **kw)
+
+    return {
+        "mu_r": mat((d,), ("d_model",), init="ones", scale=0.5),
+        "mu_k": mat((d,), ("d_model",), init="ones", scale=0.5),
+        "mu_v": mat((d,), ("d_model",), init="ones", scale=0.5),
+        "mu_g": mat((d,), ("d_model",), init="ones", scale=0.5),
+        "mu_w": mat((d,), ("d_model",), init="ones", scale=0.5),
+        "wr": mat((d, h, dk), ("d_model", "heads", "head_dim")),
+        "wk": mat((d, h, dk), ("d_model", "heads", "head_dim")),
+        "wv": mat((d, h, dk), ("d_model", "heads", "head_dim")),
+        "wg": mat((d, d), ("d_model", "d_model")),
+        "wo": mat((h, dk, d), ("heads", "head_dim", "d_model")),
+        "w_base": mat((h, dk), ("heads", "head_dim"), init="zeros"),
+        "w_lora_a": mat((d, DECAY_LORA), ("d_model", None)),
+        "w_lora_b": mat((DECAY_LORA, h, dk), (None, "heads", "head_dim"),
+                        init="zeros"),
+        "u": mat((h, dk), ("heads", "head_dim"), init="zeros"),
+        "ln_scale": mat((h, dk), ("heads", "head_dim"), init="ones"),
+        "ln_bias": mat((h, dk), ("heads", "head_dim"), init="zeros"),
+    }
+
+
+def _head_groupnorm(o, scale, bias, eps=64e-5):
+    """RWKV GroupNorm(H): normalize each head's dk channels, in float32."""
+    f = o.float()
+    mu = f.mean(-1, keepdim=True)
+    var = ((f - mu) ** 2).mean(-1, keepdim=True)
+    y = (f - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(o.dtype)
+
+
+def _mix_proj(cfg, p, x, prev):
+    dt = x.dtype
+
+    def lerp(mu):
+        m = p[mu].to(dt)
+        return x * m + prev * (1 - m)
+
+    r = torch.einsum("bsd,dhk->bshk", lerp("mu_r"), p["wr"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", lerp("mu_k"), p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", lerp("mu_v"), p["wv"].to(dt))
+    g = F.silu(torch.matmul(lerp("mu_g"), p["wg"].to(dt)))
+    # data-dependent decay: logw = -exp(base + lora(x_w)), always < 0
+    lora = torch.matmul(lerp("mu_w"), p["w_lora_a"].to(dt))
+    lora = torch.einsum("bsr,rhk->bshk", torch.tanh(lora),
+                        p["w_lora_b"].to(dt))
+    logw = -torch.exp(p["w_base"].float() + lora.float())
+    return r, k, v, g, logw
+
+
+def rwkv_tmix(cfg, p, x, carry=None):
+    """x (B,S,d) -> (y, new_carry). carry = (x_last (B,d), state (B,H,dk,dk)).
+
+    S is padded to a multiple of 16 for the chunked scan (a padded step
+    has log-decay 0 and zero k and v, so the final state is the one after
+    the real steps) and the output cut back."""
+    s = x.shape[1]
+    x_last, state = carry if carry is not None else (None, None)
+    prev = _token_shift(x, x_last)
+    r, k, v, g, logw = _mix_proj(cfg, p, x, prev)
+
+    pad = (-s) % 16
+    if pad:  # chunk alignment
+        r, k, v, logw = (_pad_seq(a, pad) for a in (r, k, v, logw))
+    o, state = chunked_gla(r, k, v, logw, u=p["u"], initial_state=state)
+    o = o[:, :s]
+
+    o = _head_groupnorm(o, p["ln_scale"], p["ln_bias"])
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    y = y * g.to(y.dtype)
+    return y, (x[:, -1], state)
+
+
+def rwkv_tmix_step(cfg, p, x, carry):
+    """Single-token decode. x (B,1,d); carry as in rwkv_tmix."""
+    x_last, state = carry
+    prev = x_last[:, None] if x_last is not None else torch.zeros_like(x)
+    r, k, v, g, logw = _mix_proj(cfg, p, x, prev)
+    o, state = step_gla(r, k, v, logw, p["u"], state)
+    o = _head_groupnorm(o, p["ln_scale"], p["ln_bias"])
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return y * g.to(y.dtype), (x[:, 0], state)
+
+
+def rwkv_state_init(cfg, batch: int, dtype=torch.float32, device=None):
+    """(x_last (B, d) in ``dtype``, state (B, H, dk, dk) in float32)."""
+    h = cfg.num_heads
+    dk = cfg.d_model // h
+    return (torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+            torch.zeros((batch, h, dk, dk), dtype=torch.float32,
+                        device=device))

@@ -1,25 +1,28 @@
-"""`TransformerLM`: the JAX package's decoder-only LM for the dense block
-kinds, as an ``nn.Module``.
+"""`TransformerLM`: the JAX package's language model for all ten
+assigned architectures, as an ``nn.Module``.
 
 Its parameters sit in nested ``nn.ParameterDict``\\ s keyed like the
 reference's tree (`param_specs`): ``embed``, ``final_norm``,
 ``blocks/<pattern position>/...`` stacked over the pattern's full
-periods, ``tail/<i>/...`` for the leftover layers, and ``lm_head`` when
-the embeddings are untied. They are held in float32, as the reference
-holds them, and without gradients (this slice serves; training is ROADMAP
-Queue 1 item 12c). The forward casts every weight that the reference
-casts at each use (``.astype(x.dtype)``) once to ``cfg.dtype`` and keeps
-that copy until a parameter changes; norm scales stay float32, as the
-norms read them.
+periods (no entry at an ``S`` position), ``tail/<i>/...`` for the
+leftover layers, ``shared`` (zamba2's shared attention block, applied
+once a period), ``encoder`` (whisper's encoder stack and its final norm)
+and ``lm_head`` when the embeddings are untied. They are held in
+float32, as the reference holds them, and without gradients (this slice
+serves; training is ROADMAP.md Queue 1 item 12c). The forward casts
+every weight that the reference casts at each use (``.astype(x.dtype)``)
+once to ``cfg.dtype`` and keeps that copy until a parameter changes; the
+weights the reference reads in float32 (norm scales and biases, the
+router, the decay and bonus parameters) stay float32.
 
 Block kinds: G global attention, L local (SWA) attention with a ring
-cache. The block functions are plain functions on tensors, and the
-stack loops over the periods the way the reference's scan does. Decode
-caches are a dict of tensors updated in place.
-
-The other kinds and features (experts, M/R/S layers, the encoder-decoder
-and the VLM prefix) raise ``NotImplementedError`` at construction; they
-come with ROADMAP.md Queue 1 item 12b.
+cache, M mamba2, R rwkv6 (time mix and channel mix), S zamba2's shared
+attention block; attention blocks take a mixture of experts in place of
+the MLP when the config has experts, and a cross-attention to the
+encoder's output in the encoder-decoder. The block functions are plain
+functions on tensors, and the stack loops over the periods the way the
+reference's scan does. Decode caches are a dict of tensors (tuples for
+the M and R carries) updated in place.
 """
 
 from __future__ import annotations
@@ -31,35 +34,17 @@ from torch import nn
 
 from repro_torch.fft.spec import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import norm_apply, norm_specs
+from repro_torch.models.common import norm_apply, norm_specs, sinusoidal_embed
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mlp import mlp, mlp_specs
+from repro_torch.models.mamba2 import (mamba2_block, mamba2_specs,
+                                       mamba2_state_init, mamba2_step)
+from repro_torch.models.mlp import mlp, mlp_specs, rwkv_cmix, rwkv_cmix_specs
+from repro_torch.models.moe import moe_specs, moe_tp
+from repro_torch.models.rwkv6 import (rwkv_state_init, rwkv_tmix,
+                                      rwkv_tmix_specs, rwkv_tmix_step)
 from repro_torch.models.scanning import maybe_scan
 from repro_torch.sharding.rules import (ParamSpec, abstract_params, constrain,
                                         init_params)
-
-# the features this slice does not serve, and the slice that brings them
-_LATER = "ROADMAP.md Queue 1 item 12b"
-
-
-def _unported(cfg: ModelConfig) -> list[str]:
-    out = []
-    if cfg.num_experts:
-        out.append("mixture-of-experts layers (moe.py; the MoE slice: "
-                   "mixtral-8x22b, llama4-scout)")
-    if "R" in cfg.layer_pattern:
-        out.append("R layers (rwkv6.py, linear_attn.py; the rwkv6-3b "
-                   "slice)")
-    if "M" in cfg.layer_pattern:
-        out.append("M layers (mamba2.py; the zamba2-7b slice)")
-    if "S" in cfg.layer_pattern:
-        out.append("S layers (zamba2's shared attention block; the "
-                   "zamba2-7b slice)")
-    if cfg.encoder_layers:
-        out.append("the encoder-decoder (the whisper-base slice)")
-    if cfg.num_prefix_embeds:
-        out.append("the VLM prefix embeddings (the internvl2-2b slice)")
-    return out
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -70,27 +55,42 @@ def torch_dtype(name: str) -> torch.dtype:
 # per-kind specs
 
 
-def _attn_block_specs(cfg, stacked):
+def _attn_block_specs(cfg, stacked, *, cross=False, shared=False):
+    st = () if shared else stacked
     out = {
-        "attn": attn.attn_specs(cfg, stacked),
-        "ln1": norm_specs(cfg, stacked),
-        "ln2": norm_specs(cfg, stacked),
+        "attn": attn.attn_specs(cfg, st),
+        "ln1": norm_specs(cfg, st),
+        "ln2": norm_specs(cfg, st),
     }
     if cfg.post_norms:
-        out["post_ln1"] = norm_specs(cfg, stacked)
-        out["post_ln2"] = norm_specs(cfg, stacked)
-    out["mlp"] = mlp_specs(cfg, stacked)
+        out["post_ln1"] = norm_specs(cfg, st)
+        out["post_ln2"] = norm_specs(cfg, st)
+    if cfg.num_experts and not shared and not cross:
+        out["moe"] = moe_specs(cfg, st)
+    else:
+        out["mlp"] = mlp_specs(cfg, st)
+    if cross:
+        out["cross"] = attn.attn_specs(cfg, st, cross=True)
+        out["ln_cross"] = norm_specs(cfg, st)
     return out
 
 
-def _block_specs(cfg, kind, stacked):
+def _block_specs(cfg, kind, stacked, *, cross=False):
     if kind in "GL":
-        return _attn_block_specs(cfg, stacked)
-    raise NotImplementedError(f"block kind {kind!r}: {_LATER}")
+        return _attn_block_specs(cfg, stacked, cross=cross)
+    if kind == "M":
+        return {"mamba": mamba2_specs(cfg, stacked),
+                "ln": norm_specs(cfg, stacked)}
+    if kind == "R":
+        return {"tmix": rwkv_tmix_specs(cfg, stacked),
+                "cmix": rwkv_cmix_specs(cfg, stacked),
+                "ln1": norm_specs(cfg, stacked),
+                "ln2": norm_specs(cfg, stacked)}
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
-# per-kind application (mode: train | prefill | decode)
+# per-kind application (mode: train | encode | prefill | decode)
 
 
 def _kind_window_theta(cfg, kind):
@@ -100,11 +100,22 @@ def _kind_window_theta(cfg, kind):
     return None, cfg.rope_theta
 
 
-def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, cache_len=None):
+def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
+                      cache_len=None):
+    """``enc_out``: the encoder's output in train and prefill, and in
+    decode any value but None (the cross caches hold its keys and values).
+    """
     window, theta = _kind_window_theta(cfg, kind)
+    if cfg.frontend == "audio_frames":
+        # whisper: the reference's "absolute sinusoidal positions, no
+        # rope"; its attention functions read None as cfg.rope_theta
+        theta = None
     x = norm_apply(cfg, h, p["ln1"])
-    new_cache = None
-    if mode == "decode":
+    new_cache = {}
+    if mode == "encode":
+        y = attn.self_attention(cfg, p["attn"], x, window=None, theta=theta,
+                                causal=False)
+    elif mode == "decode":
         y, ck, cv = attn.decode_self_attention(
             cfg, p["attn"], x, cache["k"], cache["v"], pos,
             window=window, theta=theta)
@@ -139,34 +150,133 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, cache_len=None):
         y = norm_apply(cfg, y, p["post_ln1"])
     h = h + y
 
+    if "cross" in p and enc_out is not None:
+        x = norm_apply(cfg, h, p["ln_cross"])
+        if mode == "decode":
+            y = attn.decode_cross_attention(cfg, p["cross"], x,
+                                            cache["cross_k"], cache["cross_v"])
+            new_cache["cross_k"] = cache["cross_k"]
+            new_cache["cross_v"] = cache["cross_v"]
+        else:
+            ek, ev = attn.encode_kv(cfg, p["cross"], enc_out)
+            y = attn.cross_attention(cfg, p["cross"], x, ek, ev)
+            if mode == "prefill":
+                cdt = torch_dtype(cfg.cache_dtype)
+                new_cache["cross_k"] = ek.to(cdt)
+                new_cache["cross_v"] = ev.to(cdt)
+        h = h + y
+
     x = norm_apply(cfg, h, p["ln2"])
-    y = mlp(cfg, p["mlp"], x)
+    if "moe" in p:
+        y = moe_tp(cfg, p["moe"], x)
+    else:
+        y = mlp(cfg, p["mlp"], x)
     if cfg.post_norms:
         y = norm_apply(cfg, y, p["post_ln2"])
-    return h + y, new_cache
+    return h + y, (new_cache or None)
 
 
-def _apply_block(cfg, kind, p, h, mode, cache, pos, cache_len=None):
-    if kind in "GL":
-        return _apply_attn_block(cfg, p, h, kind, mode, cache, pos,
+def _write(dst, src):
+    """Copy the tree ``src`` into the tensors of ``dst`` (same structure);
+    returns ``dst``."""
+    if isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            _write(d, s)
+    else:
+        dst.copy_(src)
+    return dst
+
+
+def _apply_block(cfg, kind, p, h, mode, cache, pos, enc_out=None,
+                 cache_len=None):
+    """One block. In decode the M and R carries are written in place into
+    ``cache`` (whose dtypes `_decode_carries` set)."""
+    if kind in "GLS":
+        k = "G" if kind == "S" else kind
+        return _apply_attn_block(cfg, p, h, k, mode, cache, pos, enc_out,
                                  cache_len)
-    raise NotImplementedError(f"block kind {kind!r}: {_LATER}")
+    if kind == "M":
+        x = norm_apply(cfg, h, p["ln"])
+        if mode == "decode":
+            y, carry = mamba2_step(cfg, p["mamba"], x, cache)
+            carry = _write(cache, carry)
+        else:
+            y, carry = mamba2_block(cfg, p["mamba"], x,
+                                    None if mode == "train" else cache)
+        return h + y, (carry if mode != "train" else None)
+    if kind == "R":
+        x = norm_apply(cfg, h, p["ln1"])
+        tmix_carry = cache[0] if cache is not None else None
+        if mode == "decode":
+            y, tcarry = rwkv_tmix_step(cfg, p["tmix"], x, tmix_carry)
+        else:
+            y, tcarry = rwkv_tmix(cfg, p["tmix"], x, tmix_carry)
+        h = h + y
+        x = norm_apply(cfg, h, p["ln2"])
+        # decode: the reference's inline channel mix is rwkv_cmix with the
+        # carry as the shifted token (the same ops)
+        y, ccarry = rwkv_cmix(cfg, p["cmix"], x,
+                              cache[1] if mode == "decode" else None)
+        h = h + y
+        if mode == "train":
+            return h, None
+        if mode == "decode":
+            return h, _write(cache, (tcarry, ccarry))
+        return h, (tcarry, ccarry)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # cache initialization
 
 
-def _block_cache_init(cfg, kind, batch, cache_len, *, device, stacked=()):
+def _block_cache_init(cfg, kind, batch, cache_len, *, device, stacked=(),
+                      cross=False):
+    """``kind``'s decode cache for ``batch`` sequences; ``stacked`` is the
+    leading (periods,) of a stacked block. As in the reference, the M and R
+    carries (all but the float32 states) are bf16 whatever the model's
+    dtype; prefill's caches carry the model's."""
     kv, hd = cfg.num_kv_heads, cfg.head_dim
-    if kind in "GL":
-        window, _ = _kind_window_theta(cfg, kind)
+    lead = tuple(stacked)
+
+    def zeros(shape, dtype):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    if kind in "GLS":
+        window, _ = _kind_window_theta(cfg, "L" if kind == "L" else "G")
         s = min(cache_len, window) if (kind == "L" and window) else cache_len
-        shape = tuple(stacked) + (batch, s, kv, hd)
         cdt = torch_dtype(cfg.cache_dtype)
-        return {"k": torch.zeros(shape, dtype=cdt, device=device),
-                "v": torch.zeros(shape, dtype=cdt, device=device)}
-    raise NotImplementedError(f"block kind {kind!r}: {_LATER}")
+        c = {"k": zeros((batch, s, kv, hd), cdt),
+             "v": zeros((batch, s, kv, hd), cdt)}
+        if cross:
+            c["cross_k"] = zeros((batch, cfg.cross_len, kv, hd), cdt)
+            c["cross_v"] = zeros((batch, cfg.cross_len, kv, hd), cdt)
+        return c
+    bf16 = torch.bfloat16
+    if kind == "M":
+        conv, state = mamba2_state_init(cfg, batch, device="meta")
+        return (zeros(conv.shape, bf16), zeros(state.shape, state.dtype))
+    if kind == "R":
+        x_last, state = rwkv_state_init(cfg, batch, device="meta")
+        return ((zeros(x_last.shape, bf16), zeros(state.shape, state.dtype)),
+                zeros((batch, cfg.d_model), bf16))
+    raise ValueError(kind)
+
+
+def _decode_carries(cfg, kind, cache):
+    """``cache`` with its M/R carries in the dtypes a decode step writes:
+    the model's for the token and conv carries, float32 for the states.
+    The same tensors when they already are (every cache prefill made); a
+    converted copy of an `init_cache` carry, so that the in-place writes
+    never round a step's carry into bf16 (the reference's decode returns
+    them in the model's dtype)."""
+    dt = torch_dtype(cfg.dtype)
+    if kind == "M":
+        return (cache[0].to(dt), cache[1])
+    if kind == "R":
+        (x_last, state), prev = cache
+        return ((x_last.to(dt), state), prev.to(dt))
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +295,12 @@ def _as_tree(node):
     return node
 
 
-# weights the reference reads in float32 (the norms' scales and biases)
-_KEEP_F32 = frozenset(("scale", "bias", "q_norm", "k_norm"))
+# weights the reference reads in float32: the norms' scales and biases
+# (rwkv6's head norm, mamba2's gated norm too), the router, and the decay
+# and bonus parameters of the linear attention
+_KEEP_F32 = frozenset(("scale", "bias", "q_norm", "k_norm", "ln_scale",
+                       "ln_bias", "norm_scale", "router", "w_base", "u",
+                       "dt_bias", "A_log"))
 
 
 def _cast_tree(tree, dtype, name=None):
@@ -199,7 +313,7 @@ def _cast_tree(tree, dtype, name=None):
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only language model (G and L block kinds).
+    """Decoder-only (optionally encoder-decoder or prefix) language model.
 
     ``device`` is "cuda" (the default; no card is an error), "cpu", or
     "meta" (shapes only, to be filled by ``load_state_dict(...,
@@ -210,10 +324,6 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {'; '.join(missing)} not ported yet: {_LATER}")
         self.cfg = cfg
         specs = self.param_specs()
         if str(device) == "meta":
@@ -236,18 +346,26 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         full, tail = cfg.pattern_groups()
         pat = cfg.layer_pattern
+        cross = cfg.encoder_layers > 0
         specs = {
             "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
                                ("vocab", "d_model")),
             "final_norm": norm_specs(cfg),
-            "blocks": {str(j): _block_specs(cfg, k, (full,))
-                       for j, k in enumerate(pat) if full > 0},
-            "tail": {str(i): _block_specs(cfg, pat[i], ())
+            "blocks": {str(j): _block_specs(cfg, k, (full,), cross=cross)
+                       for j, k in enumerate(pat) if k != "S" and full > 0},
+            "tail": {str(i): _block_specs(cfg, pat[i], (), cross=cross)
                      for i in range(tail)},
         }
+        if "S" in pat:
+            specs["shared"] = _attn_block_specs(cfg, (), shared=True)
         if not cfg.tie_embeddings:
             specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                          ("d_model", "vocab"))
+        if cfg.encoder_layers:
+            specs["encoder"] = {
+                "blocks": _attn_block_specs(cfg, (cfg.encoder_layers,)),
+                "final_norm": norm_specs(cfg),
+            }
         return specs
 
     def param_tree(self) -> dict:
@@ -267,10 +385,12 @@ class TransformerLM(nn.Module):
         return self._cast[1]
 
     # -------------------------- stacks -------------------------------
-    def _run_stack(self, params, h, mode, caches, pos, cache_len=None):
+    def _run_stack(self, params, h, mode, caches, pos, enc_out=None,
+                   cache_len=None):
         cfg = self.cfg
         full, tail = cfg.pattern_groups()
         pat = cfg.layer_pattern
+        shared = params.get("shared")
         new_caches = {"blocks": None, "tail": {}}
 
         if full > 0:
@@ -278,9 +398,10 @@ class TransformerLM(nn.Module):
                 blk_params, blk_caches = xs
                 outs = {}
                 for j, kind in enumerate(pat):
+                    p_j = shared if kind == "S" else blk_params[str(j)]
                     c_j = None if blk_caches is None else blk_caches[str(j)]
                     h, outs[str(j)] = _apply_block(
-                        cfg, kind, blk_params[str(j)], h, mode, c_j, pos,
+                        cfg, kind, p_j, h, mode, c_j, pos, enc_out,
                         cache_len)
                 # decode writes the stacked caches in place
                 return h, (outs if mode == "prefill" else None)
@@ -291,20 +412,55 @@ class TransformerLM(nn.Module):
             new_caches["blocks"] = blk_caches if mode == "decode" else ys
 
         for i in range(tail):
+            kind = pat[i]
+            p_i = shared if kind == "S" else params["tail"][str(i)]
             c_i = None if caches is None else caches["tail"][str(i)]
-            h, nc = _apply_block(cfg, pat[i], params["tail"][str(i)], h,
-                                 mode, c_i, pos, cache_len)
+            h, nc = _apply_block(cfg, kind, p_i, h, mode, c_i, pos, enc_out,
+                                 cache_len)
             new_caches["tail"][str(i)] = nc
         return h, (new_caches if mode != "train" else None)
 
+    def _encode(self, params, frames):
+        """Whisper encoder over stub frame embeddings (B, Se, d)."""
+        cfg = self.cfg
+        table = sinusoidal_embed(frames.shape[1], cfg.d_model)
+        h = frames + torch.from_numpy(table).to(frames.device, frames.dtype)
+
+        def layer(h, p):
+            h, _ = _apply_attn_block(cfg, p, h, "G", "encode", None, 0)
+            return h, None
+
+        h, _ = maybe_scan(layer, h, params["encoder"]["blocks"],
+                          length=cfg.encoder_layers, kind="layers")
+        return norm_apply(cfg, h, params["encoder"]["final_norm"])
+
+    def _encoder_out(self, params, batch):
+        """The encoder's output over ``batch["frames"]`` (None without an
+        encoder)."""
+        if not self.cfg.encoder_layers:
+            return None
+        frames = batch["frames"].to(self.device, torch_dtype(self.cfg.dtype))
+        return self._encode(params, frames)
+
     # -------------------------- embedding / head ---------------------
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, offset=0):
         cfg = self.cfg
         h = params["embed"][tokens].to(torch_dtype(cfg.dtype))
         if cfg.embed_scale:
             # sqrt(d) in the model's dtype, as the reference multiplies
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+        if cfg.frontend == "audio_frames":  # decoder absolute positions
+            table = sinusoidal_embed(offset + tokens.shape[1], cfg.d_model)
+            h = h + torch.from_numpy(table[offset:]).to(h.device, h.dtype)
         return constrain(h, ("batch", "seq", None))
+
+    def _prefix(self, h, batch):
+        """The VLM's ``batch["patches"]`` (B, P, d) before the token
+        embeddings."""
+        if not self.cfg.num_prefix_embeds:
+            return h
+        patches = batch["patches"].to(h.device, h.dtype)
+        return torch.cat([patches, h], dim=1)
 
     def _logits(self, params, h):
         cfg = self.cfg
@@ -315,26 +471,32 @@ class TransformerLM(nn.Module):
 
     # -------------------------- public API ---------------------------
     def forward(self, batch):
-        """Training forward -> float32 logits (B, S, V). batch: tokens
-        (B, S)."""
+        """Training forward -> float32 logits (B, P + S, V). batch: tokens
+        (B, S) [+ frames (B, Se, d) / patches (B, P, d)]."""
         params = self.weights()
-        h = self._embed(params, batch["tokens"])
-        h, _ = self._run_stack(params, h, "train", None, 0)
+        enc_out = self._encoder_out(params, batch)
+        h = self._prefix(self._embed(params, batch["tokens"]), batch)
+        h, _ = self._run_stack(params, h, "train", None, 0, enc_out)
         return self._logits(params, h)
 
-    def init_cache(self, batch, cache_len):
+    def init_cache(self, batch: int, cache_len: int):
+        """Zero decode caches for ``batch`` sequences of ``cache_len``
+        positions (the cross caches at ``cfg.cross_len``)."""
         cfg = self.cfg
         full, tail = cfg.pattern_groups()
         pat = cfg.layer_pattern
+        cross = cfg.encoder_layers > 0
         caches = {"blocks": None, "tail": {}}
         if full > 0:
             caches["blocks"] = {
                 str(j): _block_cache_init(cfg, k, batch, cache_len,
-                                          device=self.device, stacked=(full,))
+                                          device=self.device, stacked=(full,),
+                                          cross=cross)
                 for j, k in enumerate(pat)}
         for i in range(tail):
             caches["tail"][str(i)] = _block_cache_init(
-                cfg, pat[i], batch, cache_len, device=self.device)
+                cfg, pat[i], batch, cache_len, device=self.device,
+                cross=cross)
         return caches
 
     def prefill(self, batch, cache_len=None):
@@ -344,8 +506,9 @@ class TransformerLM(nn.Module):
         to the prompt length). Returns (last-position logits, caches).
         """
         params = self.weights()
-        h = self._embed(params, batch["tokens"])
-        h, caches = self._run_stack(params, h, "prefill", None, 0,
+        enc_out = self._encoder_out(params, batch)
+        h = self._prefix(self._embed(params, batch["tokens"]), batch)
+        h, caches = self._run_stack(params, h, "prefill", None, 0, enc_out,
                                     cache_len=cache_len)
         return self._logits(params, h[:, -1:]), caches
 
@@ -354,7 +517,38 @@ class TransformerLM(nn.Module):
 
         Writes the caches in place; returns (logits (B,1,V), caches).
         """
+        cfg = self.cfg
         params = self.weights()
-        h = self._embed(params, token)
-        h, caches = self._run_stack(params, h, "decode", caches, pos)
+        h = params["embed"][token].to(torch_dtype(cfg.dtype))
+        if cfg.embed_scale:
+            h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+        if cfg.frontend == "audio_frames":
+            # absolute sinusoidal row at `pos` (table sized by cache length)
+            table = sinusoidal_embed(_cache_len_of(caches), cfg.d_model)
+            h = h + torch.from_numpy(table[pos]).to(h.device, h.dtype)
+        caches = _decode_caches(cfg, caches)
+        # the cross caches stand for the encoder's output in decode
+        h, caches = self._run_stack(params, h, "decode", caches, pos,
+                                    enc_out=True)
         return self._logits(params, h), caches
+
+
+def _decode_caches(cfg, caches):
+    """`_decode_carries` over every block of ``caches``."""
+    pat = cfg.layer_pattern
+    out = {"blocks": None, "tail": {
+        i: _decode_carries(cfg, pat[int(i)], c)
+        for i, c in caches["tail"].items()}}
+    if caches.get("blocks") is not None:
+        out["blocks"] = {j: _decode_carries(cfg, pat[int(j)], c)
+                         for j, c in caches["blocks"].items()}
+    return out
+
+
+def _cache_len_of(caches):
+    """Self-attention cache length from any attention cache leaf."""
+    for grp in (caches.get("blocks") or {}), caches.get("tail", {}):
+        for c in grp.values():
+            if isinstance(c, dict) and "k" in c:
+                return c["k"].shape[-3]
+    raise ValueError("no attention cache found")

@@ -2,7 +2,9 @@
 
 The model holds its parameters, so `ServeEngine.generate` takes the batch
 and the token count (the reference's also takes the parameter tree). The
-decode caches are updated in place, as the reference donates them.
+whole batch goes to prefill (the encoder-decoder's ``frames``, the VLM's
+``patches``). The decode caches are updated in place, as the reference
+donates them.
 """
 
 from __future__ import annotations
@@ -17,15 +19,18 @@ class ServeEngine:
         self.model = model
 
     def generate(self, batch, max_new_tokens: int):
-        """Greedy continuation of batch["tokens"] (B, S): (B, max_new_tokens)
-        tokens in the prompt's dtype, on the model's device."""
+        """Greedy continuation of batch["tokens"] (B, S), after
+        batch["patches"] (B, P, d) for a prefix model and with
+        batch["frames"] (B, Se, d) for an encoder-decoder: (B,
+        max_new_tokens) tokens in the prompt's dtype, on the model's
+        device."""
         model = self.model
         with torch.inference_mode():
             tokens = batch["tokens"].to(model.device)
             b, s = tokens.shape
             p = model.cfg.num_prefix_embeds
             cache_len = p + s + max_new_tokens
-            logits, caches = model.prefill({"tokens": tokens},
+            logits, caches = model.prefill({**batch, "tokens": tokens},
                                            cache_len=cache_len)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(tokens.dtype)
             out = [tok]

@@ -128,6 +128,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.models.common',\n"
         "        'repro_torch.models.mlp',\n"
         "        'repro_torch.models.attention',\n"
+        "        'repro_torch.models.linear_attn',\n"
+        "        'repro_torch.models.rwkv6',\n"
+        "        'repro_torch.models.mamba2',\n"
+        "        'repro_torch.models.moe',\n"
         "        'repro_torch.models.transformer',\n"
         "        'repro_torch.models.convert',\n"
         "        'repro_torch.sharding.rules',\n"
