@@ -114,7 +114,28 @@ Phases (any failed check exits non-zero):
      printed. Prefill and decode times, tokens/s, peak memory and the
      weight-read bound of a decode step in one `lm serve` line a model;
      no FFT kernel runs;
- 18. the `kernels` JSON line: phase 3's numbers and the main-path
+ 18. LM training (`lm_train_checks`): (a) `repro_torch.launch.train.main`
+     on qwen2-0.5b at its published widths and depth (494 M parameters,
+     bf16 over float32 parameters, remat "full", loss chunk 512), 8 x 512
+     tokens a step of the seeded Zipf corpus, AdamW at 3e-4 for 30 steps
+     with a checkpoint at 30: every logged loss and grad norm finite, the
+     last logged loss below the first, the state on the card, the saved
+     checkpoint and the state a new trainer restores from it equal bit
+     for bit to the trained state's files, then a relaunch to 40 steps
+     that must resume from 30; the steady step time, tokens/s, peak
+     memory, checkpoint bytes and seconds and the model FLOP/s (6 x
+     parameters x tokens) against the bf16 peak in one `lm train` line;
+     (b) the loss and every gradient leaf on the card against the same
+     step on the host, gemma3-1b at full width and depth in float32 and
+     qwen2-0.5b's first layer in float64, within a bound measured on the
+     H100; (c) one SGD `make_train_step` step of each of the ten reduced
+     configs on the card and on the host (the MoE pair in float64, the
+     chaotic inits conditioned, as the CPU tests hold them): the loss and
+     the updated parameters within 1e-5; (d) mixtral-8x22b at 1 of its
+     56 layers with adafactor, 4 x 2048 tokens, 3 steps: every logged
+     step and the state finite, the dropped choices counted; no FFT
+     kernel runs;
+ 19. the `kernels` JSON line: phase 3's numbers and the main-path
      launches (phases 4, 6, 7, 9-15, the followers' included).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
@@ -138,6 +159,8 @@ ROOT = Path(__file__).resolve().parent
 TOL = 5e-6  # max|got - want| / max|want|, the selftest's bar
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_S = 67e12    # H100 SXM f32 outside the tensor cores
+# H100 SXM dense bf16 on the tensor cores (NVIDIA's data sheet, 700 W)
+H100_BF16_FLOPS_S = 989.4e12
 
 TOL_CONV = 1e-4  # fft_conv against float64 (tests/test_spectral.py's bar)
 TOL_ROUND = 1e-5  # inverse(forward(x)) against x (tests/test_fft2_plan.py)
@@ -167,6 +190,30 @@ LM_GATE_TWINS = {"mixtral-8x22b": F64, "llama4-scout-17b-a16e": F64,
                  "whisper-base": F64, "internvl2-2b": F64}
 LM_CPU_GATE_TWINS = {"rwkv6-3b": LM_TWINS, "zamba2-7b": F64,
                      "mixtral-8x22b": LM_TWINS, "whisper-base": LM_TWINS}
+
+# LM training: a reduced config's SGD step on the card against the host's
+# (loss and updated parameters, max|d| / max|ref|)
+LM_TOL_TRAIN = 1e-5
+# the card's loss and gradients against the host's (phase 18 (b)), max|d|
+# / max|host| a leaf: measured on the H100 at 6.2e-6 (gemma3-1b, float32,
+# 26 layers) and 2.58e-5 (qwen2-0.5b's first layer, float64) in the
+# phase's first run (PERF.md §6); held at the card-vs-host bar of phase 17,
+# 16x and 4x above them: a fault in a backward pass moves a leaf by
+# O(1)
+LM_TRAIN_GRAD_BOUND = {"gemma3-1b": LM_TOL, "qwen2-0.5b": LM_TOL}
+# every gradient leaf of a reduced config's step on the card against the
+# host's (phase 18 (c)), max|d| / max|host| a leaf: the larger of 1e-5
+# and 4x the worst leaf of two passes on the H100 (equal in both; PERF.md
+# §6), rounded up to one digit. The largest readings are rounding, not
+# faults: h2o-danube's 2.4e-4 (ln1.scale) at the reference's chaotic init
+# (scores ~50), llama4's 6.6e-4 (moe.wi) the bf16 dispatch's flips under
+# its float32 norms and router; a fault in a backward pass moves a leaf
+# by O(1)
+LM_TRAIN_FAMILY_GRAD_BOUND = {
+    "qwen3-0.6b": 1e-5, "h2o-danube-1.8b": 1e-3, "qwen2-0.5b": 1e-5,
+    "gemma3-1b": 2e-5, "rwkv6-3b": 4e-4, "llama4-scout-17b-a16e": 3e-3,
+    "mixtral-8x22b": 2e-4, "whisper-base": 2e-5, "zamba2-7b": 2e-4,
+    "internvl2-2b": 1e-5}
 
 # the Pallas sites each kernel variant replaces, and its CUDA source
 REPLACES = {
@@ -366,6 +413,27 @@ FULL = {
              "batch": 1, "prompt": 32, "depths": (1,), "gate_layers": 1,
              "gate_twins": LM_CPU_GATE_TWINS["whisper-base"]}],
         "reduced": False, "seed": 0, "reps": 3},
+    # phase 18: (a) qwen2-0.5b at its published widths and depth, 4096
+    # tokens a step, then a relaunch that resumes; (b) card vs host
+    # gradients where the init is not chaotic (gemma3's qk-norm) and at
+    # qwen2's first layer in float64; (d) mixtral at 1 of its 56 layers
+    # with adafactor (AdamW's moments would not fit beside the gradients
+    # at 2 layers), one MoE group a sequence
+    "lm_train": {
+        "full": {"arch": "qwen2-0.5b", "batch": 8, "seq": 512,
+                 "optimizer": "adamw", "lr": 3e-4, "steps": 30,
+                 "resume_steps": 40, "reduced": False},
+        "grads": [
+            {"arch": "gemma3-1b", "twin": "float32", "batch": 1, "seq": 32,
+             "bound": LM_TRAIN_GRAD_BOUND["gemma3-1b"], "reduced": False},
+            {"arch": "qwen2-0.5b", "layers": 1, "twin": "float64",
+             "batch": 1, "seq": 32,
+             "bound": LM_TRAIN_GRAD_BOUND["qwen2-0.5b"], "reduced": False}],
+        "moe": {"arch": "mixtral-8x22b", "layers": 1, "batch": 4,
+                "seq": 2048, "steps": 3, "optimizer": "adafactor",
+                "lr": 3e-4, "reduced": False},
+        "family_tol": LM_TOL_TRAIN,
+        "family_grad_tol": LM_TRAIN_FAMILY_GRAD_BOUND, "seed": 0},
 }
 REHEARSE = {
     "runs": [
@@ -477,6 +545,22 @@ REHEARSE = {
              "batch": 1, "prompt": 32, "depths": (1,), "gate_layers": 1,
              "gate_twins": LM_TWINS}],
         "reduced": True, "seed": 0, "reps": 1},
+    # the reduced configs; 20 steps, so that two steps are logged
+    "lm_train": {
+        "full": {"arch": "qwen2-0.5b", "batch": 4, "seq": 64,
+                 "optimizer": "adamw", "lr": 1e-3, "steps": 20,
+                 "resume_steps": 25, "reduced": True},
+        "grads": [
+            {"arch": "gemma3-1b", "twin": "float32", "batch": 1, "seq": 32,
+             "bound": LM_TOL_TRAIN, "reduced": True},
+            {"arch": "qwen2-0.5b", "layers": 1, "twin": "float64",
+             "batch": 1, "seq": 32, "bound": LM_TOL_TRAIN, "reduced": True}],
+        "moe": {"arch": "mixtral-8x22b", "layers": 1, "batch": 2, "seq": 64,
+                "steps": 2, "optimizer": "adafactor", "lr": 3e-4,
+                "reduced": True},
+        "family_tol": LM_TOL_TRAIN,
+        "family_grad_tol": dict.fromkeys(LM_TRAIN_FAMILY_GRAD_BOUND,
+                                         LM_TOL_TRAIN), "seed": 0},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -3319,7 +3403,8 @@ def moe_record(torch):
         k = cfg.num_experts_per_tok
         probs = torch.softmax(torch.matmul(x.float(), p["router"].float()),
                               dim=-1).sort(dim=-1, descending=True).values
-        rec["margin"].append((probs[..., k - 1] - probs[..., k]).cpu())
+        rec["margin"].append(
+            (probs[..., k - 1] - probs[..., k]).detach().cpu())
         return route(cfg, p, x)
 
     def recording_dispatch(cfg, weights, idx, n_tokens):
@@ -3616,9 +3701,7 @@ def lm_cpu_check(torch, dev, cfg: dict, spec: dict) -> dict:
         dev).manual_seed(cfg["seed"]))
     inputs = lm_batch(torch, mcfg, cfg["seed"], batch, prompt,
                       spec.get("frames", 64), torch.device("cpu"))
-    host = TransformerLM(mcfg, device="meta")
-    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
-                         assign=True)
+    host = host_copy(torch, model)
     out = {"arch": arch, "batch": batch, "prompt": prompt}
     if mcfg.encoder_layers:
         out["encoder_layers"] = mcfg.encoder_layers
@@ -3671,6 +3754,431 @@ def lm_checks(torch, dev, gpu: bool, cfg: dict) -> dict:
     counts = read_counts()
     check(not any(counts.values()), f"LM serving ran an FFT kernel: {counts}")
     return {"runs": runs, "card_vs_cpu": cpu}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: LM training
+
+
+def train_launch(argv: list, label: str) -> dict:
+    """`repro_torch.launch.train.main` with ``argv``; its JSON lines
+    printed under ``label``."""
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = train_cli.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"lm train launch [{label}] {line}")
+    return report
+
+
+def train_history_checks(report: dict, label: str) -> None:
+    """Every logged loss and grad norm finite."""
+    hist = report["history"]
+    check(hist, f"lm train {label}: no logged step")
+    for m in hist:
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"lm train {label}: step {m['step']}: loss {m['loss']}, grad "
+              f"norm {m['grad_norm']}")
+
+
+def state_equals_files(torch, state, ckpt: Path, step: int, dev) -> bool:
+    """Every leaf of ``state`` (flatten order) equal bit for bit to the
+    checkpoint's ``leaf_<i>.npy`` of ``step``, compared on ``dev``."""
+    import numpy as np
+
+    from repro_torch.tree import tree_leaves
+    d = ckpt / f"step_{step:08d}"
+    leaves = tree_leaves(state)
+    if len(leaves) != len(list(d.glob("leaf_*.npy"))):
+        return False
+    for i, leaf in enumerate(leaves):
+        want = torch.from_numpy(np.load(d / f"leaf_{i:05d}.npy")).to(dev)
+        if leaf.dtype != want.dtype or not torch.equal(leaf.detach(), want):
+            return False
+    return True
+
+
+def lm_train_full(torch, dev, gpu: bool, spec: dict, work: Path) -> dict:
+    """(a): the launcher at ``spec``'s size for ``steps``, the state that a
+    new trainer restores from its checkpoint held bit for bit to the
+    files, then a relaunch to ``resume_steps`` that must resume."""
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    ckpt, data = work / "ckpt", work / "corpus"
+    argv = ["--arch", spec["arch"], "--batch", str(spec["batch"]),
+            "--seq", str(spec["seq"]), "--optimizer", spec["optimizer"],
+            "--lr", str(spec["lr"]), "--ckpt-dir", str(ckpt),
+            "--ckpt-every", str(spec["steps"]), "--data-dir", str(data),
+            "--seed", "0", "--device", dev.type, "--qk-fan-in"] + (
+                ["--reduced"] if spec["reduced"] else [])
+    first = train_launch(argv + ["--steps", str(spec["steps"])],
+                         spec["arch"])
+    train_history_checks(first, spec["arch"])
+    hist = first["history"]
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"lm train {spec['arch']}: loss {hist[0]['loss']} at step "
+          f"{hist[0]['step']}, {hist[-1]['loss']} at step {hist[-1]['step']}")
+    state = first.pop("state")
+    check(all(t.device.type == dev.type for t in tree_leaves(state)),
+          f"lm train {spec['arch']}: a state leaf is not on {dev.type}")
+    live_equal = state_equals_files(torch, state, ckpt, spec["steps"], dev)
+    check(live_equal, f"lm train {spec['arch']}: the checkpoint of step "
+          f"{spec['steps']} differs from the trained state")
+    del state
+    lm_free(torch, gpu)
+
+    # a new trainer restores the checkpoint onto the device
+    mcfg = lm_config({"reduced": spec["reduced"]}, spec)
+    model = TransformerLM(mcfg, device=dev)
+    trainer = Trainer(model, TrainerConfig(optimizer=spec["optimizer"],
+                                           ckpt_dir=str(ckpt)))
+    restored = trainer.restore_or_init()
+    check(int(restored["step"]) == spec["steps"],
+          f"lm train {spec['arch']}: restored step {int(restored['step'])}")
+    check(model.embed.device.type == dev.type,
+          f"lm train {spec['arch']}: restored parameters on "
+          f"{model.embed.device}")
+    restored_equal = state_equals_files(torch, restored, ckpt,
+                                        spec["steps"], dev)
+    check(restored_equal, f"lm train {spec['arch']}: the restored state "
+          f"differs from the checkpoint's files")
+    breakdown = lm_train_breakdown(torch, gpu, trainer, restored,
+                                   spec["batch"], spec["seq"])
+    del model, trainer, restored
+    lm_free(torch, gpu)
+
+    again = train_launch(argv + ["--steps", str(spec["resume_steps"])],
+                         f"{spec['arch']} relaunch")
+    train_history_checks(again, f"{spec['arch']} relaunch")
+    check(again["resumed_from"] == spec["steps"],
+          f"lm train {spec['arch']}: resumed from {again['resumed_from']}")
+    again.pop("state")
+    lm_free(torch, gpu)
+    shutil.rmtree(work, ignore_errors=True)
+
+    tokens = first["tokens_per_step"]
+    flops = 6 * first["params"] * tokens  # model FLOPs of a step
+    steady_s = first["steady_step_ms"] * 1e-3
+    saves = first["checkpoints"] + again["checkpoints"]
+    out = {
+        "arch": spec["arch"], "layers": mcfg.num_layers,
+        "d_model": mcfg.d_model, "vocab": mcfg.vocab_size,
+        "params": first["params"], "dtype": mcfg.dtype, "remat": mcfg.remat,
+        "loss_chunk": mcfg.loss_chunk, "batch": spec["batch"],
+        "seq": spec["seq"], "optimizer": spec["optimizer"],
+        "lr": spec["lr"], "steps": spec["steps"],
+        "history": hist, "relaunch_history": again["history"],
+        "resumed_from": again["resumed_from"],
+        "restored_equal_files": restored_equal,
+        "saved_equal_state": live_equal,
+        "step_ms": first["step_ms"], "steady_step_ms": first["steady_step_ms"],
+        "relaunch_steady_step_ms": again["steady_step_ms"],
+        "tokens_per_step": tokens, "tok_s": first["tok_s"],
+        "wall_s": first["wall_s"], "peak_bytes": first["peak_bytes"],
+        "relaunch_peak_bytes": again["peak_bytes"],
+        "checkpoints": saves,
+        "ckpt_bytes": saves[0]["bytes"] if saves else None,
+        "ckpt_save_s": [s["snapshot_s"] + s["write_s"] for s in saves],
+        "model_flops_per_step": flops, "breakdown": breakdown}
+    if gpu:
+        out["model_flops_s"] = flops / steady_s
+        # the dense bf16 peak of the H100 SXM data sheet
+        out["model_flops_share"] = flops / steady_s / H100_BF16_FLOPS_S
+    return out
+
+
+def lm_train_breakdown(torch, gpu: bool, trainer, state, batch: int,
+                       seq: int, reps: int = 3) -> dict:
+    """Where a training step's time goes, on the restored state: the loss
+    with its backward pass, `clip_by_global_norm` and the optimizer's
+    update, each timed alone (CUDA events on the card, the mean of
+    ``reps`` after a warm-up), then one whole step under
+    ``torch.profiler``: the kernels' device time against the step's wall
+    time (the device's busy share) and the ten kernels that took the
+    most."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim.optimizers import clip_by_global_norm
+    from repro_torch.train.trainer import _value_and_grad
+    model, tc = trainer.model, trainer.tc
+    dev = model.device
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(1, model.cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    params = state["params"]
+    out = {"loss_backward_ms": lm_timed_ms(
+        torch, gpu, lambda: _value_and_grad(model, params,
+                                            {"tokens": tokens}), reps)}
+    _, grads = _value_and_grad(model, params, {"tokens": tokens})
+    out["clip_ms"] = lm_timed_ms(
+        torch, gpu, lambda: clip_by_global_norm(grads, tc.grad_clip), reps)
+    lr = torch.tensor(1e-7, dtype=torch.float32, device=dev)
+    out["optimizer_ms"] = lm_timed_ms(
+        torch, gpu, lambda: trainer.opt.update(grads, state["opt_state"],
+                                               params, lr), reps)
+    del grads
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if gpu else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer._step_fn(state, {"tokens": tokens})
+        if gpu:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the kernels' own entries (an operator's entry also carries the
+    # device time of the kernels it launched: summing both counts twice)
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def device_us(e):
+        return e.self_device_time_total
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    out.update(profiled_step_ms=wall_ms, device_busy_ms=busy_ms,
+               device_busy_share=busy_ms / wall_ms if gpu else None,
+               kernel_launches=sum(e.count for e in kernels),
+               top_kernels=[[e.key[:90], device_us(e) / 1e3, e.count]
+                            for e in sorted(kernels, key=device_us,
+                                            reverse=True)[:10]])
+    return out
+
+
+def lm_grads(model, batch: dict) -> tuple:
+    """(loss, every parameter's gradient in flatten order) of one
+    `TransformerLM.loss`, as the trainer takes them."""
+    from repro_torch.train.trainer import _value_and_grad
+    from repro_torch.tree import tree_leaves
+    loss, grads = _value_and_grad(model, model.param_tree(), batch)
+    return loss, tree_leaves(grads)
+
+
+def host_copy(torch, model, cfg=None):
+    """``model`` (or its ``cfg`` twin) over host copies of its
+    parameters (copies in the rehearsal too, where ``model`` is on the
+    host already)."""
+    from repro_torch.models.transformer import TransformerLM
+    host = TransformerLM(cfg or model.cfg, device="meta")
+    host.load_state_dict({k: v.to("cpu", copy=True)
+                          for k, v in model.state_dict().items()},
+                         assign=True)
+    return host
+
+
+def lm_train_grad_check(torch, dev, gpu: bool, spec: dict, seed: int) -> dict:
+    """(b): one model's loss and every gradient leaf on the card against the
+    same computation on the host, in ``spec["twin"]``: max |card - host| /
+    max |host| a leaf."""
+    import numpy as np
+
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.tree import tree_flatten
+    mcfg = lm_config({"reduced": spec["reduced"]}, spec)
+    model = TransformerLM(mcfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed))
+    twin = lm_twin(model, spec["twin"])
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, mcfg.vocab_size, (spec["batch"], spec["seq"]))
+    batch = {"tokens": torch.from_numpy(tokens)}
+    loss, grads = lm_grads(twin, {k: v.to(dev) for k, v in batch.items()})
+    grads = [g.cpu() for g in grads]
+    loss = loss.cpu()
+    host = host_copy(torch, model, twin.cfg)
+    del model, twin
+    lm_free(torch, gpu)
+    host_loss, host_grads = lm_grads(host, batch)
+    # sorted dotted names are the flatten order (keys are [0-9a-z_])
+    names = sorted(dict(host.named_parameters()))
+    errs = {n: rel_err(g, h) for n, g, h in zip(names, grads, host_grads)}
+    worst = max(errs, key=errs.get)
+    out = {"arch": spec["arch"], "layers": mcfg.num_layers,
+           "twin": spec["twin"], "batch": spec["batch"], "seq": spec["seq"],
+           "loss": float(host_loss),
+           "loss_rel_err": abs(float(loss) - float(host_loss))
+           / abs(float(host_loss)),
+           "worst_leaf": worst, "worst_grad_rel_err": errs[worst],
+           "finite": all(bool(torch.isfinite(g).all()) for g in grads),
+           "grad_rel_err": errs}
+    del host, host_grads, grads
+    lm_free(torch, gpu)
+    check(out["finite"], f"lm train {spec['arch']}: a card gradient is not "
+          f"finite")
+    check(out["loss_rel_err"] < spec["bound"] and
+          out["worst_grad_rel_err"] < spec["bound"],
+          f"lm train {spec['arch']} {spec['twin']}: card vs host loss "
+          f"{out['loss_rel_err']}, gradient {out['worst_grad_rel_err']} at "
+          f"{worst} (bound {spec['bound']})")
+    return out
+
+
+def lm_train_family_checks(torch, dev, gpu: bool, cfg: dict) -> list:
+    """(c): one SGD `make_train_step` step of every reduced config on the
+    card and on the host from the same parameters and batch: the loss and
+    every updated parameter within ``cfg["family_tol"]``, and every
+    gradient leaf of the step's loss within the config's bound in
+    ``cfg["family_grad_tol"]`` (max |card - host| / max |host| a leaf;
+    the step's lr 1e-2 and clip to norm 1 shrink a gradient's error ~50x
+    in the parameters). A top-1
+    router's gradient is 0 in arithmetic (the renormalized weight is
+    p / p), so each side's is rounding noise: it is held below 1e-6 of
+    the largest gradient on both sides, as tests/test_torch_train.py
+    holds it."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models.conditioning import (FLOAT64, GRAD_CONDITIONED,
+                                                 condition)
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import TrainerConfig, make_train_step
+    from repro_torch.tree import tree_leaves
+    out = []
+    tc = TrainerConfig(optimizer="sgd", base_lr=1e-2, warmup_steps=0,
+                       total_steps=10)
+    for arch in ARCHS:
+        cut = ({"dtype": "float64", "cache_dtype": "float64"}
+               if arch in FLOAT64 else {})
+        mcfg = get_config(arch).reduced(**cut)
+        model = TransformerLM(mcfg, device=dev, generator=torch.Generator(
+            dev).manual_seed(cfg["seed"]))
+        condition(model, cfg["seed"] + 1, arch in GRAD_CONDITIONED)
+        host = host_copy(torch, model)
+        rng = np.random.default_rng(cfg["seed"])
+        batch = {"tokens": rng.integers(1, mcfg.vocab_size, (2, 40))}
+        if mcfg.encoder_layers:
+            batch["frames"] = rng.standard_normal(
+                (2, 16, mcfg.d_model)).astype(np.float32)
+        if mcfg.num_prefix_embeds:
+            batch["patches"] = rng.standard_normal(
+                (2, mcfg.num_prefix_embeds, mcfg.d_model)).astype(np.float32)
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        results = []
+        for m, b in ((model, {k: v.to(dev) for k, v in batch.items()}),
+                     (host, batch)):
+            _, grads = lm_grads(m, b)
+            opt, step = make_train_step(m, tc)
+            params = m.param_tree()
+            state = {"params": params, "opt_state": opt.init(params),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=m.device)}
+            state, metrics = step(state, b)
+            results.append((metrics, [g.cpu() for g in grads],
+                            tree_leaves(state["params"])))
+        (card_m, card_g, card_p), (host_m, host_g, host_p) = results
+        # sorted dotted names are the flatten order (keys are [0-9a-z_])
+        names = sorted(dict(host.named_parameters()))
+        scale = max(float(g.abs().max()) for g in host_g)
+        noise, grad_errs = {}, {}
+        for n, g, h in zip(names, card_g, host_g):
+            if mcfg.num_experts_per_tok == 1 and n.endswith("router"):
+                noise[n] = max(float(g.abs().max()),
+                               float(h.abs().max())) / scale
+            else:
+                grad_errs[n] = rel_err(g, h)
+        worst = max(grad_errs, key=grad_errs.get)
+        bound = cfg["family_grad_tol"][arch]
+        summary = {
+            "arch": arch, "dtype": mcfg.dtype,
+            "conditioned": arch in GRAD_CONDITIONED,
+            "loss": float(host_m["loss"]),
+            "loss_rel_err": abs(float(card_m["loss"]) - float(host_m["loss"]))
+            / abs(float(host_m["loss"])),
+            "grad_norm_rel_err": abs(float(card_m["grad_norm"])
+                                     - float(host_m["grad_norm"]))
+            / float(host_m["grad_norm"]),
+            "params_rel_err": max(rel_err(a.detach().cpu(), b.detach())
+                                  for a, b in zip(card_p, host_p)),
+            "worst_leaf": worst, "worst_grad_rel_err": grad_errs[worst],
+            "grad_bound": bound,
+            "router_noise": max(noise.values(), default=None)}
+        out.append(summary)
+        del model, host, results, card_g, host_g
+        lm_free(torch, gpu)
+        check(summary["loss_rel_err"] < cfg["family_tol"]
+              and summary["params_rel_err"] < cfg["family_tol"]
+              and summary["worst_grad_rel_err"] < bound
+              and all(v < 1e-6 for v in noise.values()),
+              f"lm train {arch}: card step vs host: loss "
+              f"{summary['loss_rel_err']}, parameters "
+              f"{summary['params_rel_err']}, gradient "
+              f"{summary['worst_grad_rel_err']} at {worst} (bound {bound}), "
+              f"top-1 router noise {noise}")
+    return out
+
+
+def lm_train_moe(torch, dev, gpu: bool, spec: dict, work: Path) -> dict:
+    """(d): the launcher on a MoE config at its published widths, cut in
+    depth, with adafactor: every logged step finite; the choices dropped
+    over capacity counted (each dispatch call: the forward's, and with
+    remat the backward's recomputation)."""
+    argv = ["--arch", spec["arch"], "--num-layers", str(spec["layers"]),
+            "--batch", str(spec["batch"]), "--seq", str(spec["seq"]),
+            "--steps", str(spec["steps"]), "--optimizer", spec["optimizer"],
+            "--lr", str(spec["lr"]), "--data-dir", str(work / "corpus"),
+            "--seed", "0", "--device", dev.type] + (
+                ["--reduced"] if spec["reduced"] else [])
+    with moe_record(torch) as rec:
+        report = train_launch(argv, spec["arch"])
+    train_history_checks(report, spec["arch"])
+    state = report.pop("state")
+    from repro_torch.tree import tree_leaves
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(state)
+              if t.is_floating_point()),
+          f"lm train {spec['arch']}: a state leaf is not finite")
+    del state
+    lm_free(torch, gpu)
+    shutil.rmtree(work, ignore_errors=True)
+    k = lm_config({"reduced": spec["reduced"]}, spec).num_experts_per_tok
+    steady_ms = sum(report["step_ms"][1:]) / len(report["step_ms"][1:])
+    dropped = sum(float(d.sum()) for d in rec["dropped"])
+    tokens = sum(d.numel() for d in rec["dropped"])
+    return {"arch": spec["arch"], "layers": spec["layers"],
+            "params": report["params"], "batch": spec["batch"],
+            "seq": spec["seq"], "optimizer": spec["optimizer"],
+            "history": report["history"], "step_ms": report["step_ms"],
+            # steps 2 on: the first pays the warm-up
+            "steady_step_ms": steady_ms,
+            "tok_s": spec["batch"] * spec["seq"] / (steady_ms * 1e-3),
+            "peak_bytes": report["peak_bytes"],
+            "dispatch_calls": len(rec["dropped"]), "dropped_choices": dropped,
+            "tokens_dispatched": tokens,
+            "dropped_share": dropped / (tokens * k) if tokens else None,
+            "min_router_margin": float(min(m.min() for m in rec["margin"]))}
+
+
+def lm_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
+    """Phase 18: LM training through `repro_torch.launch.train` and the
+    trainer, (a)-(d). No FFT kernel runs."""
+    reset_counts()
+    out = {}
+    t0 = time.monotonic()
+    out["full"] = lm_train_full(torch, dev, gpu, cfg["full"], work / "full")
+    out["full"]["seconds"] = time.monotonic() - t0
+    print("lm train " + json.dumps({k: v for k, v in out["full"].items()
+                                    if k not in ("step_ms", "checkpoints")}))
+    out["grads"] = []
+    for spec in cfg["grads"]:
+        t0 = time.monotonic()
+        summary = lm_train_grad_check(torch, dev, gpu, spec, cfg["seed"])
+        summary["seconds"] = time.monotonic() - t0
+        print("lm train card vs cpu " + json.dumps(
+            {k: v for k, v in summary.items() if k != "grad_rel_err"}))
+        out["grads"].append(summary)
+    t0 = time.monotonic()
+    out["families"] = lm_train_family_checks(torch, dev, gpu, cfg)
+    for summary in out["families"]:
+        print("lm train family " + json.dumps(summary))
+    print(f"lm train families: {time.monotonic() - t0:.3f} s")
+    t0 = time.monotonic()
+    out["moe"] = lm_train_moe(torch, dev, gpu, cfg["moe"], work / "moe")
+    out["moe"]["seconds"] = time.monotonic() - t0
+    print("lm train moe " + json.dumps({k: v for k, v in out["moe"].items()
+                                        if k != "step_ms"}))
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"LM training ran an FFT kernel: {counts}")
+    return out
 
 
 def model_rates(timing: dict, ooc_run: dict, a2a_bps: float) -> dict:
@@ -3913,6 +4421,16 @@ def main(argv=None) -> int:
     lm["seconds"] = time.monotonic() - t0
     print(f"LM serving phase: {lm['seconds']:.3f} s")
 
+    # phase 18: LM training
+    t0 = time.monotonic()
+    try:
+        lm_train = lm_train_checks(torch, dev, gpu, cfg["lm_train"],
+                                   work_root / "train")
+    finally:
+        shutil.rmtree(work_root / "train", ignore_errors=True)
+    lm_train["seconds"] = time.monotonic() - t0
+    print(f"LM training phase: {lm_train['seconds']:.3f} s")
+
     # the launches of phases 9-15: by variant, and by timed shape
     measured = {**nd_measured, **dist_measured, **pencil_measured,
                 **serve_measured, **tune_measured, **pipeline_measured,
@@ -3948,7 +4466,7 @@ def main(argv=None) -> int:
     rates = model_rates(timing, ooc["at_scale"], tune["a2a_bytes_s"])
     print("model rates " + json.dumps(rates))
 
-    # phase 18: the kernels line
+    # phase 19: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
@@ -3957,7 +4475,8 @@ def main(argv=None) -> int:
               "fft_conv": conv, "nd": nd, "dist": dist_summary,
               "pencil": pencil, "serve": serve, "tune": tune,
               "pipeline": pipeline, "mesh_serve": mesh_serve,
-              "dryrun": dryrun, "lm": lm, "model_rates": rates,
+              "dryrun": dryrun, "lm": lm, "lm_train": lm_train,
+              "model_rates": rates,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

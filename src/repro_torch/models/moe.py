@@ -15,7 +15,7 @@ here the groups are one more axis of the same products, so each expert's
 weights are read once for all the groups.
 
 The expert-parallel form (``moe_ep``, an all_to_all over a mesh) comes
-with the mesh functions (ROADMAP.md Queue 1 item 12c).
+with training on a mesh (ROADMAP.md Queue 1 item 12d).
 """
 
 from __future__ import annotations

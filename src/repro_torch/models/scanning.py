@@ -13,18 +13,6 @@ from __future__ import annotations
 import torch
 
 
-def tree_index(tree, i: int):
-    """``tree`` (nested dicts, tuples, lists and None over tensors) with
-    every leaf indexed at ``i`` along its leading axis (views)."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_index(v, i) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_index(v, i) for v in tree)
-    return tree[i]
-
-
 def tree_stack(trees: list):
     """Stack a list of same-structured trees along a new leading axis."""
     first = trees[0]
@@ -52,6 +40,23 @@ def _leading(tree) -> int | None:
     return tree.shape[0]
 
 
+def tree_unbind(tree, n: int) -> list:
+    """``tree`` (nested dicts, tuples, lists and None over tensors) split
+    along its leaves' leading axis of ``n``: a list of ``n`` trees of
+    views (``torch.unbind``, whose backward stacks the slices' gradients
+    in one tensor, where indexing each step would cost a full-size
+    gradient a step)."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        parts = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (tuple, list)):
+        parts = [tree_unbind(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def maybe_scan(f, init, xs, length=None, kind="inner"):
     """``carry, ys = f(carry, x)`` for each ``x`` along ``xs``'s leading
     axis; returns ``(carry, stacked ys)`` (None when ``f`` returns None).
@@ -59,7 +64,8 @@ def maybe_scan(f, init, xs, length=None, kind="inner"):
     del kind
     n = _leading(xs) if length is None else length
     carry, ys = init, []
-    for i in range(n):
-        carry, y = f(carry, tree_index(xs, i))
+    for x in tree_unbind(xs, n):
+        carry, y = f(carry, x)
         ys.append(y)
     return carry, (tree_stack(ys) if ys else None)
+

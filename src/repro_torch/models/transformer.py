@@ -8,12 +8,22 @@ periods (no entry at an ``S`` position), ``tail/<i>/...`` for the
 leftover layers, ``shared`` (zamba2's shared attention block, applied
 once a period), ``encoder`` (whisper's encoder stack and its final norm)
 and ``lm_head`` when the embeddings are untied. They are held in
-float32, as the reference holds them, and without gradients (this slice
-serves; training is ROADMAP.md Queue 1 item 12c). The forward casts
-every weight that the reference casts at each use (``.astype(x.dtype)``)
-once to ``cfg.dtype`` and keeps that copy until a parameter changes; the
-weights the reference reads in float32 (norm scales and biases, the
-router, the decay and bonus parameters) stay float32.
+float32, as the reference holds them, and take gradients. Serving
+(``torch.inference_mode``, `weights`) casts every weight that the
+reference casts at each use (``.astype(x.dtype)``) once to ``cfg.dtype``
+and keeps that copy until a parameter changes; under autograd the
+forward and `loss` read the parameters themselves and cast at each use,
+in the graph, as the reference does, so the gradient comes back to the
+float32 parameter through the cast. The weights the reference reads in
+float32 (norm scales and biases, the router, the decay and bonus
+parameters) stay float32 either way.
+
+Training (`loss`): with ``cfg.remat == "full"`` each period of the stack
+and each encoder layer is recomputed in the backward pass
+(``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``),
+and the head is the reference's seq-chunked cross-entropy, each chunk's
+float32 logits recomputed in the backward pass, so that the (B, S, V)
+logits never exist at once.
 
 Block kinds: G global attention, L local (SWA) attention with a ring
 cache, M mamba2, R rwkv6 (time mix and channel mix), S zamba2's shared
@@ -31,6 +41,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.fft.spec import resolve_device
 from repro_torch.models import attention as attn
@@ -286,7 +297,7 @@ def _decode_carries(cfg, kind, cache):
 def _as_parameters(tree):
     if isinstance(tree, dict):
         return nn.ParameterDict({k: _as_parameters(v) for k, v in tree.items()})
-    return nn.Parameter(tree, requires_grad=False)
+    return nn.Parameter(tree)
 
 
 def _as_tree(node):
@@ -375,7 +386,8 @@ class TransformerLM(nn.Module):
 
     def weights(self) -> dict:
         """`param_tree` with every weight the forward casts in
-        ``cfg.dtype``: cast once and kept until a parameter changes."""
+        ``cfg.dtype``: cast once, outside autograd, and kept until a
+        parameter changes (serving)."""
         dtype = torch_dtype(self.cfg.dtype)
         key = (dtype, tuple((p.data_ptr(), p._version)
                             for p in self.parameters()))
@@ -383,6 +395,29 @@ class TransformerLM(nn.Module):
             self._cast = None  # drop the old copy before making the new
             self._cast = (key, _cast_tree(self.param_tree(), dtype))
         return self._cast[1]
+
+    @torch.no_grad()
+    def rescale_qk_to_fan_in(self) -> None:
+        """Rescale every attention's wq and wk (d, heads, head_dim) from
+        the reference's std, 1/sqrt(heads) (its fan-in is a spec's
+        second-to-last dim), to that of their true fan-in, 1/sqrt(d).
+        At the reference's init the attention scores of the published
+        widths reach the hundreds (qwen2-0.5b ~700), and the gradient
+        norm grows ~10x a layer (1e15 at qwen2-0.5b's 24 layers, in the
+        reference as here), so that clipping to 1 leaves all but the
+        largest entries below AdamW's eps; with true fan-in the scores
+        are O(1) and the gradient norm stays O(10) at every depth."""
+        for name, p in self.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("wq", "wk"):
+                p.mul_(math.sqrt(p.shape[-2] / p.shape[-3]))
+
+    def _forward_params(self) -> dict:
+        """The tree a training forward reads: under autograd, the
+        parameters themselves (each use casts them, in the graph);
+        otherwise `weights`' kept cast."""
+        if torch.is_grad_enabled() and self.embed.requires_grad:
+            return self.param_tree()
+        return self.weights()
 
     # -------------------------- stacks -------------------------------
     def _run_stack(self, params, h, mode, caches, pos, enc_out=None,
@@ -407,7 +442,9 @@ class TransformerLM(nn.Module):
                 return h, (outs if mode == "prefill" else None)
 
             blk_caches = caches["blocks"] if caches else None
-            h, ys = maybe_scan(period, h, (params["blocks"], blk_caches),
+            # under autograd, remat recomputes each period in the backward
+            run = _remat(cfg, period) if _autograd(mode) else period
+            h, ys = maybe_scan(run, h, (params["blocks"], blk_caches),
                                length=full, kind="layers")
             new_caches["blocks"] = blk_caches if mode == "decode" else ys
 
@@ -420,8 +457,9 @@ class TransformerLM(nn.Module):
             new_caches["tail"][str(i)] = nc
         return h, (new_caches if mode != "train" else None)
 
-    def _encode(self, params, frames):
-        """Whisper encoder over stub frame embeddings (B, Se, d)."""
+    def _encode(self, params, frames, mode):
+        """Whisper encoder over stub frame embeddings (B, Se, d), for a
+        ``mode`` pass of the decoder."""
         cfg = self.cfg
         table = sinusoidal_embed(frames.shape[1], cfg.d_model)
         h = frames + torch.from_numpy(table).to(frames.device, frames.dtype)
@@ -430,17 +468,18 @@ class TransformerLM(nn.Module):
             h, _ = _apply_attn_block(cfg, p, h, "G", "encode", None, 0)
             return h, None
 
-        h, _ = maybe_scan(layer, h, params["encoder"]["blocks"],
+        run = _remat(cfg, layer) if _autograd(mode) else layer
+        h, _ = maybe_scan(run, h, params["encoder"]["blocks"],
                           length=cfg.encoder_layers, kind="layers")
         return norm_apply(cfg, h, params["encoder"]["final_norm"])
 
-    def _encoder_out(self, params, batch):
+    def _encoder_out(self, params, batch, mode):
         """The encoder's output over ``batch["frames"]`` (None without an
         encoder)."""
         if not self.cfg.encoder_layers:
             return None
         frames = batch["frames"].to(self.device, torch_dtype(self.cfg.dtype))
-        return self._encode(params, frames)
+        return self._encode(params, frames, mode)
 
     # -------------------------- embedding / head ---------------------
     def _embed(self, params, tokens, offset=0):
@@ -473,11 +512,57 @@ class TransformerLM(nn.Module):
     def forward(self, batch):
         """Training forward -> float32 logits (B, P + S, V). batch: tokens
         (B, S) [+ frames (B, Se, d) / patches (B, P, d)]."""
-        params = self.weights()
-        enc_out = self._encoder_out(params, batch)
+        params = self._forward_params()
+        enc_out = self._encoder_out(params, batch, "train")
         h = self._prefix(self._embed(params, batch["tokens"]), batch)
         h, _ = self._run_stack(params, h, "train", None, 0, enc_out)
         return self._logits(params, h)
+
+    def loss(self, batch):
+        """Mean next-token NLL with a SEQ-CHUNKED head: the (B, S, V) logits
+        are never materialized. The final norm's output is cut by one
+        position, the labels are the tokens shifted by one, and the
+        optional ``batch["loss_mask"]`` (B, S) is shifted alike; the
+        positions are padded to whole chunks of ``min(cfg.loss_chunk,
+        S - 1)`` (a padded position has mask 0), and each chunk's float32
+        logits, log-sum-exp and gold logit are computed inside a
+        checkpointed body, so that the backward pass recomputes them
+        chunk by chunk. The VLM's prefix positions are cut off before the
+        head. Returns the masked mean (a 0-d float32 tensor).
+        """
+        cfg = self.cfg
+        params = self._forward_params()
+        tokens = batch["tokens"].to(self.device)
+        enc_out = self._encoder_out(params, batch, "train")
+        h = self._prefix(self._embed(params, tokens), batch)
+        h, _ = self._run_stack(params, h, "train", None, 0, enc_out)
+        if cfg.num_prefix_embeds:
+            h = h[:, cfg.num_prefix_embeds:]
+
+        h = norm_apply(cfg, h, params["final_norm"])[:, :-1]
+        labels = tokens[:, 1:].long()
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(labels.shape, dtype=torch.float32,
+                           device=h.device) if mask is None
+                else mask[:, 1:].to(h.device, torch.float32))
+        w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+
+        b, s1, d = h.shape
+        chunk = min(cfg.loss_chunk, s1)
+        pad = (-s1) % chunk
+        if pad:
+            h = attn._pad_seq(h, pad)
+            labels = attn._pad_seq(labels, pad)
+            mask = attn._pad_seq(mask, pad)
+        body = (_checkpointed(_loss_chunk) if torch.is_grad_enabled()
+                else _loss_chunk)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, h.shape[1], chunk):
+            nll, n = body(h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                          mask[:, c0:c0 + chunk], w)
+            total, count = total + nll, count + n
+        return total / torch.clamp(count, min=1.0)
 
     def init_cache(self, batch: int, cache_len: int):
         """Zero decode caches for ``batch`` sequences of ``cache_len``
@@ -506,7 +591,7 @@ class TransformerLM(nn.Module):
         to the prompt length). Returns (last-position logits, caches).
         """
         params = self.weights()
-        enc_out = self._encoder_out(params, batch)
+        enc_out = self._encoder_out(params, batch, "prefill")
         h = self._prefix(self._embed(params, batch["tokens"]), batch)
         h, caches = self._run_stack(params, h, "prefill", None, 0, enc_out,
                                     cache_len=cache_len)
@@ -531,6 +616,34 @@ class TransformerLM(nn.Module):
         h, caches = self._run_stack(params, h, "decode", caches, pos,
                                     enc_out=True)
         return self._logits(params, h), caches
+
+
+def _loss_chunk(hc, lc, mc, w):
+    """One chunk of the head: (sum of the masked NLL, sum of the mask)."""
+    logits = torch.matmul(hc, w.to(hc.dtype))
+    logits = constrain(logits.float(), ("batch", None, "act_vocab"))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    nll = (lse - gold) * mc
+    return nll.sum(), mc.sum()
+
+
+def _autograd(mode: str) -> bool:
+    """Does a ``mode`` pass build an autograd graph (a training step)?"""
+    return mode == "train" and torch.is_grad_enabled()
+
+
+def _checkpointed(fn):
+    """``fn`` with its activations recomputed in the backward pass
+    (``jax.checkpoint`` in the reference)."""
+    def recomputed(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return recomputed
+
+
+def _remat(cfg, fn):
+    """``fn`` checkpointed when ``cfg.remat == "full"``, else itself."""
+    return _checkpointed(fn) if cfg.remat == "full" else fn
 
 
 def _decode_caches(cfg, caches):

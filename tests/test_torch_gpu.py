@@ -565,3 +565,78 @@ def test_tuned_plan_on_the_card(cuda, rng, tmp_path, kind, n, rows):
     assert tuner.tune_stats()["measurements"] == stats["measurements"]
     assert tfft.cache_info()["wisdom_hits"] == 1
     assert again.spec == tuned.spec
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card (torch ops, no kernel of csrc/)
+
+
+def _train_state(model, opt):
+    params = model.param_tree()
+    return {"params": params, "opt_state": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-3b", "zamba2-7b",
+                                  "whisper-base"])
+def test_reduced_train_step_on_the_card_matches_the_host(cuda, arch):
+    """One SGD step of a reduced config on the card and on the host from
+    the same parameters and batch: the loss and the updated parameters
+    within 1e-5 (max|d| / max|host|). The attention configs take wq and
+    wk at their true fan-in, as the CPU tests do: at the reference's
+    init their gradients move with every rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.conditioning import FLOAT64, condition
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import TrainerConfig, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cut = ({"dtype": "float64", "cache_dtype": "float64"}
+           if arch in FLOAT64 else {})
+    cfg = get_config(arch).reduced(**cut)
+    model = TransformerLM(cfg, device=cuda)
+    condition(model, 1, conditioned=True)
+    host = TransformerLM(cfg, device="meta")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                         assign=True)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (2, 40)))}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 16, cfg.d_model)).astype(np.float32))
+    tc = TrainerConfig(optimizer="sgd", base_lr=1e-2, warmup_steps=0,
+                       total_steps=10)
+    out = []
+    for m, b in ((model, {k: v.to(cuda) for k, v in batch.items()}),
+                 (host, batch)):
+        opt, step = make_train_step(m, tc)
+        state, metrics = step(_train_state(m, opt), b)
+        out.append((float(metrics["loss"]), tree_leaves(state["params"])))
+    (card_loss, card_p), (host_loss, host_p) = out
+    assert abs(card_loss - host_loss) < 1e-5 * host_loss
+    for a, b in zip(card_p, host_p):
+        a, b = a.detach().cpu(), b.detach()
+        assert float((a - b).abs().max()) < 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_loss_decreases_over_ten_steps_on_the_card(cuda, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, synthetic_corpus
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    model = TransformerLM(cfg, device=cuda)
+    model.rescale_qk_to_fan_in()
+    store = synthetic_corpus(tmp_path, vocab_size=cfg.vocab_size,
+                             n_tokens=50_000, block_tokens=8192)
+    tr = Trainer(model, TrainerConfig(base_lr=1e-3, warmup_steps=2,
+                                      total_steps=10, log_every=5))
+    state, hist = tr.run(tr.init_state(), iter(TokenPipeline(
+        store, batch=4, seq=64)), steps=10)
+    assert [h["step"] for h in hist] == [5, 10]
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    assert state["params"]["embed"].device.type == "cuda"

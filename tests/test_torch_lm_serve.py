@@ -39,6 +39,7 @@ from repro.sharding.rules import init_params as ref_init_params
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models.conditioning import CONDITIONED, FLOAT64
 from repro_torch.models.convert import params_from_reference, params_to_numpy
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve import ServeEngine, greedy_generate
@@ -187,9 +188,8 @@ CASES = [("qwen2-0.5b", 80, 2), ("qwen3-0.6b", 80, 2), ("gemma3-1b", 80, 2),
 # eager differs by 2.5e-5 to 4.9e-5 there even with O(1) scores. These
 # run with ``conditioned`` parameters (wq, wk at their true fan-in, scores
 # O(1)) and the MoE configs in float64 as well (the norms, score tiles,
-# router and linear attention stay float32, as both packages write them).
-CONDITIONED = {"whisper-base", "mixtral-8x22b", "llama4-scout-17b-a16e"}
-FLOAT64 = {"mixtral-8x22b", "llama4-scout-17b-a16e"}
+# router and linear attention stay float32, as both packages write them):
+# `repro_torch.models.conditioning`'s CONDITIONED and FLOAT64.
 
 
 def case_id(arch, prompt, batch):

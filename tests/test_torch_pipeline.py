@@ -134,9 +134,22 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.models.moe',\n"
         "        'repro_torch.models.transformer',\n"
         "        'repro_torch.models.convert',\n"
+        "        'repro_torch.models.conditioning',\n"
         "        'repro_torch.sharding.rules',\n"
         "        'repro_torch.serve.engine',\n"
-        "        'repro_torch.launch.serve'} <= set(sys.modules)\n"
+        "        'repro_torch.launch.serve',\n"
+        "        'repro_torch.tree',\n"
+        "        'repro_torch.optim',\n"
+        "        'repro_torch.optim.optimizers',\n"
+        "        'repro_torch.optim.schedules',\n"
+        "        'repro_torch.optim.compression',\n"
+        "        'repro_torch.checkpoint',\n"
+        "        'repro_torch.checkpoint.manager',\n"
+        "        'repro_torch.data',\n"
+        "        'repro_torch.data.pipeline',\n"
+        "        'repro_torch.train',\n"
+        "        'repro_torch.train.trainer',\n"
+        "        'repro_torch.launch.train'} <= set(sys.modules)\n"
         "print('clean')\n")
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
