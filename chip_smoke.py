@@ -135,7 +135,22 @@ Phases (any failed check exits non-zero):
      56 layers with adafactor, 4 x 2048 tokens, 3 steps: every logged
      step and the state finite, the dropped choices counted; no FFT
      kernel runs;
- 19. the `kernels` JSON line: phase 3's numbers and the main-path
+ 19. LM training on a mesh (`mesh_train_checks`): (a) phase 18 (a)'s
+     model, init, batches and trainer config through `Trainer(mesh=)` on
+     a world-size-1 NCCL (1, 1) mesh, its first steps against the
+     one-device trainer's: the losses, grad norms and every state leaf
+     bit for bit, each trainer's checkpoint restored into the other kind
+     bit for bit; the step ms, tokens/s, peak memory and the gather and
+     reduce-scatter ms of the whole parameter tree, and each kind's
+     memory at every stage of two fresh steps and a save
+     (`step_memory`), in one `lm mesh train` line; (b) `moe_ep` at mixtral-8x22b's full width on one layer's
+     input over the world-size-1 group, float64 twins, card against host
+     within `MESH_MOE_TOL`; (c) `chip_smoke.py --mesh-rank` subprocesses,
+     two gloo ranks on the one card beside (a)-(b), probe the mesh step's
+     gather (``full_tensor``) on CUDA tensors, which gloo refused on the
+     H100 (both ranks died): the result is printed, and (a)-(b) stand
+     alone; no FFT kernel runs;
+ 20. the `kernels` JSON line: phase 3's numbers and the main-path
      launches (phases 4, 6, 7, 9-15, the followers' included).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
@@ -194,6 +209,9 @@ LM_CPU_GATE_TWINS = {"rwkv6-3b": LM_TWINS, "zamba2-7b": F64,
 # LM training: a reduced config's SGD step on the card against the host's
 # (loss and updated parameters, max|d| / max|ref|)
 LM_TOL_TRAIN = 1e-5
+# moe_ep on the card against the host, float64 twins (phase 19 (b)):
+# max|d| / max|host|; the router is float32 in both (the reference's)
+MESH_MOE_TOL = 1e-5
 # the card's loss and gradients against the host's (phase 18 (b)), max|d|
 # / max|host| a leaf: measured on the H100 at 6.2e-6 (gemma3-1b, float32,
 # 26 layers) and 2.58e-5 (qwen2-0.5b's first layer, float64) in the
@@ -434,6 +452,18 @@ FULL = {
                 "lr": 3e-4, "reduced": False},
         "family_tol": LM_TOL_TRAIN,
         "family_grad_tol": LM_TRAIN_FAMILY_GRAD_BOUND, "seed": 0},
+    # phase 19: (a) phase 18 (a)'s model, init, batches and trainer config
+    # through Trainer(mesh=) on a world-size-1 (1, 1) mesh, its first
+    # steps against the one-device trainer's, bit for bit; (b) moe_ep at
+    # mixtral's full width on one layer's input, a float64 twin, card vs
+    # host; (c) two gloo ranks on the one card probe the gather of the
+    # mesh step on CUDA tensors
+    "mesh_train": {
+        "full": {"arch": "qwen2-0.5b", "batch": 8, "seq": 512,
+                 "optimizer": "adamw", "lr": 3e-4, "launch_steps": 30,
+                 "steps": 6, "reduced": False},
+        "moe": {"arch": "mixtral-8x22b", "tokens": 128, "reduced": False},
+        "probe_ranks": 2, "moe_tol": MESH_MOE_TOL, "seed": 0},
 }
 REHEARSE = {
     "runs": [
@@ -561,6 +591,12 @@ REHEARSE = {
         "family_tol": LM_TOL_TRAIN,
         "family_grad_tol": dict.fromkeys(LM_TRAIN_FAMILY_GRAD_BOUND,
                                          LM_TOL_TRAIN), "seed": 0},
+    "mesh_train": {
+        "full": {"arch": "qwen2-0.5b", "batch": 4, "seq": 64,
+                 "optimizer": "adamw", "lr": 1e-3, "launch_steps": 20,
+                 "steps": 3, "reduced": True},
+        "moe": {"arch": "mixtral-8x22b", "tokens": 64, "reduced": True},
+        "probe_ranks": 2, "moe_tol": MESH_MOE_TOL, "seed": 0},
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -4181,6 +4217,405 @@ def lm_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LM training on a mesh
+
+
+def mesh_lm(torch, dev, spec: dict, seed: int):
+    """``spec``'s model, drawn from a ``torch.Generator`` seeded with
+    ``seed`` and wq, wk rescaled to their true fan-in (`launch/train.py
+    --qk-fan-in`)."""
+    from repro_torch.models.transformer import TransformerLM
+    cfg = lm_config(spec, spec)
+    model = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed))
+    model.rescale_qk_to_fan_in()
+    return model
+
+
+def mesh_trainer_config(spec: dict, ckpt: Path):
+    """`launch/train.py`'s TrainerConfig for ``launch_steps`` steps, saving
+    at ``steps`` into ``ckpt``, every step logged."""
+    from repro_torch.train import TrainerConfig
+    return TrainerConfig(optimizer=spec["optimizer"], base_lr=spec["lr"],
+                         warmup_steps=max(spec["launch_steps"] // 10, 1),
+                         total_steps=spec["launch_steps"],
+                         ckpt_dir=str(ckpt), ckpt_every=spec["steps"],
+                         log_every=1)
+
+
+def full_leaves(state) -> list:
+    """Every state leaf whole (a DTensor gathered), in flatten order."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+    return [x.full_tensor() if isinstance(x, DTensor) else x.detach()
+            for x in tree_leaves(state)]
+
+
+def leaves_equal(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def mesh_collective_ms(torch, gpu: bool, mesh, trainer, state) -> dict:
+    """The mesh step's two collectives over the whole parameter tree, each
+    timed alone on ``state``: the gather of every parameter leaf
+    (``full_tensor``) and the reduction of float32 gradients of their
+    shapes from ``Partial`` onto the parameters' placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.tree import tree_leaves
+    params = tree_leaves(state["params"])
+    shardings = tree_leaves(trainer.state_shardings(state)["params"])
+    grads = [torch.ones(p.shape, dtype=torch.float32, device=p.device)
+             for p in params]
+    batch = trainer.rules.mesh_axes("batch")
+    batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
+    pl = [Partial() if n in batch else Replicate()
+          for n in mesh.mesh_dim_names]
+
+    def gather():
+        return [p.full_tensor() for p in params]
+
+    def reduce():
+        return [DTensor.from_local(g, mesh, pl).redistribute(
+            mesh, sh.placements) for g, sh in zip(grads, shardings)]
+    out = {"gather_ms": lm_timed_ms(torch, gpu, gather, 3),
+           "reduce_scatter_ms": lm_timed_ms(torch, gpu, reduce, 3),
+           "param_bytes": sum(p.numel() * p.element_size() for p in params)}
+    del grads
+    return out
+
+
+def step_memory(torch, dev, gpu: bool, trainer, state, batches,
+                base: int) -> list:
+    """Each of ``batches`` as one step of ``trainer``, then a checkpoint
+    save of the state (waited for), with the card's memory read at the end
+    of each stage: [[step, stage, peak bytes within the stage, bytes
+    allocated at its end], ...], each less ``base`` (the bytes allocated
+    before the trainer was made, when the peak was reset), the first row
+    the making of the trainer and its state. The
+    stages are the step's calls in order: ``gather`` (the mesh's
+    `_DataParallel.enter`), ``forward_backward`` (`_value_and_grad`),
+    ``reduce_scatter`` (`_DataParallel.reduce`), ``clip``
+    (`clip_by_global_norm`), ``optimizer`` (up to `place`, or the step's
+    end on one device) and ``place``; then ``checkpoint``. Zeros on the
+    CPU."""
+    import repro_torch.train.trainer as tm
+    rows, step = [], [0]
+
+    def mark(stage):
+        if gpu:
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            now = torch.cuda.memory_allocated(dev) - base
+            torch.cuda.reset_peak_memory_stats(dev)
+        else:
+            peak = now = 0
+        rows.append([step[0], stage, peak, now])
+
+    def staged(owner, name, stage, before=None):
+        fn = getattr(owner, name)
+
+        def wrapped(*a, **k):
+            if before:
+                mark(before)
+            out = fn(*a, **k)
+            mark(stage)
+            return out
+        return owner, name, fn, wrapped
+    patches = [staged(tm, "_value_and_grad", "forward_backward"),
+               staged(tm, "clip_by_global_norm", "clip"),
+               staged(tm, "place", "place", before="optimizer"),
+               staged(tm._DataParallel, "enter", "gather"),
+               staged(tm._DataParallel, "reduce", "reduce_scatter")]
+    for owner, name, _, wrapped in patches:
+        setattr(owner, name, wrapped)
+    try:
+        mark("start")
+        for i, batch in enumerate(batches, 1):
+            step[0] = i
+            state, _ = trainer._step_fn(state, batch)
+            if trainer.mesh is None:
+                mark("optimizer")
+        trainer.ckpt.save_async(len(batches), state)
+        trainer.ckpt.wait()
+        mark("checkpoint")
+    finally:
+        for owner, name, fn, _ in patches:
+            setattr(owner, name, fn)
+    return rows
+
+
+def mesh_train_full(torch, dev, gpu: bool, spec: dict, seed: int, mesh,
+                    work: Path) -> dict:
+    """(a): phase 18 (a)'s first ``steps`` steps through the one-device
+    trainer and through `Trainer(mesh=)` on ``mesh``: the logged losses
+    and grad norms and every state leaf bit for bit; each trainer's
+    checkpoint restored into the other kind bit for bit; the mesh run's
+    step ms, tokens/s and its collectives' ms; each kind's peak memory
+    and its memory at each stage (`step_memory`), from a trainer of its
+    own alone on the card before the runs."""
+    from repro_torch.data import TokenPipeline, synthetic_corpus
+    from repro_torch.launch.train import _StepClock
+    from repro_torch.train import Trainer
+
+    arch, steps = spec["arch"], spec["steps"]
+    vocab = lm_config(spec, spec).vocab_size
+    store = synthetic_corpus(
+        work / "corpus", vocab_size=vocab,
+        n_tokens=max(4_000_000, spec["batch"] * (spec["seq"] + 1) * 50),
+        seed=seed)
+
+    # where each kind's memory goes: two steps of a fresh trainer, then a
+    # save, nothing else of this phase on the card
+    it = iter(TokenPipeline(store, batch=spec["batch"], seq=spec["seq"]))
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in next(it).items()}
+               for _ in range(2)]
+    memory = {}
+    for name, m in (("one_device", None), ("mesh", mesh)):
+        lm_free(torch, gpu)
+        base = 0
+        if gpu:  # the peak from here: earlier phases' peaks are not its
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        trainer = Trainer(mesh_lm(torch, dev, spec, seed),
+                          mesh_trainer_config(spec, work / f"mem_{name}"),
+                          mesh=m)
+        memory[name] = step_memory(torch, dev, gpu, trainer,
+                                   trainer.init_state(), batches, base)
+        del trainer
+    del batches, it
+    lm_free(torch, gpu)
+
+    runs = {}
+    for name, m in (("one_device", None), ("mesh", mesh)):
+        trainer = Trainer(mesh_lm(torch, dev, spec, seed),
+                          mesh_trainer_config(spec, work / f"ckpt_{name}"),
+                          mesh=m)
+        clock = _StepClock(iter(TokenPipeline(store, batch=spec["batch"],
+                                              seq=spec["seq"])), dev)
+        t0 = time.monotonic()
+        state, hist = trainer.run(trainer.init_state(), iter(clock),
+                                  steps=steps)
+        wall_s = time.monotonic() - t0
+        runs[name] = {"trainer": trainer, "state": state, "hist": hist,
+                      "step_ms": clock.step_ms(steps), "wall_s": wall_s,
+                      "saves": trainer.ckpt.saves}
+        del trainer, state
+    one, on_mesh = runs["one_device"], runs["mesh"]
+    metrics = [[h["loss"], h["grad_norm"]] for h in one["hist"]]
+    metrics_equal = metrics == [[h["loss"], h["grad_norm"]]
+                                for h in on_mesh["hist"]]
+    check(metrics_equal, f"lm mesh train {arch}: the (1, 1) mesh's losses "
+          f"and grad norms differ from one device's: {metrics}, "
+          f"{[[h['loss'], h['grad_norm']] for h in on_mesh['hist']]}")
+    want = full_leaves(one["state"])
+    got = full_leaves(on_mesh["state"])
+    state_equal = leaves_equal(torch, want, got)
+    check(state_equal, f"lm mesh train {arch}: the (1, 1) mesh's state "
+          f"differs from one device's")
+    del got
+    collectives = mesh_collective_ms(torch, gpu, mesh, on_mesh["trainer"],
+                                     on_mesh["state"])
+    mesh_leaves = full_leaves(on_mesh["state"])
+    for r in runs.values():
+        del r["trainer"], r["state"]
+    lm_free(torch, gpu)
+
+    # each checkpoint into the other kind of trainer
+    crossed = {}
+    for name, m, ckpt, ref in (
+            ("mesh_into_one_device", None, "ckpt_mesh", mesh_leaves),
+            ("one_device_into_mesh", mesh, "ckpt_one_device", want)):
+        trainer = Trainer(mesh_lm(torch, dev, spec, seed + 1),
+                          mesh_trainer_config(spec, work / ckpt), mesh=m)
+        restored = trainer.restore_or_init()
+        crossed[name] = (int(restored["step"]) == steps and leaves_equal(
+            torch, full_leaves(restored), ref))
+        check(crossed[name], f"lm mesh train {arch}: {name}: the restored "
+              f"state differs from the saved one")
+        del trainer, restored
+        lm_free(torch, gpu)
+    del want, mesh_leaves, ref
+    lm_free(torch, gpu)
+
+    def steady_ms(run):
+        # from the second step on, without the last, which ends in the
+        # checkpoint's device->host snapshot
+        steady = run["step_ms"][1:-1] or run["step_ms"]
+        return sum(steady) / len(steady)
+    step_ms = steady_ms(on_mesh)
+    tokens = spec["batch"] * spec["seq"]
+    return {"arch": arch, "batch": spec["batch"], "seq": spec["seq"],
+            "optimizer": spec["optimizer"], "steps": steps,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "losses": [m[0] for m in metrics],
+            "grad_norms": [m[1] for m in metrics],
+            "metrics_equal": metrics_equal, "state_equal": state_equal,
+            "crossed_equal": crossed,
+            "step_ms": on_mesh["step_ms"],
+            "one_device_step_ms": one["step_ms"],
+            "steady_step_ms": step_ms, "tok_s": tokens / (step_ms * 1e-3),
+            "one_device_steady_step_ms": steady_ms(one),
+            "peak_bytes": max(r[2] for r in memory["mesh"]),
+            "one_device_peak_bytes": max(r[2] for r in memory["one_device"]),
+            "ckpt_snapshot_s": [s["snapshot_s"] for s in on_mesh["saves"]],
+            "ckpt_write_s": [s.get("write_s") for s in on_mesh["saves"]],
+            "step_memory": memory, **collectives}
+
+
+def mesh_moe_check(torch, dev, gpu: bool, spec: dict, seed: int,
+                   tol: float) -> dict:
+    """(b): `moe_ep` at ``spec``'s width on a random input of one layer
+    (``tokens`` tokens) over the world-size-1 default group on the card,
+    against the same call on the host over a gloo group of one, both in
+    float64 (the weights float32, as the model keeps them); the card's
+    float32 call timed."""
+    import torch.distributed as dist
+
+    from repro_torch.models.moe import moe_ep, moe_specs
+    from repro_torch.sharding.rules import init_params
+    cfg = lm_config(spec, spec)
+    gen = torch.Generator(dev).manual_seed(seed)
+    p = init_params(moe_specs(cfg), gen, dev)
+    x = torch.randn((1, spec["tokens"], cfg.d_model), generator=gen,
+                    dtype=torch.float64, device=dev)
+    y = moe_ep(cfg, p, x, group=dist.group.WORLD)
+    host_group = dist.new_group(backend="gloo")
+    want = moe_ep(cfg, {k: v.cpu() for k, v in p.items()}, x.cpu(),
+                  group=host_group)
+    err = rel_err(y.cpu(), want)
+    del y, want
+    x32 = x.float()
+    ms = lm_timed_ms(torch, gpu, lambda: moe_ep(cfg, p, x32,
+                                                group=dist.group.WORLD), 3)
+    dist.destroy_process_group(host_group)
+    out = {"arch": cfg.name, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+           "tokens": spec["tokens"], "rel_err": err, "tol": tol,
+           "float32_ms": ms}
+    del p, x, x32
+    lm_free(torch, gpu)
+    check(err <= tol, f"lm mesh moe_ep {cfg.name}: card vs host {err}")
+    return out
+
+
+def mesh_probe_rank(rank: int, store: str, out: str, gpu: bool) -> int:
+    """A rank of phase 19 (c) (``chip_smoke.py --mesh-rank``), one of a
+    gloo group of ``probe_ranks`` processes on the one card: the mesh
+    step's gather of a parameter (``full_tensor`` of a ``Shard(0)``
+    DTensor) on this device's tensors, the collective gloo refused on
+    CUDA tensors on the H100 (PERF.md §6); writes its report."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    n = (FULL if gpu else REHEARSE)["mesh_train"]["probe_ranks"]
+    dev = torch.device("cuda", 0) if gpu else torch.device("cpu")
+    if gpu:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=20))
+    try:
+        mesh = init_device_mesh(dev.type, (n,), mesh_dim_names=("data",))
+        y = DTensor.from_local(torch.ones(4, device=dev), mesh,
+                               [Shard(0)]).full_tensor()
+        check(float(y.sum()) == 4.0 * n, f"all_gather: {y.tolist()}")
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps({"rank": rank, "ranks": n}))
+    return 0
+
+
+def mesh_probe_start(cfg: dict, gpu: bool, work: Path) -> list:
+    """(c)'s ranks (``chip_smoke.py --mesh-rank r``), started to run beside
+    (a)-(b); logs and reports under ``work``."""
+    work.mkdir(parents=True, exist_ok=True)
+    store = work / "store"
+    store.unlink(missing_ok=True)
+    procs = []
+    for r in range(cfg["probe_ranks"]):
+        with open(work / f"rank_{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(r), "--store", str(store), "--out",
+                 str(work / f"rank_{r}.json")]
+                + ([] if gpu else ["--rehearse"]),
+                stdout=f, stderr=subprocess.STDOUT))
+    return procs
+
+
+def mesh_probe_finish(procs: list, work: Path, bound_s: float) -> dict:
+    """Waits for (c)'s ranks up to ``bound_s`` (a rank that outlives it
+    is stopped): whether gloo took the gather on every rank, the exit
+    codes, and the logs' tails where one failed."""
+    deadline = time.monotonic() + bound_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    exits = [p.returncode for p in procs]
+    out = {"collective": "all_gather", "ranks": len(procs), "exits": exits,
+           "taken": not any(exits) and all(
+               (work / f"rank_{r}.json").exists()
+               for r in range(len(procs)))}
+    if not out["taken"]:
+        out["logs"] = [(work / f"rank_{r}.log").read_text()[-600:]
+                       for r in range(len(procs))]
+    return out
+
+
+def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
+    """Phase 19: LM training on a mesh, (a)-(c). No FFT kernel runs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    reset_counts()
+    card = device_line() if gpu else "cpu (rehearsal)"
+    probe = mesh_probe_start(cfg, gpu, work / "ranks")
+    out = {}
+    try:
+        store = one_rank_group(torch, gpu)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            t0 = time.monotonic()
+            out["full"] = mesh_train_full(torch, dev, gpu, cfg["full"],
+                                          cfg["seed"], mesh, work / "full")
+            out["full"].update(seconds=time.monotonic() - t0, device=card)
+            print("lm mesh train " + json.dumps(out["full"]))
+            t0 = time.monotonic()
+            out["moe"] = mesh_moe_check(torch, dev, gpu, cfg["moe"],
+                                        cfg["seed"], cfg["moe_tol"])
+            out["moe"].update(seconds=time.monotonic() - t0, device=card)
+            print("lm mesh moe_ep " + json.dumps(out["moe"]))
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
+            shutil.rmtree(work / "full", ignore_errors=True)
+    finally:
+        t0 = time.monotonic()
+        out["ranks"] = mesh_probe_finish(probe, work / "ranks", 90)
+    out["ranks"]["wait_s"] = time.monotonic() - t0
+    print("lm mesh ranks " + json.dumps(out["ranks"]))
+    if out["ranks"]["taken"]:
+        print(f"lm mesh ranks: gloo took all_gather on {dev.type} tensors; "
+              "the two-rank step is not built here (ROADMAP)")
+    else:
+        print(f"lm mesh ranks: gloo takes no all_gather on {dev.type} "
+              "tensors: no two-rank step, (a)-(b) alone")
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"LM training on a mesh ran an FFT kernel: {counts}")
+    return out
+
+
 def model_rates(timing: dict, ooc_run: dict, a2a_bps: float) -> dict:
     """The tuner model's CUDA rates as this run measures them
     (fft/tuner.py MODEL_RATES): K1b's main-path case's flops and bytes over
@@ -4219,8 +4654,12 @@ def main(argv=None) -> int:
     ap.add_argument("--follower", type=int, default=None,
                     help="run as this rank of phase 15's service (started "
                          "by phase 15 itself, with --store and --out)")
-    ap.add_argument("--store", help="phase 15's FileStore (--follower)")
-    ap.add_argument("--out", help="a follower's report (--follower)")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help="run as this rank of phase 19 (c)'s gloo group "
+                         "(started by phase 19 itself, with --store and "
+                         "--out)")
+    ap.add_argument("--store", help="phase 15's or 19's FileStore")
+    ap.add_argument("--out", help="a follower's or rank's report")
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4235,6 +4674,8 @@ def main(argv=None) -> int:
         return 2
     if args.follower is not None:
         return mesh_serve_follower(args.follower, args.store, args.out, gpu)
+    if args.mesh_rank is not None:
+        return mesh_probe_rank(args.mesh_rank, args.store, args.out, gpu)
     cfg = FULL if gpu else REHEARSE
     dev = torch.device("cuda", 0) if gpu else torch.device("cpu")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4431,6 +4872,16 @@ def main(argv=None) -> int:
     lm_train["seconds"] = time.monotonic() - t0
     print(f"LM training phase: {lm_train['seconds']:.3f} s")
 
+    # phase 19: LM training on a mesh
+    t0 = time.monotonic()
+    try:
+        mesh_train = mesh_train_checks(torch, dev, gpu, cfg["mesh_train"],
+                                       work_root / "mesh_train")
+    finally:
+        shutil.rmtree(work_root / "mesh_train", ignore_errors=True)
+    mesh_train["seconds"] = time.monotonic() - t0
+    print(f"LM mesh training phase: {mesh_train['seconds']:.3f} s")
+
     # the launches of phases 9-15: by variant, and by timed shape
     measured = {**nd_measured, **dist_measured, **pencil_measured,
                 **serve_measured, **tune_measured, **pipeline_measured,
@@ -4466,7 +4917,7 @@ def main(argv=None) -> int:
     rates = model_rates(timing, ooc["at_scale"], tune["a2a_bytes_s"])
     print("model rates " + json.dumps(rates))
 
-    # phase 19: the kernels line
+    # phase 20: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
@@ -4476,6 +4927,7 @@ def main(argv=None) -> int:
               "pencil": pencil, "serve": serve, "tune": tune,
               "pipeline": pipeline, "mesh_serve": mesh_serve,
               "dryrun": dryrun, "lm": lm, "lm_train": lm_train,
+              "mesh_train": mesh_train,
               "model_rates": rates,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}

@@ -10,11 +10,17 @@ state saved by either package restores in the other.
     never yields a checkpoint that ``latest_step`` would pick up;
   * auto-resume: ``latest_step`` returns the newest COMMITted step and
     ignores torn ones;
-  * the leaves are whole arrays on the host; ``restore`` puts each one on
-    the device asked for;
+  * the leaves are whole (global) arrays on the host, from a mesh too;
+    ``restore`` puts each one on the device asked for, or with
+    ``shardings`` gives each rank its own block of it as a DTensor on the
+    current mesh, whatever mesh saved it (elastic: a state saved on
+    (2, 2) restores onto (4, 1), (1, 1) or no mesh);
   * async: ``CheckpointManager.save_async`` snapshots to the host (blocking
-    on the device->host copy only) and writes in a background thread;
-    keep_n GC.
+    on the device->host copy only; on a mesh every rank gathers every
+    leaf, and the mesh's first rank alone writes) and writes in a
+    background thread; keep_n GC. On a mesh ``wait`` returns on every
+    rank once the write is committed, and ``latest`` is the writer's
+    answer on every rank.
 """
 
 from __future__ import annotations
@@ -29,8 +35,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.sharding.rules import from_block, local_slices
+from repro_torch.tree import (flatten_up_to, tree_flatten, tree_map,
+                              tree_unflatten)
 
 COMMIT = "COMMIT"
 
@@ -43,7 +52,11 @@ def _as_numpy(leaf) -> np.ndarray:
 
 def _snapshot(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that later in-place updates of the live
-    state do not reach (a CPU tensor's ``.numpy()`` shares its memory)."""
+    state do not reach (a CPU tensor's ``.numpy()`` shares its memory); a
+    DTensor is gathered whole first (a collective: every rank calls it)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
@@ -91,26 +104,59 @@ def latest_step(ckpt_dir: os.PathLike) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: os.PathLike, step: int, like, device=None):
+def restore(ckpt_dir: os.PathLike, step: int, like, device=None,
+            shardings=None):
     """Load step ``step`` shaped like ``like`` (a tree of tensors or
     arrays; only their shapes are read); each leaf a tensor on ``device``
-    (the host when None)."""
+    (the host when None). With ``shardings`` (`NamedSharding` s, the
+    nesting of ``like``) each leaf is a DTensor with their placements
+    whose block on this rank is read from the file alone, on ``device``
+    (else the mesh's device: the current card on "cuda"): this is where
+    elastic resharding happens."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     leaves, treedef = tree_flatten(like)
+    shs = (None,) * len(leaves) if shardings is None else flatten_up_to(
+        treedef, shardings)
     out = []
-    for i, leaf in enumerate(leaves):
-        arr = np.load(d / f"leaf_{i:05d}.npy")
+    for i, (leaf, sh) in enumerate(zip(leaves, shs)):
+        arr = np.load(d / f"leaf_{i:05d}.npy", mmap_mode="r")
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(
                 f"leaf {i}: checkpoint shape {arr.shape} != model {leaf.shape}")
-        out.append(torch.from_numpy(arr).to(device or "cpu"))
+        if sh is None:
+            out.append(torch.from_numpy(np.array(arr)).to(device or "cpu"))
+            continue
+        # a copy: a view would keep the mapped file under the tensor
+        block = np.array(arr[local_slices(arr.shape, sh.mesh,
+                                          sh.placements)])
+        dev = device or _mesh_device(sh.mesh)
+        out.append(from_block(torch.from_numpy(block).to(dev), arr.shape, sh))
     return tree_unflatten(treedef, out)
 
 
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _mesh_sum(mesh, value: int) -> int:
+    """``value`` summed over every rank of ``mesh`` (a collective, and a
+    barrier: each rank waits for the sum)."""
+    from torch.distributed.tensor import DTensor, Partial
+    x = torch.tensor([value], dtype=torch.int64, device=_mesh_device(mesh))
+    return int(DTensor.from_local(x, mesh, [Partial()] * mesh.ndim)
+               .full_tensor()[0])
+
+
 class CheckpointManager:
-    def __init__(self, ckpt_dir: os.PathLike, keep_n: int = 3):
+    def __init__(self, ckpt_dir: os.PathLike, keep_n: int = 3, mesh=None):
         self.dir = Path(ckpt_dir)
         self.keep_n = keep_n
+        self.mesh = mesh
+        # the mesh's first rank writes; every rank gathers
+        self.writer = mesh is None or int(mesh.mesh.flatten()[0]) == (
+            dist.get_rank())
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending = None
         self._lock = threading.Lock()
@@ -119,11 +165,15 @@ class CheckpointManager:
         self.saves: list[dict] = []
 
     def save_async(self, step: int, tree):
-        """Snapshot to host now, write in the background."""
+        """Snapshot to host now, write in the background (on a mesh: every
+        rank gathers, the writer writes)."""
         t0 = time.monotonic()
         host_tree = tree_map(_snapshot, tree)
         rec = {"step": step, "snapshot_s": time.monotonic() - t0,
                "bytes": sum(a.nbytes for a in tree_flatten(host_tree)[0])}
+        if not self.writer:
+            self.saves.append(rec)
+            return
         with self._lock:
             if self._pending is not None:
                 self._pending.result()  # backpressure: one in flight
@@ -142,6 +192,8 @@ class CheckpointManager:
             if self._pending is not None:
                 self._pending.result()
                 self._pending = None
+        if self.mesh is not None:
+            _mesh_sum(self.mesh, 0)  # every rank past the writer's commit
 
     def _gc(self):
         steps = sorted(
@@ -151,10 +203,14 @@ class CheckpointManager:
             shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
 
     def latest(self) -> int | None:
-        return latest_step(self.dir)
+        if self.mesh is None:
+            return latest_step(self.dir)
+        mine = latest_step(self.dir) if self.writer else None
+        s = _mesh_sum(self.mesh, 0 if mine is None else mine + 1) - 1
+        return None if s < 0 else s
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, device=None, shardings=None):
         s = self.latest()
         if s is None:
             return None, None
-        return s, restore(self.dir, s, like, device)
+        return s, restore(self.dir, s, like, device, shardings)

@@ -14,13 +14,16 @@ cast to x's dtype. The reference maps the group function with ``vmap``;
 here the groups are one more axis of the same products, so each expert's
 weights are read once for all the groups.
 
-The expert-parallel form (``moe_ep``, an all_to_all over a mesh) comes
-with training on a mesh (ROADMAP.md Queue 1 item 12d).
+The expert-parallel form (`moe_ep`) shards the experts over a mesh dim
+and exchanges the tokens' capacity buffers with one differentiable
+all_to_all pair over that dim's process group. As in the reference,
+nothing in the model calls it (``cfg.moe_impl`` is read nowhere).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.common import activate
@@ -56,6 +59,11 @@ def _route(cfg, p, x_flat):
     return weights, idx
 
 
+# moe_ep's routing against the full router table (the router is
+# replicated), under the reference's name.
+_route_global = _route
+
+
 def _dispatch_tensors(cfg, weights, idx, n_tokens):
     """GShard capacity dispatch for groups of ``n_tokens``: weights and idx
     (..., N, k) -> (dispatch, combine), each (..., N, E, C).
@@ -65,10 +73,15 @@ def _dispatch_tensors(cfg, weights, idx, n_tokens):
     capacity_factor knob trades drop rate vs dispatch memory).
     """
     e = cfg.num_experts
-    k = cfg.num_experts_per_tok
-    cap = int(cfg.capacity_factor * k * n_tokens / e)
-    cap = max(cap, 1)
+    cap = max(int(cfg.capacity_factor * cfg.num_experts_per_tok * n_tokens
+                  / e), 1)
+    return _dispatch_tensors_sized(cfg, weights, idx, n_tokens, e, cap)
 
+
+def _dispatch_tensors_sized(cfg, weights, idx, n_tokens, e, cap):
+    """`_dispatch_tensors` over ``e`` experts of ``cap`` slots each, the
+    body both forms share: (dispatch, combine), each (..., N, E, C).
+    ``n_tokens`` is N, kept for the reference's signature."""
     lead = idx.shape[:-1]  # (..., N)
     counts = torch.zeros(lead[:-1] + (e,), dtype=torch.int64,
                          device=idx.device)
@@ -76,7 +89,7 @@ def _dispatch_tensors(cfg, weights, idx, n_tokens):
                            device=idx.device)
     combine = torch.zeros(lead + (e, cap), dtype=torch.float32,
                           device=idx.device)
-    for j in range(k):  # k <= 2 for all assigned archs
+    for j in range(cfg.num_experts_per_tok):  # k <= 2 for all assigned archs
         mask_j = F.one_hot(idx[..., j], e)                          # (N, E)
         pos_j = torch.cumsum(mask_j, dim=-2) - 1 + counts[..., None, :]
         counts = counts + mask_j.sum(dim=-2)
@@ -111,6 +124,16 @@ def _expert_ffn(cfg, p, xe):
     return torch.bmm(g * h, wo).reshape(xe.shape)
 
 
+def _add_shared_expert(cfg, p, x, y):
+    """y plus the shared expert's gated MLP of x, where the config has one."""
+    if not cfg.shared_expert:
+        return y
+    dt = x.dtype
+    g = activate(cfg.act, torch.matmul(x, p["shared_wg"].to(dt)))
+    h = torch.matmul(x, p["shared_wi"].to(dt))
+    return y + torch.matmul(g * h, p["shared_wo"].to(dt))
+
+
 def moe_tp(cfg, p, x):
     """Tensor-parallel MoE over x (B, S, d); B * S must be a whole number
     of groups."""
@@ -128,9 +151,50 @@ def moe_tp(cfg, p, x):
     ye = _expert_ffn(cfg, p, xe.to(x.dtype))                     # (E,G,C,d)
     y = torch.einsum("gnec,egcd->gnd", combine.to(x.dtype), ye)
     y = y.reshape(b, s, d)
-    if cfg.shared_expert:
-        dt = x.dtype
-        g = activate(cfg.act, torch.matmul(x, p["shared_wg"].to(dt)))
-        h = torch.matmul(x, p["shared_wi"].to(dt))
-        y = y + torch.matmul(g * h, p["shared_wo"].to(dt))
-    return y
+    return _add_shared_expert(cfg, p, x, y)
+
+
+def moe_ep(cfg, p, x, *, group, axis_name="model"):
+    """Expert-parallel MoE over this rank's tokens x (B, S, d): experts
+    sharded over ``axis_name``; tokens are exchanged with a single
+    all_to_all pair instead of activating every expert's weights through
+    FSDP all-gathers.
+
+    ``group`` is that dim's process group, or a ``DeviceMesh`` whose
+    ``axis_name`` dim is taken; its ranks in group order are the dim's
+    coordinates. ``p["wi"]``, ``p["wg"]`` and ``p["wo"]`` are this rank's
+    shard of the experts (E/D, d, ff), the router and shared expert whole.
+    The exchange is ``torch.distributed.nn``'s all_to_all, so the
+    gradient flows back through it.
+    """
+    from torch.distributed.nn.functional import all_to_all_single
+    if hasattr(group, "get_group"):
+        group = group.get_group(axis_name)
+    b, s, d = x.shape
+    dcount = dist.get_world_size(group)
+    e_local = p["wi"].shape[0]
+    e = e_local * dcount
+    n = b * s
+    x_flat = x.reshape(n, d)
+
+    w, idx = _route_global(cfg, p, x_flat)
+    cap = max(int(cfg.capacity_factor * cfg.num_experts_per_tok * n / e), 1)
+    dispatch, combine = _dispatch_tensors_sized(cfg, w, idx, n, e, cap)
+
+    # Local buffers per expert (experts in global expert-major order), then
+    # one a2a pair: tokens travel to their expert's owner and back.
+    xe = torch.einsum("nec,nd->ecd", dispatch, x_flat.to(torch.bfloat16))
+    xe = xe.reshape(dcount, e_local, cap, d)
+    # dim 0 indexes the destination before and the source after: this
+    # rank then holds only its own e_local experts' buffers
+    xe = all_to_all_single(torch.empty_like(xe), xe, group=group)
+    xe = xe.transpose(0, 1).reshape(e_local, dcount * cap, d)
+    ye = _expert_ffn(cfg, p, xe.to(x.dtype))
+    ye = ye.reshape(e_local, dcount, cap, d).transpose(0, 1)
+    ye = ye.to(torch.bfloat16).contiguous()
+    ye = all_to_all_single(torch.empty_like(ye), ye, group=group)
+    ye = ye.reshape(e, cap, d)
+    y = torch.einsum("nec,ecd->nd", combine.to(x.dtype), ye.to(x.dtype))
+    y = y.reshape(b, s, d)
+    return _add_shared_expert(cfg, p, x, y)
+

@@ -274,6 +274,27 @@ def _block_cache_init(cfg, kind, batch, cache_len, *, device, stacked=(),
     raise ValueError(kind)
 
 
+def _block_cache_axes(cfg, kind, *, cross=False, stacked=False):
+    """Logical sharding axes mirroring _block_cache_init's structure."""
+    pre = ("layers",) if stacked else ()
+    kv_axes = pre + ("cache_batch", "cache_seq", "cache_heads",
+                     "cache_head_dim")
+    if kind in "GLS":
+        c = {"k": kv_axes, "v": kv_axes}
+        if cross:
+            c["cross_k"] = kv_axes
+            c["cross_v"] = kv_axes
+        return c
+    if kind == "M":
+        return (pre + ("cache_batch", None, "d_ff"),
+                pre + ("cache_batch", "ssm_heads", "ssm_state", None))
+    if kind == "R":
+        return ((pre + ("cache_batch", "d_model"),
+                 pre + ("cache_batch", "cache_heads", None, None)),
+                pre + ("cache_batch", "d_model"))
+    raise ValueError(kind)
+
+
 def _decode_carries(cfg, kind, cache):
     """``cache`` with its M/R carries in the dtypes a decode step writes:
     the model's for the token and conv carries, float32 for the states.
@@ -583,6 +604,22 @@ class TransformerLM(nn.Module):
                 cfg, pat[i], batch, cache_len, device=self.device,
                 cross=cross)
         return caches
+
+    def cache_axes(self):
+        """Logical sharding axes tree parallel to init_cache()'s structure
+        (`repro_torch.sharding.rules.tree_shardings`)."""
+        cfg = self.cfg
+        full, tail = cfg.pattern_groups()
+        pat = cfg.layer_pattern
+        cross = cfg.encoder_layers > 0
+        axes = {"blocks": None, "tail": {}}
+        if full > 0:
+            axes["blocks"] = {
+                str(j): _block_cache_axes(cfg, k, cross=cross, stacked=True)
+                for j, k in enumerate(pat)}
+        for i in range(tail):
+            axes["tail"][str(i)] = _block_cache_axes(cfg, pat[i], cross=cross)
+        return axes
 
     def prefill(self, batch, cache_len=None):
         """Full-context forward building decode caches.

@@ -1005,8 +1005,11 @@ class FftService:
                                           for _ in range(self.coalesce)]))
             if dq and (draining
                        or now - dq[0]._t_submit >= self.max_batch_delay_s):
-                self._launch(_Group(key, list(dq)))
+                # empty the queue before the launch: a retry routed back
+                # while `_launch` waits for a slot joins it, and waits
+                group = _Group(key, list(dq))
                 dq.clear()
+                self._launch(group)
         if draining:
             return self._quiesced()
         return False

@@ -640,3 +640,61 @@ def test_loss_decreases_over_ten_steps_on_the_card(cuda, tmp_path):
     assert [h["step"] for h in hist] == [5, 10]
     assert hist[-1]["loss"] < hist[0]["loss"]
     assert state["params"]["embed"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_mesh_trainer_on_one_card_equals_one_device(cuda, tmp_path,
+                                                    optimizer):
+    """`Trainer(mesh=)` on a world-size-1 NCCL (1, 1) mesh, reduced
+    qwen2-0.5b, two steps: the losses, grad norms and every state leaf
+    bit for bit the one-device trainer's on the card, and so are the
+    models' parameters after `run`; the mesh's checkpoint restores into
+    the one-device trainer bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("qwen2-0.5b").reduced()
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(1, cfg.vocab_size, (4, 64))
+                .astype(np.int32)} for _ in range(2)]
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        runs = []
+        for m in (None, mesh):
+            tc = TrainerConfig(optimizer=optimizer, base_lr=1e-3,
+                               warmup_steps=0, total_steps=10, log_every=1,
+                               ckpt_dir=str(tmp_path / f"ck_{m is None}"))
+            model = TransformerLM(cfg, device=cuda,
+                                  generator=torch.Generator(cuda)
+                                  .manual_seed(0))
+            tr = Trainer(model, tc, mesh=m)
+            state, hist = tr.run(tr.init_state(), iter(batches), 2)
+            leaves = [x.full_tensor() if m is not None else x.detach()
+                      for x in tree_leaves(state)]
+            assert all(x.device.type == "cuda" for x in leaves)
+            runs.append((hist, leaves, tree_leaves(model.param_tree())))
+        (h1, s1, m1), (h2, s2, m2) = runs
+        assert [[h[k] for k in ("loss", "grad_norm")] for h in h1] == [
+            [h[k] for k in ("loss", "grad_norm")] for h in h2]
+        assert len(s1) == len(s2)
+        assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+        # the models hold the trained weights after run
+        assert all(torch.equal(a, b) for a, b in zip(m1, m2))
+        # the mesh's checkpoint into the one-device trainer
+        tc = TrainerConfig(optimizer=optimizer,
+                           ckpt_dir=str(tmp_path / "ck_False"))
+        tr = Trainer(TransformerLM(cfg, device=cuda), tc)
+        restored = tr.restore_or_init()
+        assert int(restored["step"]) == 2
+        assert all(torch.equal(a.detach(), b)
+                   for a, b in zip(tree_leaves(restored), s2))
+    finally:
+        dist.destroy_process_group()

@@ -138,6 +138,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.sharding.rules',\n"
         "        'repro_torch.serve.engine',\n"
         "        'repro_torch.launch.serve',\n"
+        "        'repro_torch.launch.mesh',\n"
         "        'repro_torch.tree',\n"
         "        'repro_torch.optim',\n"
         "        'repro_torch.optim.optimizers',\n"

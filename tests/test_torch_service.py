@@ -213,6 +213,40 @@ def test_batch_fault_retries_then_succeeds(service_of):
     assert injector.fired["serve.batch"] >= 1
 
 
+class _SlotsBusyOnce:
+    """The in-flight slots, seen full on the batcher's second wait only."""
+
+    def __init__(self, slots):
+        self.slots, self.calls = slots, 0
+
+    def acquire(self, timeout=None):
+        self.calls += 1
+        return self.calls != 2 and self.slots.acquire(timeout=timeout)
+
+    def release(self):
+        self.slots.release()
+
+
+def test_retry_routed_while_a_partial_group_waits_is_served(service_of):
+    # the full group [0, 1] faults at serve.batch and routes both members
+    # back; the partial group [2] then waits one poll for a slot, and the
+    # batcher takes the retries in during that wait: they must stay
+    # queued and launch again, not be cleared with the group they joined
+    rules = (FaultRule("serve.batch", 0, (1,)),)
+    service = service_of(injector=FaultInjector(FaultPlan(rules)),
+                         coalesce=2, max_batch_delay_s=0.0, start=False,
+                         retry=RetryPolicy(max_attempts=3, base_delay_s=0.0))
+    service._inflight = _SlotsBusyOnce(service._inflight)
+    tickets = [service.submit("c2c", *_ops(2, seed=i)) for i in range(3)]
+    service.start()
+    service.close(drain=True)
+    assert service._inflight.calls >= 4
+    assert [t.wait(0) for t in tickets] == [True] * 3
+    assert [t.error for t in tickets] == [None] * 3
+    assert [t.attempts for t in tickets] == [2, 2, 1]
+    assert service.stats.retries == 2 and service.idle()
+
+
 def test_retry_budget_exhaustion_chains_the_cause(service_of):
     # request 0 faults on every serve.batch pass; budget of 2 attempts
     rules = (FaultRule("serve.batch", 0, tuple(range(1, 10))),)

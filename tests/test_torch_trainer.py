@@ -230,8 +230,10 @@ def test_adafactor_runs(setup):
 
 
 def test_trainer_on_a_mesh_is_refused(setup):
+    """A mesh that is not a DeviceMesh with named dims is refused (the
+    trainer on a DeviceMesh: tests/test_torch_mesh_train.py)."""
     _, _, model, _ = setup
-    with pytest.raises(NotImplementedError, match="12d"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(model, TrainerConfig(), mesh=object())
 
 
