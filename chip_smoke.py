@@ -150,7 +150,21 @@ Phases (any failed check exits non-zero):
      gather (``full_tensor``) on CUDA tensors, which gloo refused on the
      H100 (both ranks died): the result is printed, and (a)-(b) stand
      alone; no FFT kernel runs;
- 20. the `kernels` JSON line: phase 3's numbers and the main-path
+ 20. the LM dryrun (`lm_dryrun_checks`): (a) ``python -m
+     repro_torch.launch.sweep --archs qwen2-0.5b`` over both production
+     meshes and every shape, and over the one_card cells, one sweep a
+     (mesh, shape), all started together: every record ok, long_500k
+     skipped with the reference's reason, finite positive FLOPs and bytes,
+     each cell's wall time; (b) qwen2-0.5b decode_32k on one card, whole
+     (128 sequences, a 32768-position cache), built on the card by
+     `dryrun.card_check`: the tensors' bytes equal the record's, the
+     allocator's growth within its rounding, FlopCounterMode around the
+     card's step equal to the record's FLOPs, the step's ms (CUDA events)
+     beside the record's memory_s and compute_s and its peak memory
+     beside the analytic bytes; (c) train_4k's state from
+     `Trainer.init_state` on the card: its bytes equal the record's; one
+     `lm dryrun` line; the rehearsal runs (a) alone; no FFT kernel runs;
+ 21. the `kernels` JSON line: phase 3's numbers and the main-path
      launches (phases 4, 6, 7, 9-15, the followers' included).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
@@ -249,6 +263,15 @@ SOURCE["stockham"] = "src/repro_torch/csrc/stockham.cu"
 # examples/spectral_analysis.py's capture
 SR = 16_000
 TONES_HZ = (440.0, 1_250.0, 3_000.0)
+
+# phase 20: qwen2-0.5b's cells on both production meshes, and the one_card
+# cells held to the card: decode_32k whole (128 sequences, a 32768-position
+# bf16 cache) and train_4k's state
+LM_DRYRUN = {"arch": "qwen2-0.5b", "meshes": ("single_pod", "multi_pod"),
+             "shapes": ("train_4k", "prefill_32k", "decode_32k",
+                        "long_500k"),
+             "card_shapes": ("train_4k", "decode_32k"), "reps": 3,
+             "cell_timeout_s": 300, "timeout_s": 420}
 
 # main-path runs: (label, kernel it drives, fft_job arguments). Pipelined,
 # with 64 MiB (level 0) to 256 MiB (level 2) blocks. A label that names a
@@ -464,6 +487,7 @@ FULL = {
                  "steps": 6, "reduced": False},
         "moe": {"arch": "mixtral-8x22b", "tokens": 128, "reduced": False},
         "probe_ranks": 2, "moe_tol": MESH_MOE_TOL, "seed": 0},
+    "lm_dryrun": LM_DRYRUN,
 }
 REHEARSE = {
     "runs": [
@@ -597,6 +621,8 @@ REHEARSE = {
                  "steps": 3, "reduced": True},
         "moe": {"arch": "mixtral-8x22b", "tokens": 64, "reduced": True},
         "probe_ranks": 2, "moe_tol": MESH_MOE_TOL, "seed": 0},
+    # the sweep runs on meta in both; (b) and (c) need the card
+    "lm_dryrun": LM_DRYRUN,
 }
 # the paper's case, factored only: a 1 TiB operand under a 1 GiB budget
 PAPER_OOC = (1 << 37, 1 << 30)
@@ -4616,6 +4642,141 @@ def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the LM dryrun
+
+
+def lm_dryrun_sweeps(cfg: dict, out: Path) -> tuple[dict, list]:
+    """(a): ``python -m repro_torch.launch.sweep --archs <arch>`` as a user
+    runs it, over both production meshes and every shape, and over the
+    one_card cells (b) and (c) read; one sweep a (mesh, shape), all
+    started together (each cell's step runs on meta in one Python
+    thread). Returns ({(mesh, shape): record}, the sweeps' status
+    lines)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    jobs = [(m, s) for m in cfg["meshes"] for s in cfg["shapes"]]
+    jobs += [("one_card", s) for s in cfg["card_shapes"]]
+    procs = []
+    try:
+        for mesh, shape in jobs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.sweep",
+                 "--archs", cfg["arch"], "--meshes", mesh, "--shapes",
+                 shape, "--out", str(out), "--timeout",
+                 str(cfg["cell_timeout_s"])],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        deadline = time.monotonic() + cfg["timeout_s"]
+        lines = []
+        for (mesh, shape), proc in zip(jobs, procs):
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            check(proc.returncode == 0, f"sweep {mesh} {shape}: exit "
+                  f"{proc.returncode}: {stdout[-2000:]}{stderr[-2000:]}")
+            lines += [ln for ln in stdout.splitlines() if ln.startswith("[")]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    recs = {(m, s): json.loads(
+        (out / f"{cfg['arch']}__{s}__{m}.json").read_text())
+        for m, s in jobs}
+    return recs, lines
+
+
+def lm_dryrun_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
+    """Phase 20: the LM dryrun. (a) the sweep (`lm_dryrun_sweeps`): every
+    cell ok, long_500k skipped with the reference's reason for a pure
+    attention arch, finite positive FLOPs and bytes; (b) the one_card
+    decode cell built whole on the card (`dryrun.card_check`): its
+    tensors' bytes equal the record's, the allocator's growth within its
+    rounding, the step's FLOPs under FlopCounterMode equal the record's,
+    its ms beside the record's terms; (c) the one_card train cell's state
+    from ``Trainer.init_state`` on the card: bytes equal the record's. No
+    FFT kernel runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import cell_runnable
+    reset_counts()
+    t0 = time.monotonic()
+    recs, lines = lm_dryrun_sweeps(cfg, work)
+    out = {"device": device_line() if gpu else "cpu (rehearsal)",
+           "sweep_s": time.monotonic() - t0, "status": lines, "cells": []}
+    runnable = {s: cell_runnable(get_config(cfg["arch"]), s)
+                for s in cfg["shapes"]}
+    for (mesh, shape), rec in recs.items():
+        ok, reason = runnable[shape]
+        if not ok:
+            check(rec.get("skipped") and rec["reason"] == reason,
+                  f"{mesh} {shape}: not skipped with the reference's reason")
+            out["cells"].append({"mesh": mesh, "shape": shape,
+                                 "skipped": True})
+            continue
+        check(rec["ok"] and not rec.get("skipped"),
+              f"{mesh} {shape}: {rec.get('error')}")
+        cost, mem = rec["cost"], rec["memory"]
+        for k in ("flops", "bytes_accessed"):
+            check(math.isfinite(cost[k]) and cost[k] > 0,
+                  f"{mesh} {shape}: {k} {cost[k]}")
+        check(mem["total_bytes"] > 0, f"{mesh} {shape}: no bytes")
+        out["cells"].append({
+            "mesh": mesh, "shape": shape, "build_s": rec["build_s"],
+            "cost_s": rec["cost_s"], "rows_per_device":
+            cost["rows_per_device"], "flops": cost["flops"],
+            "model_flops": cost["model_flops"],
+            "bytes_accessed": cost["bytes_accessed"],
+            "collective_bytes": cost["collective_bytes"],
+            "total_bytes": mem["total_bytes"], "bound": cost["bound"],
+            **{k: cost[k] for k in ("compute_s", "memory_s",
+                                    "collective_s")}})
+    if gpu:
+        lm_free(torch, gpu)
+        out["card_decode"] = lm_dryrun_card(
+            torch, dev, recs["one_card", "decode_32k"], cfg["reps"])
+        lm_free(torch, gpu)
+        out["card_train_state"] = lm_dryrun_card(
+            torch, dev, recs["one_card", "train_4k"], cfg["reps"])
+        lm_free(torch, gpu)
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"the LM dryrun ran an FFT kernel: {counts}")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def lm_dryrun_card(torch, dev, rec: dict, reps: int) -> dict:
+    """(b) or (c): ``dryrun.card_check`` of a one_card record, held to it."""
+    from repro_torch.launch import dryrun
+    got = dryrun.card_check(rec, device=dev, reps=reps)
+    mem, what = rec["memory"], f"{rec['shape']} on the card"
+    # train: the state, without the step's inputs
+    kinds = (["params", "opt_state", "step"] if rec["mode"] == "train"
+             else ["params", "caches", "inputs"])
+    for k in kinds:
+        k = f"{k}_bytes"
+        check(got[k] == mem[k], f"{what}: {k} {got[k]} != {mem[k]}")
+    check(got["tensor_bytes"] == sum(mem[f"{k}_bytes"] for k in kinds),
+          f"{what}: {got['tensor_bytes']} bytes of tensors")
+    slack = got["allocated_bytes"] - got["tensor_bytes"]
+    check(0 <= slack <= got["rounding_bytes"],
+          f"{what}: allocated {got['allocated_bytes']} for "
+          f"{got['tensor_bytes']} bytes of tensors (rounding at most "
+          f"{got['rounding_bytes']})")
+    got["allocator_slack_bytes"] = slack
+    if "flops" in got:
+        cost = rec["cost"]
+        check(got["flops"] == cost["flops"],
+              f"{what}: {got['flops']} FLOPs, the record {cost['flops']}")
+        got.update(memory_ms=cost["memory_s"] * 1e3,
+                   compute_ms=cost["compute_s"] * 1e3,
+                   read_once_ms=mem["total_bytes"] / HBM_BYTES_S * 1e3,
+                   analytic_bytes=mem["total_bytes"])
+    return got
+
+
 def model_rates(timing: dict, ooc_run: dict, a2a_bps: float) -> dict:
     """The tuner model's CUDA rates as this run measures them
     (fft/tuner.py MODEL_RATES): K1b's main-path case's flops and bytes over
@@ -4882,6 +5043,15 @@ def main(argv=None) -> int:
     mesh_train["seconds"] = time.monotonic() - t0
     print(f"LM mesh training phase: {mesh_train['seconds']:.3f} s")
 
+    # phase 20: the LM dryrun
+    try:
+        lm_dryrun = lm_dryrun_checks(torch, dev, gpu, cfg["lm_dryrun"],
+                                     work_root / "lm_dryrun")
+    finally:
+        shutil.rmtree(work_root / "lm_dryrun", ignore_errors=True)
+    print("lm dryrun " + json.dumps(lm_dryrun))
+    print(f"LM dryrun phase: {lm_dryrun['seconds']:.3f} s")
+
     # the launches of phases 9-15: by variant, and by timed shape
     measured = {**nd_measured, **dist_measured, **pencil_measured,
                 **serve_measured, **tune_measured, **pipeline_measured,
@@ -4917,7 +5087,7 @@ def main(argv=None) -> int:
     rates = model_rates(timing, ooc["at_scale"], tune["a2a_bytes_s"])
     print("model rates " + json.dumps(rates))
 
-    # phase 20: the kernels line
+    # phase 21: the kernels line
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,
@@ -4927,7 +5097,7 @@ def main(argv=None) -> int:
               "pencil": pencil, "serve": serve, "tune": tune,
               "pipeline": pipeline, "mesh_serve": mesh_serve,
               "dryrun": dryrun, "lm": lm, "lm_train": lm_train,
-              "mesh_train": mesh_train,
+              "mesh_train": mesh_train, "lm_dryrun": lm_dryrun,
               "model_rates": rates,
               "kernels": kernels, "timing": timing,
               "seconds": time.monotonic() - t_start}

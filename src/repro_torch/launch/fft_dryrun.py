@@ -38,13 +38,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
-
-import torch
-
 import repro_torch.fft as fft_api
 from repro_torch.core.fft.distributed import plan_distributed
 from repro_torch.core.pipeline.testing import DISK_MB_S
+from repro_torch.launch.mesh import MESHES, ShapeMesh
 
 # NVIDIA H100 SXM datasheet: 67 TFLOP/s in float32 outside the tensor cores
 # (the kernels' arithmetic) and 3.35 TB/s of HBM3
@@ -56,29 +53,6 @@ HBM_BYTES_S = 3.35e12
 # datasheet: 8 ConnectX-7 ports for 8 cards). NVLink 4 inside a node (900
 # GB/s a card, both directions) is not what bounds it
 NET_BYTES_S = 400e9 / 8
-
-MESHES = {"single_pod": ((16, 16), ("data", "model")),
-          "multi_pod": ((2, 16, 16), ("pod", "data", "model"))}
-
-
-class ShapeMesh:
-    """A device mesh's shape and dim names, without devices or process
-    groups: what the planner's cost model reads (`mesh_dim_names`,
-    `size`), planned as "cpu" so no card is touched."""
-
-    device_type = "cpu"
-
-    def __init__(self, shape, names):
-        self.mesh = torch.arange(math.prod(shape)).reshape(shape)
-        self.mesh_dim_names = tuple(names)
-
-    @property
-    def ndim(self) -> int:
-        return self.mesh.dim()
-
-    def size(self, dim: int | None = None) -> int:
-        return self.mesh.numel() if dim is None else self.mesh.shape[dim]
-
 
 def record(plan, name: str) -> dict:
     """One variant's cost model, and one card's seconds at the H100's
@@ -176,7 +150,8 @@ def main(argv=None) -> list:
                     help="refused here: the tuner needs a process group")
     ap.add_argument("--seg-batch", type=int, default=1 << 15)
     ap.add_argument("--seg-len", type=int, default=4096)
-    ap.add_argument("--mesh", default="single_pod", choices=list(MESHES))
+    ap.add_argument("--mesh", default="single_pod",
+                    choices=["single_pod", "multi_pod"])
     ap.add_argument("--ooc-log2-n", type=int, default=34,
                     help="out-of-core analytic record: log2 points")
     ap.add_argument("--ooc-budget-mb", type=int, default=1024,

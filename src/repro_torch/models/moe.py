@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from repro_torch.models.common import activate
 from repro_torch.sharding.rules import ParamSpec, constrain
@@ -90,16 +89,24 @@ def _dispatch_tensors_sized(cfg, weights, idx, n_tokens, e, cap):
     combine = torch.zeros(lead + (e, cap), dtype=torch.float32,
                           device=idx.device)
     for j in range(cfg.num_experts_per_tok):  # k <= 2 for all assigned archs
-        mask_j = F.one_hot(idx[..., j], e)                          # (N, E)
+        mask_j = _one_hot(idx[..., j], e)                           # (N, E)
         pos_j = torch.cumsum(mask_j, dim=-2) - 1 + counts[..., None, :]
         counts = counts + mask_j.sum(dim=-2)
         keep = (pos_j < cap) & (mask_j > 0)                         # (N, E)
-        oh = F.one_hot(torch.clamp(pos_j, 0, cap - 1),
-                       cap).to(torch.bfloat16)                      # (N, E, C)
+        oh = _one_hot(torch.clamp(pos_j, 0, cap - 1),
+                      cap).to(torch.bfloat16)                       # (N, E, C)
         oh = oh * keep[..., None].to(torch.bfloat16)
         dispatch = dispatch + oh
         combine = combine + oh.float() * weights[..., j, None, None]
     return dispatch, combine
+
+
+def _one_hot(x, n: int):
+    """``F.one_hot(x, n)`` (int64) as one comparison, the same ops on every
+    device: ``F.one_hot`` itself reads its range back to the host and
+    scatters on the CPU, scatters on a card and compares on meta, and the
+    dryrun counts a step's ops on meta for the card."""
+    return (x[..., None] == torch.arange(n, device=x.device)).to(torch.int64)
 
 
 def _expert_ffn(cfg, p, xe):

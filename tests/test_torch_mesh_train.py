@@ -48,12 +48,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
-# (arch, optimizer) of the sharded steps
+# (arch, optimizer) of the sharded steps: SGD with int8 compression and
+# grad_accum 2 (`trainer_config`), and AdamW at grad_accum 2 (`ACCUM`)
 TRAIN = [("qwen2-0.5b", "adamw"), ("gemma3-1b", "adamw"),
-         ("mixtral-8x22b", "adafactor")]
-# the (1, 1) mesh against one device, bit for bit: TRAIN and accumulated,
-# compressed SGD
-SINGLE = TRAIN + [("qwen2-0.5b", "sgd")]
+         ("mixtral-8x22b", "adafactor"), ("gemma3-1b", "sgd"),
+         ("qwen3-0.6b", "adamw")]
+ACCUM = {("qwen3-0.6b", "adamw"): 2}
+# the (1, 1) mesh against one device, bit for bit: the first three of
+# TRAIN and accumulated, compressed SGD
+SINGLE = TRAIN[:3] + [("qwen2-0.5b", "sgd")]
 MOE = ["mixtral-8x22b", "llama4-scout-17b-a16e"]
 STEPS, BATCH, SEQ, LR = 2, 4, 40, 1e-3
 MOE_SHAPE = (4, 16)  # (batch, seq) of moe_ep's global input
@@ -65,11 +68,15 @@ TOL_METRIC = 1e-5  # |port - ref| / |ref| of each step's loss and grad norm
 # parameters, and every optimizer-state leaf at the bound of its config;
 # AdamW's parameters within 0.2 lr (see test_mesh_steps_match_the_reference)
 TOL_PARAM = 1e-4
-STATE_BOUND = {"qwen2-0.5b": 1e-4, "gemma3-1b": 1e-4, "mixtral-8x22b": 1e-3}
+STATE_BOUND = {"qwen2-0.5b": 1e-4, "gemma3-1b": 1e-4, "mixtral-8x22b": 1e-3,
+               "qwen3-0.6b": 1e-4}
 TOL_ADAMW_LR = 0.2
 TOL_MOE = 1e-5     # max |port - ref| / max |ref|, forward and input grad
 # the input gradient entries a bf16 rounding flip reaches (test_moe_ep_...)
 MOE_FLIP_SHARE, MOE_FLIP_BOUND = 0.01, 2.0 ** -8
+# an entry of compressed SGD's state that moved by more than this share of
+# its leaf's quantization levels was flipped (check_flips)
+FLIP_FLOOR = 0.1
 BOUND_S = 240
 
 
@@ -79,6 +86,27 @@ def trainer_config(optimizer: str, **kw):
              if optimizer == "sgd" else {})
     return dict(optimizer=optimizer, base_lr=LR, warmup_steps=0,
                 total_steps=10, **extra, **kw)
+
+
+def train_config(arch: str, optimizer: str, **kw):
+    """`trainer_config` of a case of TRAIN (its accumulation)."""
+    if (arch, optimizer) in ACCUM:
+        kw["grad_accum"] = ACCUM[arch, optimizer]
+    return trainer_config(optimizer, **kw)
+
+
+def tag(arch: str, optimizer: str) -> str:
+    """A case's name in the result files."""
+    return f"{arch}-{optimizer}"
+
+
+def case_ids(cases) -> list:
+    """An arch's first case is named by the arch, a later one by both."""
+    seen, out = set(), []
+    for arch, optimizer in cases:
+        out.append(f"{arch}-{optimizer}" if arch in seen else arch)
+        seen.add(arch)
+    return out
 
 
 def load_params(tmp: Path, arch: str, specs) -> dict:
@@ -122,7 +150,7 @@ def _inputs(tmp: Path) -> None:
     from repro_torch.models.conditioning import GRAD_CONDITIONED
     from repro_torch.models.convert import _flatten
 
-    for arch in sorted({a for a, _ in SINGLE} | set(MOE)):
+    for arch in sorted({a for a, _ in SINGLE + TRAIN} | set(MOE)):
         cfg, ref_cfg = case_configs(arch)
         tree = ref_tree(RefLM(ref_cfg), 0, arch in GRAD_CONDITIONED)
         np.savez(tmp / f"params_{arch}.npz", **_flatten(tree))
@@ -161,6 +189,7 @@ def _reference(tmp: Path) -> None:
     from repro.configs import get_config
     from repro.models.moe import moe_ep
     from repro.models.transformer import TransformerLM
+    from repro.optim.compression import init_error_state
     from repro.sharding.rules import ShardingRules, resolve_pspec
     from repro.train.trainer import (TrainerConfig, make_train_step,
                                      state_shardings)
@@ -180,35 +209,41 @@ def _reference(tmp: Path) -> None:
 
     ckpt_like = None
     for arch, optimizer in TRAIN:
+        name = tag(arch, optimizer)
         with jax.enable_x64(arch in FLOAT64):
             model = TransformerLM(ref_config(arch))
-            opt, step_fn = make_train_step(
-                model, TrainerConfig(**trainer_config(optimizer)))
+            tc = TrainerConfig(**train_config(arch, optimizer))
+            opt, step_fn = make_train_step(model, tc)
             params = jax.tree.map(jnp.asarray, load_params(
                 tmp, arch, model.param_specs()))
             state = {"params": params, "opt_state": opt.init(params),
                      "step": jnp.zeros((), jnp.int32)}
+            if tc.grad_compression:
+                state["errors"] = init_error_state(params)
             state_sh = state_shardings(model, state, rules, mesh)
             state = jax.device_put(state, state_sh)
+            # microbatches lead, unsharded, ahead of the batch rule's spec
+            lead = (tc.grad_accum,) if tc.grad_accum > 1 else ()
             fn = jax.jit(step_fn, in_shardings=(state_sh, {
                 k: NamedSharding(mesh, resolve_pspec(
-                    (BATCH, SEQ), BATCH_AXES[k], rules, mesh))
+                    lead + (BATCH // tc.grad_accum, SEQ),
+                    (None,) * len(lead) + BATCH_AXES[k], rules, mesh))
                 for k in BATCH_AXES}), out_shardings=(
                     state_sh, {"loss": rep, "grad_norm": rep, "lr": rep}))
             metrics = []
-            for b in batches(tmp, arch):
+            for b in batches(tmp, arch, tc.grad_accum):
                 state, m = fn(state, {k: jnp.asarray(v) for k, v in b.items()})
                 metrics.append([float(m["loss"]), float(m["grad_norm"]),
                                 float(m["lr"])])
-            res[f"metrics_{arch}"] = np.array(metrics)
-            for name in ("params", "opt_state"):
-                for i, leaf in enumerate(jax.tree.leaves(state[name])):
-                    res[f"{name}_{arch}_{i}"] = np.asarray(leaf)
-            info["specs"][arch] = [
+            res[f"metrics_{name}"] = np.array(metrics)
+            for part in ("params", "opt_state", "errors"):
+                for i, leaf in enumerate(jax.tree.leaves(state.get(part))):
+                    res[f"{part}_{name}_{i}"] = np.asarray(leaf)
+            info["specs"][name] = [
                 [list(e) if isinstance(e, tuple) else e for e in x.spec]
                 for x in jax.tree.leaves(jax.tree.map(
                     lambda a: a.sharding, state))]
-            if arch == CKPT_ARCH:
+            if (arch, optimizer) == (CKPT_ARCH, "adamw"):
                 ckpt_like = (jax.tree.map(
                     lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), state),
                     state_sh)
@@ -320,6 +355,7 @@ def _worker(rank: int, tmp: Path) -> None:
 
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.moe import moe_ep
+    from repro_torch.optim import compression
     from repro_torch.sharding.rules import (NamedSharding, constrain,
                                             shard_like, use_mesh)
     from repro_torch.train import Trainer, TrainerConfig
@@ -337,36 +373,51 @@ def _worker(rank: int, tmp: Path) -> None:
                 "data_mesh": list(make_host_mesh(device_type="cpu").shape),
                 "coord": mesh.get_coordinate(), "placements": {}}
         res = {}
+        # each compressed leaf's quantization level, a step after another
+        levels = []
+        quantize = compression.compress_int8
+
+        def recording(g, error):
+            q, scale, new_error = quantize(g, error)
+            levels.append(float(scale.full_tensor() if isinstance(
+                scale, DTensor) else scale))
+            return q, scale, new_error
+        compression.compress_int8 = recording
         for arch, optimizer in TRAIN:
+            name = tag(arch, optimizer)
             model = _port_model(tmp, arch)
-            tr = Trainer(model, TrainerConfig(
-                **trainer_config(optimizer, log_every=1)), mesh=mesh)
+            tc = TrainerConfig(**train_config(arch, optimizer, log_every=1))
+            tr = Trainer(model, tc, mesh=mesh)
             # a step a call of run: the parameters and moments after each
             # step, for test_adamw_steps_follow_the_update_with_decay
             state, hist = tr.init_state(), []
-            for k, b in enumerate(batches(tmp, arch)):
+            levels.clear()
+            for k, b in enumerate(batches(tmp, arch, tc.grad_accum)):
                 if optimizer == "adamw":
-                    res.update(_adamw_leaves(state, f"{arch}_{k}"))
+                    res.update(_adamw_leaves(state, f"{name}_{k}"))
                 state, h = tr.run(state, iter([b]), 1)
                 hist += h
             if optimizer == "adamw":
-                res.update(_adamw_leaves(state, f"{arch}_{STEPS}"))
-            res[f"metrics_{arch}"] = np.array(
+                res.update(_adamw_leaves(state, f"{name}_{STEPS}"))
+            if tc.grad_compression:
+                res[f"levels_{name}"] = np.array(levels).reshape(STEPS, -1)
+            res[f"metrics_{name}"] = np.array(
                 [[h["loss"], h["grad_norm"], h["lr"]] for h in hist])
             info.setdefault("model_holds_state", []).append(all(
                 torch.equal(p, v.full_tensor()) for p, v in zip(
                     tree_leaves(model.param_tree()),
                     tree_leaves(state["params"]))))
             leaves = tree_leaves(state)
-            info["placements"][arch] = [
+            info["placements"][name] = [
                 [repr(p) for p in x.placements] for x in leaves]
             want = tree_leaves(tr.state_shardings(state))
             info.setdefault("placed_as_state_shardings", []).append(all(
                 tuple(x.placements) == s.placements
                 for x, s in zip(leaves, want)))
-            for name in ("params", "opt_state"):
-                for i, leaf in enumerate(tree_leaves(state[name])):
-                    res[f"{name}_{arch}_{i}"] = leaf.full_tensor().numpy()
+            for part in ("params", "opt_state", "errors"):
+                for i, leaf in enumerate(tree_leaves(state.get(part))):
+                    res[f"{part}_{name}_{i}"] = leaf.full_tensor().numpy()
+        compression.compress_int8 = quantize
 
         # the elastic restore: one step on (2, 2), saved; restored onto
         # (4, 1), which takes the second step
@@ -398,7 +449,7 @@ def _worker(rank: int, tmp: Path) -> None:
         res["resumed_metrics"] = np.array(
             [float(m["loss"]), float(m["grad_norm"]), float(m["lr"])])
         for i, leaf in enumerate(tree_leaves(state["params"])):
-            res[f"resumed_params_{CKPT_ARCH}_{i}"] = (
+            res[f"resumed_params_{tag(CKPT_ARCH, 'adamw')}_{i}"] = (
                 leaf.full_tensor().numpy())
 
         # moe_ep: this rank's tokens (its "data" coordinate) and experts
@@ -617,30 +668,67 @@ def check_leaves(got: dict, ref: dict, key: str, bound: float,
             assert rel(g, w) < bound, i
 
 
+def check_flips(got: dict, ref: dict, key: str, levels) -> None:
+    """The leaves ``<key>_<i>`` of a compressed SGD state (momentum or int8
+    error) against ``ref``'s. A step's int8 rounding of a value within the
+    two packages' difference of a half level flips it by one level, which
+    the error feedback carries and the momentum sums: an entry that moved
+    by more than FLIP_FLOOR of its leaf's levels (the sum over the steps
+    of ``levels[:, i]``, leaf i's scales; the other entries measured at
+    most 3.1e-3 of them) is a flip. Flips are fewer than MOE_FLIP_SHARE of
+    the compressed entries (measured 2.0e-5 of the momentum's and 4.4e-5
+    of the errors'), each within the sum of the levels (measured 0.64 of
+    it). A leaf past the compressed ones (the step) is held exactly."""
+    n = len([k for k in ref if k.startswith(f"{key}_")])
+    assert n and n == len([k for k in got if k.startswith(f"{key}_")])
+    flips = entries = 0
+    for i in range(n):
+        g, w = got[f"{key}_{i}"], ref[f"{key}_{i}"]
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if i >= levels.shape[1]:
+            assert np.array_equal(g, w), i
+            continue
+        level = levels[:, i].sum()
+        d = np.abs(g.astype(np.float64) - w)
+        flips += int((d > FLIP_FLOOR * level).sum())
+        entries += d.size
+        assert d.max() <= level * (1 + TOL_METRIC), i
+    assert flips < MOE_FLIP_SHARE * entries
+
+
 @pytest.mark.parametrize("arch,optimizer", TRAIN)
 def test_mesh_steps_match_the_reference(runs, arch, optimizer):
     """Each step's loss, grad norm and lr within 1e-5 of the reference's
-    sharded step (measured at most 1.4e-6), on every rank.
+    sharded step (measured at most 1.9e-6), on every rank.
 
     After step 2 every optimizer-state leaf within STATE_BOUND of its max:
-    AdamW's moments measured 4.6e-5 (qwen2-0.5b) and 5.2e-5 (gemma3-1b);
-    mixtral's adafactor statistics 3.9e-4 (the second moment of the norm
-    scale before its MoE, whose input gradient carries the bf16 rounding
-    flips of test_moe_ep_matches_the_reference; the reference's own
-    unsharded step differs from its sharded one there by 9.5e-5).
-    Adafactor's parameters within 1e-4 (measured 1.1e-5). AdamW's first
-    steps move each entry by about lr times the sign of its gradient, so
-    an entry whose gradient is near zero moves by up to 2 lr on a
-    rounding: its parameters are held within 0.2 lr (measured 0.110 lr for
-    qwen2-0.5b and 0.038 lr for gemma3-1b; the reference's own unsharded
-    step differs from its sharded one by 0.053 lr and 0.106 lr)."""
-    ref = runs["ref"]
+    AdamW's moments measured 4.6e-5 (qwen2-0.5b), 5.2e-5 (gemma3-1b) and
+    2.6e-6 (qwen3-0.6b); mixtral's adafactor statistics 3.9e-4 (the
+    second moment of the norm scale before its MoE, whose input gradient
+    carries the bf16 rounding flips of test_moe_ep_matches_the_reference;
+    the reference's own unsharded step differs from its sharded one there
+    by 9.5e-5). Adafactor's and SGD's parameters within 1e-4 (measured
+    1.1e-5 and 3.3e-6). AdamW's first steps move each entry by about lr
+    times the sign of its gradient, so an entry whose gradient is near
+    zero moves by up to 2 lr on a rounding: its parameters are held within
+    0.2 lr (measured 0.110 lr for qwen2-0.5b, 0.038 lr for gemma3-1b and
+    0.015 lr for qwen3-0.6b; the reference's own unsharded step differs
+    from its sharded one by 0.053 lr and 0.106 lr). Compressed SGD's
+    momentum and int8 error state are held by `check_flips`. qwen3-0.6b
+    accumulates two microbatches a step, the microbatch axis first and
+    unsharded on both sides."""
+    ref, name = runs["ref"], tag(arch, optimizer)
     for port in runs["ports"]:
-        got, want = port[f"metrics_{arch}"], ref[f"metrics_{arch}"]
+        got, want = port[f"metrics_{name}"], ref[f"metrics_{name}"]
         assert got.shape == want.shape == (STEPS, 3)
         assert np.all(np.abs(got - want) <= TOL_METRIC * np.abs(want))
-        check_leaves(port, ref, f"opt_state_{arch}", STATE_BOUND[arch])
-        check_leaves(port, ref, f"params_{arch}", TOL_PARAM,
+        if optimizer == "sgd":
+            levels = port[f"levels_{name}"]
+            check_flips(port, ref, f"opt_state_{name}", levels)
+            check_flips(port, ref, f"errors_{name}", levels)
+        else:
+            check_leaves(port, ref, f"opt_state_{name}", STATE_BOUND[arch])
+        check_leaves(port, ref, f"params_{name}", TOL_PARAM,
                      adamw=optimizer == "adamw")
 
 
@@ -658,18 +746,18 @@ def test_adamw_steps_follow_the_update_with_decay(runs, arch):
     stays within TOL_DECAY of its largest decay term lr * wd * max |p|,
     so a decay left out or applied twice fails, which the 0.2 lr bound on
     the parameters alone cannot see where wd * |p| is below 0.2."""
-    port, ref = runs["ports"][0], runs["ref"]
-    lrs = port[f"metrics_{arch}"][:, 2]
-    n = len([k for k in port if k.startswith(f"adamw_{arch}_0_p_")])
-    assert n == len([k for k in ref if k.startswith(f"params_{arch}_")])
+    port, ref, name = runs["ports"][0], runs["ref"], tag(arch, "adamw")
+    lrs = port[f"metrics_{name}"][:, 2]
+    n = len([k for k in port if k.startswith(f"adamw_{name}_0_p_")])
+    assert n == len([k for k in ref if k.startswith(f"params_{name}_")])
     b1, b2, eps, wd = ADAMW["b1"], ADAMW["b2"], ADAMW["eps"], ADAMW["wd"]
     for k in range(1, STEPS + 1):
         lr = float(lrs[k - 1])
         for i in range(n):
-            old = port[f"adamw_{arch}_{k - 1}_p_{i}"].astype(np.float64)
-            new = port[f"adamw_{arch}_{k}_p_{i}"].astype(np.float64)
-            mh = port[f"adamw_{arch}_{k}_mu_{i}"] / (1.0 - b1 ** k)
-            vh = port[f"adamw_{arch}_{k}_nu_{i}"] / (1.0 - b2 ** k)
+            old = port[f"adamw_{name}_{k - 1}_p_{i}"].astype(np.float64)
+            new = port[f"adamw_{name}_{k}_p_{i}"].astype(np.float64)
+            mh = port[f"adamw_{name}_{k}_mu_{i}"] / (1.0 - b1 ** k)
+            vh = port[f"adamw_{name}_{k}_nu_{i}"] / (1.0 - b2 ** k)
             want = old - lr * (mh / (np.sqrt(vh) + eps) + wd * old)
             decay = lr * wd * np.abs(old).max()
             assert np.abs(new - want).max() <= TOL_DECAY * decay, (k, i)
@@ -685,17 +773,18 @@ def test_the_model_holds_the_trained_weights_after_a_mesh_run(runs):
         assert r["model"], case
 
 
-@pytest.mark.parametrize("arch", [a for a, _ in TRAIN])
-def test_mesh_state_placements_match_the_reference_specs(runs, arch):
+@pytest.mark.parametrize("arch,optimizer", TRAIN, ids=case_ids(TRAIN))
+def test_mesh_state_placements_match_the_reference_specs(runs, arch,
+                                                         optimizer):
     """Every leaf of the trained state (params, moments or factored stats,
-    steps) a DTensor with the placements the reference's spec of that
-    leaf names, on every rank."""
+    compression errors, steps) a DTensor with the placements the
+    reference's spec of that leaf names, on every rank."""
     from torch.distributed.tensor import Replicate, Shard
     names = ("data", "model")
     for info in runs["infos"]:
         assert all(info["placed_as_state_shardings"])
-        got = info["placements"][arch]
-        specs = runs["ref_info"]["specs"][arch]
+        got = info["placements"][tag(arch, optimizer)]
+        specs = runs["ref_info"]["specs"][tag(arch, optimizer)]
         assert len(got) == len(specs)
         for pl, spec in zip(got, specs):
             want = []
@@ -750,14 +839,14 @@ def test_elastic_restore_is_bit_for_bit_on_every_mesh(runs):
 def test_resumed_step_on_another_mesh_matches_the_uninterrupted_run(runs):
     """Step 2 on (4, 1) from the (2, 2) checkpoint of step 1: within the
     bounds above of the reference's uninterrupted two steps."""
-    ref = runs["ref"]
-    want = ref[f"metrics_{CKPT_ARCH}"][1]
+    ref, name = runs["ref"], tag(CKPT_ARCH, "adamw")
+    want = ref[f"metrics_{name}"][1]
     for port in runs["ports"]:
         got = port["resumed_metrics"]
         assert np.all(np.abs(got - want) <= TOL_METRIC * np.abs(want))
         check_leaves({k.replace("resumed_", ""): v for k, v in port.items()
                       if k.startswith("resumed_params_")}, ref,
-                     f"params_{CKPT_ARCH}", TOL_PARAM, adamw=True)
+                     f"params_{name}", TOL_PARAM, adamw=True)
 
 
 # ---------------------------------------------------------------------------

@@ -150,7 +150,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.data.pipeline',\n"
         "        'repro_torch.train',\n"
         "        'repro_torch.train.trainer',\n"
-        "        'repro_torch.launch.train'} <= set(sys.modules)\n"
+        "        'repro_torch.launch.train',\n"
+        "        'repro_torch.launch.specs',\n"
+        "        'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.launch.sweep'} <= set(sys.modules)\n"
         "print('clean')\n")
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
