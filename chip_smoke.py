@@ -8,11 +8,18 @@ Phases (any failed check exits non-zero):
 
   1. device: the card's name and power limit (nvidia-smi), CUDA version;
   2. build: compile every kernel from csrc/ with nvcc, all at once, print
-     what ptxas reports (registers, shared memory, spills);
+     what ptxas reports (registers, shared memory, spills) and how many of
+     K2's thread-block clusters the card holds at once at L = 1024, 2048
+     and MAX_LEAF (clusters of 2, 4 and 8 blocks);
   3. kernels against their plain PyTorch versions and torch.fft on the card
      (K1 at n = 256, 512, 1024, 2048, MAX_LEAF with and without the
-     epilogue; K2 at L = 256, 1024, MAX_LEAF, row- and column-major, with
-     the epilogue; K3 at n = 8, 512, 1024, 4096, 8192 with and without
+     epilogue; K2 at L = 256, 1024, 2048, MAX_LEAF, row- and column-major,
+     with the epilogue, and its clusters (`cluster_kernel_cases`) at L =
+     1024, 2048 and MAX_LEAF in both stores with the global twiddle, in
+     slabs of 1, 2, 4, 8 and 1024 columns at non-zero offsets, and at
+     narrowed tiles that give clusters of 2, 4 and 8 at L = 256 and 1024,
+     each K2 call's launch key its own, the cluster read from it;
+     K3 at n = 8, 512, 1024, 4096, 8192 with and without
      the untangle; K4 at every power of two from 2 to MAX_LEAF, every
      split of its groups of stages; K1 and K2 at the shapes phase 6's
      runs give them, K1-K3 at every shape phase 9's runs give them; one
@@ -20,10 +27,11 @@ Phases (any failed check exits non-zero):
      their plain versions bit for bit), batch invariance (a row alone ==
      the row inside a large batch: K1 at n = 256, 1024, 2048, 4096, K3 at
      512, 1024, 2048, 4096, K4 at 256, 1024, 2048, 4096),
-     zero_copy == copy bitwise at 2^16, 2^17 and 2^20 (K2's column passes
-     against K1's row passes over transposes), and each variant's
+     zero_copy == copy bitwise at 2^16, 2^17, 2^20, 2^22 and 2^24 (K2's
+     column passes, in clusters from L = 1024 on and both at L = 4096 at
+     2^24, against K1's row passes over transposes), and each variant's
      main-path case timed beside its bound, its plain version and
-     torch.fft (a yardstick only);
+     torch.fft (a yardstick only); the phase's seconds;
   4. main path: the map-only FFT job (`repro_torch.launch.fft_job`) driven
      pipelined through its CLI entry point, once per K1/K2 variant, once
      past MAX_LEAF**2 (three levels) and twice with --impl stockham (K4
@@ -165,7 +173,10 @@ Phases (any failed check exits non-zero):
      `Trainer.init_state` on the card: its bytes equal the record's; one
      `lm dryrun` line; the rehearsal runs (a) alone; no FFT kernel runs;
  21. the `kernels` JSON line: phase 3's numbers and the main-path
-     launches (phases 4, 6, 7, 9-15, the followers' included).
+     launches (phases 4, 6, 7, 9-15, the followers' included), none 0 for
+     a K2 entry; each K2 entry gives the blocks of the thread-block
+     cluster its timed launches ran (``cluster``, read from their launch
+     key; 1 for one block alone).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result.
@@ -314,6 +325,9 @@ FULL = {
     "points": 1 << 25,      # complex points per kernel check and timing
     "batch_rows": 32768,    # batch of the invariance check
     "layout_rows": 64,      # rows of the zero_copy == copy check
+    "layout_ns": (1 << 16, 1 << 17, 1 << 20, 1 << 22, 1 << 24),
+    # K2's cluster cases: (rows, L, cols), and the slabs' operand
+    "cluster": {"rows": 2, "cols": 64, "slab_shape": (1, 4096, 4096)},
     "reps": 10,
     # K3 (rows, n): n = 8, the frame-512 and frame-1024 spectrogram blocks
     # (2^24 samples), n = 4096 and fft_conv's n = 8192 at 2^25 samples
@@ -515,6 +529,8 @@ REHEARSE = {
     "points": 1 << 15,
     "batch_rows": 64,
     "layout_rows": 2,
+    "layout_ns": (1 << 16, 1 << 17, 1 << 20, 1 << 22),
+    "cluster": {"rows": 1, "cols": 16, "slab_shape": (1, 4096, 2048)},
     "reps": 1,
     "rfft_shapes": [(64, 8), (33, 512), (17, 1024), (5, 4096), (3, 8192)],
     "stockham_shapes": [(max(2, (1 << 13) >> p), 1 << p)
@@ -690,7 +706,7 @@ def kernel_cases(cfg, max_leaf: int) -> list:
             cases.append((variant, "matfft", (points // n, n),
                           {"period": period},
                           period is None and n in (256, 1024)))
-    for L in (256, 1024, max_leaf):
+    for L in (256, 1024, 2048, max_leaf):
         variant = "matfft_cols/direct" if L <= 256 else \
             "matfft_cols/four_step"
         for out_major in ("row", "col"):
@@ -705,7 +721,8 @@ def kernel_cases(cfg, max_leaf: int) -> list:
                           untangle and n in (512, 1024)))
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
-    return (cases + tile_kernel_cases(cfg) + ooc_kernel_cases(cfg)
+    return (cases + tile_kernel_cases(cfg) + cluster_kernel_cases(cfg)
+            + ooc_kernel_cases(cfg)
             + nd_kernel_cases(cfg) + dist_kernel_cases(cfg)
             + pencil_kernel_cases(cfg) + serve_kernel_cases(cfg)
             + pipeline_kernel_cases(cfg) + mesh_serve_kernel_cases(cfg))
@@ -745,6 +762,50 @@ def tile_kernel_cases(cfg) -> list:
                           (max(points // (L * L), 1), L, L),
                           {"out_major": "row", "with_epilogue": True,
                            "tile": t}, False))
+    return cases
+
+
+def cluster_kernel_cases(cfg) -> list:
+    """K2's thread-block clusters (`plan.col_cluster`) at a few matrices
+    each: L = 1024, 2048 and MAX_LEAF (clusters of 2, 4 and 8) in both
+    stores with the global twiddle; slabs of 1, 2, 4, 8 and 1024 columns
+    at the last aligned offset of ``slab_shape``, both stores, with the
+    twiddle (one block alone below 8 columns, a cluster of 8 from 8 on);
+    narrowed tiles that give clusters of 2, 4 and 8 at L = 256 and 1024,
+    column-major (`tile_kernel_cases` has the row-major ones), and the
+    row-major tile 2 at L = 256. The options' cases draw their operands
+    on the device, as phase 10's do. Untimed."""
+    from repro_torch.kernels.fft import plan as kplan
+    c = cfg["cluster"]
+    B, C = c["rows"], c["cols"]
+
+    def variant(L):
+        return ("matfft_cols/direct" if L <= 256
+                else "matfft_cols/four_step")
+
+    cases = []
+    for L in (1024, 2048, kplan.MAX_LEAF):
+        for major in ("row", "col"):
+            cases.append((variant(L), "matfft_cols", (B, L, C),
+                          {"out_major": major, "with_epilogue": False,
+                           "global_twiddle": (1 << 30, 4096),
+                           "dist": True}, False))
+    B1, L1, C1 = c["slab_shape"]
+    for nc in (1, 2, 4, 8, 1024):
+        for major in ("row", "col"):
+            cases.append((variant(L1), "matfft_cols", (B1, L1, C1),
+                          {"out_major": major, "with_epilogue": False,
+                           "col_offset": C1 - nc, "ncols": nc,
+                           "global_twiddle": (1 << 24, C1 - nc),
+                           "dist": True}, False))
+    for L, tiles in ((256, (4, 2, 1)), (1024, (2, 1))):
+        for t in tiles:
+            cases.append((variant(L), "matfft_cols", (B, L, C),
+                          {"out_major": "col", "with_epilogue": True,
+                           "tile": t}, False))
+    cases.append((variant(256), "matfft_cols", (B, 256, C),
+                  {"out_major": "row", "with_epilogue": True, "tile": 2},
+                  False))
     return cases
 
 
@@ -796,7 +857,7 @@ def nd_kernel_cases(cfg) -> list:
     drawn on the device from a seeded generator."""
     shapes = set()
     for run in nd_runs(cfg).values():
-        shapes.update(run["launches"])
+        shapes.update(key[:3] for key in run["launches"])
     cases = []
     for kernel, shape, major in sorted(shapes):
         leaf = shape[1]
@@ -824,12 +885,26 @@ def dist_split(n: int) -> tuple[int, int]:
 
 def option_key(kernel: str, shape, major, opts) -> tuple:
     """A call's `matfft.launch_shapes` key: (wrapper, shape, major), and
-    with the global twiddle, a column slab or a narrowed batch tile, a
-    fourth entry naming them."""
+    with the global twiddle, a column slab, a narrowed batch tile or K2's
+    thread-block cluster (`plan.col_cluster`), a fourth entry naming
+    them."""
+    from repro_torch.kernels.fft import plan as kplan
+    K = (kplan.col_cluster(shape[1], opts.get("ncols") or shape[2],
+                           opts.get("tile"))[1]
+         if kernel == "matfft_cols" else 1)
     tags = (("twiddle",) if opts.get("global_twiddle") else ()) + (
         ("slab", opts["ncols"]) if opts.get("ncols") else ()) + (
-        ("tile", opts["tile"]) if opts.get("tile") else ())
+        ("tile", opts["tile"]) if opts.get("tile") else ()) + (
+        ("cluster", K) if K > 1 else ())
     return (kernel, tuple(shape), major) + ((tags,) if tags else ())
+
+
+def key_cluster(key: tuple) -> int:
+    """The blocks of K2's thread-block cluster that a `launch_shapes` key
+    records: its last option ("cluster", K); 1, one block alone, without
+    one."""
+    tags = key[3] if len(key) > 3 else ()
+    return tags[-1] if tags[-2:-1] == ("cluster",) else 1
 
 
 def dist_kernel_cases(cfg) -> list:
@@ -943,38 +1018,27 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
     """Each case's kernel against its plain version (bitwise on the card)
     and torch.fft; the timed ones timed beside their bound, plain version
     and torch.fft. Returns (checks, timing by name)."""
-    import numpy as np
+    from collections import Counter
 
     from repro_torch.kernels.fft import matfft as km
     from repro_torch.kernels.fft import plan as kplan
     from repro_torch.kernels.fft import stockham as ks
 
-    rng = np.random.default_rng(seed)
+    # every operand drawn on the device from ``gen`` (a host draw of the
+    # largest shapes costs seconds a case)
     gen = torch.Generator(device=dev).manual_seed(seed)
     reps = cfg["reps"]
 
-    # on_device: phase 9's shapes, drawn on the device from ``gen``; the
-    # rest from ``rng``
-    def real(shape, on_device=False):
-        if on_device:
-            return torch.randn(shape, generator=gen, device=dev)
-        return torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    def real(shape):
+        return torch.randn(shape, generator=gen, device=dev)
 
-    def planes(shape, on_device=False):
-        if on_device:
-            return real(shape, True), real(shape, True)
-        a = rng.standard_normal((2, *shape), dtype=np.float32)
-        return (torch.from_numpy(a[0]).to(dev), torch.from_numpy(a[1]).to(dev))
+    def planes(shape):
+        return real(shape), real(shape)
 
-    def unit_table(shape, on_device=False):
-        if on_device:
-            ang = (2 * torch.rand(shape, generator=gen, device=dev,
-                                  dtype=torch.float64) - 1) * math.pi
-            return ang.cos().float(), ang.sin().float()
-        ang = rng.uniform(-math.pi, math.pi, size=shape)
-        return (torch.from_numpy(np.cos(ang).astype(np.float32)).to(dev),
-                torch.from_numpy(np.sin(ang).astype(np.float32)).to(dev))
+    def unit_table(shape):
+        ang = (2 * torch.rand(shape, generator=gen, device=dev,
+                              dtype=torch.float64) - 1) * math.pi
+        return ang.cos().float(), ang.sin().float()
 
     def times(epi, er, ei):  # (rows, n) planes times per-row table rows
         return er * epi[0] - ei * epi[1], er * epi[1] + ei * epi[0]
@@ -986,9 +1050,23 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
         m = (r[:, None] * torch.arange(n, device=dev)) % n_global
         return torch.exp((-2j * math.pi / n_global) * m.double())
 
+    def launched(fn, want: tuple):
+        """fn's result, and the blocks of K2's cluster that its launches
+        ran: read from the one `launch_shapes` key they added (in the
+        rehearsal, `plain_shapes`), which must be the case's own
+        (``want``)."""
+        shapes = km.launch_shapes if gpu else km.plain_shapes
+        before = Counter(shapes)
+        out = fn()
+        keys = set(shapes - before)
+        check(keys == {want}, f"{variant}: launched {keys}, not {want}")
+        [key] = keys
+        return out, key_cluster(key)
+
     checks, timing = [], {}
     for variant, kernel, shape, opts, timed in cases:
         epi = None
+        cluster = None  # K2: the blocks of the cluster its launches ran
         # phases 9 and 10's shapes (up to 2^27 points) drawn on the device
         nd = opts.get("nd", False) or opts.get("dist", False)
         lib_time = None
@@ -1000,10 +1078,10 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
                  opts["tile"]} if opts.get("tile") else {})
         gt = opts.get("global_twiddle")
         if kernel == "matfft":
-            xr, xi = planes(shape, nd)
+            xr, xi = planes(shape)
             xc = torch.complex(xr, xi)
             rows, n = shape
-            epi = (unit_table((opts["period"], n), nd) if opts["period"]
+            epi = (unit_table((opts["period"], n)) if opts["period"]
                    else None)
             base = lambda **t: km.matfft(  # noqa: E731
                 xr, xi, epilogue=epi, **kw, **t)
@@ -1018,12 +1096,12 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
                 idx = torch.arange(rows, device=dev) % opts["period"]
                 want = times((epi[0][idx], epi[1][idx]), *want)
         elif kernel == "matfft_cols":
-            xr, xi = planes(shape, nd)
+            xr, xi = planes(shape)
             B, n, C = shape
             off, nc = opts.get("col_offset", 0), opts.get("ncols") or C
             xc = torch.complex(xr, xi)[:, :, off:off + nc]
             rows = B * nc
-            epi = unit_table((C, n), nd) if opts["with_epilogue"] else None
+            epi = unit_table((C, n)) if opts["with_epilogue"] else None
             major = opts["out_major"]
             base = lambda **t: km.matfft_cols(  # noqa: E731
                 xr, xi, out_major=major, epilogue=epi, **kw, **t)
@@ -1041,7 +1119,7 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
                 want = tuple(t.reshape(B, nc, n).transpose(1, 2)
                              for t in want)
         elif kernel == "rfft":
-            x = real(shape, nd)
+            x = real(shape)
             if opts["untangle"]:
                 base = lambda **t: km.rfft_leaf(x, **t)  # noqa: E731
                 plain = lambda: km.rfft_leaf_plain(x, **tile)  # noqa: E731
@@ -1057,7 +1135,7 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
             y = lib()
             want = (y.real, y.imag)
         else:
-            xr, xi = planes(shape, nd)
+            xr, xi = planes(shape)
             xc = torch.complex(xr, xi)
             base = lambda **t: ks.stockham_fft(xr, xi, **t)  # noqa: E731
             plain = lambda: ks.stockham_fft_plain(  # noqa: E731
@@ -1066,7 +1144,11 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
             y = lib()
             want = (y.real, y.imag)
         run = lambda: base(**tile)  # noqa: E731
-        got = run() if gpu else plain()
+        if kernel == "matfft_cols":  # the CPU wrapper calls plain()
+            key = case_key(kernel, shape, opts)
+            got, cluster = launched(run, key)
+        else:
+            got = run() if gpu else plain()
         ref = plain()
         got_c = torch.complex(*got)
         max_abs = float((got_c - torch.complex(*ref)).abs().max())
@@ -1076,7 +1158,8 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
              "epilogue": list(epi[0].shape) if epi is not None else None,
              "max_abs_err": max_abs, "bitwise_plain": max_abs == 0.0,
              "rel_err_plain": max_abs / float(torch.complex(*ref).abs().max()),
-             "rel_err_torch_fft": rel_err(got_c, torch.complex(*want))}
+             "rel_err_torch_fft": rel_err(got_c, torch.complex(*want)),
+             **({"cluster": cluster} if cluster is not None else {})}
         print("check " + json.dumps(c))
         checks.append(c)
         check(c["rel_err_plain"] < TOL and c["rel_err_torch_fft"] < TOL,
@@ -1090,7 +1173,12 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
         if gpu and timed:
             # plain, kernel, kernel, plain: one card, one call
             t_plain = [timed_ms(torch, plain, reps)]
-            t_kernel = [timed_ms(torch, run, reps), timed_ms(torch, run, reps)]
+            if cluster is not None:  # the cluster the timed launches ran
+                t_kernel, cluster = launched(lambda: [
+                    timed_ms(torch, run, reps) for _ in range(2)], key)
+            else:
+                t_kernel = [timed_ms(torch, run, reps),
+                            timed_ms(torch, run, reps)]
             t_plain.append(timed_ms(torch, plain, reps))
             nbytes, flops = case_work(km, ks, kplan, kernel, shape, opts, epi,
                                       dev)
@@ -1104,7 +1192,8 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
                 "plain_ms": min(t_plain), "plain_ms_runs": t_plain,
                 "library_ms": timed_ms(torch, lib_time or lib, reps),
                 "bound_ms": max(t_bytes, t_flops),
-                "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                **({"cluster": cluster} if cluster is not None else {})}
             if tile:  # the same call at the default tile, for comparison
                 timing[timed if isinstance(timed, str) else variant][
                     "default_tile_ms"] = timed_ms(torch, base, reps)
@@ -1116,9 +1205,7 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
 
 def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
     """Phase 3: `kernel_cases` through `run_cases`, then batch invariance
-    and zero_copy == copy."""
-    import numpy as np
-
+    and zero_copy == copy, their operands drawn on the device."""
     from repro_torch.fft import executors
     from repro_torch.kernels.fft import matfft as km
     from repro_torch.kernels.fft import plan as kplan
@@ -1126,15 +1213,13 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
 
     checks, timing = run_cases(torch, dev, cfg, gpu,
                                kernel_cases(cfg, kplan.MAX_LEAF))
-    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
 
     def real(shape):
-        return torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        return torch.randn(shape, generator=gen, device=dev)
 
     def planes(shape):
-        a = rng.standard_normal((2, *shape), dtype=np.float32)
-        return (torch.from_numpy(a[0]).to(dev), torch.from_numpy(a[1]).to(dev))
+        return real(shape), real(shape)
 
     # batch invariance: row 0 alone == row 0 inside the big batch, bitwise;
     # K1, K3 and K4 at lengths of two and of three passes or groups (K3 at
@@ -1166,15 +1251,16 @@ def kernel_checks(torch, dev, cfg, gpu: bool) -> tuple[list, dict, dict]:
                       f"{name}: row 0 alone differs from row 0 in the batch "
                       f"at n={n}")
 
-    # zero_copy == copy: K2's column passes (L = 256, 512 and 1024) against
-    # K1's row passes over materialized transposes, bitwise
-    for n in (1 << 16, 1 << 17, 1 << 20):
-        xr, xi = planes((cfg["layout_rows"], n))
+    # zero_copy == copy: K2's column passes (L = 256, 512, 1024 and, in
+    # clusters, 2048 and 4096: both passes at 2^24) against K1's row
+    # passes over materialized transposes, bitwise; at most 2^26 points
+    for n in cfg["layout_ns"]:
+        xr, xi = planes((min(cfg["layout_rows"], (1 << 26) // n), n))
         zc = executors.fft(xr, xi, layout="zero_copy")
         cp = executors.fft(xr, xi, layout="copy")
         same = torch.equal(zc[0], cp[0]) and torch.equal(zc[1], cp[1])
         invariance[f"zero_copy==copy/{n}"] = same
-        print(f"zero_copy vs copy ({cfg['layout_rows']} rows, n={n}): "
+        print(f"zero_copy vs copy ({xr.shape[0]} rows, n={n}): "
               f"{'bitwise equal' if same else 'DIFFERENT'}")
         if gpu:
             check(same, f"zero_copy and copy differ at n={n}")
@@ -1190,6 +1276,7 @@ def kernel_line(timing: dict, launches: dict) -> list:
              "source": SOURCE[t["case"]["variant"]],
              "replaces": REPLACES[t["case"]["variant"]],
              "launches": launches[name],
+             **({"cluster": t["cluster"]} if "cluster" in t else {}),
              **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                   "bitwise_plain", "ms_runs", "plain_ms",
                                   "plain_ms_runs",
@@ -1624,8 +1711,8 @@ def nd_pass_launches(rows: int, n: int) -> list:
     check(p.levels <= 2, f"N-D pass length {n} is past one four-step")
     if p.levels == 1:
         return [("matfft", (rows, n), None)]
-    return [("matfft_cols", (rows, p.n1, p.n2), "row"),
-            ("matfft_cols", (rows, p.n2, p.n1), "col")]
+    return [option_key("matfft_cols", (rows, p.n1, p.n2), "row", {}),
+            option_key("matfft_cols", (rows, p.n2, p.n1), "col", {})]
 
 
 def nd_leading_launches(rows: int, shape, width) -> list:
@@ -1638,7 +1725,7 @@ def nd_leading_launches(rows: int, shape, width) -> list:
         b, L = rows * math.prod(shape[:k]), shape[k]
         c = math.prod(width[k + 1:])
         if L <= kplan.MAX_LEAF:
-            out.append(("matfft_cols", (b, L, c), "col"))
+            out.append(option_key("matfft_cols", (b, L, c), "col", {}))
         else:
             out += nd_pass_launches(b * c, L)
     return out
@@ -1750,8 +1837,8 @@ def nd_checks(torch, dev, gpu: bool, cfg) -> tuple[dict, dict]:
                 "library_ms": timed_ms(torch, lib, reps)}
 
     def record(name, summary):
-        summary["launched"] = [[w, list(s), m, k] for (w, s, m), k
-                               in sorted(measured[name].items())]
+        summary["launched"] = [[key[0], list(key[1]), *key[2:], k]
+                               for key, k in sorted(measured[name].items())]
         print(f"nd {name} " + json.dumps(summary))
         out[name] = summary
 
@@ -3309,8 +3396,8 @@ def mesh_serve_checks(torch, dev, gpu: bool, cfg, work: Path,
     follower_calls = Counter()
     for r, doc in followers.items():
         for run in doc["runs"]:
-            calls = Counter({(k[0], tuple(k[1]), k[2]): v
-                             for k, v in run["shapes"]})
+            calls = Counter({(k[0], tuple(k[1]), k[2]) + tuple(
+                tuple(t) for t in k[3:]): v for k, v in run["shapes"]})
             follower_calls.update(calls)
             if run["verify"] == "off":
                 check(run["shard_launches"] > 0 and sum(calls.values()) > 0,
@@ -4861,9 +4948,16 @@ def main(argv=None) -> int:
                 if any(k in line for k in ("registers", "Compiling entry",
                                            "spill", "smem")):
                     print(f"ptxas[{name}] {line.strip()}")
+        from repro_torch.kernels.fft import matfft as km
+        for L in (1024, 2048, kplan.MAX_LEAF):
+            K, n = km.cols_clusters_resident(L)
+            print(f"K2 clusters resident at L={L}: {n} of {K} blocks "
+                  f"(cudaOccupancyMaxActiveClusters)")
 
     # phase 3: kernels against plain and torch.fft, timed
+    t0 = time.monotonic()
     checks, inv, timing = kernel_checks(torch, dev, cfg, gpu)
+    print(f"kernel phase: {time.monotonic() - t0:.3f} s")
 
     # phases 4-5: the main path, one run per K1/K2 variant, one past
     # MAX_LEAF**2 and two through K4
@@ -5087,7 +5181,11 @@ def main(argv=None) -> int:
     rates = model_rates(timing, ooc["at_scale"], tune["a2a_bytes_s"])
     print("model rates " + json.dumps(rates))
 
-    # phase 21: the kernels line
+    # phase 21: the kernels line; every K2 row launched on the main path
+    for name, t in timing.items():
+        if "cluster" in t:
+            check(launches.get(name, 0) > 0,
+                  f"kernels line: {name} never launched on the main path")
     kernels = kernel_line(timing, launches)
     result = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": checks,

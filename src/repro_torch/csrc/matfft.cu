@@ -7,7 +7,9 @@
 //                 or of an aligned slab of its columns, stored row-major
 //                 (B*C, L) or column-major (B, L, C).
 //                 Replaces repro/kernels/fft/matfft.py:matfft_cols (Pallas
-//                 body _col_kernel).
+//                 body _col_kernel): the pallas_call at matfft.py:438 for
+//                 512 <= L <= 4096 (cols_kernel<false>) and at :419 below
+//                 (cols_kernel<true>).
 //
 // All three run one tile algebra (tile_dft below): a block stages TILE =
 // 4096 complex points in shared memory (R = TILE / n whole rows, or R
@@ -110,6 +112,31 @@
 // operations in the same order, and the output is the same bits at every
 // tile. The grid grows as the tile narrows; the autotuner
 // (fft/tuner.py) measures whether more, smaller blocks pay.
+//
+// K2's column group. K2 moves 16 bytes a point of device memory for about
+// 5 log2 L flops (at most about 4 flops a byte): like K1, it is bound by
+// bytes, and what it must get right is the load and the store. Its
+// operand is read down the columns: a matrix row holds one value of each
+// column, and a 32-byte sector of a float32 plane holds G = 8 adjacent
+// columns (CLUSTER_COLS). A block of R >= G columns reads whole sectors;
+// one of R < G columns (L >= 1024 at the default tile: R = 4096 / L)
+// would use R * 4 of every 32 bytes it moves, an eighth at L = 4096. So a
+// launch with R < G <= ncols runs as thread-block clusters of K = G / R
+// blocks (2 at L = 1024, 4 at 2048, 8 at 4096), one cluster a group of G
+// adjacent columns of one matrix; which launches do is decided in one
+// place, kernels/fft/plan.py:col_cluster, and checked here. Block k of a
+// cluster reads rows [k*L/K, (k+1)*L/K) of all G columns, whole sectors,
+// and stores each value straight into the shared memory of the block that
+// owns its column (distributed shared memory: mapa and
+// st.shared::cluster, what cooperative_groups' map_shared_rank gives).
+// After a cluster barrier each block runs tile_dft on its own R columns,
+// unchanged, so every output is the same bits as on the one-block path
+// and as the plain version. A column-major store then goes the same way
+// back: block k reads output rows [k*L/K, (k+1)*L/K) of all G columns
+// from its peers' shared memory (ld.shared::cluster) and writes them in
+// whole sectors; a row-major store is contiguous along o already, and
+// each block writes its own columns. Shared memory stays one tile a block
+// (make_geom), so four blocks still fit a SM.
 
 #include <cuda_runtime.h>
 
@@ -129,6 +156,15 @@ constexpr int MAX_SMEM = 64 * 1024;
 // + o1 with d = r*c + i2b
 constexpr int M1_PAD = 2;
 constexpr int M2_STRIDE = (RADIX + 1) * RADIX;
+// K2's cluster path: G, the columns of one 32-byte sector of a float32
+// row (kernels/fft/plan.py:CLUSTER_COLS), the portable cluster size, and
+// the (column, 4 rows) units a thread moves at a full tile; the shortest
+// L a cluster takes (below it make_geom's ld is odd, and 16-byte moves
+// misalign; kernels/fft/plan.py:CLUSTER_MIN_L)
+constexpr int CLUSTER_COLS = 8;
+constexpr int MAX_CLUSTER = 8;
+constexpr int CLUSTER_MIN_N = 32;
+constexpr int UNITS = TILE / (4 * NT);
 
 struct Geom {
   int n, log_n;     // transform length
@@ -167,6 +203,62 @@ __device__ __forceinline__ void global_twiddle(const GTw& t, long long row,
   cmul(__ldg(t.hr + h), __ldg(t.hi + h), __ldg(t.lr + l), __ldg(t.li + l),
        wr, wi);
   cmul(vr, vi, wr, wi, vr, vi);
+}
+
+// K2's store epilogue at output (column, o): the periodic table's row
+// erow, or the global twiddle at logical row grow, or nothing
+__device__ __forceinline__ void cols_epilogue(const float* __restrict__ er,
+                                              const float* __restrict__ ei,
+                                              const GTw& gt, int erow,
+                                              long long grow, int L, int o,
+                                              float& vr, float& vi) {
+  if (er != nullptr) {
+    const int e = erow * L + o;
+    cmul(vr, vi, __ldg(er + e), __ldg(ei + e), vr, vi);
+  } else if (gt.hr != nullptr) {
+    global_twiddle(gt, grow, o, vr, vi);
+  }
+}
+
+// Distributed shared memory of a thread-block cluster (sm_90). Addresses
+// are 32-bit shared-window offsets: smem_addr of this block's pointer,
+// peer_addr of the same offset in block `rank` of the cluster.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_peer4(unsigned addr, const float (&v)[4]) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void ld_peer4(unsigned addr, float (&v)[4]) {
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(addr) : "memory");
+}
+
+// The cluster barrier, split: arrive (release; relaxed: orders nothing)
+// and wait (acquire). Every thread of every block of the cluster calls
+// them in turn, arrive then wait, at the same points.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // Bit reversal of the low `bits` bits of v, bits <= LOG_RADIX. No loop,
@@ -507,35 +599,132 @@ rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// K2: block (b, j) transforms columns [col0 + j*R, col0 + j*R + R) of
-// matrix b of the (B, L, C) planes, tile j of the slab of nc columns from
-// col0; L = g.n. The (L, R) tile is read R consecutive floats a matrix
-// row and held transposed (one column per shared-memory row). A warp's
-// load fills whole 32-byte sectors only when R >= 8 (L <= 512); at L =
-// 1024 (R = 4) it uses half of each sector, at L = 4096 (R = 1) an
-// eighth.
-template <bool kTwoPass>
+// K2: block (b, j) transforms columns [c0, c0 + R), c0 = j*R, of the
+// slab of nc columns from col0 of matrix b of the (B, L, C) planes: tile j
+// of that slab; L = g.n. The (L, R) tile is held transposed, one column a
+// shared-memory row at s[r*ld + l].
+//   kCluster false (R >= CLUSTER_COLS, or nc < CLUSTER_COLS): the block
+//   reads its tile alone, R consecutive floats a matrix row, and stores
+//   its own columns.
+//   kCluster true: the block is block k = blockIdx.x % K of a cluster of
+//   K = 2^log_K blocks, whose G = K*R columns start at cbase = c0 - k*R.
+//   It moves rows [k*L/K, (k+1)*L/K) of all G columns on the load, and on
+//   a column-major store, through its peers' shared memory (top of file).
+//   On the load a thread moves a 4 x 4 block of a plane, 4 rows of 4
+//   adjacent columns: one 16-byte global load a row (a warp's: 32 bytes,
+//   a whole sector, of each of 16 rows) and one 16-byte remote store a
+//   column. On the column-major store it moves one column's 4 rows: one
+//   16-byte remote load and 4 single stores (a warp's: 4 rows of G
+//   columns, its remote loads spread over all G columns' blocks). Both
+//   take L/K >= 4, 16-byte aligned tile rows (ld and plane multiples of
+//   4) and 16-byte aligned operand planes: check_cluster refuses a
+//   cluster at L < CLUSTER_MIN_N (odd ld) or over unaligned planes.
+template <bool kTwoPass, bool kCluster>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             float* __restrict__ yr, float* __restrict__ yi, int C, int col0,
             int nc, int tiles_per_b, Geom g, const float* __restrict__ twr,
             const float* __restrict__ twi, const float* __restrict__ er,
-            const float* __restrict__ ei, int col_major, GTw gt) {
-  extern __shared__ float smem[];
-  float* sr = smem;
-  float* si = smem + g.plane;
+            const float* __restrict__ ei, int col_major, GTw gt, int log_K) {
+  extern __shared__ __align__(16) float csmem[];
+  float* sr = csmem;
+  float* si = csmem + g.plane;
   const long long b = blockIdx.x / tiles_per_b;
   const int c0 = (blockIdx.x % tiles_per_b) * g.R;  // within the slab
   const int L = g.n;
   const int tot = g.R * L;
   const long long src = b * L * (long long)C + col0 + c0;
-  for (int f = threadIdx.x; f < tot; f += NT) {
-    const int r = f & (g.R - 1), l = f >> g.log_R;
-    sr[r * g.ld + l] = xr[src + (long long)l * C + r];
-    si[r * g.ld + l] = xi[src + (long long)l * C + r];
+  // the cluster path's block rank k, group of G columns from cbase, first
+  // row l0 it moves, and its two planes' shared-window addresses
+  const int K = 1 << log_K, log_G = g.log_R + log_K, G = 1 << log_G;
+  const int k = blockIdx.x & (K - 1);
+  const int cbase = c0 - k * g.R;
+  const int l0 = k * (L >> log_K);
+  const unsigned ar = kCluster ? smem_addr(sr) : 0u;
+  const unsigned ai = kCluster ? smem_addr(si) : 0u;
+  if constexpr (!kCluster) {
+    for (int f = threadIdx.x; f < tot; f += NT) {
+      const int r = f & (g.R - 1), l = f >> g.log_R;
+      sr[r * g.ld + l] = xr[src + (long long)l * C + r];
+      si[r * g.ld + l] = xi[src + (long long)l * C + r];
+    }
+    __syncthreads();
+  } else {
+    const long long gsrc = src - k * g.R;  // column cbase
+    // arrives now, waits before the first remote store: every block of
+    // the cluster has started, and its shared memory is there
+    cluster_arrive_relaxed();
+    // a 4 x 4 block: 4 rows of the 4 columns [4h, 4h + 4) of the group
+    float ar4[4][4], ai4[4][4];  // [row][column]
+    const int h = threadIdx.x & (G / 4 - 1);
+    const int l = l0 + ((threadIdx.x >> (log_G - 2)) << 2);
+    const bool on = (int)threadIdx.x < (tot >> 4);
+    if (on) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long x = gsrc + (long long)(l + i) * C + 4 * h;
+        const float4 a = *reinterpret_cast<const float4*>(xr + x);
+        const float4 c = *reinterpret_cast<const float4*>(xi + x);
+        ar4[i][0] = a.x; ar4[i][1] = a.y; ar4[i][2] = a.z; ar4[i][3] = a.w;
+        ai4[i][0] = c.x; ai4[i][1] = c.y; ai4[i][2] = c.z; ai4[i][3] = c.w;
+      }
+    }
+    cluster_wait();
+    if (on) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = 4 * h + c;
+        const unsigned off = 4u * ((j & (g.R - 1)) * g.ld + l);
+        const float vr[4] = {ar4[0][c], ar4[1][c], ar4[2][c], ar4[3][c]};
+        const float vi[4] = {ai4[0][c], ai4[1][c], ai4[2][c], ai4[3][c]};
+        st_peer4(peer_addr(ar + off, j >> g.log_R), vr);
+        st_peer4(peer_addr(ai + off, j >> g.log_R), vi);
+      }
+    }
+    cluster_arrive();
+    cluster_wait();  // every value of the tile has arrived
   }
-  __syncthreads();
   tile_dft<kTwoPass>(sr, si, g, twr, twi);
+  if constexpr (kCluster) {
+    if (col_major) {  // out[b, o, c], rows [k*L/K, (k+1)*L/K) of G columns
+      cluster_arrive();
+      cluster_wait();  // every peer's tile is transformed
+      // units of one column j and 4 output rows from o: one 16-byte
+      // remote load a plane, 4 single stores (a warp's: 4 rows of G
+      // columns)
+      const int units = tot >> 2;
+      float vr[UNITS][4], vi[UNITS][4];
+#pragma unroll
+      for (int u = 0; u < UNITS; ++u) {
+        const int p = u * NT + threadIdx.x;
+        if (p < units) {
+          const int j = p & (G - 1), o = l0 + ((p >> log_G) << 2);
+          const unsigned off = 4u * ((j & (g.R - 1)) * g.ld + o);
+          ld_peer4(peer_addr(ar + off, j >> g.log_R), vr[u]);
+          ld_peer4(peer_addr(ai + off, j >> g.log_R), vi[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNITS; ++u) {
+        const int p = u * NT + threadIdx.x;
+        if (p < units) {
+          const int c = cbase + (p & (G - 1));
+          const int o = l0 + ((p >> log_G) << 2);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            cols_epilogue(er, ei, gt, col0 + c, b * nc + c, L, o + i,
+                          vr[u][i], vi[u][i]);
+            const long long dst = (b * L + o + i) * (long long)nc + c;
+            yr[dst] = vr[u][i];
+            yi[dst] = vi[u][i];
+          }
+        }
+      }
+      cluster_arrive();
+      cluster_wait();  // no block leaves while a peer reads its tile
+      return;
+    }
+  }
   for (int f = threadIdx.x; f < tot; f += NT) {
     int r, o;
     long long dst;
@@ -549,12 +738,7 @@ cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       dst = (b * nc + c0 + r) * (long long)L + o;
     }
     float vr = sr[r * g.ld + o], vi = si[r * g.ld + o];
-    if (er != nullptr) {
-      const int e = (col0 + c0 + r) * L + o;
-      cmul(vr, vi, __ldg(er + e), __ldg(ei + e), vr, vi);
-    } else if (gt.hr != nullptr) {
-      global_twiddle(gt, b * nc + c0 + r, o, vr, vi);
-    }
+    cols_epilogue(er, ei, gt, col0 + c0 + r, b * nc + c0 + r, L, o, vr, vi);
     yr[dst] = vr;
     yi[dst] = vi;
   }
@@ -665,9 +849,18 @@ Geom make_geom(int n, int R, bool pad) {
   const int base = !two_pass ? n : (b > 1 ? (RADIX + 1) * b - 1 : n);
   int ld = base;
   if (pad) {
-    // K2's transposing load has a warp write R columns x (32 / R) rows of
-    // the tile: choose ld % 32 == 32 / R (odd when R >= 32) so that those
-    // 32 words fall in 32 different banks
+    // K2's transposed tile accesses, ld % 32 == 32 / R (odd when R >=
+    // 32). One block (R >= 8, or slabs of fewer than 8 columns): a warp
+    // writes R columns x 32/R rows of the tile, words r*ld + l with banks
+    // r*(32/R) + l mod 32, 32 different. A cluster (R < G = 8, cols_kernel
+    // says which accesses): an 8-thread phase of the load's 16-byte
+    // remote stores gives each peer 4 runs of 4 words of one tile row,
+    // 16 consecutive words, at any ld; one of the column-major store's
+    // 16-byte remote loads gives each peer R columns x 4 words, banks
+    // r*(32/R) + o .. o + 3, r < R: different since 32/R >= 4. So the
+    // rule the one-block load needs is the rule the cluster needs too,
+    // and the two paths share one geometry. From n = 32 on, R < 8 gives
+    // ld a multiple of 8: the cluster's 16-byte accesses are aligned.
     if (base < 32) {
       ld = base | 1;
     } else {
@@ -719,16 +912,54 @@ int make_gtw(const float* hr, const float* hi, const float* lr,
   return 0;
 }
 
-// Launches one instantiation of a kernel with the tile's shared memory.
+// Launches one instantiation of a kernel with the tile's shared memory;
+// cluster > 1: as thread-block clusters of that many blocks along x
+// (cudaLaunchKernelEx; blocks a multiple of it). A launch the card
+// refuses returns its error; nothing is retried another way.
 template <typename... Params, typename... Args>
 int launch(void (*kernel)(Params...), long long blocks, const Geom& g,
-           void* stream, Args... args) {
+           void* stream, int cluster, Args... args) {
   const int smem = smem_bytes(g);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        MAX_SMEM);
-  kernel<<<(unsigned)blocks, NT, smem, (cudaStream_t)stream>>>(args...);
+  if (cluster == 1) {
+    kernel<<<(unsigned)blocks, NT, smem, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller reports it
+    return (int)rc;
+  }
   return (int)cudaGetLastError();
+}
+
+// 0 if K2's cluster (R, K) at length L over a slab of nc columns is one
+// the kernel takes (kernels/fft/plan.py:check_col_cluster mirrors it): K
+// = 1, or K a power of two <= MAX_CLUSTER with K * R = CLUSTER_COLS, nc /
+// R a multiple of K, L >= CLUSTER_MIN_N and both planes 16-byte aligned;
+// R a power of two dividing nc.
+int check_cluster(int L, int R, int nc, int K, const float* xr,
+                  const float* xi) {
+  if (R < 1 || (R & (R - 1)) || nc % R) return (int)cudaErrorInvalidValue;
+  if (K == 1) return 0;
+  if (K < 1 || K > MAX_CLUSTER || (K & (K - 1)) || K * R != CLUSTER_COLS ||
+      (nc / R) % K || L < CLUSTER_MIN_N || (((size_t)xr | (size_t)xi) & 15))
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -754,19 +985,21 @@ int matfft_rows(const float* xr, const float* xi, float* yr, float* yi,
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
   return launch(n <= TWO_PASS_N ? rows_kernel<true> : rows_kernel<false>,
-                blocks, g, stream, xr, xi, yr, yi, rows, g, wr, wi, er, ei,
-                period, gt);
+                blocks, g, stream, 1, xr, xi, yr, yi, rows, g, wr, wi, er,
+                ei, period, gt);
 }
 
 // The slab [col0, col0 + nc) of the C columns: nc a power of two, col0 a
 // multiple of it; the output is (B, L, nc) col-major or (B * nc, L). bt:
-// the column tile (tile_rows; 0 for the default).
+// the column tile (tile_rows; 0 for the default). cluster: the blocks of
+// a thread-block cluster (kernels/fft/plan.py:col_cluster; 1: one block
+// alone), checked by check_cluster.
 int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
                 long long B, int L, int C, int col0, int nc, const float* wr,
                 const float* wi, const float* er, const float* ei,
                 int col_major, const float* ghr, const float* ghi,
                 const float* glr, const float* gli, long long n_global,
-                long long row_off, int bt, void* stream) {
+                long long row_off, int bt, int cluster, void* stream) {
   if (L < 1 || L > TILE || (L & (L - 1)) || C < 1 || (C & (C - 1)) ||
       nc < 1 || (nc & (nc - 1)) || col0 < 0 || col0 % nc || col0 + nc > C)
     return (int)cudaErrorInvalidValue;
@@ -774,13 +1007,49 @@ int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
   if (const int rc = make_gtw(ghr, ghi, glr, gli, n_global, row_off, gt))
     return rc;
   const int R = tile_rows(TILE / L < nc ? TILE / L : nc, bt);
+  if (const int rc = check_cluster(L, R, nc, cluster, xr, xi)) return rc;
   const Geom g = make_geom(L, R, true);
   const int tiles_per_b = nc / R;
   const long long blocks = B * tiles_per_b;
   if (blocks == 0) return 0;
-  return launch(L <= TWO_PASS_N ? cols_kernel<true> : cols_kernel<false>,
-                blocks, g, stream, xr, xi, yr, yi, C, col0, nc, tiles_per_b,
-                g, wr, wi, er, ei, col_major, gt);
+  const bool two = L <= TWO_PASS_N;
+  if (cluster == 1)
+    return launch(two ? cols_kernel<true, false> : cols_kernel<false, false>,
+                  blocks, g, stream, 1, xr, xi, yr, yi, C, col0, nc,
+                  tiles_per_b, g, wr, wi, er, ei, col_major, gt, 0);
+  return launch(two ? cols_kernel<true, true> : cols_kernel<false, true>,
+                blocks, g, stream, cluster, xr, xi, yr, yi, C, col0, nc,
+                tiles_per_b, g, wr, wi, er, ei, col_major, gt,
+                log2i(cluster));
+}
+
+// The clusters of K2's cluster path that can be resident on the card at
+// once (cudaOccupancyMaxActiveClusters) at length L and the default tile,
+// K blocks a cluster; or minus the CUDA error.
+int matfft_cols_clusters(int L, int cluster) {
+  if (L < 1 || L > TILE || (L & (L - 1)) || cluster < 1 ||
+      cluster > MAX_CLUSTER || (cluster & (cluster - 1)))
+    return -(int)cudaErrorInvalidValue;
+  const Geom g = make_geom(L, TILE / L, true);
+  auto kernel = L <= TWO_PASS_N ? cols_kernel<true, true>
+                                : cols_kernel<false, true>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       MAX_SMEM);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes(g);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t rc =
+      cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+  return rc == cudaSuccess ? n : -(int)rc;
 }
 
 // x: real (rows, 2m), 8-byte aligned; yr, yi: (rows, m+1) with untangle,
@@ -796,8 +1065,8 @@ int matfft_rfft(const float* x, float* yr, float* yi, long long rows, int m,
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
   return launch(m <= TWO_PASS_N ? rfft_kernel<true> : rfft_kernel<false>,
-                blocks, g, stream, reinterpret_cast<const float2*>(x), yr, yi,
-                rows, g, wr, wi, vr, vi, untangle);
+                blocks, g, stream, 1, reinterpret_cast<const float2*>(x), yr,
+                yi, rows, g, wr, wi, vr, vi, untangle);
 }
 
 }  // extern "C"

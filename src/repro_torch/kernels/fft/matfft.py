@@ -75,9 +75,10 @@ Planar = tuple[torch.Tensor, torch.Tensor]
 
 # (wrapper, operand shape, out_major or None) of each kernel launch, and of
 # each call a wrapper gave to its plain version, since `reset_counts`; a
-# call with the global twiddle, a column slab or a batch tile narrower than
-# the default adds a fourth entry, its options: ("twiddle",), ("slab",
-# ncols), ("tile", rows a block) or several
+# call with the global twiddle, a column slab, a batch tile narrower than
+# the default or (K2) a thread-block cluster adds a fourth entry, its
+# options: ("twiddle",), ("slab", ncols), ("tile", rows a block),
+# ("cluster", blocks a cluster) or several
 launch_shapes: Counter = Counter()
 plain_shapes: Counter = Counter()
 
@@ -468,9 +469,12 @@ def _lib() -> ctypes.CDLL:
         lib.matfft_rows.argtypes = [_c_ptr] * 4 + [_c_ll, _c_int] + \
             [_c_ptr] * 4 + [_c_int] + gtw
         lib.matfft_rows.restype = _c_int
+        # ... the batch tile, the cluster's blocks, stream
         lib.matfft_cols.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 4 + \
-            [_c_ptr] * 4 + [_c_int] + gtw
+            [_c_ptr] * 4 + [_c_int] + gtw[:-1] + [_c_int, _c_ptr]
         lib.matfft_cols.restype = _c_int
+        lib.matfft_cols_clusters.argtypes = [_c_int] * 2
+        lib.matfft_cols_clusters.restype = _c_int
         lib.matfft_rfft.argtypes = [_c_ptr] * 3 + [_c_ll, _c_int] + \
             [_c_ptr] * 4 + [_c_int, _c_int, _c_ptr]
         lib.matfft_rfft.restype = _c_int
@@ -500,13 +504,15 @@ def _global_twiddle_args(gt, device) -> list:
 
 
 def _launch_key(wrapper: str, shape, major, gt=None, ncols=None,
-                tile=None) -> tuple:
+                tile=None, cluster: int = 1) -> tuple:
     """The `launch_shapes` key of a call; with the global twiddle, a
-    column slab or a narrowed batch tile, a fourth entry: ("twiddle",),
-    ("slab", ncols), ("tile", rows a block) or several."""
+    column slab, a narrowed batch tile or a cluster of K > 1 blocks, a
+    fourth entry: ("twiddle",), ("slab", ncols), ("tile", rows a block),
+    ("cluster", K) or several."""
     opts = (("twiddle",) if gt is not None else ()) + (
         ("slab", ncols) if ncols is not None else ()) + (
-        ("tile", tile) if tile is not None else ())
+        ("tile", tile) if tile is not None else ()) + (
+        ("cluster", cluster) if cluster > 1 else ())
     return (wrapper, tuple(shape), major) + ((opts,) if opts else ())
 
 
@@ -589,14 +595,24 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
     col_tile: columns a block; None (default) min(MAX_LEAF // L, nc), a
       smaller value narrows it to a power of two (`plan.tile_rows`), the
       JAX package's ``col_tile``. The same bits at every tile.
+
+    A launch whose block holds fewer than `plan.CLUSTER_COLS` columns of a
+    slab of at least that many (L >= 1024 at the default tile), with both
+    planes on 16 bytes, runs as thread-block clusters
+    (`plan.col_cluster`), the same bits again; the key in `launch_shapes`
+    records the cluster's blocks. A cluster launch the card refuses
+    raises, as any refused launch does.
     """
     gt = _check_global_twiddle(global_twiddle, epilogue)
     sliced = col_offset != 0 or ncols not in (None, xr.shape[-1])
     nc = (xr.shape[-1] - col_offset) if ncols is None else ncols
     tile = narrowed_tile(
         min(fft_plan.MAX_LEAF // max(xr.shape[-2], 1), max(nc, 1)), col_tile)
+    _, K = fft_plan.col_cluster(
+        xr.shape[-2], max(nc, 1), col_tile,
+        aligned=not (xr.data_ptr() | xi.data_ptr()) % 16)
     key = _launch_key("matfft_cols", xr.shape, out_major, gt,
-                      ncols if sliced else None, tile)
+                      ncols if sliced else None, tile, K)
     if xr.device.type == "cpu":
         plain_shapes[key] += 1
         return matfft_cols_plain(xr, xi, out_major=out_major,
@@ -617,16 +633,33 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
         er.data_ptr() if er is not None else None,
         ei.data_ptr() if ei is not None else None,
         int(out_major == "col"), *_global_twiddle_args(gt, xr.device),
-        tile or 0, torch.cuda.current_stream(xr.device).cuda_stream)
+        tile or 0, K, torch.cuda.current_stream(xr.device).cuda_stream)
     if rc:
         raise RuntimeError(
-            f"matfft_cols kernel launch failed: CUDA error {rc}")
+            f"matfft_cols kernel launch failed: CUDA error {rc}"
+            + (f" (a cluster of {K} blocks)" if K > 1 else ""))
     matfft_cols.launches += 1
     launch_shapes[key] += 1
     return yr, yi
 
 
 matfft_cols.launches = 0
+
+
+def cols_clusters_resident(L: int) -> tuple[int, int]:
+    """(K, clusters): the blocks of K2's cluster at length L and the
+    default tile (`plan.col_cluster`), and how many such clusters the
+    current card holds at once (cudaOccupancyMaxActiveClusters). Needs
+    the card."""
+    R, K = fft_plan.col_cluster(L, fft_plan.MAX_LEAF)
+    if K == 1:
+        raise ValueError(f"K2 at L={L}, {R} columns a block, runs no "
+                         f"cluster")
+    n = _lib().matfft_cols_clusters(L, K)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error "
+                           f"{-n}")
+    return K, n
 
 
 def _rfft_key(what: str, x: torch.Tensor, batch_tile) -> tuple:

@@ -45,6 +45,53 @@ def tile_rows(full: int, batch_tile: int | None) -> int:
     return 1 << (int(batch_tile).bit_length() - 1)
 
 
+# K2's column group: the columns of one 32-byte sector of a float32 row,
+# the most blocks a thread-block cluster may have on every Hopper card,
+# and the shortest L that forms one (shorter tiles have an odd row pitch,
+# and gain nothing over 8 columns of a few rows) (csrc/matfft.cu:
+# CLUSTER_COLS, MAX_CLUSTER, CLUSTER_MIN_N)
+CLUSTER_COLS = 8
+MAX_CLUSTER = 8
+CLUSTER_MIN_L = 32
+
+
+def col_cluster(L: int, nc: int, tile: int | None = None,
+                aligned: bool = True) -> tuple[int, int]:
+    """(R, K) of a K2 launch at length L over a slab of nc columns: R the
+    columns one block transforms (the default min(MAX_LEAF // L, nc),
+    narrowed by ``tile``: `tile_rows`), K the blocks of its thread-block
+    cluster. A block of fewer than CLUSTER_COLS columns would read part of
+    every sector it moves, so where R < CLUSTER_COLS <= nc and L >=
+    CLUSTER_MIN_L, K = CLUSTER_COLS // R blocks share one group of
+    CLUSTER_COLS columns (2 at L = 1024, 4 at 2048, 8 at 4096); else, or
+    where the planes do not start on 16 bytes (``aligned`` false: the
+    cluster moves 16 bytes at a time), K = 1, one block alone. The one
+    place that decides it: the wrapper passes K to the kernel, which
+    checks it (`check_col_cluster` mirrors the check)."""
+    R = tile_rows(max(min(MAX_LEAF // max(L, 1), nc), 1), tile)
+    K = (CLUSTER_COLS // R if R < CLUSTER_COLS <= nc and L >= CLUSTER_MIN_L
+         and aligned else 1)
+    return R, K
+
+
+def check_col_cluster(L: int, R: int, nc: int, K: int,
+                      aligned: bool = True) -> None:
+    """Raise ValueError for an (R, K) at length L over nc columns that K2
+    refuses (csrc/matfft.cu:check_cluster): R a power of two dividing nc,
+    and K = 1, or K a power of two <= MAX_CLUSTER with K * R =
+    CLUSTER_COLS, nc / R a multiple of K, L >= CLUSTER_MIN_L and the
+    planes 16-byte ``aligned``."""
+    if not is_pow2(R) or nc % R:
+        raise ValueError(f"K2 tile of {R} columns over {nc}")
+    if K != 1 and not (is_pow2(K) and K <= MAX_CLUSTER
+                       and K * R == CLUSTER_COLS and (nc // R) % K == 0
+                       and L >= CLUSTER_MIN_L and aligned):
+        raise ValueError(f"K2 cluster of {K} blocks of {R} columns over "
+                         f"{nc} at L={L}: K * R must be {CLUSTER_COLS}, K "
+                         f"<= {MAX_CLUSTER}, nc / R a multiple of K, L >= "
+                         f"{CLUSTER_MIN_L}, the planes 16-byte aligned")
+
+
 def is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 

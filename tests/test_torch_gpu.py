@@ -95,8 +95,8 @@ def test_plan_on_the_card_matches_the_cpu_plan(cuda, rng, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1 << 13, 1 << 16, 1 << 17, 1 << 20, 1 << 24,
-                               1 << 25])
+@pytest.mark.parametrize("n", [1 << 13, 1 << 16, 1 << 17, 1 << 20, 1 << 22,
+                               1 << 24, 1 << 25])
 def test_zero_copy_equals_copy_bitwise_on_the_card(cuda, rng, n):
     """K2's column passes and K1's row passes over materialized transposes
     give each row the same result, bit for bit."""
@@ -334,7 +334,8 @@ def test_global_twiddle_kernels_equal_their_plain_versions(cuda, rng, n):
 @pytest.mark.parametrize("major", ["row", "col"])
 @pytest.mark.parametrize("off,nc,twiddle", [
     (0, 4096, (1 << 24, 0)), (1024, 1024, None), (4095, 1, None),
-    (3072, 1024, (1 << 24, 3072))])
+    (3072, 1024, (1 << 24, 3072)), (4094, 2, (1 << 24, 4094)),
+    (4092, 4, (1 << 24, 4092)), (4088, 8, (1 << 24, 4088))])
 def test_distributed_options_at_the_one_card_shapes(cuda, rng, major, off,
                                                     nc, twiddle):
     """chip_smoke.py's shapes at n = 2^24 on one rank: (1, 4096, 4096)."""
@@ -523,17 +524,66 @@ def test_k1_k3_k4_batch_tiles_equal_their_plain_versions(cuda, rng, n):
 @pytest.mark.parametrize("L,C,off,nc", [(256, 256, 0, None),
                                         (1024, 64, 0, None),
                                         (256, 64, 32, 16),
-                                        (4096, 8, 4, 4)])
+                                        (4096, 8, 4, 4),
+                                        (256, 64, 8, 8),
+                                        (2048, 64, 0, None),
+                                        (4096, 64, 0, None)])
 @pytest.mark.parametrize("out_major", ["row", "col"])
 def test_k2_col_tiles_equal_the_plain_version(cuda, rng, L, C, off, nc,
                                               out_major):
+    """Every tile, one block alone or a thread-block cluster of 2, 4 or 8
+    (`plan.col_cluster`), gives the plain version's bits; the launch key
+    records the cluster."""
     x = _planes(rng, (3, L, C), cuda)
     epi = _planes(rng, (C, L), cuda)
     kw = dict(out_major=out_major, epilogue=epi, col_offset=off, ncols=nc)
     want = km.matfft_cols_plain(*x, **kw)
     full = min(tplan.MAX_LEAF // L, nc or C - off)
     for ct in _tiles(full):
+        km.launch_shapes.clear()
         assert _same(km.matfft_cols(*x, col_tile=ct, **kw), want), ct
+        _, K = tplan.col_cluster(L, nc or C - off, ct)
+        [key] = km.launch_shapes
+        assert (key[3][-2:] == ("cluster", K)) if K > 1 else (
+            len(key) == 3 or "cluster" not in key[3]), (ct, key)
+
+
+@pytest.mark.gpu
+def test_k2_refuses_a_cluster_it_does_not_take(cuda, rng):
+    """The kernel's own checks (plan.check_col_cluster's counterpart):
+    a cluster whose blocks do not make 8 columns is refused, and nothing
+    runs instead."""
+    x = _planes(rng, (1, 4096, 64), cuda)
+    y = [torch.full((64, 4096), 7.0, device=cuda) for _ in range(2)]
+    wr, wi = km.leaf_tables(4096, cuda)
+    # K * R != 8, K not a power of two, K > 8, and a cluster of 8 over
+    # planes that start 4 bytes past 16
+    for K, skew in ((2, 0), (3, 0), (16, 0), (8, 4)):
+        rc = km._lib().matfft_cols(
+            x[0].data_ptr() + skew, x[1].data_ptr(), y[0].data_ptr(),
+            y[1].data_ptr(), 1, 4096, 64, 0, 64, wr.data_ptr(),
+            wi.data_ptr(), None, None, 0, None, None, None, None, 0, 0, 0,
+            K, torch.cuda.current_stream(cuda).cuda_stream)
+        assert rc != 0, K
+    assert bool((y[0] == 7.0).all()) and bool((y[1] == 7.0).all())
+    with pytest.raises(ValueError):
+        tplan.check_col_cluster(4096, 1, 64, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_major", ["row", "col"])
+def test_k2_takes_one_block_on_planes_off_16_bytes(cuda, rng, out_major):
+    """Planes that do not start on 16 bytes launch one block a tile, no
+    cluster, and give the plain version's bits."""
+    x = [torch.zeros(2 * 4096 * 64 + 1, device=cuda)[1:].view(2, 4096, 64)
+         for _ in range(2)]
+    for t, a in zip(x, _planes(rng, (2, 4096, 64), cuda)):
+        t.copy_(a)
+    km.launch_shapes.clear()
+    got = km.matfft_cols(*x, out_major=out_major)
+    assert dict(km.launch_shapes) == {
+        ("matfft_cols", (2, 4096, 64), out_major): 1}
+    assert _same(got, km.matfft_cols_plain(*x, out_major=out_major))
 
 
 @pytest.mark.gpu

@@ -223,7 +223,9 @@ def test_k2_col_tile_matches_pallas(rng, L, C, tile, out_major):
 
 def test_a_narrowed_tile_enters_the_launch_key(rng):
     """The launch records tell the tile apart: a tile below the default is
-    the key's fourth entry, one at or above it is the default's key."""
+    the key's fourth entry (with the cluster K2 forms where its tile falls
+    below a sector's 8 columns), one at or above it is the default's
+    key."""
     from repro_torch.kernels.fft import plan as tplan
     x = _t(_planes(rng, (8, 1024)))
     km.reset_counts()
@@ -235,7 +237,8 @@ def test_a_narrowed_tile_enters_the_launch_key(rng):
     assert dict(km.plain_shapes) == {
         ("matfft", (8, 1024), None, ("tile", 2)): 1,
         ("matfft", (8, 1024), None): 2,
-        ("matfft_cols", (2, 256, 64), "row", ("slab", 32, "tile", 4)): 1}
+        ("matfft_cols", (2, 256, 64), "row",
+         ("slab", 32, "tile", 4, "cluster", 2)): 1}
     assert tplan.tile_rows(4, None) == 4 and tplan.tile_rows(16, 5) == 4
     with pytest.raises(ValueError, match="batch_tile"):
         tplan.tile_rows(16, 0)
