@@ -145,19 +145,24 @@ Phases (any failed check exits non-zero):
      kernel runs;
  19. LM training on a mesh (`mesh_train_checks`): (a) phase 18 (a)'s
      model, init, batches and trainer config through `Trainer(mesh=)` on
-     a world-size-1 NCCL (1, 1) mesh, its first steps against the
-     one-device trainer's: the losses, grad norms and every state leaf
-     bit for bit, each trainer's checkpoint restored into the other kind
-     bit for bit; the step ms, tokens/s, peak memory and the gather and
+     a world-size-1 NCCL (1, 1) mesh, through the tensor-parallel code
+     over a "model" dim of one, its first steps against the one-device
+     trainer's: the losses, grad norms and every state leaf bit for bit,
+     each trainer's checkpoint restored into the other kind bit for bit;
+     the step ms, tokens/s, peak memory and the gather and
      reduce-scatter ms of the whole parameter tree, and each kind's
      memory at every stage of two fresh steps and a save
-     (`step_memory`), in one `lm mesh train` line; (b) `moe_ep` at mixtral-8x22b's full width on one layer's
-     input over the world-size-1 group, float64 twins, card against host
-     within `MESH_MOE_TOL`; (c) `chip_smoke.py --mesh-rank` subprocesses,
-     two gloo ranks on the one card beside (a)-(b), probe the mesh step's
-     gather (``full_tensor``) on CUDA tensors, which gloo refused on the
-     H100 (both ranks died): the result is printed, and (a)-(b) stand
-     alone; no FFT kernel runs;
+     (`step_memory`), the model's axis and its split leaves, in one `lm
+     mesh train` line; (b) `moe_ep` at mixtral-8x22b's full width on one
+     layer's input over the world-size-1 group, float64 twins, card
+     against host within `MESH_MOE_TOL`; (d) `chip_smoke.py --mesh-rank`
+     subprocesses after (a)-(b), two gloo ranks on the one card, a (1,
+     2) ("data", "model") mesh: (a)'s model, init and batches at full
+     width and depth, split over "model" (every collective an all_reduce
+     over gloo on CUDA tensors), 3 steps with no checkpoint, each step's
+     loss and grad norm within `MESH_TP_BOUND` of (a)'s, the same on both
+     ranks; each rank's peak memory and step ms beside (a)'s in one `lm
+     mesh tp` line; no FFT kernel runs;
  20. the LM dryrun (`lm_dryrun_checks`): (a) ``python -m
      repro_torch.launch.sweep --archs qwen2-0.5b`` over both production
      meshes and every shape, and over the one_card cells, one sweep a
@@ -237,6 +242,12 @@ LM_TOL_TRAIN = 1e-5
 # moe_ep on the card against the host, float64 twins (phase 19 (b)):
 # max|d| / max|host|; the router is float32 in both (the reference's)
 MESH_MOE_TOL = 1e-5
+# phase 19 (d), the (1, 2) tensor-parallel step against (a)'s one-device
+# steps in bf16: |d - a| / |a| of each step's loss and grad norm; set
+# before the first card run at 20x the largest of the rehearsal's same
+# two-rank step on the CPU in bf16 (9.7e-5 and 8.5e-4), rounded up to one
+# digit (PERF.md §6)
+MESH_TP_BOUND = {"loss": 2e-3, "grad_norm": 2e-2}
 # the card's loss and gradients against the host's (phase 18 (b)), max|d|
 # / max|host| a leaf: measured on the H100 at 6.2e-6 (gemma3-1b, float32,
 # 26 layers) and 2.58e-5 (qwen2-0.5b's first layer, float64) in the
@@ -493,14 +504,15 @@ FULL = {
     # through Trainer(mesh=) on a world-size-1 (1, 1) mesh, its first
     # steps against the one-device trainer's, bit for bit; (b) moe_ep at
     # mixtral's full width on one layer's input, a float64 twin, card vs
-    # host; (c) two gloo ranks on the one card probe the gather of the
-    # mesh step on CUDA tensors
+    # host; (d) two gloo ranks on the one card, a (1, 2) mesh: (a)'s
+    # first steps split over "model"
     "mesh_train": {
         "full": {"arch": "qwen2-0.5b", "batch": 8, "seq": 512,
                  "optimizer": "adamw", "lr": 3e-4, "launch_steps": 30,
                  "steps": 6, "reduced": False},
         "moe": {"arch": "mixtral-8x22b", "tokens": 128, "reduced": False},
-        "probe_ranks": 2, "moe_tol": MESH_MOE_TOL, "seed": 0},
+        "tp": {"ranks": 2, "steps": 3, "bound": MESH_TP_BOUND},
+        "moe_tol": MESH_MOE_TOL, "seed": 0},
     "lm_dryrun": LM_DRYRUN,
 }
 REHEARSE = {
@@ -631,12 +643,15 @@ REHEARSE = {
         "family_tol": LM_TOL_TRAIN,
         "family_grad_tol": dict.fromkeys(LM_TRAIN_FAMILY_GRAD_BOUND,
                                          LM_TOL_TRAIN), "seed": 0},
+    # in the model's dtype at full width (bf16): (d)'s bound comes from
+    # this rehearsal (PERF.md §6)
     "mesh_train": {
         "full": {"arch": "qwen2-0.5b", "batch": 4, "seq": 64,
                  "optimizer": "adamw", "lr": 1e-3, "launch_steps": 20,
-                 "steps": 3, "reduced": True},
+                 "steps": 3, "reduced": True, "dtype": "bfloat16"},
         "moe": {"arch": "mixtral-8x22b", "tokens": 64, "reduced": True},
-        "probe_ranks": 2, "moe_tol": MESH_MOE_TOL, "seed": 0},
+        "tp": {"ranks": 2, "steps": 3, "bound": MESH_TP_BOUND},
+        "moe_tol": MESH_MOE_TOL, "seed": 0},
     # the sweep runs on meta in both; (b) and (c) need the card
     "lm_dryrun": LM_DRYRUN,
 }
@@ -3625,6 +3640,8 @@ def lm_config(cfg: dict, spec: dict):
         mcfg = mcfg.reduced()
     if spec.get("layers"):
         mcfg = dataclasses.replace(mcfg, num_layers=spec["layers"])
+    if spec.get("dtype"):
+        mcfg = dataclasses.replace(mcfg, dtype=spec["dtype"])
     return mcfg
 
 
@@ -4346,15 +4363,16 @@ def mesh_lm(torch, dev, spec: dict, seed: int):
     return model
 
 
-def mesh_trainer_config(spec: dict, ckpt: Path):
+def mesh_trainer_config(spec: dict, ckpt: Path | None):
     """`launch/train.py`'s TrainerConfig for ``launch_steps`` steps, saving
-    at ``steps`` into ``ckpt``, every step logged."""
+    at ``steps`` into ``ckpt`` (None: no checkpoint), every step
+    logged."""
     from repro_torch.train import TrainerConfig
     return TrainerConfig(optimizer=spec["optimizer"], base_lr=spec["lr"],
                          warmup_steps=max(spec["launch_steps"] // 10, 1),
                          total_steps=spec["launch_steps"],
-                         ckpt_dir=str(ckpt), ckpt_every=spec["steps"],
-                         log_every=1)
+                         ckpt_dir=ckpt and str(ckpt),
+                         ckpt_every=spec["steps"], log_every=1)
 
 
 def full_leaves(state) -> list:
@@ -4462,14 +4480,18 @@ def step_memory(torch, dev, gpu: bool, trainer, state, batches,
 
 
 def mesh_train_full(torch, dev, gpu: bool, spec: dict, seed: int, mesh,
-                    work: Path) -> dict:
+                    work: Path, tp_batches: Path) -> dict:
     """(a): phase 18 (a)'s first ``steps`` steps through the one-device
     trainer and through `Trainer(mesh=)` on ``mesh``: the logged losses
     and grad norms and every state leaf bit for bit; each trainer's
     checkpoint restored into the other kind bit for bit; the mesh run's
     step ms, tokens/s and its collectives' ms; each kind's peak memory
     and its memory at each stage (`step_memory`), from a trainer of its
-    own alone on the card before the runs."""
+    own alone on the card before the runs; the mesh model's "model" axis
+    and the leaves it holds split (over a "model" dim of one here). The
+    run's batches are written to ``tp_batches`` for (d)."""
+    import numpy as np
+
     from repro_torch.data import TokenPipeline, synthetic_corpus
     from repro_torch.launch.train import _StepClock
     from repro_torch.train import Trainer
@@ -4480,6 +4502,13 @@ def mesh_train_full(torch, dev, gpu: bool, spec: dict, seed: int, mesh,
         work / "corpus", vocab_size=vocab,
         n_tokens=max(4_000_000, spec["batch"] * (spec["seq"] + 1) * 50),
         seed=seed)
+
+    # the run's batches, for (d): its steps and one more, which the loop
+    # takes to end
+    it = iter(TokenPipeline(store, batch=spec["batch"], seq=spec["seq"]))
+    tp_batches.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(tp_batches, **{f"{k}_{i}": v for i in range(steps + 1)
+                            for k, v in next(it).items()})
 
     # where each kind's memory goes: two steps of a fresh trainer, then a
     # save, nothing else of this phase on the card
@@ -4515,7 +4544,10 @@ def mesh_train_full(torch, dev, gpu: bool, spec: dict, seed: int, mesh,
         wall_s = time.monotonic() - t0
         runs[name] = {"trainer": trainer, "state": state, "hist": hist,
                       "step_ms": clock.step_ms(steps), "wall_s": wall_s,
-                      "saves": trainer.ckpt.saves}
+                      "saves": trainer.ckpt.saves,
+                      "split": trainer.model.split_plan,
+                      "model_axis": ("tensor" if trainer.model.tp
+                                     else "replicated")}
         del trainer, state
     one, on_mesh = runs["one_device"], runs["mesh"]
     metrics = [[h["loss"], h["grad_norm"]] for h in one["hist"]]
@@ -4561,9 +4593,13 @@ def mesh_train_full(torch, dev, gpu: bool, spec: dict, seed: int, mesh,
         return sum(steady) / len(steady)
     step_ms = steady_ms(on_mesh)
     tokens = spec["batch"] * spec["seq"]
+    from repro_torch.tree import tree_leaves
     return {"arch": arch, "batch": spec["batch"], "seq": spec["seq"],
             "optimizer": spec["optimizer"], "steps": steps,
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "model_axis": on_mesh["model_axis"],
+            "split_leaves": sum(isinstance(h, int)
+                                for h in tree_leaves(on_mesh["split"])),
             "losses": [m[0] for m in metrics],
             "grad_norms": [m[1] for m in metrics],
             "metrics_equal": metrics_equal, "state_equal": state_equal,
@@ -4615,44 +4651,81 @@ def mesh_moe_check(torch, dev, gpu: bool, spec: dict, seed: int,
     return out
 
 
-def mesh_probe_rank(rank: int, store: str, out: str, gpu: bool) -> int:
-    """A rank of phase 19 (c) (``chip_smoke.py --mesh-rank``), one of a
-    gloo group of ``probe_ranks`` processes on the one card: the mesh
-    step's gather of a parameter (``full_tensor`` of a ``Shard(0)``
-    DTensor) on this device's tensors, the collective gloo refused on
-    CUDA tensors on the H100 (PERF.md §6); writes its report."""
+def mesh_tp_rank(rank: int, store: str, out: str, gpu: bool) -> int:
+    """A rank of phase 19 (d) (``chip_smoke.py --mesh-rank``), one of a
+    gloo group of ``tp["ranks"]`` processes on the one card: (a)'s model,
+    init and trainer config on a (1, ranks) ("data", "model") mesh, the
+    model holding this rank's blocks of the leaves the rules split over
+    "model"; ``tp["steps"]`` steps on (a)'s first batches (written beside
+    ``out``), no checkpoint (a save would gather), once a ``go`` file
+    beside ``out`` says the card is free (the ranks start and build their
+    models while (b) runs; the state is made after, so that nothing holds
+    the first state while the steps run). Writes its losses, grad norms,
+    step ms (CUDA events at each batch) and peak memory."""
     import datetime
 
+    import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor, Shard
-    n = (FULL if gpu else REHEARSE)["mesh_train"]["probe_ranks"]
+
+    from repro_torch.launch.train import _StepClock
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+    cfg = (FULL if gpu else REHEARSE)["mesh_train"]
+    spec, n, steps = cfg["full"], cfg["tp"]["ranks"], cfg["tp"]["steps"]
     dev = torch.device("cuda", 0) if gpu else torch.device("cpu")
     if gpu:
         torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    data = np.load(Path(out).parent / "batches.npz")
+    batches = [{k: torch.as_tensor(data[f"{k}_{i}"]).to(dev)
+                for k in ("tokens",)} for i in range(steps + 1)]
     dist.init_process_group("gloo", store=dist.FileStore(store, n),
                             rank=rank, world_size=n,
-                            timeout=datetime.timedelta(seconds=20))
+                            timeout=datetime.timedelta(seconds=120))
     try:
-        mesh = init_device_mesh(dev.type, (n,), mesh_dim_names=("data",))
-        y = DTensor.from_local(torch.ones(4, device=dev), mesh,
-                               [Shard(0)]).full_tensor()
-        check(float(y.sum()) == 4.0 * n, f"all_gather: {y.tolist()}")
+        mesh = init_device_mesh(dev.type, (1, n),
+                                mesh_dim_names=("data", "model"))
+        if gpu:
+            torch.cuda.reset_peak_memory_stats(dev)
+        trainer = Trainer(mesh_lm(torch, dev, spec, cfg["seed"]),
+                          mesh_trainer_config(spec, None), mesh=mesh)
+        go = Path(out).parent / "go"
+        deadline = time.monotonic() + 600
+        while not go.exists():
+            check(time.monotonic() < deadline, "lm mesh tp: no go")
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        clock = _StepClock(iter(batches), dev)
+        _, hist = trainer.run(trainer.init_state(), iter(clock), steps=steps)
+        step_ms = clock.step_ms(steps)
+        report = {
+            "rank": rank, "ranks": n, "steps": steps,
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms": step_ms, "wall_s": time.monotonic() - t0,
+            "model_axis": "tensor" if trainer.model.tp else "replicated",
+            "split_leaves": sum(isinstance(h, int) for h in
+                                tree_leaves(trainer.model.split_plan)),
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if gpu
+                           else 0)}
     finally:
         dist.destroy_process_group()
-    Path(out).write_text(json.dumps({"rank": rank, "ranks": n}))
+    Path(out).write_text(json.dumps(report))
     return 0
 
 
-def mesh_probe_start(cfg: dict, gpu: bool, work: Path) -> list:
-    """(c)'s ranks (``chip_smoke.py --mesh-rank r``), started to run beside
-    (a)-(b); logs and reports under ``work``."""
-    work.mkdir(parents=True, exist_ok=True)
+def mesh_tp_start(cfg: dict, gpu: bool, work: Path) -> list:
+    """(d)'s ranks (``chip_smoke.py --mesh-rank r``); logs and reports
+    under ``work``, beside (a)'s batches; they step once ``work / "go"``
+    exists."""
     store = work / "store"
     store.unlink(missing_ok=True)
+    (work / "go").unlink(missing_ok=True)
     procs = []
-    for r in range(cfg["probe_ranks"]):
+    for r in range(cfg["tp"]["ranks"]):
         with open(work / f"rank_{r}.log", "w") as f:
             procs.append(subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
@@ -4663,10 +4736,13 @@ def mesh_probe_start(cfg: dict, gpu: bool, work: Path) -> list:
     return procs
 
 
-def mesh_probe_finish(procs: list, work: Path, bound_s: float) -> dict:
-    """Waits for (c)'s ranks up to ``bound_s`` (a rank that outlives it
-    is stopped): whether gloo took the gather on every rank, the exit
-    codes, and the logs' tails where one failed."""
+def mesh_tp_finish(procs: list, work: Path, bound_s: float, full: dict,
+                   cfg: dict) -> dict:
+    """Waits for (d)'s ranks up to ``bound_s`` (a rank that outlives it is
+    stopped) and holds them: every rank exits 0 with the same losses and
+    grad norms, each step within ``cfg["tp"]["bound"]`` of (a)'s first
+    steps (``full``, its record); each rank's peak memory and step ms
+    beside (a)'s."""
     deadline = time.monotonic() + bound_s
     for p in procs:
         try:
@@ -4675,24 +4751,56 @@ def mesh_probe_finish(procs: list, work: Path, bound_s: float) -> dict:
             p.kill()
             p.wait()
     exits = [p.returncode for p in procs]
-    out = {"collective": "all_gather", "ranks": len(procs), "exits": exits,
-           "taken": not any(exits) and all(
-               (work / f"rank_{r}.json").exists()
-               for r in range(len(procs)))}
-    if not out["taken"]:
-        out["logs"] = [(work / f"rank_{r}.log").read_text()[-600:]
-                       for r in range(len(procs))]
+    logs = [(work / f"rank_{r}.log").read_text()[-1500:]
+            for r in range(len(procs))]
+    check(not any(exits), f"lm mesh tp: a rank failed, exits {exits}: "
+          f"{logs}")
+    ranks = [json.loads((work / f"rank_{r}.json").read_text())
+             for r in range(len(procs))]
+    steps, bound = cfg["tp"]["steps"], cfg["tp"]["bound"]
+    want = {"losses": full["losses"][:steps],
+            "grad_norms": full["grad_norms"][:steps]}
+    err = {k: [abs(g - w) / abs(w) for g, w in zip(ranks[0][k], v)]
+           for k, v in want.items()}
+    out = {"ranks": len(ranks), "exits": exits, "steps": steps,
+           "model_axis": ranks[0]["model_axis"],
+           "split_leaves": ranks[0]["split_leaves"],
+           "losses": ranks[0]["losses"],
+           "grad_norms": ranks[0]["grad_norms"],
+           "one_device_losses": want["losses"],
+           "one_device_grad_norms": want["grad_norms"],
+           "loss_rel_err": err["losses"],
+           "grad_norm_rel_err": err["grad_norms"], "bound": bound,
+           "step_ms": [r["step_ms"] for r in ranks],
+           "steady_step_ms": sum(ranks[0]["step_ms"][1:])
+           / max(len(ranks[0]["step_ms"]) - 1, 1),
+           "one_device_steady_step_ms": full["one_device_steady_step_ms"],
+           "peak_bytes": [r["peak_bytes"] for r in ranks],
+           "one_device_peak_bytes": full["one_device_peak_bytes"],
+           "wall_s": [r["wall_s"] for r in ranks]}
+    check(all(r["losses"] == ranks[0]["losses"]
+              and r["grad_norms"] == ranks[0]["grad_norms"] for r in ranks),
+          f"lm mesh tp: the ranks' metrics differ: {ranks}")
+    check(len(ranks[0]["losses"]) == steps
+          and max(err["losses"]) <= bound["loss"]
+          and max(err["grad_norms"]) <= bound["grad_norm"],
+          f"lm mesh tp: the (1, {len(ranks)}) step against one device's: "
+          f"{err}, bound {bound}")
     return out
 
 
 def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
-    """Phase 19: LM training on a mesh, (a)-(c). No FFT kernel runs."""
+    """Phase 19: LM training on a mesh, (a), (b) and (d), whose ranks start
+    and build their models beside (b) and step alone on the card. No FFT
+    kernel runs."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     reset_counts()
     card = device_line() if gpu else "cpu (rehearsal)"
-    probe = mesh_probe_start(cfg, gpu, work / "ranks")
-    out = {}
+    ranks = work / "ranks"
+    shutil.rmtree(ranks, ignore_errors=True)
+    ranks.mkdir(parents=True)
+    out, procs = {}, []
     try:
         store = one_rank_group(torch, gpu)
         try:
@@ -4700,10 +4808,12 @@ def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
                                     mesh_dim_names=("data", "model"))
             t0 = time.monotonic()
             out["full"] = mesh_train_full(torch, dev, gpu, cfg["full"],
-                                          cfg["seed"], mesh, work / "full")
+                                          cfg["seed"], mesh, work / "full",
+                                          ranks / "batches.npz")
             out["full"].update(seconds=time.monotonic() - t0, device=card)
             print("lm mesh train " + json.dumps(out["full"]))
             t0 = time.monotonic()
+            procs += mesh_tp_start(cfg, gpu, ranks)
             out["moe"] = mesh_moe_check(torch, dev, gpu, cfg["moe"],
                                         cfg["seed"], cfg["moe_tol"])
             out["moe"].update(seconds=time.monotonic() - t0, device=card)
@@ -4711,18 +4821,18 @@ def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
         finally:
             dist.destroy_process_group()
             store.unlink(missing_ok=True)
-            shutil.rmtree(work / "full", ignore_errors=True)
-    finally:
+        lm_free(torch, gpu)
         t0 = time.monotonic()
-        out["ranks"] = mesh_probe_finish(probe, work / "ranks", 90)
-    out["ranks"]["wait_s"] = time.monotonic() - t0
-    print("lm mesh ranks " + json.dumps(out["ranks"]))
-    if out["ranks"]["taken"]:
-        print(f"lm mesh ranks: gloo took all_gather on {dev.type} tensors; "
-              "the two-rank step is not built here (ROADMAP)")
-    else:
-        print(f"lm mesh ranks: gloo takes no all_gather on {dev.type} "
-              "tensors: no two-rank step, (a)-(b) alone")
+        (ranks / "go").write_text("go")
+        out["tp"] = mesh_tp_finish(procs, ranks, 300, out["full"], cfg)
+        out["tp"].update(seconds=time.monotonic() - t0, device=card)
+        print("lm mesh tp " + json.dumps(out["tp"]))
+    finally:
+        for p in procs:  # stopped where (a) or (b) failed
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work / "full", ignore_errors=True)
     counts = read_counts()
     check(not any(counts.values()),
           f"LM training on a mesh ran an FFT kernel: {counts}")
@@ -4783,7 +4893,8 @@ def lm_dryrun_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
     rounding, the step's FLOPs under FlopCounterMode equal the record's,
     its ms beside the record's terms; (c) the one_card train cell's state
     from ``Trainer.init_state`` on the card: bytes equal the record's. No
-    FFT kernel runs."""
+    FFT kernel runs. The train cells record ``"model_axis": "tensor"``,
+    the prefill and decode cells "replicated"."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.specs import cell_runnable
@@ -4809,8 +4920,15 @@ def lm_dryrun_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
             check(math.isfinite(cost[k]) and cost[k] > 0,
                   f"{mesh} {shape}: {k} {cost[k]}")
         check(mem["total_bytes"] > 0, f"{mesh} {shape}: no bytes")
+        # qwen2-0.5b's train cells compute split over "model" (its d_ff
+        # and vocabulary; its 14 heads and 2 kv heads stay whole at 16)
+        axis = "tensor" if rec["mode"] == "train" else "replicated"
+        check(cost["model_axis"] == axis,
+              f"{mesh} {shape}: model_axis {cost['model_axis']}, not {axis}")
         out["cells"].append({
-            "mesh": mesh, "shape": shape, "build_s": rec["build_s"],
+            "mesh": mesh, "shape": shape, "model_axis": cost["model_axis"],
+            "model_all_reduce_bytes": cost["model_all_reduce_bytes"],
+            "build_s": rec["build_s"],
             "cost_s": rec["cost_s"], "rows_per_device":
             cost["rows_per_device"], "flops": cost["flops"],
             "model_flops": cost["model_flops"],
@@ -4903,7 +5021,7 @@ def main(argv=None) -> int:
                     help="run as this rank of phase 15's service (started "
                          "by phase 15 itself, with --store and --out)")
     ap.add_argument("--mesh-rank", type=int, default=None,
-                    help="run as this rank of phase 19 (c)'s gloo group "
+                    help="run as this rank of phase 19 (d)'s gloo group "
                          "(started by phase 19 itself, with --store and "
                          "--out)")
     ap.add_argument("--store", help="phase 15's or 19's FileStore")
@@ -4923,7 +5041,7 @@ def main(argv=None) -> int:
     if args.follower is not None:
         return mesh_serve_follower(args.follower, args.store, args.out, gpu)
     if args.mesh_rank is not None:
-        return mesh_probe_rank(args.mesh_rank, args.store, args.out, gpu)
+        return mesh_tp_rank(args.mesh_rank, args.store, args.out, gpu)
     cfg = FULL if gpu else REHEARSE
     dev = torch.device("cuda", 0) if gpu else torch.device("cpu")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -25,19 +25,28 @@ bfloat16 parameters for prefill and decode, and the inputs of
           `BATCH_AXES`) and `local_slices`; ``per_rank`` the least and
           the most of every rank's total
   cost    the step run on meta at the rows one rank holds under the batch
-          rule, its compute replicated over "model" as the port's mesh
-          step does (``model_axis``): ``flops`` counted by
-          ``FlopCounterMode``, ``bytes_accessed`` every op's input and
-          output tensor bytes (`ByteCounter`, an unfused upper bound);
-          ``model_flops`` the reference's 6ND / 2ND / 2NB over the chips;
+          rule, as rank 0 computes it (``model_axis``): a train cell of
+          a family the port computes split over "model"
+          (`tensor_parallel_family`: G and L attention, the gated MLP,
+          MoE) runs the tensor-parallel step, the model holding rank 0's
+          blocks of the leaves the rules split there ("tensor");
+          prefill and decode cells, and the train cells of rwkv6,
+          zamba2 and whisper, compute replicated over "model"
+          ("replicated"). ``flops`` counted by ``FlopCounterMode``,
+          ``bytes_accessed`` every op's input and output tensor bytes
+          (`ByteCounter`, an unfused upper bound); ``model_flops`` the
+          reference's 6ND / 2ND / 2NB over the chips;
           ``collective_bytes`` the collectives the port's step issues on
           the mesh (train: `_DataParallel`'s parameter gather and its
-          gradient reduction; prefill and decode: the weight gather that
-          replicated compute would need, since the port has no sharded
-          prefill or decode) at the ring multipliers of the reference's
-          ``hlo_analysis.py``; ``compute_s``, ``memory_s`` and
-          ``collective_s`` at the H100 rates of `RATES`, and ``bound``
-          the largest
+          gradient reduction, over the mesh dims other than "model" for
+          the leaves the model holds split, and the model's all_reduces
+          over "model", counted where the step issues them,
+          ``model_all_reduce_bytes`` their operands; prefill and decode:
+          the weight gather that replicated compute would need, since
+          the port has no sharded prefill or decode) at the ring
+          multipliers of the reference's ``hlo_analysis.py``;
+          ``compute_s``, ``memory_s`` and ``collective_s`` at the H100
+          rates of `RATES`, and ``bound`` the largest
 
 What of the reference does not port, and why:
 
@@ -86,8 +95,9 @@ from repro_torch.launch.specs import (SHAPES, ShapeCase, cell_runnable,
                                       input_specs)
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.sharding.rules import (NamedSharding, ShardingRules,
-                                        local_slices, param_shardings,
-                                        resolve_pspec, tree_shardings)
+                                        abstract_params, local_slices,
+                                        param_shardings, resolve_pspec,
+                                        tree_shardings)
 from repro_torch.train.trainer import (Trainer, TrainerConfig,
                                        make_train_step, state_shardings)
 from repro_torch.tree import tree_leaves
@@ -187,7 +197,9 @@ def allocator_rounding(tree) -> int:
 class Cell:
     """One cell built: the model, its global inputs and state, and the
     shardings of each, by kind ("params", "opt_state", "step", "caches",
-    "inputs")."""
+    "inputs"). A train cell's ``step_state`` is the state rank 0's step
+    updates: ``tensors``' own, or where the model holds blocks along
+    "model", its parameters and their optimizer state."""
     case: ShapeCase
     mesh: ShapeMesh
     cfg: object
@@ -197,6 +209,13 @@ class Cell:
     optimizer: str | None = None
     grad_accum: int = 1
     step_fn: object = None
+    step_state: dict | None = None
+
+    @property
+    def model_axis(self) -> str:
+        """"tensor" where the step computes split over "model", else
+        "replicated"."""
+        return "tensor" if self.model.tp is not None else "replicated"
 
     @property
     def mode(self) -> str:
@@ -229,9 +248,7 @@ class Cell:
     def step(self, args):
         """The cell's step on ``args`` (`local_inputs`)."""
         if self.mode == "train":
-            state = {k: self.tensors[k] for k in ("params", "opt_state",
-                                                  "step")}
-            return self.step_fn(state, args)
+            return self.step_fn(self.step_state, args)
         with torch.inference_mode():
             if self.mode == "prefill":
                 return self.model.prefill(args)
@@ -253,10 +270,15 @@ def build_cell(arch: str, shape, mesh_name: str = "one_card", *,
                ) -> Cell:
     """The cell's model, state or bf16 parameters, inputs and shardings on
     ``device`` (meta: shapes only). ``shape`` is a name of `SHAPES` or a
-    `ShapeCase`; ``cfg`` replaces the arch's config (overrides, a reduced
-    config); ``generator`` draws the parameters on a real device."""
+    `ShapeCase`; ``mesh_name`` a name of `MESHES` or a `ShapeMesh`;
+    ``cfg`` replaces the arch's config (overrides, a reduced config);
+    ``generator`` draws the parameters on a real device. A train cell's
+    model is split over "model" as rank 0's (`split_over_model`); its
+    ``tensors`` stay the global state, on meta where the model holds
+    blocks."""
     case = SHAPES[shape] if isinstance(shape, str) else shape
-    mesh = ShapeMesh(*MESHES[mesh_name])
+    mesh = (mesh_name if isinstance(mesh_name, ShapeMesh)
+            else ShapeMesh(*MESHES[mesh_name]))
     rules = rules or ShardingRules.default(
         multi_pod="pod" in mesh.mesh_dim_names)
     cfg = cfg or get_config(arch)
@@ -273,17 +295,22 @@ def build_cell(arch: str, shape, mesh_name: str = "one_card", *,
         tc = TrainerConfig(optimizer=optimizer or pick_optimizer(cfg),
                            grad_accum=grad_accum)
         opt, step_fn = make_train_step(model, tc)
-        params = model.param_tree()
-        state = {"params": params, "opt_state": opt.init(params),
-                 "step": torch.zeros((), dtype=torch.int32,
-                                     device=model.device)}
+
+        def fresh(params):
+            return {"params": params, "opt_state": opt.init(params),
+                    "step": torch.zeros((), dtype=torch.int32,
+                                        device=params["embed"].device)}
+        model.split_over_model(mesh.at(0), rules)
+        state = step_state = fresh(model.param_tree())
+        if model.tp is not None and model.tp.size > 1:
+            state = fresh(abstract_params(model.param_specs()))
         tensors = {**state, "inputs": batch}
         shardings = state_shardings(model, state, rules, mesh)
         shardings["inputs"] = {k: NamedSharding(mesh, resolve_pspec(
             tuple(v.shape), lead + BATCH_AXES[k], rules, mesh))
             for k, v in batch.items()}
         return Cell(case, mesh, cfg, model, tensors, shardings,
-                    tc.optimizer, grad_accum, step_fn)
+                    tc.optimizer, grad_accum, step_fn, step_state)
 
     model.to(torch.bfloat16)
     tensors = {"params": model.param_tree()}
@@ -354,27 +381,36 @@ def _shards(mesh, sh: NamedSharding) -> int:
     return n
 
 
-def cell_collectives(cell: Cell) -> tuple[dict, str]:
-    """({kind: one device's bytes}, what they stand for)."""
+def cell_collectives(cell: Cell, model_bytes: float = 0.0
+                     ) -> tuple[dict, str]:
+    """({kind: one device's bytes}, what they stand for); ``model_bytes``
+    the operands of the model's all_reduces over "model" in the step."""
     mesh = cell.mesh
     params = tree_leaves(cell.tensors["params"])
     p_sh = tree_leaves(cell.shardings["params"])
+    names = list(mesh.mesh_dim_names)
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    hows = (tree_leaves(cell.model.split_plan) if cell.mode == "train"
+            else ["whole"] * len(params))
     out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
-    for x, sh in zip(params, p_sh):
-        n = _shards(mesh, sh)
+    for x, sh, how in zip(params, p_sh, hows):
+        n, nbytes = _shards(mesh, sh), tensor_bytes(x)
+        if isinstance(how, int):  # gathered over the other mesh dims
+            n, nbytes = n // m, nbytes / m
         if n > 1:
-            out["all-gather"] += ring_bytes("all-gather", tensor_bytes(x), n)
+            out["all-gather"] += ring_bytes("all-gather", nbytes, n)
     if cell.mode != "train":
         return out, ("the weight gather replicated compute would need: the "
                      "port has no sharded prefill or decode")
-    # the gradients (float32, each rank's whole tree) enter Partial on the
-    # batch's mesh dims and are redistributed to the parameters'
-    # placements: a reduce-scatter where a dim shards the parameter, else
-    # an all-reduce; the loss is all-reduced
+    # the gradients (float32; each rank's block of a leaf the model holds
+    # split) enter Partial on the batch's mesh dims and are redistributed
+    # to the parameters' placements: a reduce-scatter where a dim shards
+    # the parameter, else an all-reduce; a leaf read whole inside a split
+    # region is then all-reduced over "model"; the loss is all-reduced
     tok = cell.shardings["inputs"]["tokens"]
     batch_dims = [i for i, pl in enumerate(tok.placements) if pl.is_shard()]
-    for x, sh in zip(params, p_sh):
-        nbytes = float(tensor_bytes(x))
+    for x, sh, how in zip(params, p_sh, hows):
+        nbytes = float(tensor_bytes(x)) / (m if isinstance(how, int) else 1)
         for i in batch_dims:
             n = mesh.size(i)
             if sh.placements[i].is_shard():
@@ -383,25 +419,34 @@ def cell_collectives(cell: Cell) -> tuple[dict, str]:
                 nbytes /= n
             else:
                 out["all-reduce"] += ring_bytes("all-reduce", nbytes, n)
+        if how == "partial":
+            out["all-reduce"] += ring_bytes("all-reduce", nbytes, m)
     for i in batch_dims:
         out["all-reduce"] += ring_bytes("all-reduce", 4.0, mesh.size(i))
+    out["all-reduce"] += ring_bytes("all-reduce", model_bytes, m)
     return out, ("_DataParallel's parameter gather, its gradient "
-                 "reduction and the loss's all-reduce")
+                 "reduction and the loss's all-reduce, over the mesh dims "
+                 "other than \"model\" where the model holds a block; the "
+                 "model's all_reduces over \"model\"")
 
 
 def cell_cost(cell: Cell) -> dict:
     """The step on one rank's rows under the flop and byte counters, and
     the three terms."""
     args = cell.local_inputs()
+    counts = cell.model.tp.counts if cell.model.tp else Counter()
+    before = counts["all-reduce"]
     with FlopCounterMode(display=False) as fc, ByteCounter() as bc:
         cell.step(args)
-    colls, note = cell_collectives(cell)
+    model_bytes = float(counts["all-reduce"] - before)
+    colls, note = cell_collectives(cell, model_bytes)
     cost = {
         "flops": float(fc.get_total_flops()),
         "bytes_accessed": float(bc.bytes),
         "bytes_model": "unfused",
         "model_flops": model_flops(cell.cfg, cell.case, cell.mesh.size()),
-        "model_axis": "replicated",
+        "model_axis": cell.model_axis,
+        "model_all_reduce_bytes": model_bytes,
         "rows_per_device": cell.rows,
         "collective_bytes": sum(colls.values()),
         "collectives": colls,

@@ -25,8 +25,9 @@ class ShapeMesh:
     """A device mesh's shape and dim names, without devices or process
     groups: what the FFT planner's cost model (`mesh_dim_names`, `size`)
     and the sharding rules (`shape`, and `get_coordinate` for
-    `local_slices`) read, planned as "cpu" so no card is touched. Its
-    coordinate is None (no rank's view) unless made by `at`."""
+    `local_slices`; `model_dim` for the "model" dim a model splits over)
+    read, planned as "cpu" so no card is touched. Its coordinate is None
+    (no rank's view) unless made by `at`."""
 
     device_type = "cpu"
 
@@ -48,6 +49,12 @@ class ShapeMesh:
 
     def get_coordinate(self):
         return self.coordinate
+
+    def get_group(self, mesh_dim=None):
+        """None: a mesh of shape only has no process groups (the
+        tensor-parallel operators over it move nothing and count the bytes
+        they would)."""
+        return None
 
     def at(self, rank: int) -> "ShapeMesh":
         """The same mesh as seen by global ``rank``."""

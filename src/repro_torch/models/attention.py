@@ -62,13 +62,44 @@ def _out_proj(out, w, dt):
     return torch.einsum("bshk,hkd->bsd", out, w.to(dt))
 
 
-def _qkv(cfg, p, x, pos_offset, theta):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope'd + normed."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _kv_block(cfg, rank: int, heads: int):
+    """The kv heads that rank ``rank``'s ``heads`` q heads read under GQA
+    where the kv heads are held whole: a slice when each of them serves
+    an equal run of the rank's heads (GQA over the block), else an index
+    a q head (the rank's heads straddle a group unevenly)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = [i // g for i in range(rank * heads, (rank + 1) * heads)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if heads % n == 0 and idx == [lo + j // (heads // n)
+                                  for j in range(heads)]:
+        return slice(lo, lo + n)
+    return torch.tensor(idx)
+
+
+def _qkv(cfg, p, x, pos_offset, theta, tp=None):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope'd + normed. Under
+    ``tp`` with the q heads split, H is this rank's block of heads, and KV
+    its block of the kv heads, or the kv heads its q heads read
+    (`_kv_block`) where those are held whole."""
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    heads = p["wq"].shape[-2]
+    if tp is not None and wk.shape[-2] == cfg.num_kv_heads:
+        sel = _kv_block(cfg, tp.rank, heads)
+        if isinstance(sel, torch.Tensor):
+            sel = sel.to(x.device)
+            wk, wv = wk.index_select(-2, sel), wv.index_select(-2, sel)
+            if bk is not None:
+                bk, bv = bk.index_select(-2, sel), bv.index_select(-2, sel)
+        else:
+            wk, wv = wk[..., sel, :], wv[..., sel, :]
+            if bk is not None:
+                bk, bv = bk[..., sel, :], bv[..., sel, :]
+    q, k, v = _proj(x, p["wq"]), _proj(x, wk), _proj(x, wv)
     if cfg.qkv_bias and "bq" in p:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        k = k + bk.to(x.dtype)
+        v = v + bv.to(x.dtype)
     if cfg.qk_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -184,14 +215,23 @@ def _floor_to(x, m):
 
 
 def self_attention(cfg, p, x, *, window=None, theta=None, pos_offset=0,
-                   causal=True, return_kv=False):
-    """Training / prefill self-attention over x (B,S,d)."""
+                   causal=True, return_kv=False, tp=None):
+    """Training / prefill self-attention over x (B,S,d). With ``tp`` (a
+    `ModelGroup`) and ``p`` holding this rank's block of the q heads, the
+    projections are column-parallel and ``wo`` row-parallel: the region
+    starts with ``tp.enter`` and ends with ``tp.exit``, and ``return_kv``
+    gives this rank's kv heads."""
     theta = cfg.rope_theta if theta is None else theta
-    q, k, v = _qkv(cfg, p, x, pos_offset, theta)
+    split = tp is not None and p["wq"].shape[-2] < cfg.num_heads
+    if split:
+        x = tp.enter(x)
+    q, k, v = _qkv(cfg, p, x, pos_offset, theta, tp if split else None)
     out = chunked_attention(
         q, k, v, causal=causal, window=window, pos_offset=0,
         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
     y = _out_proj(out, p["wo"], x.dtype)
+    if split:
+        y = tp.exit(y)
     if return_kv:
         return y, (k, v)
     return y

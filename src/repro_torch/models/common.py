@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.sharding.rules import ParamSpec, constrain
+from repro_torch.sharding.tensor_parallel import lse_and_gold
 
 
 # ---------------------------------------------------------------------------
@@ -102,11 +103,16 @@ def activate(name: str, x):
 # losses
 
 
-def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
-    """Mean token NLL with optional validity mask; fp32 throughout."""
+def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0, *,
+                  tp=None, vocab: int | None = None):
+    """Mean token NLL with optional validity mask; fp32 throughout. With
+    ``tp`` (a `ModelGroup`), ``logits`` is this rank's block of a
+    ``vocab``-wide vocabulary, and the log-sum-exp and gold logit are the
+    vocabulary-parallel ones (`tensor_parallel.lse_and_gold`); over one
+    rank the same ops as without."""
     logits = constrain(logits.float(), ("batch", None, "act_vocab"))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    lse, gold = lse_and_gold(tp, logits, labels.long(),
+                             vocab or logits.shape[-1])
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse**2

@@ -6,6 +6,9 @@ port keeps the same names in nested ``nn.ParameterDict``\\ s. Pass the
 reference's tree as numpy arrays (``jax.tree.map(np.asarray, params)``)
 to `params_from_reference`; `params_to_numpy` gives the port's
 parameters back in the reference's nesting, ready for ``jnp.asarray``.
+A model split over "model" (`TransformerLM.split_over_model`) takes this
+rank's block of each leaf it holds split from the reference's whole
+tree, and gives back its blocks.
 """
 
 from __future__ import annotations
@@ -26,10 +29,18 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_reference(tree, model):
-    """Copy ``tree`` (nested dicts of numpy arrays, the reference's names)
-    into ``model``'s parameters, name for name and shape checked; returns
-    ``model``."""
+    """Copy ``tree`` (nested dicts of numpy arrays, the reference's names,
+    whole leaves) into ``model``'s parameters, name for name and shape
+    checked, this rank's block of each leaf the model holds split;
+    returns ``model``."""
     flat = _flatten(tree)
+    tp = model.tp
+    if tp is not None and tp.size > 1:
+        for name, how in _flatten(model.split_plan).items():
+            if isinstance(how, int) and name in flat:
+                n = flat[name].shape[how] // tp.size
+                flat[name] = np.take(flat[name], np.arange(
+                    tp.rank * n, (tp.rank + 1) * n), axis=how)
     named = dict(model.named_parameters())
     if set(flat) != set(named):
         raise KeyError(

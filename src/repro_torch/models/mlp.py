@@ -18,12 +18,19 @@ def mlp_specs(cfg, stacked: tuple[int, ...] = ()) -> dict:
     }
 
 
-def mlp(cfg, p, x):
-    """Gated MLP: act(x @ wg) * (x @ wi) @ wo."""
+def mlp(cfg, p, x, tp=None):
+    """Gated MLP: act(x @ wg) * (x @ wi) @ wo. With ``tp`` (a `ModelGroup`)
+    and ``p`` holding this rank's block of ``d_ff``: ``wi`` and ``wg``
+    column-parallel, ``wo`` row-parallel, between ``tp.enter`` and
+    ``tp.exit``."""
+    split = tp is not None and p["wi"].shape[-1] < cfg.d_ff
+    if split:
+        x = tp.enter(x)
     dt = x.dtype
     g = activate(cfg.act, torch.matmul(x, p["wg"].to(dt)))
     h = torch.matmul(x, p["wi"].to(dt))
-    return torch.matmul(g * h, p["wo"].to(dt))
+    y = torch.matmul(g * h, p["wo"].to(dt))
+    return tp.exit(y) if split else y
 
 
 # ---------------------------------------------------------------------------

@@ -141,9 +141,19 @@ def _add_shared_expert(cfg, p, x, y):
     return y + torch.matmul(g * h, p["shared_wo"].to(dt))
 
 
-def moe_tp(cfg, p, x):
+def moe_tp(cfg, p, x, tp=None):
     """Tensor-parallel MoE over x (B, S, d); B * S must be a whole number
-    of groups."""
+    of groups. With ``tp`` (a `ModelGroup`) and ``p`` holding this rank's
+    block of ``d_ff`` (the reference's rules: experts replicated, each
+    expert's d_ff split over "model"), every expert's MLP and the shared
+    expert's are column- then row-parallel, and the region ends after the
+    combine with ``tp.exit``. It has two entries: the input of the router
+    and the shared expert (the router's gradient is then each rank's
+    share), and the experts' buffers after the dispatch, whose gradient
+    is summed over the ranks before the dispatch product rounds it to
+    bf16, as over one rank."""
+    split = tp is not None and p["wi"].shape[-1] < cfg.d_ff
+    xs = tp.enter(x) if split else x  # the router's and shared expert's
     b, s, d = x.shape
     gs = min(cfg.moe_group_size, s)
     if (b * s) % gs:
@@ -152,13 +162,16 @@ def moe_tp(cfg, p, x):
     n_groups = (b * s) // gs
     xg = x.reshape(n_groups, gs, d)
 
-    w, idx = _route(cfg, p, xg)
+    w, idx = _route(cfg, p, xs.reshape(n_groups, gs, d))
     dispatch, combine = _dispatch_tensors(cfg, w, idx, gs)       # (G,N,E,C)
-    xe = torch.einsum("gnec,gnd->egcd", dispatch, xg.to(torch.bfloat16))
-    ye = _expert_ffn(cfg, p, xe.to(x.dtype))                     # (E,G,C,d)
+    xe = torch.einsum("gnec,gnd->egcd", dispatch,
+                      xg.to(torch.bfloat16)).to(x.dtype)
+    if split:
+        xe = tp.enter(xe)
+    ye = _expert_ffn(cfg, p, xe)                                 # (E,G,C,d)
     y = torch.einsum("gnec,egcd->gnd", combine.to(x.dtype), ye)
-    y = y.reshape(b, s, d)
-    return _add_shared_expert(cfg, p, x, y)
+    y = _add_shared_expert(cfg, p, xs, y.reshape(b, s, d))
+    return tp.exit(y) if split else y
 
 
 def moe_ep(cfg, p, x, *, group, axis_name="model"):

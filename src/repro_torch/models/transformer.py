@@ -55,7 +55,12 @@ from repro_torch.models.rwkv6 import (rwkv_state_init, rwkv_tmix,
                                       rwkv_tmix_specs, rwkv_tmix_step)
 from repro_torch.models.scanning import maybe_scan
 from repro_torch.sharding.rules import (ParamSpec, abstract_params, constrain,
-                                        init_params)
+                                        init_params, mesh_dim_names,
+                                        mesh_shape, model_slices, spec_for,
+                                        tree_map_specs)
+from repro_torch.sharding.tensor_parallel import (ModelGroup, embed_lookup,
+                                                  lse_and_gold)
+from repro_torch.tree import tree_flatten
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -112,9 +117,10 @@ def _kind_window_theta(cfg, kind):
 
 
 def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
-                      cache_len=None):
+                      cache_len=None, tp=None):
     """``enc_out``: the encoder's output in train and prefill, and in
     decode any value but None (the cross caches hold its keys and values).
+    ``tp``: the `ModelGroup` of a model split over "model" (training).
     """
     window, theta = _kind_window_theta(cfg, kind)
     if cfg.frontend == "audio_frames":
@@ -156,7 +162,8 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
         cdt = torch_dtype(cfg.cache_dtype)
         new_cache = {"k": k.to(cdt), "v": v.to(cdt)}
     else:
-        y = attn.self_attention(cfg, p["attn"], x, window=window, theta=theta)
+        y = attn.self_attention(cfg, p["attn"], x, window=window, theta=theta,
+                                tp=tp)
     if cfg.post_norms:
         y = norm_apply(cfg, y, p["post_ln1"])
     h = h + y
@@ -179,9 +186,9 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
 
     x = norm_apply(cfg, h, p["ln2"])
     if "moe" in p:
-        y = moe_tp(cfg, p["moe"], x)
+        y = moe_tp(cfg, p["moe"], x, tp)
     else:
-        y = mlp(cfg, p["mlp"], x)
+        y = mlp(cfg, p["mlp"], x, tp)
     if cfg.post_norms:
         y = norm_apply(cfg, y, p["post_ln2"])
     return h + y, (new_cache or None)
@@ -199,13 +206,13 @@ def _write(dst, src):
 
 
 def _apply_block(cfg, kind, p, h, mode, cache, pos, enc_out=None,
-                 cache_len=None):
+                 cache_len=None, tp=None):
     """One block. In decode the M and R carries are written in place into
     ``cache`` (whose dtypes `_decode_carries` set)."""
     if kind in "GLS":
         k = "G" if kind == "S" else kind
         return _apply_attn_block(cfg, p, h, k, mode, cache, pos, enc_out,
-                                 cache_len)
+                                 cache_len, tp)
     if kind == "M":
         x = norm_apply(cfg, h, p["ln"])
         if mode == "decode":
@@ -342,6 +349,49 @@ def _cast_tree(tree, dtype, name=None):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism over "model"
+
+
+def tensor_parallel_family(cfg) -> bool:
+    """Does the model compute split over "model" where the rules split its
+    leaves there? Its layers are G and L attention with the gated MLP or
+    MoE, and it has no encoder. rwkv6 (R), zamba2 (M, S) and whisper (the
+    encoder and cross attention) compute replicated over "model"."""
+    return set(cfg.layer_pattern) <= set("GL") and not cfg.encoder_layers
+
+
+# the leaves of a block read whole inside its split region, and the leaf
+# whose split opens the region
+_PARTIAL = {"attn": ("wq", ("q_norm", "k_norm", "wk", "wv", "bk", "bv")),
+            "moe": ("wi", ("router",))}
+# leaves split together or not at all (the key: the block; None: the top)
+_TOGETHER = {"attn": (("wq", "wo", "bq"), ("wk", "wv", "bk", "bv")),
+             "mlp": (("wi", "wg", "wo"),),
+             "moe": (("wi", "wg", "wo", "shared_wi", "shared_wg",
+                      "shared_wo"),),
+             None: (("embed", "lm_head"),)}
+
+
+def _check_together(plan) -> None:
+    """Each group of `_TOGETHER` split all together or not at all, and the
+    kv heads split only with the q heads."""
+    def walk(node, key):
+        for names in _TOGETHER.get(key, ()):
+            split = {isinstance(node[n], int) for n in names if n in node}
+            if len(split) > 1:
+                raise ValueError(f"the rules split some of {names} over "
+                                 "'model' and not the others")
+        if key == "attn" and isinstance(node["wk"], int) > isinstance(
+                node["wq"], int):
+            raise ValueError("the rules split the kv heads over 'model' "
+                             "but not the q heads")
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, k)
+    walk(plan, None)
+
+
+# ---------------------------------------------------------------------------
 
 
 class TransformerLM(nn.Module):
@@ -368,6 +418,9 @@ class TransformerLM(nn.Module):
         for name, sub in tree.items():
             setattr(self, name, _as_parameters(sub))
         self._cast = None  # (key, cast weight tree)
+        # the "model" dim this model is split over (`split_over_model`)
+        self.tp: ModelGroup | None = None
+        self._split = None  # (its key, the plan)
 
     @property
     def device(self) -> torch.device:
@@ -428,9 +481,107 @@ class TransformerLM(nn.Module):
         reference as here), so that clipping to 1 leaves all but the
         largest entries below AdamW's eps; with true fan-in the scores
         are O(1) and the gradient norm stays O(10) at every depth."""
+        heads = {"wq": self.cfg.num_heads, "wk": self.cfg.num_kv_heads}
         for name, p in self.named_parameters():
-            if name.rsplit(".", 1)[-1] in ("wq", "wk"):
-                p.mul_(math.sqrt(p.shape[-2] / p.shape[-3]))
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in heads:  # the whole leaf's heads, also of a block
+                p.mul_(math.sqrt(heads[leaf] / p.shape[-3]))
+
+    # ---------------------- tensor parallelism -----------------------
+    def model_split(self, rules, mesh) -> dict:
+        """How the model reads each leaf over the "model" dim of ``mesh``
+        under ``rules``, in `param_specs`' nesting: an int, the tensor dim
+        whose spec entry is "model" (the model holds this rank's block of
+        it); "partial", held whole but read inside a split region, so that
+        each rank's gradient is its share of the whole (q_norm and k_norm
+        under split q heads, wk, wv, bk and bv where the kv heads stay
+        whole, the MoE router under split experts); else "whole". Every
+        leaf is "whole" outside `tensor_parallel_family`."""
+        specs = self.param_specs()
+        if not tensor_parallel_family(self.cfg):
+            return tree_map_specs(lambda path, ps: "whole", specs)
+
+        def dim(ps):
+            for i, e in enumerate(spec_for(ps, rules, mesh)):
+                if e == "model":
+                    return i
+                if isinstance(e, tuple) and "model" in e:
+                    raise ValueError("tensor parallelism takes 'model' "
+                                     f"alone on a dim, not {e}")
+            return None
+
+        def one(path, ps):
+            d = dim(ps)
+            if d is not None:
+                return d
+            block = specs
+            for k in path[:-1]:
+                block = block[k]
+            opens, partial = _PARTIAL.get(path[-2] if len(path) > 1
+                                          else None, (None, ()))
+            if path[-1] in partial and dim(block[opens]) is not None:
+                return "partial"
+            return "whole"
+        plan = tree_map_specs(one, specs)
+        _check_together(plan)
+        return plan
+
+    def split_over_model(self, mesh, rules) -> dict:
+        """Hold this rank's block of every leaf that `model_split` splits,
+        with the `ModelGroup` of the mesh's "model" dim in ``self.tp``, and
+        return the plan. Nothing changes where no leaf is split; over a
+        "model" dim of one the blocks are the whole leaves. Splitting again
+        over the same mesh and rules returns the same plan."""
+        key = (mesh_dim_names(mesh), tuple(mesh_shape(mesh).items()),
+               tuple(mesh.get_coordinate() or ()), rules)
+        if self._split is not None:
+            if self._split[0] != key:
+                raise ValueError("the model is split over another mesh")
+            return self._split[1]
+        plan = self.model_split(rules, mesh)
+        hows, _ = tree_flatten(plan)
+        if any(isinstance(h, int) for h in hows):
+            self.tp = ModelGroup.of(mesh)
+            if self.tp.size > 1:
+                with torch.no_grad():
+                    for (owner, name), how in zip(self._slots(), hows):
+                        if isinstance(how, int):
+                            p = getattr(owner, name)
+                            block = p[model_slices(p.shape, how, mesh)]
+                            setattr(owner, name, nn.Parameter(
+                                block.clone(), requires_grad=p.requires_grad))
+                self._cast = None
+        self._split = (key, plan)
+        return plan
+
+    @property
+    def split_plan(self) -> dict | None:
+        """`split_over_model`'s plan (None before a split)."""
+        return None if self._split is None else self._split[1]
+
+    def _slots(self) -> list:
+        """(owner, name) of every parameter, in `param_tree`'s flatten
+        order (sorted keys)."""
+        out = []
+
+        def walk(owner):
+            for k in sorted(owner.keys()):
+                if isinstance(owner[k], nn.ParameterDict):
+                    walk(owner[k])
+                else:
+                    out.append((owner, k))
+        for name in sorted(self.param_specs()):
+            if isinstance(getattr(self, name), nn.ParameterDict):
+                walk(getattr(self, name))
+            else:
+                out.append((self, name))
+        return out
+
+    def _whole(self, what: str) -> None:
+        if self.tp is not None and self.tp.size > 1:
+            raise NotImplementedError(
+                f"{what} on a model split over 'model': it computes the "
+                "training step only")
 
     def _forward_params(self) -> dict:
         """The tree a training forward reads: under autograd, the
@@ -458,7 +609,7 @@ class TransformerLM(nn.Module):
                     c_j = None if blk_caches is None else blk_caches[str(j)]
                     h, outs[str(j)] = _apply_block(
                         cfg, kind, p_j, h, mode, c_j, pos, enc_out,
-                        cache_len)
+                        cache_len, self.tp)
                 # decode writes the stacked caches in place
                 return h, (outs if mode == "prefill" else None)
 
@@ -474,7 +625,7 @@ class TransformerLM(nn.Module):
             p_i = shared if kind == "S" else params["tail"][str(i)]
             c_i = None if caches is None else caches["tail"][str(i)]
             h, nc = _apply_block(cfg, kind, p_i, h, mode, c_i, pos, enc_out,
-                                 cache_len)
+                                 cache_len, self.tp)
             new_caches["tail"][str(i)] = nc
         return h, (new_caches if mode != "train" else None)
 
@@ -505,7 +656,12 @@ class TransformerLM(nn.Module):
     # -------------------------- embedding / head ---------------------
     def _embed(self, params, tokens, offset=0):
         cfg = self.cfg
-        h = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+        # F.embedding (also the vocabulary-parallel lookup's): its backward
+        # sums each row's gradients in one fixed order, where indexing's
+        # (an accumulating index_put_) sums them in another order from call
+        # to call on the CPU
+        h = embed_lookup(self.tp, params["embed"], tokens,
+                         cfg.vocab_size).to(torch_dtype(cfg.dtype))
         if cfg.embed_scale:
             # sqrt(d) in the model's dtype, as the reference multiplies
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
@@ -523,9 +679,13 @@ class TransformerLM(nn.Module):
         return torch.cat([patches, h], dim=1)
 
     def _logits(self, params, h):
+        """The float32 logits: this rank's block of the vocabulary where
+        the model is split over it."""
         cfg = self.cfg
         h = norm_apply(cfg, h, params["final_norm"])
         w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+        if w.shape[-1] < cfg.vocab_size:
+            h = self.tp.enter(h)
         logits = torch.matmul(h, w.to(h.dtype))
         return constrain(logits.float(), ("batch", None, "act_vocab"))
 
@@ -548,8 +708,12 @@ class TransformerLM(nn.Module):
         S - 1)`` (a padded position has mask 0), and each chunk's float32
         logits, log-sum-exp and gold logit are computed inside a
         checkpointed body, so that the backward pass recomputes them
-        chunk by chunk. The VLM's prefix positions are cut off before the
-        head. Returns the masked mean (a 0-d float32 tensor).
+        chunk by chunk. Where the model is split over the vocabulary, each
+        chunk's logits are this rank's block and the log-sum-exp and gold
+        logit the vocabulary-parallel ones (`lse_and_gold`), the head's
+        input entering the split region once. The VLM's prefix positions
+        are cut off before the head. Returns the masked mean (a 0-d
+        float32 tensor), the same on every rank of "model".
         """
         cfg = self.cfg
         params = self._forward_params()
@@ -567,6 +731,9 @@ class TransformerLM(nn.Module):
                            device=h.device) if mask is None
                 else mask[:, 1:].to(h.device, torch.float32))
         w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+        tp = self.tp if w.shape[-1] < cfg.vocab_size else None
+        if tp is not None:
+            h = tp.enter(h)
 
         b, s1, d = h.shape
         chunk = min(cfg.loss_chunk, s1)
@@ -581,7 +748,7 @@ class TransformerLM(nn.Module):
         count = torch.zeros((), dtype=torch.float32, device=h.device)
         for c0 in range(0, h.shape[1], chunk):
             nll, n = body(h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
-                          mask[:, c0:c0 + chunk], w)
+                          mask[:, c0:c0 + chunk], w, tp, cfg.vocab_size)
             total, count = total + nll, count + n
         return total / torch.clamp(count, min=1.0)
 
@@ -627,6 +794,7 @@ class TransformerLM(nn.Module):
         ``cache_len``: total cache size including decode headroom (defaults
         to the prompt length). Returns (last-position logits, caches).
         """
+        self._whole("prefill")
         params = self.weights()
         enc_out = self._encoder_out(params, batch, "prefill")
         h = self._prefix(self._embed(params, batch["tokens"]), batch)
@@ -640,6 +808,7 @@ class TransformerLM(nn.Module):
         Writes the caches in place; returns (logits (B,1,V), caches).
         """
         cfg = self.cfg
+        self._whole("decode")
         params = self.weights()
         h = params["embed"][token].to(torch_dtype(cfg.dtype))
         if cfg.embed_scale:
@@ -655,12 +824,12 @@ class TransformerLM(nn.Module):
         return self._logits(params, h), caches
 
 
-def _loss_chunk(hc, lc, mc, w):
-    """One chunk of the head: (sum of the masked NLL, sum of the mask)."""
+def _loss_chunk(hc, lc, mc, w, tp=None, vocab=None):
+    """One chunk of the head: (sum of the masked NLL, sum of the mask).
+    With ``tp``, ``w`` is this rank's block of a ``vocab``-wide head."""
     logits = torch.matmul(hc, w.to(hc.dtype))
     logits = constrain(logits.float(), ("batch", None, "act_vocab"))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    lse, gold = lse_and_gold(tp, logits, lc, vocab or logits.shape[-1])
     nll = (lse - gold) * mc
     return nll.sum(), mc.sum()
 

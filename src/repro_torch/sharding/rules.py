@@ -15,9 +15,11 @@ named dims ("data", "model"[, "pod"]), the counterpart of
 axis sizes. `NamedSharding` holds a mesh and a resolved spec and maps
 it onto DTensor placements; `param_shardings` and `tree_shardings` give
 one a leaf; `place` turns a tree into DTensors on them, each rank
-cutting its own block (`local_slices`); `constrain` redistributes a
-DTensor inside `use_mesh` (the counterpart of ``with mesh:``) and is the
-identity without one.
+cutting its own block (`local_slices`); `model_dim` and `model_slices`
+give the "model" dim and a leaf's block along it, which the model holds
+where the rules split a dim there (`TransformerLM.split_over_model`);
+`constrain` redistributes a DTensor inside `use_mesh` (the counterpart
+of ``with mesh:``) and is the identity without one.
 """
 
 from __future__ import annotations
@@ -227,6 +229,35 @@ def local_slices(shape, mesh, placements) -> tuple:
     return tuple(out)
 
 
+def model_dim(mesh) -> tuple[int, int, object]:
+    """(size, this rank's coordinate, process group) of ``mesh``'s "model"
+    dim: (1, 0, None) where the mesh has none. A `ShapeMesh` has no
+    process groups (None), and its coordinate is 0 unless it is a rank's
+    view (``ShapeMesh.at``)."""
+    names = mesh_dim_names(mesh)
+    if "model" not in names:
+        return 1, 0, None
+    i = names.index("model")
+    coord = mesh.get_coordinate()
+    return (mesh_shape(mesh)["model"], coord[i] if coord else 0,
+            mesh.get_group("model"))
+
+
+def model_slices(shape, dim: int | None, mesh) -> tuple:
+    """This rank's block of a global tensor of ``shape`` along "model"
+    alone: `local_slices` restricted to that mesh dim, which splits tensor
+    dim ``dim`` (None: the whole tensor)."""
+    size, rank, _ = model_dim(mesh)
+    out = [slice(None)] * len(shape)
+    if dim is not None:
+        n = shape[dim]
+        if n % size:
+            raise ValueError(f"a dim of {n} does not split into {size} "
+                             f"equal shards (shape {tuple(shape)})")
+        out[dim] = slice(rank * (n // size), (rank + 1) * (n // size))
+    return tuple(out)
+
+
 def from_block(local: torch.Tensor, shape, sh: NamedSharding):
     """The DTensor of global ``shape`` whose block on this rank is
     ``local`` (`local_slices`' block, contiguous)."""
@@ -312,9 +343,10 @@ def constrain(x, axes: tuple[str | None, ...]):
     Inside `use_mesh`, a DTensor ``x`` is redistributed to the placements
     its shape resolves to under the active rules (the default rules of
     the mesh when none are installed). A plain tensor stays as it is: it
-    is one rank's whole value, with no layout over the mesh to change
-    (the model's compute is replicated over the mesh; the reference's
-    constraint steers GSPMD's partitioning of the same function).
+    is one rank's value, whole or its block over "model", whose layout
+    the model's tensor-parallel regions already fix
+    (`repro_torch.sharding.tensor_parallel`); the reference's constraint
+    steers GSPMD's partitioning of the same function.
     """
     from torch.distributed.tensor import DTensor
     if not _ACTIVE_MESH or not isinstance(x, DTensor):

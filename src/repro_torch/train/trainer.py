@@ -16,14 +16,29 @@ DTensor placed by `state_shardings`, the reference's rule: the
 parameters by the sharding rules (ZeRO-3), every other leaf like the
 parameter of identical shape (ZeRO-1 moments, compression errors), else
 replicated. The step is data-parallel over the mesh dims of the batch
-rule: every rank is given the same global batch and keeps its own rows
-by its mesh coordinate; it gathers the parameters into the model (the
-compute is replicated over the other dims), weights its loss by its
-share of the global mask count (so the ranks' losses sum to the
-reference's masked mean over the global batch), and its gradients
-enter as ``Partial`` DTensors redistributed to the parameters'
-placements (a reduce-scatter). Clipping, compression and the optimizer
-then run unchanged over DTensors.
+rule and tensor-parallel over "model", as the rules decide:
+
+* the model holds this rank's block of every leaf the rules split on
+  "model" and computes its block of the products that read it
+  (`TransformerLM.split_over_model`, `repro_torch.sharding.
+  tensor_parallel`: every collective of the model is an all_reduce over
+  "model"); families that compute replicated over "model", and rules
+  that split nothing there (``with_overrides(heads=None, kv_heads=None,
+  d_ff=None, vocab=None)``), hold every leaf whole;
+* every rank is given the same global batch and keeps its own rows by
+  its mesh coordinate; it gathers the model's parameters from the state
+  over the mesh dims other than "model" only (no collective where those
+  have size 1), weights its loss by its share of the global mask count
+  (so the ranks' losses sum to the reference's masked mean over the
+  global batch), and its gradients enter as DTensors, ``Partial``
+  on the batch's mesh dims, ``Shard`` on "model" where the model holds
+  a block, ``Partial`` there too where it reads a whole leaf inside a
+  split region (each rank's gradient a share of the whole), else
+  replicated, redistributed to the parameters' placements. The loss is
+  the same on every rank of "model".
+
+Clipping, compression and the optimizer then run unchanged over
+DTensors.
 
 Fault tolerance: async keep-N checkpoints in the reference's layout (one
 global array a leaf, from a mesh too), auto-resume from the newest
@@ -44,7 +59,8 @@ from repro_torch.optim.compression import compress_tree, init_error_state
 from repro_torch.optim.optimizers import clip_by_global_norm, get_optimizer
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.sharding.rules import (NamedSharding, ShardingRules,
-                                       init_params, local_slices,
+                                       from_block, init_params, local_slices,
+                                       mesh_dim_names, model_slices,
                                        param_shardings, place, resolve_pspec)
 from repro_torch.tree import (flatten_up_to, tree_flatten, tree_leaves,
                               tree_map, tree_unflatten)
@@ -169,17 +185,44 @@ def _replicated(x):
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
+def _model_placements(mesh, how) -> list:
+    """The placements of the model's value of a leaf read ``how`` (a
+    `TransformerLM.model_split` entry): ``Shard`` on "model" where it
+    holds a block, else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(how) if n == "model" and isinstance(how, int)
+            else Replicate() for n in mesh_dim_names(mesh)]
+
+
+def model_value(v, how, mesh):
+    """The model's value of the state leaf ``v``: its block along "model"
+    where the model holds one, else the whole; ``v`` a DTensor gathered
+    over the mesh dims that split it otherwise, none where they have size
+    1 (then no collective), or a plain global tensor cut locally."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(v, DTensor):
+        return v[model_slices(v.shape, how if isinstance(how, int) else None,
+                              mesh)]
+    want = _model_placements(mesh, how)
+    if all(a == b or mesh.size(i) == 1
+           for i, (a, b) in enumerate(zip(v.placements, want))):
+        return v.to_local()
+    return v.redistribute(mesh, want).to_local()
+
+
 class _DataParallel:
     """The mesh half of a step: this rank's rows, the parameters gathered
-    into the model, the loss weights, the gradients' reduction."""
+    into the model (this rank's blocks along "model"), the loss weights,
+    the gradients' reduction."""
 
     def __init__(self, model, mesh, rules: ShardingRules, accum: int):
         self.model, self.mesh, self.rules, self.accum = (model, mesh, rules,
                                                          accum)
+        self.plan = model.split_over_model(mesh, rules)
         self.bdim = 1 if accum > 1 else 0  # microbatches lead under accum
         self.shardings = None  # the state's, from the first step's state
-        self.partial = None  # the gradients' placements: Partial on the
-        #                      batch's mesh dims
+        self.partial = None  # the loss's placements: Partial on the
+        #                      batch's mesh dims of more than one rank
 
     def _batch_sharding(self, n_rows: int) -> NamedSharding:
         """The batch dim's sharding: the mesh dims its rule resolves to."""
@@ -192,12 +235,14 @@ class _DataParallel:
         model = self.model
         leaves, tdef = tree_flatten(model.param_tree())
         with torch.no_grad():
-            for p, v in zip(leaves, flatten_up_to(tdef, params)):
-                p.copy_(v.full_tensor())  # the all-gather
-        from torch.distributed.tensor import Partial, Shard
+            for p, v, how in zip(leaves, flatten_up_to(tdef, params),
+                                 flatten_up_to(tdef, self.plan)):
+                p.copy_(model_value(v, how, self.mesh))  # the gather
+        from torch.distributed.tensor import Partial, Replicate, Shard
         sh = self._batch_sharding(batch["tokens"].shape[self.bdim])
-        self.partial = [Partial() if isinstance(pl, Shard) else pl
-                        for pl in sh.placements]
+        self.partial = [Partial() if isinstance(pl, Shard)
+                        and self.mesh.size(i) > 1 else Replicate()
+                        for i, pl in enumerate(sh.placements)]
         rows = {k: v[local_slices(v.shape[:self.bdim + 1], self.mesh,
                                   sh.placements)]
                 for k, v in batch.items()}
@@ -218,18 +263,40 @@ class _DataParallel:
         return (torch.clamp(count(rows), min=1.0)
                 / torch.clamp(count(batch), min=1.0))
 
+    def _grad_placements(self, how) -> list:
+        """A gradient's placements as `_value_and_grad` leaves it: Partial
+        on the batch's mesh dims; on "model" Shard where the model holds a
+        block, Partial where it reads the whole leaf inside a split region
+        (`TransformerLM.model_split`); replicated on a dim of one."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        out = []
+        for i, (name, pl) in enumerate(zip(mesh_dim_names(self.mesh),
+                                           self.partial)):
+            if name != "model" or self.mesh.size(i) == 1:
+                out.append(pl)
+            elif isinstance(how, int):
+                out.append(Shard(how))
+            else:
+                out.append(Partial() if how == "partial" else Replicate())
+        return out
+
     def reduce(self, loss, grads, state):
         """The ranks' weighted losses summed, and the gradients summed over
-        the batch's mesh dims onto the parameters' placements."""
+        the batch's mesh dims (and over "model" where each rank's is a
+        share) onto the parameters' placements."""
         from torch.distributed.tensor import DTensor
         if self.shardings is None:
             self.shardings = state_shardings(self.model, state, self.rules,
                                              self.mesh)
         loss = DTensor.from_local(loss, self.mesh, self.partial).full_tensor()
-        grads = tree_map(
-            lambda g, sh: DTensor.from_local(g, self.mesh, self.partial)
-            .redistribute(self.mesh, sh.placements),
-            grads, self.shardings["params"])
+
+        def one(g, v, sh, how):
+            return DTensor.from_local(
+                g, self.mesh, self._grad_placements(how), run_check=False,
+                shape=v.shape, stride=v.stride()).redistribute(
+                    self.mesh, sh.placements)
+        grads = tree_map(one, grads, state["params"],
+                         self.shardings["params"], self.plan)
         return loss, grads
 
 
@@ -254,12 +321,15 @@ class Trainer:
         with the reference's initializers. With a mesh the state is placed
         on it (`state_shardings`), every leaf a DTensor holding a copy of
         this rank's block (the reference leaves a fresh state on one
-        device; the values are the same)."""
+        device; the values are the same), the parameters cut from the
+        model's blocks with no collective."""
         model = self.model
         if generator is not None:
             fresh = init_params(model.param_specs(), generator, model.device)
             self._load_params(fresh)
-        params = model.param_tree()
+            del fresh
+        params = (model.param_tree() if self.mesh is None
+                  else self._placed_params())
         state = {"params": params, "opt_state": self.opt.init(params),
                  "step": torch.zeros((), dtype=torch.int32,
                                      device=model.device)}
@@ -269,6 +339,23 @@ class Trainer:
             state = place(state, self.state_shardings(state))
         return state
 
+    def _placed_params(self):
+        """The parameters as DTensors on their shardings, each rank's
+        block a copy cut from the model's value of the leaf (its block
+        along "model", which holds the rank's block)."""
+        model, mesh = self.model, self.mesh
+        specs = model.param_specs()
+
+        def one(p, ps, sh, how):
+            idx = list(local_slices(ps.shape, mesh, sh.placements))
+            if isinstance(how, int) and p.shape != ps.shape:
+                idx[how] = slice(None)  # the model holds that dim's block
+            return from_block(p.detach()[tuple(idx)].clone(
+                memory_format=torch.contiguous_format), ps.shape, sh)
+        return tree_map(one, model.param_tree(), specs,
+                        param_shardings(specs, self.rules, mesh),
+                        model.split_plan)
+
     def state_shardings(self, state):
         if self.mesh is None:
             return None
@@ -276,12 +363,17 @@ class Trainer:
 
     @torch.no_grad()
     def _load_params(self, tree) -> None:
-        """Copy ``tree`` (the parameters' nesting; DTensors are gathered)
-        into the model's parameters."""
-        from torch.distributed.tensor import DTensor
+        """Copy ``tree`` (the parameters' nesting, global values: plain
+        tensors or DTensors) into the model's parameters, on a mesh each
+        the model's value of the leaf (`model_value`)."""
         leaves, tdef = tree_flatten(self.model.param_tree())
-        for p, v in zip(leaves, flatten_up_to(tdef, tree)):
-            p.copy_(v.full_tensor() if isinstance(v, DTensor) else v)
+        values = flatten_up_to(tdef, tree)
+        if self.mesh is not None:
+            values = [model_value(v, how, self.mesh) for v, how in
+                      zip(values, flatten_up_to(tdef,
+                                                self.model.split_plan))]
+        for p, v in zip(leaves, values):
+            p.copy_(v)
 
     def restore_or_init(self, generator: torch.Generator | None = None):
         """The newest committed checkpoint's state on the model's device

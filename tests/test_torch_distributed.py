@@ -753,8 +753,12 @@ def _serve_on_the_mesh(rank, x, meshes, res, info) -> None:
     # shrunk mesh of ranks 0-3
     tfft.clear_plan_cache()
     clear_events()
+    # the round after the loss goes to a running service: a short group
+    # waits up to 60 s for company (not 2 ms), so the round's 8 requests
+    # leave as two groups of 4 however slowly a loaded host submits them,
+    # as the rounds submitted before start() do
     service = FftService(mesh=meshes["mesh8"], impl="matfft", device="cpu",
-                         coalesce=4, start=False)
+                         coalesce=4, start=False, max_batch_delay_s=60.0)
     if rank == 0:
         launches = recording(service)
         before = run_round(service)

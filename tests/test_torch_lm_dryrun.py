@@ -14,6 +14,13 @@ step run for real.
   counters around the same step run on the CPU, reduced configs of each
   family, in each mode; ``model_flops`` is the reference's formula
   (``benchmarks/roofline.py``, restated).
+* Tensor parallelism over "model": a train cell of a family the port
+  computes split there records ``"model_axis": "tensor"``; a reduced
+  config's cell on a (2, 2) `ShapeMesh` has the FLOPs and the operand
+  bytes of the all_reduces over "model" that rank 0's step on 4 gloo
+  ranks recorded (`test_torch_mesh_train`'s run, shared through its
+  ``runs`` fixture); qwen2-0.5b's train_4k on (16, 16) counts its d_ff
+  and vocabulary products at 1/16.
 * `run_cell` at full width, one cell a mode; the sweep's resume, its
   contained failures and its exit code; `card_check` refuses to run
   without a card.
@@ -41,7 +48,10 @@ from repro.train.trainer import state_shardings as ref_state_shardings
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import dryrun, sweep
+from repro_torch.launch.mesh import ShapeMesh
 from repro_torch.launch.specs import SHAPES, ShapeCase, cell_runnable
+from repro_torch.models.transformer import tensor_parallel_family
+from test_torch_mesh_train import BATCH, COUNTED, SEQ, _port_config, runs
 
 MESHES = {"single_pod": ((16, 16), ("data", "model")),
           "multi_pod": ((2, 16, 16), ("pod", "data", "model"))}
@@ -205,7 +215,11 @@ def check_record(rec, mesh):
     for k in ("flops", "bytes_accessed", "model_flops", "compute_s",
               "memory_s"):
         assert math.isfinite(cost[k]) and cost[k] > 0, k
-    assert cost["model_axis"] == "replicated"
+    tensor = rec["mode"] == "train" and tensor_parallel_family(
+        get_config(rec["arch"]))
+    assert cost["model_axis"] == ("tensor" if tensor else "replicated")
+    assert (cost["model_all_reduce_bytes"] > 0) == (tensor
+                                                    and mesh != "one_card")
     assert cost["bytes_model"] == "unfused"
     assert cost["bound"] in ("compute_s", "memory_s", "collective_s")
     assert cost[cost["bound"]] == max(cost["compute_s"], cost["memory_s"],
@@ -215,6 +229,48 @@ def check_record(rec, mesh):
     assert cost["collective_bytes"] == sum(cost["collectives"].values())
     assert (cost["collective_bytes"] > 0) == (mesh != "one_card")
     assert rec["memory"]["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,optimizer", COUNTED)
+def test_meta_cell_has_the_flops_and_model_bytes_of_rank0s_step(
+        runs, arch, optimizer):
+    """The reduced config's train cell on a (2, 2) ShapeMesh, 4 x 40
+    tokens: the model at rank 0's blocks along "model", its step on meta
+    has the FLOPs and the all_reduce operand bytes over "model" that rank
+    0's first tensor-parallel step on 4 gloo ranks counted (gemma3-1b's
+    one kv head whole, qwen2-0.5b's two split)."""
+    counts = runs["infos"][0]["counts"][f"{arch}-{optimizer}"]
+    cell = dryrun.build_cell(
+        arch, ShapeCase("mesh_train", SEQ, BATCH, "train"),
+        ShapeMesh((2, 2), ("data", "model")), cfg=_port_config(arch),
+        optimizer=optimizer)
+    assert cell.rows == BATCH // 2 and cell.model_axis == "tensor"
+    cost = dryrun.cell_cost(cell)
+    assert counts["flops"] > 0 and counts["model_all_reduce"] > 0
+    assert cost["flops"] == counts["flops"]
+    assert cost["model_all_reduce_bytes"] == counts["model_all_reduce"]
+
+
+def test_train_4k_counts_d_ff_and_vocab_products_at_a_sixteenth():
+    """qwen2-0.5b's train_4k on (16, 16), at 2 of its 24 layers: its 14
+    heads and 2 kv heads stay whole, its d_ff (4864) and vocabulary
+    (151936) split 16 ways, so its step's FLOPs are those of the step
+    with nothing split over "model" at d_ff / 16 and vocab / 16."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2)
+    split = dryrun.build_cell("qwen2-0.5b", "train_4k", "single_pod",
+                              cfg=cfg)
+    none = dryrun.ShardingRules.default().with_overrides(
+        heads=None, kv_heads=None, d_ff=None, vocab=None)
+    whole = dryrun.build_cell(
+        "qwen2-0.5b", "train_4k", "single_pod", rules=none,
+        cfg=dataclasses.replace(cfg, d_ff=cfg.d_ff // 16,
+                                vocab_size=cfg.vocab_size // 16))
+    assert (split.model_axis, whole.model_axis) == ("tensor", "replicated")
+    plan = split.model.split_plan
+    assert plan["blocks"]["0"]["attn"]["wq"] == "whole"
+    assert plan["blocks"]["0"]["mlp"]["wi"] == 2 and plan["embed"] == 0
+    assert (dryrun.cell_cost(split)["flops"]
+            == dryrun.cell_cost(whole)["flops"])
 
 
 @pytest.mark.parametrize("arch,shape,mesh", [

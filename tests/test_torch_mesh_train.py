@@ -15,7 +15,11 @@ started together:
   forces 512 devices), ``moe_ep`` under ``shard_map``, and its
   ``restore(..., shardings=)`` of the port's checkpoint;
 * 4 workers of the port (``... worker <rank> <dir>``) in one ``gloo``
-  group on `make_host_mesh(model_axis=2)`'s (2, 2) mesh, then on (4, 1);
+  group on `make_host_mesh(model_axis=2)`'s (2, 2) mesh: the
+  tensor-parallel step the default rules make, and the replicated step
+  of the rules with heads, kv_heads, d_ff and vocab overridden to None;
+  then on (4, 1), and qwen3-0.6b on (1, 4) (its 4 q heads split, its 2
+  kv heads whole), against the reference's step on a (1, 4) mesh;
 * one process of the port alone (``... single <dir>``) on a world-size-1
   group: the (1, 1) mesh against the one-device trainer, and the restore
   onto (1, 1) and onto no mesh.
@@ -54,6 +58,11 @@ TRAIN = [("qwen2-0.5b", "adamw"), ("gemma3-1b", "adamw"),
          ("mixtral-8x22b", "adafactor"), ("gemma3-1b", "sgd"),
          ("qwen3-0.6b", "adamw")]
 ACCUM = {("qwen3-0.6b", "adamw"): 2}
+# the (1, 4) case: q heads split over "model", kv heads whole
+TP14 = ("qwen3-0.6b", "adamw")
+# the cases whose rank-0 step records its FLOPs and its all_reduce bytes
+# over "model" (test_torch_lm_dryrun holds the meta cell to them)
+COUNTED = [("qwen2-0.5b", "adamw"), ("gemma3-1b", "adamw")]
 # the (1, 1) mesh against one device, bit for bit: the first three of
 # TRAIN and accumulated, compressed SGD
 SINGLE = TRAIN[:3] + [("qwen2-0.5b", "sgd")]
@@ -248,6 +257,37 @@ def _reference(tmp: Path) -> None:
                     lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), state),
                     state_sh)
 
+    # qwen3-0.6b on (1, 4): its 4 q heads split, its 2 kv heads whole
+    arch, optimizer = TP14
+    mesh14 = Mesh(np.asarray(jax.devices()).reshape(1, 4), ("data", "model"))
+    name = tag(arch, optimizer) + "-14"
+    model = TransformerLM(ref_config(arch))
+    tc = TrainerConfig(**train_config(arch, optimizer))
+    opt, step_fn = make_train_step(model, tc)
+    params = jax.tree.map(jnp.asarray, load_params(tmp, arch,
+                                                   model.param_specs()))
+    state = {"params": params, "opt_state": opt.init(params),
+             "step": jnp.zeros((), jnp.int32)}
+    state_sh = state_shardings(model, state, rules, mesh14)
+    state = jax.device_put(state, state_sh)
+    lead = (tc.grad_accum,) if tc.grad_accum > 1 else ()
+    rep14 = NamedSharding(mesh14, P())
+    fn = jax.jit(step_fn, in_shardings=(state_sh, {
+        k: NamedSharding(mesh14, resolve_pspec(
+            lead + (BATCH // tc.grad_accum, SEQ),
+            (None,) * len(lead) + BATCH_AXES[k], rules, mesh14))
+        for k in BATCH_AXES}), out_shardings=(
+            state_sh, {"loss": rep14, "grad_norm": rep14, "lr": rep14}))
+    metrics = []
+    for b in batches(tmp, arch, tc.grad_accum):
+        state, m = fn(state, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append([float(m["loss"]), float(m["grad_norm"]),
+                        float(m["lr"])])
+    res[f"metrics_{name}"] = np.array(metrics)
+    for part in ("params", "opt_state"):
+        for i, leaf in enumerate(jax.tree.leaves(state[part])):
+            res[f"{part}_{name}_{i}"] = np.asarray(leaf)
+
     # moe_ep under shard_map: experts over "model", tokens over "data"
     for arch in MOE:
         with jax.enable_x64(arch in FLOAT64):
@@ -348,6 +388,32 @@ def _adamw_leaves(state, tag: str) -> dict:
             for i, leaf in enumerate(tree_leaves(tree))}
 
 
+def _mesh_run(tmp: Path, arch: str, optimizer: str, mesh, rules=None,
+              counted: bool = False) -> tuple:
+    """(trainer, state, history, counts) of the case's STEPS steps on
+    ``mesh``, a step a call of `Trainer.run`; with ``counted`` the first
+    step runs under ``FlopCounterMode`` (counts: its FLOPs and the operand
+    bytes of its all_reduces over "model", from the model's
+    `ModelGroup`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.train import Trainer, TrainerConfig
+    tc = TrainerConfig(**train_config(arch, optimizer, log_every=1))
+    tr = Trainer(_port_model(tmp, arch), tc, mesh=mesh, rules=rules)
+    state, hist, counts = tr.init_state(), [], {}
+    for k, b in enumerate(batches(tmp, arch, tc.grad_accum)):
+        if counted and k == 0:
+            before = tr.model.tp.counts["all-reduce"]
+            with FlopCounterMode(display=False) as fc:
+                state, h = tr.run(state, iter([b]), 1)
+            counts = {"flops": fc.get_total_flops(), "model_all_reduce":
+                      tr.model.tp.counts["all-reduce"] - before}
+        else:
+            state, h = tr.run(state, iter([b]), 1)
+        hist += h
+    return tr, state, hist, counts
+
+
 def _worker(rank: int, tmp: Path) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -356,10 +422,10 @@ def _worker(rank: int, tmp: Path) -> None:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.moe import moe_ep
     from repro_torch.optim import compression
-    from repro_torch.sharding.rules import (NamedSharding, constrain,
-                                            shard_like, use_mesh)
+    from repro_torch.sharding.rules import (NamedSharding, ShardingRules,
+                                            constrain, shard_like, use_mesh)
     from repro_torch.train import Trainer, TrainerConfig
-    from repro_torch.train.trainer import state_shardings
+    from repro_torch.train.trainer import model_value, state_shardings
     from repro_torch.tree import tree_leaves
 
     torch.set_num_threads(1)
@@ -404,9 +470,12 @@ def _worker(rank: int, tmp: Path) -> None:
             res[f"metrics_{name}"] = np.array(
                 [[h["loss"], h["grad_norm"], h["lr"]] for h in hist])
             info.setdefault("model_holds_state", []).append(all(
-                torch.equal(p, v.full_tensor()) for p, v in zip(
-                    tree_leaves(model.param_tree()),
-                    tree_leaves(state["params"]))))
+                torch.equal(p, model_value(v, how, mesh)) for p, v, how in
+                zip(tree_leaves(model.param_tree()),
+                    tree_leaves(state["params"]),
+                    tree_leaves(model.split_plan))))
+            info.setdefault("split_leaves", {})[name] = sum(
+                isinstance(h, int) for h in tree_leaves(model.split_plan))
             leaves = tree_leaves(state)
             info["placements"][name] = [
                 [repr(p) for p in x.placements] for x in leaves]
@@ -418,6 +487,33 @@ def _worker(rank: int, tmp: Path) -> None:
                 for i, leaf in enumerate(tree_leaves(state.get(part))):
                     res[f"{part}_{name}_{i}"] = leaf.full_tensor().numpy()
         compression.compress_int8 = quantize
+
+        # the replicated step: the same cases with nothing split over
+        # "model"; the counted first steps of the tensor-parallel one
+        replicated = ShardingRules.default().with_overrides(
+            heads=None, kv_heads=None, d_ff=None, vocab=None)
+        for arch, optimizer in TRAIN:
+            name = tag(arch, optimizer)
+            tr, _, hist, _ = _mesh_run(tmp, arch, optimizer, mesh,
+                                       replicated)
+            info.setdefault("replicated_split_leaves", []).append(
+                tr.model.tp is None)
+            res[f"metrics_rep_{name}"] = np.array(
+                [[h["loss"], h["grad_norm"], h["lr"]] for h in hist])
+        for arch, optimizer in COUNTED:
+            *_, counts = _mesh_run(tmp, arch, optimizer, mesh, counted=True)
+            info.setdefault("counts", {})[tag(arch, optimizer)] = counts
+
+        # qwen3-0.6b on (1, 4): every rank's q head block, kv heads whole
+        mesh14 = init_device_mesh("cpu", (1, 4),
+                                  mesh_dim_names=("data", "model"))
+        name = tag(*TP14) + "-14"
+        _, state, hist, _ = _mesh_run(tmp, *TP14, mesh14)
+        res[f"metrics_{name}"] = np.array(
+            [[h["loss"], h["grad_norm"], h["lr"]] for h in hist])
+        for part in ("params", "opt_state"):
+            for i, leaf in enumerate(tree_leaves(state[part])):
+                res[f"{part}_{name}_{i}"] = leaf.full_tensor().numpy()
 
         # the elastic restore: one step on (2, 2), saved; restored onto
         # (4, 1), which takes the second step
@@ -732,6 +828,37 @@ def test_mesh_steps_match_the_reference(runs, arch, optimizer):
                      adamw=optimizer == "adamw")
 
 
+@pytest.mark.parametrize("arch,optimizer", TRAIN, ids=case_ids(TRAIN))
+def test_tensor_parallel_step_matches_the_replicated_step(runs, arch,
+                                                          optimizer):
+    """On (2, 2), each step's loss, grad norm and lr of the tensor-parallel
+    step (the default rules split heads, d_ff and vocab over "model", and
+    kv_heads where they divide) within 1e-5 of the replicated step's (the
+    rules with heads, kv_heads, d_ff and vocab overridden to None, which
+    split nothing there), on every rank."""
+    name = tag(arch, optimizer)
+    for port, info in zip(runs["ports"], runs["infos"]):
+        assert info["split_leaves"][name] > 0
+        assert all(info["replicated_split_leaves"])
+        got, want = port[f"metrics_{name}"], port[f"metrics_rep_{name}"]
+        assert got.shape == want.shape == (STEPS, 3)
+        assert np.all(np.abs(got - want) <= TOL_METRIC * np.abs(want))
+
+
+def test_one_by_four_mesh_matches_the_reference(runs):
+    """qwen3-0.6b on (1, 4): its 4 q heads one a rank, its 2 kv heads
+    whole (each rank reads the one its q head's group holds), at the
+    bounds of test_mesh_steps_match_the_reference against the
+    reference's step on a (1, 4) mesh."""
+    ref, name = runs["ref"], tag(*TP14) + "-14"
+    for port in runs["ports"]:
+        got, want = port[f"metrics_{name}"], ref[f"metrics_{name}"]
+        assert got.shape == want.shape == (STEPS, 3)
+        assert np.all(np.abs(got - want) <= TOL_METRIC * np.abs(want))
+        check_leaves(port, ref, f"opt_state_{name}", STATE_BOUND[TP14[0]])
+        check_leaves(port, ref, f"params_{name}", TOL_PARAM, adamw=True)
+
+
 ADAMW = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.1}  # the defaults
 # the residual of a step against AdamW's update, over its decay term
 TOL_DECAY = 1e-2
@@ -765,7 +892,8 @@ def test_adamw_steps_follow_the_update_with_decay(runs, arch):
 
 def test_the_model_holds_the_trained_weights_after_a_mesh_run(runs):
     """After `Trainer.run` on a mesh the model's parameters are the
-    state's, on every rank of (2, 2), and on (1, 1) bit for bit the
+    state's (this rank's block along "model" of each leaf the model holds
+    split), on every rank of (2, 2), and on (1, 1) bit for bit the
     one-device trainer's model after the same steps."""
     for info in runs["infos"]:
         assert info["model_holds_state"] == [True] * len(TRAIN)

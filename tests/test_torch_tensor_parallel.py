@@ -1,0 +1,423 @@
+"""The tensor-parallel operators over "model"
+(`repro_torch.sharding.tensor_parallel`, the split paths of
+`models.attention`, `models.mlp`, `models.moe` and `TransformerLM.loss`)
+against the same functions unsplit.
+
+Each case runs over 2 and over 4 ranks of a ``gloo`` group, as
+subprocesses of this file (``python test_torch_tensor_parallel.py rank
+<rank> <world> <dir>``), started together once per module; every group
+has a 60 s timeout and the subprocesses a bound. Each rank holds its
+block of the leaves the case splits and the whole of the others, runs
+the function forward and backward against a seeded cotangent in float64,
+and writes its output, its input's gradient and its leaves' gradients.
+This process runs the unsplit function on the same inputs: the output
+and the input's gradient equal on every rank, a split leaf's gradient
+the block of the whole one, a whole leaf read inside the split region
+its gradients summed over the ranks (each rank's is its share) and one
+read outside it its gradient on every rank, each the whole one's, within
+`TOL` where every stage is float64 and `TOL32` where the reference
+computes one in float32 (the norms, the router, the logits; the model
+holds float32 parameters). Over a group of one every operator is the
+unsplit function bit for bit.
+"""
+
+import datetime
+import fcntl
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models import attention, mlp as mlp_mod, moe
+from repro_torch.models.common import cross_entropy
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.sharding.tensor_parallel import (ModelGroup, embed_lookup,
+                                                  lse_and_gold)
+
+torch.set_num_threads(1)
+WORLDS = (2, 4)
+TOL = 1e-12  # max |split - whole| / max |whole|, float64 (measured 2.6e-16)
+# ... where a stage is float32: measured up to 6.1e-7 (cross_entropy over
+# 2 ranks), the split sums rounding in float32
+TOL32 = 2e-6
+FLOAT64 = ("mlp", "embed")  # the cases float64 throughout
+BOUND_S = 180
+B, S = 2, 12
+
+
+def _attn_cfg(heads: int, kv: int) -> ModelConfig:
+    return ModelConfig(name="tp", family="dense", num_layers=1, d_model=16,
+                       num_heads=heads, num_kv_heads=kv, d_ff=32,
+                       vocab_size=24, head_dim=4, qk_norm=True,
+                       qkv_bias=True, dtype="float64", attn_q_chunk=4,
+                       attn_kv_chunk=4)
+
+
+# (heads, kv heads) of each attention case a world: the kv heads split;
+# whole with a group of 2 and of 4; whole and straddling (3 q heads a
+# rank over groups of 4)
+ATTN = {"attn_kv_split": {2: (8, 4), 4: (8, 4)},
+        "attn_kv_whole_g2": {2: (2, 1), 4: (4, 2)},
+        "attn_kv_whole_g4": {2: (4, 1), 4: (8, 2)},
+        "attn_kv_straddle": {4: (12, 3)}}
+CASES = (list(ATTN) + ["mlp", "moe_mixtral", "moe_shared", "embed",
+                       "cross_entropy", "model_loss"])
+
+
+def case_worlds(name: str) -> tuple:
+    return tuple(ATTN[name]) if name in ATTN else WORLDS
+
+
+def _moe_cfg(arch: str):
+    # top-2 also for llama4 (top-1 with its shared expert): one choice's
+    # renormalized weight is 1, so the router's gradient would be rounding
+    return get_config(arch).reduced(dtype="float64", cache_dtype="float64",
+                                    d_model=16, d_ff=32, moe_group_size=6,
+                                    num_experts_per_tok=2)
+
+
+def _normal(rng, shape, scale=1.0):
+    return rng.standard_normal(shape) * scale
+
+
+def setup(name: str, world: int) -> dict:
+    """A case: its config, whole leaves ``p``, the input ``x`` (or int
+    ``tokens``), the cotangent ``ct``, each split leaf's dim ``split``, and
+    ``fn(cfg, p, x, tp)``. The same on every process (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    if name in ATTN:
+        cfg = _attn_cfg(*ATTN[name][world])
+        shapes = {k: ps.shape for k, ps in attention.attn_specs(cfg).items()}
+        p = {k: _normal(rng, v, 0.5) for k, v in shapes.items()}
+        p["q_norm"] = 1.0 + _normal(rng, shapes["q_norm"], 0.1)
+        p["k_norm"] = 1.0 + _normal(rng, shapes["k_norm"], 0.1)
+        split = {"wq": 1, "wo": 0, "bq": 0}
+        if cfg.num_kv_heads % world == 0:
+            split.update(wk=1, wv=1, bk=0, bv=0)
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)), split=split,
+                    fn=lambda cfg, p, x, tp: attention.self_attention(
+                        cfg, p, x, tp=tp))
+    if name == "mlp":
+        cfg = _attn_cfg(4, 2)
+        p = {k: _normal(rng, ps.shape, 0.3)
+             for k, ps in mlp_mod.mlp_specs(cfg).items()}
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)),
+                    split={"wi": 1, "wg": 1, "wo": 0}, fn=mlp_mod.mlp)
+    if name.startswith("moe_"):
+        cfg = _moe_cfg("mixtral-8x22b" if name == "moe_mixtral"
+                       else "llama4-scout-17b-a16e")
+        p = {k: _normal(rng, ps.shape, 0.3)
+             for k, ps in moe.moe_specs(cfg).items()}
+        split = {k: (len(v.shape) - 1 if k.endswith(("wi", "wg"))
+                     else len(v.shape) - 2)
+                 for k, v in p.items() if k != "router"}
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)), split=split,
+                    fn=moe.moe_tp)
+    if name == "embed":
+        cfg = _attn_cfg(4, 2)
+        # every row of the table, some twice
+        tokens = np.concatenate([rng.permutation(cfg.vocab_size),
+                                 rng.integers(0, cfg.vocab_size, 24)])
+        return dict(cfg=cfg, p={"embed": _normal(rng, (cfg.vocab_size, 8))},
+                    tokens=tokens.reshape(2, 24), ct=_normal(rng, (2, 24, 8)),
+                    split={"embed": 0},
+                    fn=lambda cfg, p, tokens, tp: embed_lookup(
+                        tp, p["embed"], tokens, cfg.vocab_size))
+    if name == "cross_entropy":
+        cfg = _attn_cfg(4, 2)
+        labels = np.concatenate([rng.permutation(cfg.vocab_size),
+                                 rng.integers(0, cfg.vocab_size, 24)])
+        mask = (rng.random(48) < 0.7).astype(np.float64)
+        p = {"logits": _normal(rng, (2, 24, cfg.vocab_size), 3.0)}
+        return dict(cfg=cfg, p=p, tokens=labels.reshape(2, 24), ct=1.7,
+                    split={"logits": 2},
+                    fn=lambda cfg, p, labels, tp: cross_entropy(
+                        p["logits"], labels, torch.from_numpy(
+                            mask.reshape(2, 24)), tp=tp,
+                        vocab=cfg.vocab_size))
+    raise KeyError(name)
+
+
+def _tensors(case: dict, tp, rank: int = 0, world: int = 1):
+    """(leaves, input) as float64 tensors taking gradients: this rank's
+    block of each split leaf."""
+    p = {}
+    for k, v in case["p"].items():
+        if tp is not None and k in case["split"]:
+            d = case["split"][k]
+            n = v.shape[d] // world
+            v = np.take(v, np.arange(rank * n, (rank + 1) * n), axis=d)
+        p[k] = torch.tensor(v, requires_grad=True)
+    if "x" in case:
+        return p, torch.tensor(case["x"], requires_grad=True)
+    return p, torch.from_numpy(case["tokens"]).long()
+
+
+def run_case(case: dict, tp, rank: int = 0, world: int = 1) -> dict:
+    """The case's output, the input's gradient and every leaf's gradient."""
+    p, x = _tensors(case, tp, rank, world)
+    y = case["fn"](case["cfg"], p, x, tp)
+    (y * torch.as_tensor(case["ct"])).sum().backward()
+    out = {"y": y.detach().numpy()}
+    if x.requires_grad:
+        out["gx"] = x.grad.numpy()
+    out.update((f"g_{k}", v.grad.numpy()) for k, v in p.items())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the whole model's loss: the vocabulary-parallel head over padded chunks
+
+
+def _model_case(world: int):
+    """qwen2-0.5b reduced in float64 with 8 heads and 4 kv heads (both
+    split over 2 and 4), 2 x 40 tokens (39 positions in chunks of 32, so
+    the last chunk is padded), a loss mask."""
+    cfg = get_config("qwen2-0.5b").reduced(
+        dtype="float64", cache_dtype="float64", num_heads=8, num_kv_heads=4,
+        head_dim=16)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 40))),
+             "loss_mask": torch.from_numpy((rng.random((2, 40)) < 0.8)
+                                           .astype(np.float32))}
+    return cfg, batch
+
+
+def run_model(world: int, mesh=None) -> dict:
+    """The loss and every parameter's gradient of the model (seed 0), split
+    over ``mesh``'s "model" dim when given."""
+    from repro_torch.sharding.rules import ShardingRules
+    from repro_torch.tree import tree_flatten
+    cfg, batch = _model_case(world)
+    model = TransformerLM(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    if mesh is not None:
+        model.split_over_model(mesh, ShardingRules.default())
+    leaves, _ = tree_flatten(model.param_tree())
+    loss = model.loss(batch)
+    loss.backward()
+    out = {"y": loss.detach().numpy()}
+    out.update((f"g_{i}", p.grad.numpy()) for i, p in enumerate(leaves))
+    if mesh is not None:
+        hows, _ = tree_flatten(model.split_plan)
+        out["split"] = np.array([h if isinstance(h, int) else -1
+                                 for h in hows])
+        out["partial"] = np.array([h == "partial" for h in hows])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+
+
+def _rank(rank: int, world: int, tmp: Path) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp / f"store_{world}"), world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cpu", (1, world),
+                                mesh_dim_names=("data", "model"))
+        tp = ModelGroup.of(mesh)
+        assert (tp.size, tp.rank) == (world, rank)
+        res = {}
+        for name in CASES:
+            if world not in case_worlds(name):
+                continue
+            out = (run_model(world, mesh) if name == "model_loss"
+                   else run_case(setup(name, world), tp, rank, world))
+            res.update((f"{name}/{k}", v) for k, v in out.items())
+        np.savez(tmp / f"rank_{world}_{rank}.npz", **res)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    tmp = base / "torch_tensor_parallel"
+    with open(base / "torch_tensor_parallel.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not (tmp / "done").exists():
+                tmp.mkdir(exist_ok=True)
+                _run_ranks(tmp)
+                (tmp / "done").write_text("ok")
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return {world: [dict(np.load(tmp / f"rank_{world}_{r}.npz"))
+                    for r in range(world)] for world in WORLDS}
+
+
+def _run_ranks(tmp: Path) -> None:
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(
+               [str(Path(__file__).resolve().parents[1] / "src"),
+                os.environ.get("PYTHONPATH", "")])}
+    procs = []
+    for world in WORLDS:
+        for r in range(world):
+            log = tmp / f"rank_{world}_{r}.log"
+            with open(log, "w") as f:
+                procs.append((log, subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "rank",
+                     str(r), str(world), str(tmp)], env=env, stdout=f,
+                    stderr=subprocess.STDOUT)))
+    deadline = time.monotonic() + BOUND_S
+    failed = []
+    try:
+        for log, proc in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timed out"
+            if rc:
+                failed.append(f"{log.name}: {rc}\n{log.read_text()[-3000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert not failed, "\n".join(failed)
+
+
+def rel(got, want) -> float:
+    return float(np.abs(got - want).max() / (np.abs(want).max() or 1.0))
+
+
+def check_ranks(outs: list, whole: dict, split: dict, tol: float,
+                shared=None) -> None:
+    """Every rank's output and input gradient against the whole's; split
+    leaves' gradients against their blocks; the other leaves' summed over
+    the ranks, or each rank's for the leaves in ``shared`` (read outside
+    the split regions)."""
+    for k in ("y", "gx"):
+        if k in whole:
+            for out in outs:
+                assert out[k].shape == whole[k].shape
+                assert rel(out[k], whole[k]) < tol, k
+    for k in (k for k in whole if k.startswith("g_")):
+        if k[2:] in split:
+            got = [np.concatenate([o[k] for o in outs], axis=split[k[2:]])]
+        elif shared is not None and k[2:] in shared:
+            got = [o[k] for o in outs]
+        else:
+            got = [sum(o[k] for o in outs)]
+        for g in got:
+            assert g.shape == whole[k].shape
+            assert rel(g, whole[k]) < tol, k
+
+
+@pytest.mark.parametrize("name,world", [(n, w) for n in CASES
+                                        if n != "model_loss"
+                                        for w in case_worlds(n)])
+def test_split_operator_matches_the_unsplit_function(ranks, name, world):
+    case = setup(name, world)
+    outs = [{k.split("/", 1)[1]: v for k, v in r.items()
+             if k.startswith(name + "/")} for r in ranks[world]]
+    check_ranks(outs, run_case(case, None), case["split"],
+                TOL if name in FLOAT64 else TOL32)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_split_model_loss_matches_the_whole_model(ranks, world):
+    """`TransformerLM.loss` of a model split over "model" (q and kv heads,
+    d_ff and the tied vocabulary), 39 positions in chunks of 32 (the last
+    padded) with a loss mask: the loss on every rank and every gradient
+    (a split leaf's blocks, a whole leaf's shares summed) against the
+    whole model's."""
+    outs = [{k.split("/", 1)[1]: v for k, v in r.items()
+             if k.startswith("model_loss/")} for r in ranks[world]]
+    split = {str(i): int(d) for i, d in enumerate(outs[0]["split"])
+             if d >= 0}
+    assert split and not outs[0]["partial"].any()
+    shared = {str(i) for i in range(len(outs[0]["split"]))} - set(split)
+    check_ranks(outs, run_model(world), split, TOL32, shared)
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if n != "model_loss"])
+def test_group_of_one_is_the_unsplit_function_bit_for_bit(name):
+    """Over a "model" dim of one (no process group) every operator and
+    split path is the unsplit function: output and gradients bit for
+    bit."""
+    case = setup(name, min(case_worlds(name)))
+    got = run_case(case, ModelGroup(1, 0, None))
+    want = run_case(case, None)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+
+def test_model_over_a_group_of_one_is_the_whole_model_bit_for_bit():
+    """`split_over_model` on a (1, 1) mesh holds every leaf whole, and the
+    loss and gradients are the unsplit model's bit for bit; the
+    vocabulary-parallel head over one rank is logsumexp and gather."""
+    from repro_torch.launch.mesh import ShapeMesh
+    got = run_model(1, ShapeMesh((1, 1), ("data", "model")).at(0))
+    want = run_model(1)
+    assert (got["split"] >= 0).any()
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    logits = torch.randn(3, 5, 7, dtype=torch.float64)
+    labels = torch.randint(0, 7, (3, 5))
+    lse, gold = lse_and_gold(ModelGroup(1, 0, None), logits, labels, 7)
+    assert torch.equal(lse, torch.logsumexp(logits, -1))
+    assert torch.equal(gold, torch.gather(logits, -1, labels[..., None])[
+        ..., 0])
+
+
+def test_model_split_plan_follows_the_rules():
+    """The plan of `model_split` on the tests' meshes: heads, kv heads,
+    d_ff and vocab split where they divide; q_norm, k_norm and the whole
+    kv leaves "partial" under split q heads; the router under split
+    experts; every leaf "whole" for the families computed replicated over
+    "model" and under the rules that split nothing there."""
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.sharding.rules import ShardingRules
+    rules = ShardingRules.default()
+    m22 = ShapeMesh((2, 2), ("data", "model"))
+    plan = TransformerLM(get_config("gemma3-1b").reduced(),
+                         device="meta").model_split(rules, m22)
+    attn = plan["blocks"]["0"]["attn"]
+    assert (attn["wq"], attn["wo"], attn["wk"], attn["q_norm"]) == (
+        2, 1, "partial", "partial")
+    assert plan["blocks"]["0"]["mlp"] == {"wi": 2, "wg": 2, "wo": 1}
+    assert plan["embed"] == 0 and plan["final_norm"]["scale"] == "whole"
+    moe_plan = TransformerLM(get_config("mixtral-8x22b").reduced(),
+                             device="meta").model_split(rules, m22)
+    assert moe_plan["blocks"]["0"]["moe"]["router"] == "partial"
+    assert moe_plan["blocks"]["0"]["attn"]["wk"] == 2
+    none = rules.with_overrides(heads=None, kv_heads=None, d_ff=None,
+                                vocab=None)
+    for arch in ("qwen2-0.5b", "rwkv6-3b", "zamba2-7b", "whisper-base"):
+        model = TransformerLM(get_config(arch).reduced(), device="meta")
+        for r in (rules, none):
+            if r is rules and arch == "qwen2-0.5b":
+                continue
+            from repro_torch.tree import tree_leaves
+            assert set(tree_leaves(model.model_split(r, m22))) == {"whole"}
+    with pytest.raises(ValueError, match="kv heads"):
+        TransformerLM(get_config("qwen2-0.5b").reduced(),
+                      device="meta").model_split(
+            rules.with_overrides(heads=None), m22)
+
+
+if __name__ == "__main__":
+    role, *args = sys.argv[1:]
+    assert role == "rank"
+    _rank(int(args[0]), int(args[1]), Path(args[2]))
