@@ -100,8 +100,9 @@ Phases (any failed check exits non-zero):
      for qwen2-0.5b (batch 8, prompt 512, 64 new tokens), gemma3-1b
      (batch 4, prompt 1024 past its window of 512, 32 new),
      mixtral-8x22b and llama4-scout (2 of their layers, batch 4, prompt
-     2048: one MoE group a sequence, 16 new), rwkv6-3b (batch 8, prompt
-     512, 32 new), zamba2-7b (81 layers, batch 4, prompt 1024, 16 new),
+     2048: one MoE group a sequence, 16 new), rwkv6-3b (16 of its 32
+     layers, batch 8, prompt 512, 32 new), zamba2-7b (27 of its 81
+     layers: 4 periods and the tail, batch 4, prompt 1024, 16 new),
      whisper-base (batch 8, 1500 frames, prompt 64, 64 new) and
      internvl2-2b (batch 4, 256 patches + prompt 512, 32 new): (a) the
      tokens' shape and range; (b) in float32 and float64 twins over the
@@ -155,14 +156,29 @@ Phases (any failed check exits non-zero):
      (`step_memory`), the model's axis and its split leaves, in one `lm
      mesh train` line; (b) `moe_ep` at mixtral-8x22b's full width on one
      layer's input over the world-size-1 group, float64 twins, card
-     against host within `MESH_MOE_TOL`; (d) `chip_smoke.py --mesh-rank`
-     subprocesses after (a)-(b), two gloo ranks on the one card, a (1,
-     2) ("data", "model") mesh: (a)'s model, init and batches at full
-     width and depth, split over "model" (every collective an all_reduce
-     over gloo on CUDA tensors), 3 steps with no checkpoint, each step's
-     loss and grad norm within `MESH_TP_BOUND` of (a)'s, the same on both
-     ranks; each rank's peak memory and step ms beside (a)'s in one `lm
-     mesh tp` line; no FFT kernel runs;
+     against host within `MESH_MOE_TOL`; (d)-(e) `chip_smoke.py
+     --mesh-rank` subprocesses, started beside (b), stepping after this
+     process ran each config's steps on one device: one gloo group of two
+     ranks on the one card, a (1, 2) ("data", "model") mesh, each config
+     of `MESH_FAMILIES` in turn split over "model" (every collective an
+     all_reduce over gloo on CUDA tensors), 3 steps with no checkpoint:
+     (d) (a)'s model, init and batches at full width and depth, against
+     (a)'s record; (e) rwkv6-3b at 4 of its 32 layers and zamba2-7b at
+     one period (MMMMMS, 6 of 81), each in bf16 and in float32, and
+     whisper-base whole (6 + 6), each at its published widths, conditioned
+     (`models.conditioning`), split over "model" (the time and channel
+     mix, the mamba blocks and the shared attention block, the encoder
+     and the cross attention, the vocabulary), 3 AdamW steps of 8 x 512
+     seeded tokens (and whisper's 8 x 1500 frames), against the same
+     steps on one device (and, for the float32 configs, those steps
+     again with the batch as two microbatches: the model's own spread);
+     each step's loss and grad norm within the config's
+     `MESH_FAMILY_BOUND` (past its held steps, or within
+     `MESH_SPREAD_FACTOR` times the model's own spread), the same on both
+     ranks, each rank's peak memory below one device's; one `lm mesh
+     tp` line a config with
+     each rank's peak memory and step ms beside one device's; no FFT
+     kernel runs;
  20. the LM dryrun (`lm_dryrun_checks`): (a) ``python -m
      repro_torch.launch.sweep --archs qwen2-0.5b`` over both production
      meshes and every shape, and over the one_card cells, one sweep a
@@ -248,6 +264,48 @@ MESH_MOE_TOL = 1e-5
 # two-rank step on the CPU in bf16 (9.7e-5 and 8.5e-4), rounded up to one
 # digit (PERF.md §6)
 MESH_TP_BOUND = {"loss": 2e-3, "grad_norm": 2e-2}
+# phase 19 (e): rwkv6 (R), zamba2 (M and its shared S block) and whisper
+# (its encoder and cross attention) split over the (1, 2) mesh's "model"
+# dim against the same config's one-device steps, the layers each keeps;
+# |d - a| / |a| of each step's loss and grad norm. In bf16 (the configs'
+# dtype) set before the first card run at 20x the largest of the
+# rehearsal's same two-rank steps on the CPU (loss 3.49e-4, 1.58e-4,
+# 4.90e-5; grad norm 9.15e-2, 4.38e-2, 1.29e-4), rounded up to one digit
+# (PERF.md §6). The rwkv6 and zamba2 bf16 grad norms are rounding-bound,
+# in the reference's bf16 step as in the port's (test_torch_train_mixed's
+# test_rwkv6_bf16_gradients_follow_the_reference_bf16), and their bounds
+# cannot see a gradient summed over the ranks: rwkv6's gate computed
+# inside the split region moves the bf16 rehearsal's grad norm by
+# 0.76-1.80, zamba2's norm summed forward only by 1.8e-2-9.4e-2. So both
+# run in float32 as well, bound at the larger of 1e-5 and 20x the float32
+# rehearsal (loss 7.2e-8 and 7.2e-8, grad norm 3.89e-6 and 8.24e-7),
+# rounded up to one digit, where those traps move the step-1 grad norm
+# by 0.90 and 5.6e-2. held_steps: the steps held at the bound alone; past
+# them each metric is within MESH_SPREAD_FACTOR times the model's own
+# spread where that is larger ("control": the same steps on one device
+# with the batch as two microbatches). At full width rwkv6's float32
+# gradient after the first step is chaotic: its one-device steps in that
+# other order move its grad norm by 1.1e-2 and 0.46 at steps 2 and 3
+# (PERF.md §6)
+# (d), "like" "full", is (a)'s model, init, trainer config and first
+# batches, held against (a)'s record at MESH_TP_BOUND
+MESH_FAMILIES = ({"arch": "qwen2-0.5b", "like": "full"},
+                 {"arch": "rwkv6-3b", "layers": 4},
+                 {"arch": "rwkv6-3b", "layers": 4, "dtype": "float32",
+                  "control": True},
+                 {"arch": "zamba2-7b", "layers": 6},
+                 {"arch": "zamba2-7b", "layers": 6, "dtype": "float32",
+                  "control": True},
+                 {"arch": "whisper-base"})
+MESH_FAMILY_BOUND = {"qwen2-0.5b": MESH_TP_BOUND,
+                     "rwkv6-3b": {"loss": 7e-3, "grad_norm": 2.0},
+                     "rwkv6-3b/float32": {"loss": 1e-5, "grad_norm": 8e-5,
+                                          "held_steps": 1},
+                     "zamba2-7b/float32": {"loss": 1e-5, "grad_norm": 2e-5,
+                                           "held_steps": 1},
+                     "zamba2-7b": {"loss": 4e-3, "grad_norm": 0.9},
+                     "whisper-base": {"loss": 1e-3, "grad_norm": 3e-3}}
+MESH_SPREAD_FACTOR = 10
 # the card's loss and gradients against the host's (phase 18 (b)), max|d|
 # / max|host| a leaf: measured on the H100 at 6.2e-6 (gemma3-1b, float32,
 # 26 layers) and 2.58e-5 (qwen2-0.5b's first layer, float64) in the
@@ -439,12 +497,16 @@ FULL = {
          "full_twins": ("float32",), "forward_rows": 1, "gate_layers": 1,
          "gate_twins": LM_GATE_TWINS["llama4-scout-17b-a16e"],
          "served_bound": LM_SERVED_BOUND["llama4-scout-17b-a16e"]},
-        {"arch": "rwkv6-3b", "batch": 8, "prompt": 512, "new": 32,
-         "depths": (2, 1), "gate_layers": 2,
+        # rwkv6-3b at 16 of its 32 layers and zamba2-7b at 27 of its 81
+        # (4 periods and the 3-layer tail), cut to keep the script inside
+        # its limit with phase 19 (e) (PERF.md §4)
+        {"arch": "rwkv6-3b", "layers": 16, "batch": 8, "prompt": 512,
+         "new": 32, "depths": (2, 1), "gate_layers": 2,
          "gate_twins": LM_GATE_TWINS["rwkv6-3b"],
          "served_bound": LM_SERVED_BOUND["rwkv6-3b"]},
-        {"arch": "zamba2-7b", "batch": 4, "prompt": 1024, "new": 16,
-         "depths": (6,), "full_twins": ("float32",), "gate_layers": 6,
+        {"arch": "zamba2-7b", "layers": 27, "batch": 4, "prompt": 1024,
+         "new": 16, "depths": (6,), "full_twins": ("float32",),
+         "gate_layers": 6,
          "gate_twins": LM_GATE_TWINS["zamba2-7b"],
          "served_bound": LM_SERVED_BOUND["zamba2-7b"]},
         {"arch": "whisper-base", "batch": 8, "prompt": 64, "new": 64,
@@ -504,14 +566,22 @@ FULL = {
     # through Trainer(mesh=) on a world-size-1 (1, 1) mesh, its first
     # steps against the one-device trainer's, bit for bit; (b) moe_ep at
     # mixtral's full width on one layer's input, a float64 twin, card vs
-    # host; (d) two gloo ranks on the one card, a (1, 2) mesh: (a)'s
-    # first steps split over "model"
+    # host; (d)-(e) two gloo ranks on the one card, a (1, 2) mesh: (a)'s
+    # first steps and each family's split over "model"
     "mesh_train": {
         "full": {"arch": "qwen2-0.5b", "batch": 8, "seq": 512,
                  "optimizer": "adamw", "lr": 3e-4, "launch_steps": 30,
                  "steps": 6, "reduced": False},
         "moe": {"arch": "mixtral-8x22b", "tokens": 128, "reduced": False},
-        "tp": {"ranks": 2, "steps": 3, "bound": MESH_TP_BOUND},
+        # (d) (a)'s first steps and (e) rwkv6-3b at 4 of its 32 layers and
+        # zamba2-7b at one period (MMMMMS, 6 of 81 layers), each in bf16
+        # and float32, whisper-base whole (6 + 6 layers), each at its
+        # published widths, 8 x 512 tokens a step (and whisper's 8 x 1500
+        # frames)
+        "tp": {"ranks": 2, "steps": 3, "batch": 8, "seq": 512,
+               "frames": 1500, "optimizer": "adamw", "lr": 3e-4,
+               "launch_steps": 30, "reduced": False,
+               "configs": MESH_FAMILIES, "bound": MESH_FAMILY_BOUND},
         "moe_tol": MESH_MOE_TOL, "seed": 0},
     "lm_dryrun": LM_DRYRUN,
 }
@@ -650,7 +720,11 @@ REHEARSE = {
                  "optimizer": "adamw", "lr": 1e-3, "launch_steps": 20,
                  "steps": 3, "reduced": True, "dtype": "bfloat16"},
         "moe": {"arch": "mixtral-8x22b", "tokens": 64, "reduced": True},
-        "tp": {"ranks": 2, "steps": 3, "bound": MESH_TP_BOUND},
+        # (e)'s bounds come from this rehearsal (PERF.md §6)
+        "tp": {"ranks": 2, "steps": 3, "batch": 4, "seq": 64,
+               "frames": 32, "optimizer": "adamw", "lr": 3e-4,
+               "launch_steps": 30, "reduced": True, "dtype": "bfloat16",
+               "configs": MESH_FAMILIES, "bound": MESH_FAMILY_BOUND},
         "moe_tol": MESH_MOE_TOL, "seed": 0},
     # the sweep runs on meta in both; (b) and (c) need the card
     "lm_dryrun": LM_DRYRUN,
@@ -4651,81 +4725,15 @@ def mesh_moe_check(torch, dev, gpu: bool, spec: dict, seed: int,
     return out
 
 
-def mesh_tp_rank(rank: int, store: str, out: str, gpu: bool) -> int:
-    """A rank of phase 19 (d) (``chip_smoke.py --mesh-rank``), one of a
-    gloo group of ``tp["ranks"]`` processes on the one card: (a)'s model,
-    init and trainer config on a (1, ranks) ("data", "model") mesh, the
-    model holding this rank's blocks of the leaves the rules split over
-    "model"; ``tp["steps"]`` steps on (a)'s first batches (written beside
-    ``out``), no checkpoint (a save would gather), once a ``go`` file
-    beside ``out`` says the card is free (the ranks start and build their
-    models while (b) runs; the state is made after, so that nothing holds
-    the first state while the steps run). Writes its losses, grad norms,
-    step ms (CUDA events at each batch) and peak memory."""
-    import datetime
-
-    import numpy as np
-    import torch
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    from repro_torch.launch.train import _StepClock
-    from repro_torch.train import Trainer
-    from repro_torch.tree import tree_leaves
-    cfg = (FULL if gpu else REHEARSE)["mesh_train"]
-    spec, n, steps = cfg["full"], cfg["tp"]["ranks"], cfg["tp"]["steps"]
-    dev = torch.device("cuda", 0) if gpu else torch.device("cpu")
-    if gpu:
-        torch.cuda.set_device(dev)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    data = np.load(Path(out).parent / "batches.npz")
-    batches = [{k: torch.as_tensor(data[f"{k}_{i}"]).to(dev)
-                for k in ("tokens",)} for i in range(steps + 1)]
-    dist.init_process_group("gloo", store=dist.FileStore(store, n),
-                            rank=rank, world_size=n,
-                            timeout=datetime.timedelta(seconds=120))
-    try:
-        mesh = init_device_mesh(dev.type, (1, n),
-                                mesh_dim_names=("data", "model"))
-        if gpu:
-            torch.cuda.reset_peak_memory_stats(dev)
-        trainer = Trainer(mesh_lm(torch, dev, spec, cfg["seed"]),
-                          mesh_trainer_config(spec, None), mesh=mesh)
-        go = Path(out).parent / "go"
-        deadline = time.monotonic() + 600
-        while not go.exists():
-            check(time.monotonic() < deadline, "lm mesh tp: no go")
-            time.sleep(0.05)
-        t0 = time.monotonic()
-        clock = _StepClock(iter(batches), dev)
-        _, hist = trainer.run(trainer.init_state(), iter(clock), steps=steps)
-        step_ms = clock.step_ms(steps)
-        report = {
-            "rank": rank, "ranks": n, "steps": steps,
-            "losses": [h["loss"] for h in hist],
-            "grad_norms": [h["grad_norm"] for h in hist],
-            "step_ms": step_ms, "wall_s": time.monotonic() - t0,
-            "model_axis": "tensor" if trainer.model.tp else "replicated",
-            "split_leaves": sum(isinstance(h, int) for h in
-                                tree_leaves(trainer.model.split_plan)),
-            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if gpu
-                           else 0)}
-    finally:
-        dist.destroy_process_group()
-    Path(out).write_text(json.dumps(report))
-    return 0
-
-
-def mesh_tp_start(cfg: dict, gpu: bool, work: Path) -> list:
-    """(d)'s ranks (``chip_smoke.py --mesh-rank r``); logs and reports
-    under ``work``, beside (a)'s batches; they step once ``work / "go"``
-    exists."""
+def mesh_ranks_start(ranks: int, gpu: bool, work: Path) -> list:
+    """Phase 19 (d)-(e)'s ranks (``chip_smoke.py --mesh-rank r``); logs and
+    reports under ``work``; they step once ``work / "go"`` exists
+    (`wait_for_go`)."""
     store = work / "store"
     store.unlink(missing_ok=True)
     (work / "go").unlink(missing_ok=True)
     procs = []
-    for r in range(cfg["tp"]["ranks"]):
+    for r in range(ranks):
         with open(work / f"rank_{r}.log", "w") as f:
             procs.append(subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
@@ -4736,13 +4744,168 @@ def mesh_tp_start(cfg: dict, gpu: bool, work: Path) -> list:
     return procs
 
 
-def mesh_tp_finish(procs: list, work: Path, bound_s: float, full: dict,
-                   cfg: dict) -> dict:
-    """Waits for (d)'s ranks up to ``bound_s`` (a rank that outlives it is
-    stopped) and holds them: every rank exits 0 with the same losses and
-    grad norms, each step within ``cfg["tp"]["bound"]`` of (a)'s first
-    steps (``full``, its record); each rank's peak memory and step ms
-    beside (a)'s."""
+def wait_for_go(out: str, seconds: float, what: str) -> None:
+    """A rank's wait for the ``go`` file beside its report ``out``."""
+    go = Path(out).parent / "go"
+    deadline = time.monotonic() + seconds
+    while not go.exists():
+        check(time.monotonic() < deadline, f"{what}: no go")
+        time.sleep(0.05)
+
+
+def family_name(fam: dict) -> str:
+    """A config of MESH_FAMILIES by name: its arch, and its dtype where it
+    sets one."""
+    return fam["arch"] + (f"/{fam['dtype']}" if fam.get("dtype") else "")
+
+
+def family_batches(spec: dict, mcfg, seed: int) -> list:
+    """(e)'s batches of one family, from a numpy seed: ``steps`` + 1 of
+    ``batch`` x ``seq`` tokens (the loop takes one past the last step),
+    and whisper's ``batch`` x ``frames`` frame embeddings."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(spec["steps"] + 1):
+        b = {"tokens": rng.integers(0, mcfg.vocab_size,
+                                    (spec["batch"], spec["seq"]))}
+        if mcfg.encoder_layers:
+            b["frames"] = rng.standard_normal(
+                (spec["batch"], spec["frames"], mcfg.d_model)).astype(
+                    np.float32)
+        out.append(b)
+    return out
+
+
+def family_run(torch, dev, gpu: bool, cfg: dict, fam: dict, work: Path,
+               mesh=None, accum: int = 1) -> dict:
+    """One config of phase 19's ``tp`` on ``dev``, split over ``mesh``'s
+    "model" dim when given, ``tp["steps"]`` steps of `Trainer`. (d), ``fam``
+    ``like`` "full": (a)'s model (`mesh_lm`), trainer config and first
+    batches (``work / "batches.npz"``). (e), the others: ``fam``'s config
+    at ``tp``'s size, drawn from a generator on ``dev`` seeded with the
+    phase's seed, conditioned as the tests hold the families (its zeros
+    and ones leaves redrawn around their values and its queries and keys
+    at their true fan-in, `models.conditioning.condition`), AdamW on
+    `family_batches`. ``accum`` > 1: each batch as that many microbatches
+    (the same step, summed in another order). The losses, grad norms,
+    step ms (CUDA events at each batch) and the peak memory from the
+    model's making to the last step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch.train import _StepClock
+    from repro_torch.models.conditioning import condition
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+    tp, seed = cfg["tp"], cfg["seed"]
+    steps = tp["steps"]
+    if fam.get("like"):
+        spec = cfg[fam["like"]]
+        data = np.load(work / "batches.npz")
+        batches = [{"tokens": torch.as_tensor(data[f"tokens_{i}"]).to(dev)}
+                   for i in range(steps + 1)]
+    else:
+        spec = tp
+        mcfg = lm_config(spec, {"dtype": spec.get("dtype"), **fam})
+        batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+                   for b in family_batches(spec, mcfg, seed)]
+    if accum > 1:
+        batches = [{k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+                    for k, v in b.items()} for b in batches]
+    lm_free(torch, gpu)
+    base = 0
+    if gpu:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    if fam.get("like"):
+        model = mesh_lm(torch, dev, spec, seed)
+    else:
+        model = TransformerLM(mcfg, device=dev, generator=torch.Generator(
+            dev).manual_seed(seed))
+        condition(model, seed + 1, True)
+    mcfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(model, dataclasses.replace(
+        mesh_trainer_config(spec, None), grad_accum=accum), mesh=mesh)
+    clock = _StepClock(iter(batches), dev)
+    t0 = time.monotonic()
+    _, hist = trainer.run(trainer.init_state(), iter(clock), steps=steps)
+    out = {"name": family_name(fam), "arch": mcfg.name,
+           "layers": mcfg.num_layers, "encoder_layers": mcfg.encoder_layers,
+           "params": n_params, "dtype": mcfg.dtype,
+           "tokens": spec["batch"] * spec["seq"],
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": clock.step_ms(steps),
+           "wall_s": time.monotonic() - t0,
+           "model_axis": "tensor" if trainer.model.tp else "replicated",
+           "split_leaves": sum(isinstance(h, int) for h in
+                               tree_leaves(trainer.model.split_plan or {})),
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev) - base
+                          if gpu else 0)}
+    del trainer, model, batches, clock
+    lm_free(torch, gpu)
+    return out
+
+
+def full_as_one_device(full: dict, fam: dict, steps: int) -> dict:
+    """(d)'s one-device steps: (a)'s record (``full``), its first
+    ``steps``, in `family_run`'s keys."""
+    return {"name": family_name(fam), "arch": full["arch"],
+            "layers": None, "encoder_layers": 0, "params": None,
+            "dtype": None, "tokens": full["batch"] * full["seq"],
+            "losses": full["losses"][:steps],
+            "grad_norms": full["grad_norms"][:steps],
+            "step_ms": full["one_device_step_ms"][:steps],
+            "peak_bytes": full["one_device_peak_bytes"], "wall_s": None}
+
+
+def mesh_tp_rank(rank: int, store: str, out: str, gpu: bool) -> int:
+    """A rank of phase 19 (d)-(e) (``chip_smoke.py --mesh-rank``), one of a
+    gloo group of ``tp["ranks"]`` processes on the one card, a (1, ranks)
+    ("data", "model") mesh: each config of ``tp`` split over "model"
+    (`family_run`; no checkpoint: a save would gather), once a ``go`` file
+    beside ``out`` says the card is free (the ranks start beside (b) and
+    wait through it and the one-device runs). Writes each config's
+    record."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg = (FULL if gpu else REHEARSE)["mesh_train"]
+    dev = torch.device("cuda", 0) if gpu else torch.device("cpu")
+    if gpu:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    n = cfg["tp"]["ranks"]
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh(dev.type, (1, n),
+                                mesh_dim_names=("data", "model"))
+        wait_for_go(out, 900, "lm mesh tp")
+        report = {"rank": rank, "ranks": n, "runs": [
+            family_run(torch, dev, gpu, cfg, fam, Path(out).parent, mesh)
+            for fam in cfg["tp"]["configs"]]}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(report))
+    return 0
+
+
+def mesh_tp_finish(procs: list, work: Path, bound_s: float, one: list,
+                   cfg: dict) -> list:
+    """Waits for (d)-(e)'s ranks up to ``bound_s`` (a rank that outlives it
+    is stopped) and holds each config: every rank exits 0 with the same
+    losses and grad norms, each step within the config's bound of its
+    one-device steps (``one``), the model split over "model" and each
+    rank's peak memory below one device's. Returns a record a config."""
     deadline = time.monotonic() + bound_s
     for p in procs:
         try:
@@ -4755,44 +4918,70 @@ def mesh_tp_finish(procs: list, work: Path, bound_s: float, full: dict,
             for r in range(len(procs))]
     check(not any(exits), f"lm mesh tp: a rank failed, exits {exits}: "
           f"{logs}")
-    ranks = [json.loads((work / f"rank_{r}.json").read_text())
+    ranks = [json.loads((work / f"rank_{r}.json").read_text())["runs"]
              for r in range(len(procs))]
-    steps, bound = cfg["tp"]["steps"], cfg["tp"]["bound"]
-    want = {"losses": full["losses"][:steps],
-            "grad_norms": full["grad_norms"][:steps]}
-    err = {k: [abs(g - w) / abs(w) for g, w in zip(ranks[0][k], v)]
-           for k, v in want.items()}
-    out = {"ranks": len(ranks), "exits": exits, "steps": steps,
-           "model_axis": ranks[0]["model_axis"],
-           "split_leaves": ranks[0]["split_leaves"],
-           "losses": ranks[0]["losses"],
-           "grad_norms": ranks[0]["grad_norms"],
-           "one_device_losses": want["losses"],
-           "one_device_grad_norms": want["grad_norms"],
-           "loss_rel_err": err["losses"],
-           "grad_norm_rel_err": err["grad_norms"], "bound": bound,
-           "step_ms": [r["step_ms"] for r in ranks],
-           "steady_step_ms": sum(ranks[0]["step_ms"][1:])
-           / max(len(ranks[0]["step_ms"]) - 1, 1),
-           "one_device_steady_step_ms": full["one_device_steady_step_ms"],
-           "peak_bytes": [r["peak_bytes"] for r in ranks],
-           "one_device_peak_bytes": full["one_device_peak_bytes"],
-           "wall_s": [r["wall_s"] for r in ranks]}
-    check(all(r["losses"] == ranks[0]["losses"]
-              and r["grad_norms"] == ranks[0]["grad_norms"] for r in ranks),
-          f"lm mesh tp: the ranks' metrics differ: {ranks}")
-    check(len(ranks[0]["losses"]) == steps
-          and max(err["losses"]) <= bound["loss"]
-          and max(err["grad_norms"]) <= bound["grad_norm"],
-          f"lm mesh tp: the (1, {len(ranks)}) step against one device's: "
-          f"{err}, bound {bound}")
+
+    def steady(ms):
+        return sum(ms[1:]) / max(len(ms) - 1, 1)
+    out = []
+    for i, want in enumerate(one):
+        got = [r[i] for r in ranks]
+        name, bound = want["name"], cfg["tp"]["bound"][want["name"]]
+        err = {k: [abs(g - w) / abs(w) for g, w in zip(got[0][k], want[k])]
+               for k in ("losses", "grad_norms")}
+        # each metric's limit a step: the bound, and past the bound's
+        # held_steps the model's own spread times MESH_SPREAD_FACTOR where
+        # that is larger
+        held = bound.get("held_steps", len(err["losses"]))
+        spread = want.get("own_spread")
+        limits = {k: [bound[m] if j < held else max(
+            bound[m], MESH_SPREAD_FACTOR * spread[k][j])
+            for j in range(len(err[k]))]
+            for k, m in (("losses", "loss"), ("grad_norms", "grad_norm"))}
+        rec = {"name": name, "arch": want["arch"], "ranks": len(got),
+               "exits": exits, "layers": got[0]["layers"],
+               "encoder_layers": got[0]["encoder_layers"],
+               "params": got[0]["params"], "dtype": got[0]["dtype"],
+               "tokens": want["tokens"], "model_axis": got[0]["model_axis"],
+               "split_leaves": got[0]["split_leaves"],
+               "losses": got[0]["losses"], "grad_norms": got[0]["grad_norms"],
+               "one_device_losses": want["losses"],
+               "one_device_grad_norms": want["grad_norms"],
+               "loss_rel_err": err["losses"],
+               "grad_norm_rel_err": err["grad_norms"], "bound": bound,
+               "limits": limits, "own_spread": spread,
+               "step_ms": [g["step_ms"] for g in got],
+               "steady_step_ms": steady(got[0]["step_ms"]),
+               "one_device_step_ms": want["step_ms"],
+               "one_device_steady_step_ms": steady(want["step_ms"]),
+               "peak_bytes": [g["peak_bytes"] for g in got],
+               "one_device_peak_bytes": want["peak_bytes"],
+               "wall_s": [g["wall_s"] for g in got],
+               "one_device_wall_s": want["wall_s"],
+               "control": want.get("control")}
+        out.append(rec)
+        check(all(g["losses"] == got[0]["losses"]
+                  and g["grad_norms"] == got[0]["grad_norms"] for g in got),
+              f"lm mesh tp {name}: the ranks' metrics differ: {got}")
+        check(got[0]["model_axis"] == "tensor" and got[0]["split_leaves"] > 0,
+              f"lm mesh tp {name}: the model is not split over 'model'")
+        check(len(got[0]["losses"]) == len(want["losses"])
+              and all(e <= m for k in err
+                      for e, m in zip(err[k], limits[k])),
+              f"lm mesh tp {name}: the (1, {len(got)}) step against one "
+              f"device's: {err}, limits {limits}")
+        check(all(g["peak_bytes"] < want["peak_bytes"] for g in got)
+              or not want["peak_bytes"],
+              f"lm mesh tp {name}: a rank's peak memory is not below one "
+              f"device's: {[g['peak_bytes'] for g in got]}, "
+              f"{want['peak_bytes']}")
     return out
 
 
 def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
-    """Phase 19: LM training on a mesh, (a), (b) and (d), whose ranks start
-    and build their models beside (b) and step alone on the card. No FFT
-    kernel runs."""
+    """Phase 19: LM training on a mesh, (a), (b), and (d)-(e), whose ranks
+    start beside (b) and step alone on the card after this process's
+    one-device runs. No FFT kernel runs."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     reset_counts()
@@ -4813,7 +5002,7 @@ def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
             out["full"].update(seconds=time.monotonic() - t0, device=card)
             print("lm mesh train " + json.dumps(out["full"]))
             t0 = time.monotonic()
-            procs += mesh_tp_start(cfg, gpu, ranks)
+            procs = mesh_ranks_start(cfg["tp"]["ranks"], gpu, ranks)
             out["moe"] = mesh_moe_check(torch, dev, gpu, cfg["moe"],
                                         cfg["seed"], cfg["moe_tol"])
             out["moe"].update(seconds=time.monotonic() - t0, device=card)
@@ -4822,11 +5011,30 @@ def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
             dist.destroy_process_group()
             store.unlink(missing_ok=True)
         lm_free(torch, gpu)
+        # (d)-(e): each config's one-device steps, then its split steps
         t0 = time.monotonic()
+        steps = cfg["tp"]["steps"]
+        one = []
+        for fam in cfg["tp"]["configs"]:
+            if fam.get("like"):
+                one.append(full_as_one_device(out["full"], fam, steps))
+                continue
+            one.append(family_run(torch, dev, gpu, cfg, fam, ranks))
+            if fam.get("control"):  # the model's own spread: the same
+                # steps on one device, the batch as two microbatches
+                ctl = family_run(torch, dev, gpu, cfg, fam, ranks, accum=2)
+                one[-1]["own_spread"] = {
+                    k: [abs(c - w) / abs(w) for c, w in zip(ctl[k],
+                                                            one[-1][k])]
+                    for k in ("losses", "grad_norms")}
+                one[-1]["control"] = {k: ctl[k] for k in (
+                    "losses", "grad_norms", "step_ms")}
         (ranks / "go").write_text("go")
-        out["tp"] = mesh_tp_finish(procs, ranks, 300, out["full"], cfg)
-        out["tp"].update(seconds=time.monotonic() - t0, device=card)
-        print("lm mesh tp " + json.dumps(out["tp"]))
+        out["tp"] = mesh_tp_finish(procs, ranks, 600, one, cfg)
+        for rec in out["tp"]:
+            rec["device"] = card
+            print("lm mesh tp " + json.dumps(rec))
+        out["tp_seconds"] = time.monotonic() - t0
     finally:
         for p in procs:  # stopped where (a) or (b) failed
             if p.poll() is None:
@@ -5021,9 +5229,9 @@ def main(argv=None) -> int:
                     help="run as this rank of phase 15's service (started "
                          "by phase 15 itself, with --store and --out)")
     ap.add_argument("--mesh-rank", type=int, default=None,
-                    help="run as this rank of phase 19 (d)'s gloo group "
-                         "(started by phase 19 itself, with --store and "
-                         "--out)")
+                    help="run as this rank of phase 19 (d)-(e)'s gloo "
+                         "group (started by phase 19 itself, with --store "
+                         "and --out)")
     ap.add_argument("--store", help="phase 15's or 19's FileStore")
     ap.add_argument("--out", help="a follower's or rank's report")
     args = ap.parse_args(argv)

@@ -25,14 +25,12 @@ bfloat16 parameters for prefill and decode, and the inputs of
           `BATCH_AXES`) and `local_slices`; ``per_rank`` the least and
           the most of every rank's total
   cost    the step run on meta at the rows one rank holds under the batch
-          rule, as rank 0 computes it (``model_axis``): a train cell of
-          a family the port computes split over "model"
-          (`tensor_parallel_family`: G and L attention, the gated MLP,
-          MoE) runs the tensor-parallel step, the model holding rank 0's
-          blocks of the leaves the rules split there ("tensor");
-          prefill and decode cells, and the train cells of rwkv6,
-          zamba2 and whisper, compute replicated over "model"
-          ("replicated"). ``flops`` counted by ``FlopCounterMode``,
+          rule, as rank 0 computes it (``model_axis``): a train cell
+          runs the tensor-parallel step, the model holding rank 0's
+          blocks of the leaves the rules split over "model" (heads,
+          kv_heads, d_ff, ssm_heads, vocab; `TransformerLM.model_split`)
+          ("tensor"); prefill and decode cells compute replicated over
+          "model" ("replicated"). ``flops`` counted by ``FlopCounterMode``,
           ``bytes_accessed`` every op's input and output tensor bytes
           (`ByteCounter`, an unfused upper bound); ``model_flops`` the
           reference's 6ND / 2ND / 2NB over the chips;

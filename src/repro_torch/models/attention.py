@@ -76,25 +76,33 @@ def _kv_block(cfg, rank: int, heads: int):
     return torch.tensor(idx)
 
 
+def _kv_leaves(cfg, p, tp, device) -> tuple:
+    """(wk, wv, bk, bv) as the rank's q heads read them: ``p``'s own
+    without ``tp`` or where the kv heads are split, else the kv heads its
+    q heads read (`_kv_block`); bk and bv None where ``p`` has none."""
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    if tp is None or wk.shape[-2] != cfg.num_kv_heads:
+        return wk, wv, bk, bv
+    sel = _kv_block(cfg, tp.rank, p["wq"].shape[-2])
+    if isinstance(sel, torch.Tensor):
+        sel = sel.to(device)
+
+    def pick(w):
+        if w is None:
+            return None
+        if isinstance(sel, torch.Tensor):
+            return w.index_select(-2, sel)
+        return w[..., sel, :]
+    return pick(wk), pick(wv), pick(bk), pick(bv)
+
+
 def _qkv(cfg, p, x, pos_offset, theta, tp=None):
     """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope'd + normed. Under
     ``tp`` with the q heads split, H is this rank's block of heads, and KV
     its block of the kv heads, or the kv heads its q heads read
     (`_kv_block`) where those are held whole."""
-    wk, wv = p["wk"], p["wv"]
-    bk, bv = p.get("bk"), p.get("bv")
-    heads = p["wq"].shape[-2]
-    if tp is not None and wk.shape[-2] == cfg.num_kv_heads:
-        sel = _kv_block(cfg, tp.rank, heads)
-        if isinstance(sel, torch.Tensor):
-            sel = sel.to(x.device)
-            wk, wv = wk.index_select(-2, sel), wv.index_select(-2, sel)
-            if bk is not None:
-                bk, bv = bk.index_select(-2, sel), bv.index_select(-2, sel)
-        else:
-            wk, wv = wk[..., sel, :], wv[..., sel, :]
-            if bk is not None:
-                bk, bv = bk[..., sel, :], bv[..., sel, :]
+    wk, wv, bk, bv = _kv_leaves(cfg, p, tp, x.device)
     q, k, v = _proj(x, p["wq"]), _proj(x, wk), _proj(x, wv)
     if cfg.qkv_bias and "bq" in p:
         q = q + p["bq"].to(x.dtype)
@@ -222,7 +230,7 @@ def self_attention(cfg, p, x, *, window=None, theta=None, pos_offset=0,
     starts with ``tp.enter`` and ends with ``tp.exit``, and ``return_kv``
     gives this rank's kv heads."""
     theta = cfg.rope_theta if theta is None else theta
-    split = tp is not None and p["wq"].shape[-2] < cfg.num_heads
+    split = _split_heads(cfg, p, tp)
     if split:
         x = tp.enter(x)
     q, k, v = _qkv(cfg, p, x, pos_offset, theta, tp if split else None)
@@ -237,18 +245,38 @@ def self_attention(cfg, p, x, *, window=None, theta=None, pos_offset=0,
     return y
 
 
-def cross_attention(cfg, p, x, enc_k, enc_v):
-    """Decoder cross-attention (whisper): no rope, no causal mask."""
+def _split_heads(cfg, p, tp) -> bool:
+    """Does ``p`` hold this rank's block of the q heads under ``tp``?"""
+    return tp is not None and p["wq"].shape[-2] < cfg.num_heads
+
+
+def cross_attention(cfg, p, x, enc_k, enc_v, tp=None):
+    """Decoder cross-attention (whisper): no rope, no causal mask. With
+    ``tp`` and ``p`` holding this rank's block of the q heads (``enc_k``
+    and ``enc_v`` its kv heads, `encode_kv`), ``wq`` is column-parallel
+    and ``wo`` row-parallel, between ``tp.enter`` and ``tp.exit``."""
+    split = _split_heads(cfg, p, tp)
+    if split:
+        x = tp.enter(x)
     q = _proj(x, p["wq"])
     out = chunked_attention(
         q, enc_k, enc_v, causal=False, window=None,
         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-    return _out_proj(out, p["wo"], x.dtype)
+    y = _out_proj(out, p["wo"], x.dtype)
+    return tp.exit(y) if split else y
 
 
-def encode_kv(cfg, p, enc_out):
-    """Precompute cross-attention K/V from encoder output (cached once)."""
-    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+def encode_kv(cfg, p, enc_out, tp=None):
+    """Precompute cross-attention K/V from encoder output (cached once).
+    With ``tp`` and ``p`` holding this rank's block of the q heads, the
+    encoder's output enters the split region and the K/V are this rank's
+    kv heads: its block, or the kv heads its q heads read where those are
+    held whole (`_kv_block`)."""
+    split = _split_heads(cfg, p, tp)
+    if split:
+        enc_out = tp.enter(enc_out)
+    wk, wv, _, _ = _kv_leaves(cfg, p, tp if split else None, enc_out.device)
+    return _proj(enc_out, wk), _proj(enc_out, wv)
 
 
 # ---------------------------------------------------------------------------

@@ -91,12 +91,37 @@ def _ssm_inputs(cfg, p, xs_conv, bmat, cmat, dt_raw):
     return q, k, v, log_decay, dt
 
 
-def mamba2_block(cfg, p, x, carry=None):
+def _rms_norm_over_model(tp, x, scale, eps, width: int):
+    """`rms_norm` over a last dim of ``width`` of which ``x`` holds this
+    rank's block (and ``scale`` its block of the scale): each rank's sum of
+    squares, summed over "model" forward and, since every rank's block
+    reads the total, its gradient summed backward too."""
+    dt = x.dtype
+    x = x.float()
+    total = tp.enter(tp.exit(torch.sum(x * x, dim=-1, keepdim=True)))
+    y = x * torch.rsqrt(total / width + eps)
+    return (y * scale.float()).to(dt)
+
+
+def mamba2_block(cfg, p, x, carry=None, tp=None):
     """x (B,S,d) -> (y, new_carry). carry = (conv (B,cw-1,di), state).
 
-    S is padded to a multiple of 16 for the chunked scan and cut back."""
+    S is padded to a multiple of 16 for the chunked scan and cut back.
+
+    With ``tp`` (a `ModelGroup`) and ``p`` holding this rank's block of
+    ``d_ff`` (d_inner) and of ``ssm_heads``, whose contiguous blocks line
+    up head for head: ``x`` enters the split region, ``wz``, ``wx`` and
+    ``wdt`` are column-parallel, the conv, the decay, ``D`` and the scan
+    are each channel's or head's own, ``wB`` and ``wC`` are read whole
+    inside the region ("partial"), the gated norm's mean of squares runs
+    over every rank's block (`_rms_norm_over_model`), and ``wo`` is
+    row-parallel before ``tp.exit``."""
     b, s, d = x.shape
-    di = cfg.ssm_expand * d
+    width = cfg.ssm_expand * d
+    split = tp is not None and p["wz"].shape[-1] < width
+    if split:
+        x = tp.enter(x)
+    di = p["wz"].shape[-1]
     nh = di // cfg.ssm_head_dim
     conv_carry, state = carry if carry is not None else (None, None)
 
@@ -114,8 +139,13 @@ def mamba2_block(cfg, p, x, carry=None):
     o = o + (p["D"].to(o.dtype)[None, None, :, None]
              * xs.reshape(b, s, nh, cfg.ssm_head_dim))
     o = o.reshape(b, s, di)
-    o = rms_norm(o * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    y = torch.matmul(o, p["wo"].to(x.dtype))
+    if split:
+        o = _rms_norm_over_model(tp, o * F.silu(z), p["norm_scale"],
+                                 cfg.norm_eps, width)
+        y = tp.exit(torch.matmul(o, p["wo"].to(x.dtype)))
+    else:
+        o = rms_norm(o * F.silu(z), p["norm_scale"], cfg.norm_eps)
+        y = torch.matmul(o, p["wo"].to(x.dtype))
     return y, (conv_carry, state)
 
 

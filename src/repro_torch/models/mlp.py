@@ -57,15 +57,25 @@ def _token_shift(x, x_last=None):
     return prev
 
 
-def rwkv_cmix(cfg, p, x, x_last=None):
-    """Returns (y, new_x_last) — new_x_last is the carry for decode."""
+def rwkv_cmix(cfg, p, x, x_last=None, tp=None):
+    """Returns (y, new_x_last) — new_x_last is the carry for decode. With
+    ``tp`` (a `ModelGroup`) and ``p`` holding this rank's block of
+    ``d_ff``: the key's lerp enters the split region, ``wk`` is
+    column-parallel and ``wv`` row-parallel, and ``tp.exit`` sums the
+    value before the receptance gates it; ``mu_k``, ``mu_r`` and ``wr``
+    are read whole outside the region."""
     dt = x.dtype
     prev = _token_shift(x, x_last)
     mu_k = p["mu_k"].to(dt)
     mu_r = p["mu_r"].to(dt)
     xk = x * mu_k + prev * (1 - mu_k)
     xr = x * mu_r + prev * (1 - mu_r)
+    split = tp is not None and p["wk"].shape[-1] < cfg.d_ff
+    if split:
+        xk = tp.enter(xk)
     k = torch.square(torch.relu(torch.matmul(xk, p["wk"].to(dt))))
     kv = torch.matmul(k, p["wv"].to(dt))
+    if split:
+        kv = tp.exit(kv)
     r = torch.sigmoid(torch.matmul(xr, p["wr"].to(dt)))
     return r * kv, x[:, -1]

@@ -60,35 +60,59 @@ def _head_groupnorm(o, scale, bias, eps=64e-5):
     return (y * scale.float() + bias.float()).to(o.dtype)
 
 
+def _lerp(p, mu, x, prev):
+    m = p[mu].to(x.dtype)
+    return x * m + prev * (1 - m)
+
+
+def _gate(p, x, prev):
+    """The output gate silu(lerp_g @ wg), (B,S,d)."""
+    return F.silu(torch.matmul(_lerp(p, "mu_g", x, prev),
+                               p["wg"].to(x.dtype)))
+
+
 def _mix_proj(cfg, p, x, prev):
+    """(r, k, v, logw) of the heads ``p`` holds."""
     dt = x.dtype
-
-    def lerp(mu):
-        m = p[mu].to(dt)
-        return x * m + prev * (1 - m)
-
-    r = torch.einsum("bsd,dhk->bshk", lerp("mu_r"), p["wr"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", lerp("mu_k"), p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", lerp("mu_v"), p["wv"].to(dt))
-    g = F.silu(torch.matmul(lerp("mu_g"), p["wg"].to(dt)))
+    r = torch.einsum("bsd,dhk->bshk", _lerp(p, "mu_r", x, prev),
+                     p["wr"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", _lerp(p, "mu_k", x, prev),
+                     p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", _lerp(p, "mu_v", x, prev),
+                     p["wv"].to(dt))
     # data-dependent decay: logw = -exp(base + lora(x_w)), always < 0
-    lora = torch.matmul(lerp("mu_w"), p["w_lora_a"].to(dt))
+    lora = torch.matmul(_lerp(p, "mu_w", x, prev), p["w_lora_a"].to(dt))
     lora = torch.einsum("bsr,rhk->bshk", torch.tanh(lora),
                         p["w_lora_b"].to(dt))
     logw = -torch.exp(p["w_base"].float() + lora.float())
-    return r, k, v, g, logw
+    return r, k, v, logw
 
 
-def rwkv_tmix(cfg, p, x, carry=None):
+def rwkv_tmix(cfg, p, x, carry=None, tp=None):
     """x (B,S,d) -> (y, new_carry). carry = (x_last (B,d), state (B,H,dk,dk)).
 
     S is padded to a multiple of 16 for the chunked scan (a padded step
     has log-decay 0 and zero k and v, so the final state is the one after
-    the real steps) and the output cut back."""
+    the real steps) and the output cut back.
+
+    With ``tp`` (a `ModelGroup`) and ``p`` holding this rank's block of
+    the heads: the gate reads the whole ``wg`` outside the split region
+    (inside it, its gradient would be summed over the ranks); ``x``
+    enters the region, where ``wr``, ``wk``, ``wv`` and ``w_lora_b`` are
+    column-parallel, the decay, bonus, scan and head norm are each
+    head's own, and ``wo`` is row-parallel; ``tp.exit`` sums the output
+    before the gate multiplies it, as the reference gates the sum. The
+    lerps' ``mu_r``, ``mu_k``, ``mu_v``, ``mu_w`` and ``w_lora_a`` are
+    read whole inside the region ("partial")."""
     s = x.shape[1]
     x_last, state = carry if carry is not None else (None, None)
     prev = _token_shift(x, x_last)
-    r, k, v, g, logw = _mix_proj(cfg, p, x, prev)
+    g = _gate(p, x, prev)
+    split = tp is not None and p["wr"].shape[-2] < cfg.num_heads
+    if split:
+        x = tp.enter(x)
+        prev = _token_shift(x, x_last)
+    r, k, v, logw = _mix_proj(cfg, p, x, prev)
 
     pad = (-s) % 16
     if pad:  # chunk alignment
@@ -98,6 +122,8 @@ def rwkv_tmix(cfg, p, x, carry=None):
 
     o = _head_groupnorm(o, p["ln_scale"], p["ln_bias"])
     y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    if split:
+        y = tp.exit(y)
     y = y * g.to(y.dtype)
     return y, (x[:, -1], state)
 
@@ -106,7 +132,8 @@ def rwkv_tmix_step(cfg, p, x, carry):
     """Single-token decode. x (B,1,d); carry as in rwkv_tmix."""
     x_last, state = carry
     prev = x_last[:, None] if x_last is not None else torch.zeros_like(x)
-    r, k, v, g, logw = _mix_proj(cfg, p, x, prev)
+    g = _gate(p, x, prev)
+    r, k, v, logw = _mix_proj(cfg, p, x, prev)
     o, state = step_gla(r, k, v, logw, p["u"], state)
     o = _head_groupnorm(o, p["ln_scale"], p["ln_bias"])
     y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))

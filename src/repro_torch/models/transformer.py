@@ -131,7 +131,7 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
     new_cache = {}
     if mode == "encode":
         y = attn.self_attention(cfg, p["attn"], x, window=None, theta=theta,
-                                causal=False)
+                                causal=False, tp=tp)
     elif mode == "decode":
         y, ck, cv = attn.decode_self_attention(
             cfg, p["attn"], x, cache["k"], cache["v"], pos,
@@ -176,8 +176,8 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
             new_cache["cross_k"] = cache["cross_k"]
             new_cache["cross_v"] = cache["cross_v"]
         else:
-            ek, ev = attn.encode_kv(cfg, p["cross"], enc_out)
-            y = attn.cross_attention(cfg, p["cross"], x, ek, ev)
+            ek, ev = attn.encode_kv(cfg, p["cross"], enc_out, tp)
+            y = attn.cross_attention(cfg, p["cross"], x, ek, ev, tp)
             if mode == "prefill":
                 cdt = torch_dtype(cfg.cache_dtype)
                 new_cache["cross_k"] = ek.to(cdt)
@@ -220,7 +220,7 @@ def _apply_block(cfg, kind, p, h, mode, cache, pos, enc_out=None,
             carry = _write(cache, carry)
         else:
             y, carry = mamba2_block(cfg, p["mamba"], x,
-                                    None if mode == "train" else cache)
+                                    None if mode == "train" else cache, tp)
         return h + y, (carry if mode != "train" else None)
     if kind == "R":
         x = norm_apply(cfg, h, p["ln1"])
@@ -228,13 +228,13 @@ def _apply_block(cfg, kind, p, h, mode, cache, pos, enc_out=None,
         if mode == "decode":
             y, tcarry = rwkv_tmix_step(cfg, p["tmix"], x, tmix_carry)
         else:
-            y, tcarry = rwkv_tmix(cfg, p["tmix"], x, tmix_carry)
+            y, tcarry = rwkv_tmix(cfg, p["tmix"], x, tmix_carry, tp)
         h = h + y
         x = norm_apply(cfg, h, p["ln2"])
         # decode: the reference's inline channel mix is rwkv_cmix with the
         # carry as the shifted token (the same ops)
         y, ccarry = rwkv_cmix(cfg, p["cmix"], x,
-                              cache[1] if mode == "decode" else None)
+                              cache[1] if mode == "decode" else None, tp)
         h = h + y
         if mode == "train":
             return h, None
@@ -352,24 +352,28 @@ def _cast_tree(tree, dtype, name=None):
 # tensor parallelism over "model"
 
 
-def tensor_parallel_family(cfg) -> bool:
-    """Does the model compute split over "model" where the rules split its
-    leaves there? Its layers are G and L attention with the gated MLP or
-    MoE, and it has no encoder. rwkv6 (R), zamba2 (M, S) and whisper (the
-    encoder and cross attention) compute replicated over "model"."""
-    return set(cfg.layer_pattern) <= set("GL") and not cfg.encoder_layers
-
-
+_ATTN_PARTIAL = ("wq", ("q_norm", "k_norm", "wk", "wv", "bk", "bv"))
 # the leaves of a block read whole inside its split region, and the leaf
 # whose split opens the region
-_PARTIAL = {"attn": ("wq", ("q_norm", "k_norm", "wk", "wv", "bk", "bv")),
-            "moe": ("wi", ("router",))}
+_PARTIAL = {"attn": _ATTN_PARTIAL, "cross": _ATTN_PARTIAL,
+            "moe": ("wi", ("router",)),
+            "tmix": ("wr", ("mu_r", "mu_k", "mu_v", "mu_w", "w_lora_a")),
+            "mamba": ("wz", ("wB", "wC"))}
 # leaves split together or not at all (the key: the block; None: the top)
-_TOGETHER = {"attn": (("wq", "wo", "bq"), ("wk", "wv", "bk", "bv")),
+_ATTN_TOGETHER = (("wq", "wo", "bq"), ("wk", "wv", "bk", "bv"))
+_TOGETHER = {"attn": _ATTN_TOGETHER, "cross": _ATTN_TOGETHER,
              "mlp": (("wi", "wg", "wo"),),
              "moe": (("wi", "wg", "wo", "shared_wi", "shared_wg",
                       "shared_wo"),),
+             "tmix": (("wr", "wk", "wv", "wo", "w_lora_b", "w_base", "u",
+                       "ln_scale", "ln_bias"),),
+             "cmix": (("wk", "wv"),),
+             "mamba": (("wz", "wx", "conv_w", "conv_b", "norm_scale", "wdt",
+                        "dt_bias", "A_log", "D", "wo"),),
              None: (("embed", "lm_head"),)}
+# blocks held whole where the rules split only some of their group: the
+# mamba block where d_inner divides over "model" but its heads do not
+_WHOLE_UNLESS_ALL = frozenset({"mamba"})
 
 
 def _check_together(plan) -> None:
@@ -381,8 +385,8 @@ def _check_together(plan) -> None:
             if len(split) > 1:
                 raise ValueError(f"the rules split some of {names} over "
                                  "'model' and not the others")
-        if key == "attn" and isinstance(node["wk"], int) > isinstance(
-                node["wq"], int):
+        if key in ("attn", "cross") and isinstance(
+                node["wk"], int) > isinstance(node["wq"], int):
             raise ValueError("the rules split the kv heads over 'model' "
                              "but not the q heads")
         for k, v in node.items():
@@ -472,20 +476,27 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def rescale_qk_to_fan_in(self) -> None:
-        """Rescale every attention's wq and wk (d, heads, head_dim) from
-        the reference's std, 1/sqrt(heads) (its fan-in is a spec's
+        """Rescale every attention's wq and wk (d, heads, head_dim), self
+        and cross, and every rwkv6 time mix's receptance and key wr and wk
+        (its queries and keys, (d, heads, head_dim) too), from the
+        reference's std, 1/sqrt(heads) (its fan-in is a spec's
         second-to-last dim), to that of their true fan-in, 1/sqrt(d).
         At the reference's init the attention scores of the published
         widths reach the hundreds (qwen2-0.5b ~700), and the gradient
         norm grows ~10x a layer (1e15 at qwen2-0.5b's 24 layers, in the
         reference as here), so that clipping to 1 leaves all but the
         largest entries below AdamW's eps; with true fan-in the scores
-        are O(1) and the gradient norm stays O(10) at every depth."""
-        heads = {"wq": self.cfg.num_heads, "wk": self.cfg.num_kv_heads}
+        are O(1) and the gradient norm stays O(10) at every depth. The
+        channel mix's wk (d, d_ff) is a plain matrix and stays."""
+        cfg = self.cfg
+        attn_heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads}
+        heads = {"attn": attn_heads, "cross": attn_heads,
+                 "tmix": {"wr": cfg.num_heads, "wk": cfg.num_heads}}
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in heads:  # the whole leaf's heads, also of a block
-                p.mul_(math.sqrt(heads[leaf] / p.shape[-3]))
+            block, _, leaf = name.rpartition(".")
+            n = heads.get(block.rpartition(".")[2], {}).get(leaf)
+            if n:  # the whole leaf's heads, also of a block
+                p.mul_(math.sqrt(n / p.shape[-3]))
 
     # ---------------------- tensor parallelism -----------------------
     def model_split(self, rules, mesh) -> dict:
@@ -495,11 +506,12 @@ class TransformerLM(nn.Module):
         it); "partial", held whole but read inside a split region, so that
         each rank's gradient is its share of the whole (q_norm and k_norm
         under split q heads, wk, wv, bk and bv where the kv heads stay
-        whole, the MoE router under split experts); else "whole". Every
-        leaf is "whole" outside `tensor_parallel_family`."""
+        whole, in self and cross attention, the MoE router under split
+        experts, rwkv6's lerps and decay LoRA-in under split heads,
+        mamba2's wB and wC under a split d_inner); else "whole". A mamba
+        block whose d_inner divides over "model" but whose heads do not is
+        held whole."""
         specs = self.param_specs()
-        if not tensor_parallel_family(self.cfg):
-            return tree_map_specs(lambda path, ps: "whole", specs)
 
         def dim(ps):
             for i, e in enumerate(spec_for(ps, rules, mesh)):
@@ -511,14 +523,17 @@ class TransformerLM(nn.Module):
             return None
 
         def one(path, ps):
-            d = dim(ps)
-            if d is not None:
-                return d
             block = specs
             for k in path[:-1]:
                 block = block[k]
-            opens, partial = _PARTIAL.get(path[-2] if len(path) > 1
-                                          else None, (None, ()))
+            name = path[-2] if len(path) > 1 else None
+            if name in _WHOLE_UNLESS_ALL and any(
+                    dim(block[n]) is None for n in _TOGETHER[name][0]):
+                return "whole"
+            d = dim(ps)
+            if d is not None:
+                return d
+            opens, partial = _PARTIAL.get(name, (None, ()))
             if path[-1] in partial and dim(block[opens]) is not None:
                 return "partial"
             return "whole"
@@ -637,7 +652,8 @@ class TransformerLM(nn.Module):
         h = frames + torch.from_numpy(table).to(frames.device, frames.dtype)
 
         def layer(h, p):
-            h, _ = _apply_attn_block(cfg, p, h, "G", "encode", None, 0)
+            h, _ = _apply_attn_block(cfg, p, h, "G", "encode", None, 0,
+                                     tp=self.tp)
             return h, None
 
         run = _remat(cfg, layer) if _autograd(mode) else layer

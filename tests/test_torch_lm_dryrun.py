@@ -14,13 +14,14 @@ step run for real.
   counters around the same step run on the CPU, reduced configs of each
   family, in each mode; ``model_flops`` is the reference's formula
   (``benchmarks/roofline.py``, restated).
-* Tensor parallelism over "model": a train cell of a family the port
-  computes split there records ``"model_axis": "tensor"``; a reduced
-  config's cell on a (2, 2) `ShapeMesh` has the FLOPs and the operand
-  bytes of the all_reduces over "model" that rank 0's step on 4 gloo
-  ranks recorded (`test_torch_mesh_train`'s run, shared through its
-  ``runs`` fixture); qwen2-0.5b's train_4k on (16, 16) counts its d_ff
-  and vocabulary products at 1/16.
+* Tensor parallelism over "model": every train cell records
+  ``"model_axis": "tensor"``; a reduced config's cell on a (2, 2)
+  `ShapeMesh` (qwen2-0.5b, gemma3-1b, zamba2-7b, whisper-base) has the
+  FLOPs and the operand bytes of the all_reduces over "model" that rank
+  0's step on 4 gloo ranks recorded (`test_torch_mesh_train`'s run,
+  shared through its ``runs`` fixture); qwen2-0.5b's train_4k on (16,
+  16) counts its d_ff and vocabulary products at 1/16, and rwkv6-3b's
+  splits its channel mix and vocabulary and not its time mix.
 * `run_cell` at full width, one cell a mode; the sweep's resume, its
   contained failures and its exit code; `card_check` refuses to run
   without a card.
@@ -50,7 +51,6 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import dryrun, sweep
 from repro_torch.launch.mesh import ShapeMesh
 from repro_torch.launch.specs import SHAPES, ShapeCase, cell_runnable
-from repro_torch.models.transformer import tensor_parallel_family
 from test_torch_mesh_train import BATCH, COUNTED, SEQ, _port_config, runs
 
 MESHES = {"single_pod": ((16, 16), ("data", "model")),
@@ -215,8 +215,7 @@ def check_record(rec, mesh):
     for k in ("flops", "bytes_accessed", "model_flops", "compute_s",
               "memory_s"):
         assert math.isfinite(cost[k]) and cost[k] > 0, k
-    tensor = rec["mode"] == "train" and tensor_parallel_family(
-        get_config(rec["arch"]))
+    tensor = rec["mode"] == "train"
     assert cost["model_axis"] == ("tensor" if tensor else "replicated")
     assert (cost["model_all_reduce_bytes"] > 0) == (tensor
                                                     and mesh != "one_card")
@@ -235,13 +234,17 @@ def check_record(rec, mesh):
 def test_meta_cell_has_the_flops_and_model_bytes_of_rank0s_step(
         runs, arch, optimizer):
     """The reduced config's train cell on a (2, 2) ShapeMesh, 4 x 40
-    tokens: the model at rank 0's blocks along "model", its step on meta
-    has the FLOPs and the all_reduce operand bytes over "model" that rank
-    0's first tensor-parallel step on 4 gloo ranks counted (gemma3-1b's
-    one kv head whole, qwen2-0.5b's two split)."""
+    tokens (whisper's train shape of 80 positions: 4 x 40 tokens and 4 x
+    40 frames): the model at rank 0's blocks
+    along "model", its step on meta has the FLOPs and the all_reduce
+    operand bytes over "model" that rank 0's first tensor-parallel step
+    on 4 gloo ranks counted (gemma3-1b's one kv head whole, qwen2-0.5b's
+    two split; zamba2-7b's mamba blocks and shared attention block,
+    whisper-base's encoder and cross attention)."""
     counts = runs["infos"][0]["counts"][f"{arch}-{optimizer}"]
+    seq = 2 * SEQ if _port_config(arch).encoder_layers else SEQ
     cell = dryrun.build_cell(
-        arch, ShapeCase("mesh_train", SEQ, BATCH, "train"),
+        arch, ShapeCase("mesh_train", seq, BATCH, "train"),
         ShapeMesh((2, 2), ("data", "model")), cfg=_port_config(arch),
         optimizer=optimizer)
     assert cell.rows == BATCH // 2 and cell.model_axis == "tensor"
@@ -269,6 +272,32 @@ def test_train_4k_counts_d_ff_and_vocab_products_at_a_sixteenth():
     plan = split.model.split_plan
     assert plan["blocks"]["0"]["attn"]["wq"] == "whole"
     assert plan["blocks"]["0"]["mlp"]["wi"] == 2 and plan["embed"] == 0
+    assert (dryrun.cell_cost(split)["flops"]
+            == dryrun.cell_cost(whole)["flops"])
+
+
+def test_rwkv6_train_4k_splits_the_channel_mix_and_vocab_not_the_time_mix():
+    """rwkv6-3b's train_4k on (16, 16), at 2 of its 32 layers: its 40 heads
+    do not divide over 16, so the time mix stays whole; its d_ff (8960)
+    and vocabulary (65536) split 16 ways, so its step's FLOPs are those of
+    the step with nothing split over "model" at d_ff / 16 and vocab /
+    16."""
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=2)
+    split = dryrun.build_cell("rwkv6-3b", "train_4k", "single_pod", cfg=cfg)
+    plan = split.model.split_plan
+    assert split.model_axis == "tensor"
+    assert set(tree_leaves(plan["blocks"]["0"]["tmix"])) == {"whole"}
+    assert plan["blocks"]["0"]["cmix"] == {"wk": 2, "wv": 1, "mu_k": "whole",
+                                           "mu_r": "whole", "wr": "whole"}
+    assert plan["embed"] == 0 and plan["lm_head"] == 1
+    none = dryrun.ShardingRules.default().with_overrides(
+        heads=None, kv_heads=None, d_ff=None, vocab=None)
+    whole = dryrun.build_cell(
+        "rwkv6-3b", "train_4k", "single_pod", rules=none,
+        cfg=dataclasses.replace(cfg, d_ff=cfg.d_ff // 16,
+                                vocab_size=cfg.vocab_size // 16))
+    assert whole.model_axis == "replicated"
     assert (dryrun.cell_cost(split)["flops"]
             == dryrun.cell_cost(whole)["flops"])
 

@@ -55,28 +55,33 @@ def rel(got, want) -> float:
                  / (np.abs(want).max() or 1.0))
 
 
+# the queries and keys (..., d, heads, head_dim) of each block kind:
+# attention's (self and cross) and rwkv6's time mix's receptance and key
+QK = {"attn": ("wq", "wk"), "cross": ("wq", "wk"), "tmix": ("wr", "wk")}
+
+
 def ref_tree(ref_model, seed=0, conditioned=False):
     """The reference's parameters as numpy, biases and norm scales
-    redrawn around their initial values. ``conditioned``: the attention
-    projections wq and wk rescaled to the std of their true fan-in,
-    1/sqrt(d_model) (the reference draws them with 1/sqrt(heads)), so
-    that the attention scores are O(1) and not O(50) (see CONDITIONED)."""
+    redrawn around their initial values. ``conditioned``: the queries and
+    keys (QK) rescaled to the std of their true fan-in, 1/sqrt(d_model)
+    (the reference draws them with 1/sqrt(heads)), so that the attention
+    scores are O(1) and not O(50) (see CONDITIONED)."""
     specs = ref_model.param_specs()
     tree = jax.tree.map(np.asarray, ref_init_params(
         specs, jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed + 1)
 
-    def draw(node, spec, name):
+    def draw(node, spec, block, name):
         if isinstance(spec, dict):
-            return {k: draw(node[k], spec[k], k) for k in node}
+            return {k: draw(node[k], spec[k], name, k) for k in node}
         if spec.init in ("zeros", "ones"):
             return (node + 0.1 * rng.standard_normal(node.shape)).astype(
                 np.float32)
-        if conditioned and name in ("wq", "wk"):  # (..., d, heads, hd)
+        if conditioned and name in QK.get(block, ()):
             return (node * np.sqrt(node.shape[-2] / node.shape[-3])).astype(
                 np.float32)
         return node
-    return draw(tree, specs, None)
+    return draw(tree, specs, None, None)
 
 
 def cache_leaves(caches):

@@ -18,21 +18,23 @@ started together:
   group on `make_host_mesh(model_axis=2)`'s (2, 2) mesh: the
   tensor-parallel step the default rules make, and the replicated step
   of the rules with heads, kv_heads, d_ff and vocab overridden to None;
-  then on (4, 1), and qwen3-0.6b on (1, 4) (its 4 q heads split, its 2
-  kv heads whole), against the reference's step on a (1, 4) mesh;
+  then on (4, 1), and qwen3-0.6b, zamba2-7b and whisper-base on (1, 4)
+  (their 4 q heads split, their 2 kv heads whole), against the
+  reference's step on a (1, 4) mesh;
 * one process of the port alone (``... single <dir>``) on a world-size-1
   group: the (1, 1) mesh against the one-device trainer, and the restore
-  onto (1, 1) and onto no mesh.
+  onto (1, 1) and onto no mesh, of qwen2-0.5b's state and of a split
+  zamba2-7b's.
 
 The parameters of both packages are the reference's ``init_params`` with
 its biases and norm scales redrawn and, where its init is chaotic, wq and
 wk at their true fan-in (`repro_torch.models.conditioning`), carried over
 by `models/convert.py`; the MoE configs compute in float64. The batches
-(4 x 40 tokens, with a loss mask of a different density a row) come from
-a numpy seed. The reference's process makes these inputs first and the
-port's processes wait for them. Under xdist the first worker to take a
-lock runs all of it
-and the others read its results. Every process group has a 60 s timeout
+(4 x 40 tokens, with a loss mask of a different density a row, and
+whisper's 4 x 40 frames) come from a numpy seed. The reference's
+process makes these inputs first and the port's processes wait for
+them. Under xdist the first worker to take a lock runs all of it and
+the others read its results. Every process group has a 60 s timeout
 and the subprocesses a bound, so a stuck collective fails the module,
 never the whole run. The workers import no JAX.
 """
@@ -56,13 +58,16 @@ WORLD = 4
 # grad_accum 2 (`trainer_config`), and AdamW at grad_accum 2 (`ACCUM`)
 TRAIN = [("qwen2-0.5b", "adamw"), ("gemma3-1b", "adamw"),
          ("mixtral-8x22b", "adafactor"), ("gemma3-1b", "sgd"),
-         ("qwen3-0.6b", "adamw")]
+         ("qwen3-0.6b", "adamw"), ("rwkv6-3b", "adamw"),
+         ("zamba2-7b", "adamw"), ("whisper-base", "adamw")]
 ACCUM = {("qwen3-0.6b", "adamw"): 2}
-# the (1, 4) case: q heads split over "model", kv heads whole
+# the (1, 4) cases: q heads split over "model", kv heads whole
 TP14 = ("qwen3-0.6b", "adamw")
+FAMILIES14 = [("zamba2-7b", "adamw"), ("whisper-base", "adamw")]
 # the cases whose rank-0 step records its FLOPs and its all_reduce bytes
 # over "model" (test_torch_lm_dryrun holds the meta cell to them)
-COUNTED = [("qwen2-0.5b", "adamw"), ("gemma3-1b", "adamw")]
+COUNTED = [("qwen2-0.5b", "adamw"), ("gemma3-1b", "adamw"),
+           ("zamba2-7b", "adamw"), ("whisper-base", "adamw")]
 # the (1, 1) mesh against one device, bit for bit: the first three of
 # TRAIN and accumulated, compressed SGD
 SINGLE = TRAIN[:3] + [("qwen2-0.5b", "sgd")]
@@ -70,23 +75,40 @@ MOE = ["mixtral-8x22b", "llama4-scout-17b-a16e"]
 STEPS, BATCH, SEQ, LR = 2, 4, 40, 1e-3
 MOE_SHAPE = (4, 16)  # (batch, seq) of moe_ep's global input
 CKPT_ARCH = "qwen2-0.5b"
-# the reference's launch/dryrun.py BATCH_AXES, with the loss mask
-BATCH_AXES = {"tokens": ("batch", "seq"), "loss_mask": ("batch", "seq")}
+SPLIT_CKPT_ARCH = "zamba2-7b"  # a state saved from a model split over "model"
+# the reference's launch/dryrun.py BATCH_AXES, with the loss mask (the
+# keys a batch has)
+BATCH_AXES = {"tokens": ("batch", "seq"), "loss_mask": ("batch", "seq"),
+              "frames": ("batch", None, None)}
 TOL_METRIC = 1e-5  # |port - ref| / |ref| of each step's loss and grad norm
+# ... but zamba2-7b's grad norm after its first AdamW step, held at the
+# reference's own spread between its (2, 2) and (1, 4) steps in the same
+# run, where that is larger (measured 5.7e-5; see
+# test_mesh_steps_match_the_reference): arch -> [(step, metric)]
+SPREAD = {"zamba2-7b": [(1, 1)]}
+SPREAD_CAP = 1e-4  # the reference's own spread there stays below this
 # after step 2, max |port - ref| / max |ref| of a leaf: adafactor's
 # parameters, and every optimizer-state leaf at the bound of its config;
-# AdamW's parameters within 0.2 lr (see test_mesh_steps_match_the_reference)
+# AdamW's parameters within 0.2 lr, or for the configs of ADAMW_LR_BOUND
+# all but fewer than ADAMW_FLIP_SHARE of a leaf's entries within 0.2 lr
+# and the rest within the config's lr bound (see
+# test_mesh_steps_match_the_reference)
 TOL_PARAM = 1e-4
 STATE_BOUND = {"qwen2-0.5b": 1e-4, "gemma3-1b": 1e-4, "mixtral-8x22b": 1e-3,
-               "qwen3-0.6b": 1e-4}
+               "qwen3-0.6b": 1e-4, "rwkv6-3b": 3e-3, "zamba2-7b": 5e-3,
+               "whisper-base": 1e-4}
 TOL_ADAMW_LR = 0.2
+ADAMW_LR_BOUND = {"rwkv6-3b": 1.0, "zamba2-7b": 2.0}
+ADAMW_FLIP_SHARE = 1e-3
 TOL_MOE = 1e-5     # max |port - ref| / max |ref|, forward and input grad
 # the input gradient entries a bf16 rounding flip reaches (test_moe_ep_...)
 MOE_FLIP_SHARE, MOE_FLIP_BOUND = 0.01, 2.0 ** -8
 # an entry of compressed SGD's state that moved by more than this share of
 # its leaf's quantization levels was flipped (check_flips)
 FLIP_FLOOR = 0.1
-BOUND_S = 240
+# the subprocesses' bound: ~110-140 s alone with the rwkv6, zamba2 and
+# whisper cases, more beside the other test files' processes
+BOUND_S = 420
 
 
 def trainer_config(optimizer: str, **kw):
@@ -134,7 +156,7 @@ def batches(tmp: Path, arch: str, accum: int = 1) -> list:
     data = np.load(tmp / f"batches_{arch}.npz")
     out = []
     for i in range(STEPS):
-        b = {k: data[f"{k}_{i}"] for k in BATCH_AXES}
+        b = {k: data[f"{k}_{i}"] for k in BATCH_AXES if f"{k}_{i}" in data}
         if accum > 1:
             b = {k: v.reshape(accum, BATCH // accum, *v.shape[1:])
                  for k, v in b.items()}
@@ -168,6 +190,10 @@ def _inputs(tmp: Path) -> None:
         for i in range(STEPS):
             out[f"tokens_{i}"] = train_batch(cfg, seed=i, batch=BATCH,
                                              seq=SEQ)["tokens"]
+            if cfg.encoder_layers:  # as many frames as tokens, as the
+                # dryrun's train shapes have them
+                out[f"frames_{i}"] = rng.standard_normal(
+                    (BATCH, SEQ, cfg.d_model)).astype(np.float32)
             # row r keeps ~(r + 1) / (BATCH + 1) of its positions
             keep = (np.arange(1, BATCH + 1) / (BATCH + 1))[:, None]
             out[f"loss_mask_{i}"] = (rng.random((BATCH, SEQ)) < keep).astype(
@@ -216,6 +242,12 @@ def _reference(tmp: Path) -> None:
                if arch in FLOAT64 else {})
         return get_config(arch).reduced(**cut)
 
+    def batch_shardings(mesh, b):
+        # microbatches lead, unsharded, ahead of the batch rule's spec
+        return {k: NamedSharding(mesh, resolve_pspec(
+            v.shape, (None,) * (v.ndim - len(BATCH_AXES[k])) + BATCH_AXES[k],
+            rules, mesh)) for k, v in b.items()}
+
     ckpt_like = None
     for arch, optimizer in TRAIN:
         name = tag(arch, optimizer)
@@ -231,16 +263,12 @@ def _reference(tmp: Path) -> None:
                 state["errors"] = init_error_state(params)
             state_sh = state_shardings(model, state, rules, mesh)
             state = jax.device_put(state, state_sh)
-            # microbatches lead, unsharded, ahead of the batch rule's spec
-            lead = (tc.grad_accum,) if tc.grad_accum > 1 else ()
-            fn = jax.jit(step_fn, in_shardings=(state_sh, {
-                k: NamedSharding(mesh, resolve_pspec(
-                    lead + (BATCH // tc.grad_accum, SEQ),
-                    (None,) * len(lead) + BATCH_AXES[k], rules, mesh))
-                for k in BATCH_AXES}), out_shardings=(
+            bs = batches(tmp, arch, tc.grad_accum)
+            fn = jax.jit(step_fn, in_shardings=(
+                state_sh, batch_shardings(mesh, bs[0])), out_shardings=(
                     state_sh, {"loss": rep, "grad_norm": rep, "lr": rep}))
             metrics = []
-            for b in batches(tmp, arch, tc.grad_accum):
+            for b in bs:
                 state, m = fn(state, {k: jnp.asarray(v) for k, v in b.items()})
                 metrics.append([float(m["loss"]), float(m["grad_norm"]),
                                 float(m["lr"])])
@@ -257,36 +285,34 @@ def _reference(tmp: Path) -> None:
                     lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), state),
                     state_sh)
 
-    # qwen3-0.6b on (1, 4): its 4 q heads split, its 2 kv heads whole
-    arch, optimizer = TP14
+    # qwen3-0.6b, zamba2-7b and whisper-base on (1, 4): their 4 q heads
+    # split, their 2 kv heads whole
     mesh14 = Mesh(np.asarray(jax.devices()).reshape(1, 4), ("data", "model"))
-    name = tag(arch, optimizer) + "-14"
-    model = TransformerLM(ref_config(arch))
-    tc = TrainerConfig(**train_config(arch, optimizer))
-    opt, step_fn = make_train_step(model, tc)
-    params = jax.tree.map(jnp.asarray, load_params(tmp, arch,
-                                                   model.param_specs()))
-    state = {"params": params, "opt_state": opt.init(params),
-             "step": jnp.zeros((), jnp.int32)}
-    state_sh = state_shardings(model, state, rules, mesh14)
-    state = jax.device_put(state, state_sh)
-    lead = (tc.grad_accum,) if tc.grad_accum > 1 else ()
     rep14 = NamedSharding(mesh14, P())
-    fn = jax.jit(step_fn, in_shardings=(state_sh, {
-        k: NamedSharding(mesh14, resolve_pspec(
-            lead + (BATCH // tc.grad_accum, SEQ),
-            (None,) * len(lead) + BATCH_AXES[k], rules, mesh14))
-        for k in BATCH_AXES}), out_shardings=(
-            state_sh, {"loss": rep14, "grad_norm": rep14, "lr": rep14}))
-    metrics = []
-    for b in batches(tmp, arch, tc.grad_accum):
-        state, m = fn(state, {k: jnp.asarray(v) for k, v in b.items()})
-        metrics.append([float(m["loss"]), float(m["grad_norm"]),
-                        float(m["lr"])])
-    res[f"metrics_{name}"] = np.array(metrics)
-    for part in ("params", "opt_state"):
-        for i, leaf in enumerate(jax.tree.leaves(state[part])):
-            res[f"{part}_{name}_{i}"] = np.asarray(leaf)
+    for arch, optimizer in [TP14] + FAMILIES14:
+        name = tag(arch, optimizer) + "-14"
+        model = TransformerLM(ref_config(arch))
+        tc = TrainerConfig(**train_config(arch, optimizer))
+        opt, step_fn = make_train_step(model, tc)
+        params = jax.tree.map(jnp.asarray, load_params(
+            tmp, arch, model.param_specs()))
+        state = {"params": params, "opt_state": opt.init(params),
+                 "step": jnp.zeros((), jnp.int32)}
+        state_sh = state_shardings(model, state, rules, mesh14)
+        state = jax.device_put(state, state_sh)
+        bs = batches(tmp, arch, tc.grad_accum)
+        fn = jax.jit(step_fn, in_shardings=(
+            state_sh, batch_shardings(mesh14, bs[0])), out_shardings=(
+                state_sh, {"loss": rep14, "grad_norm": rep14, "lr": rep14}))
+        metrics = []
+        for b in bs:
+            state, m = fn(state, {k: jnp.asarray(v) for k, v in b.items()})
+            metrics.append([float(m["loss"]), float(m["grad_norm"]),
+                            float(m["lr"])])
+        res[f"metrics_{name}"] = np.array(metrics)
+        for part in ("params", "opt_state"):
+            for i, leaf in enumerate(jax.tree.leaves(state[part])):
+                res[f"{part}_{name}_{i}"] = np.asarray(leaf)
 
     # moe_ep under shard_map: experts over "model", tokens over "data"
     for arch in MOE:
@@ -327,7 +353,7 @@ def _reference(tmp: Path) -> None:
     (tmp / "ref.json").write_text(json.dumps(info))
 
 
-def _wait_for(path: Path, timeout: float = 180.0) -> None:
+def _wait_for(path: Path, timeout: float = BOUND_S) -> None:
     t0 = time.monotonic()
     while not path.exists():
         if time.monotonic() - t0 > timeout:
@@ -504,16 +530,18 @@ def _worker(rank: int, tmp: Path) -> None:
             *_, counts = _mesh_run(tmp, arch, optimizer, mesh, counted=True)
             info.setdefault("counts", {})[tag(arch, optimizer)] = counts
 
-        # qwen3-0.6b on (1, 4): every rank's q head block, kv heads whole
+        # qwen3-0.6b, zamba2-7b and whisper-base on (1, 4): every rank's q
+        # head block, kv heads whole
         mesh14 = init_device_mesh("cpu", (1, 4),
                                   mesh_dim_names=("data", "model"))
-        name = tag(*TP14) + "-14"
-        _, state, hist, _ = _mesh_run(tmp, *TP14, mesh14)
-        res[f"metrics_{name}"] = np.array(
-            [[h["loss"], h["grad_norm"], h["lr"]] for h in hist])
-        for part in ("params", "opt_state"):
-            for i, leaf in enumerate(tree_leaves(state[part])):
-                res[f"{part}_{name}_{i}"] = leaf.full_tensor().numpy()
+        for arch, optimizer in [TP14] + FAMILIES14:
+            name = tag(arch, optimizer) + "-14"
+            _, state, hist, _ = _mesh_run(tmp, arch, optimizer, mesh14)
+            res[f"metrics_{name}"] = np.array(
+                [[h["loss"], h["grad_norm"], h["lr"]] for h in hist])
+            for part in ("params", "opt_state"):
+                for i, leaf in enumerate(tree_leaves(state[part])):
+                    res[f"{part}_{name}_{i}"] = leaf.full_tensor().numpy()
 
         # the elastic restore: one step on (2, 2), saved; restored onto
         # (4, 1), which takes the second step
@@ -525,6 +553,15 @@ def _worker(rank: int, tmp: Path) -> None:
         tr.run(tr.init_state(), iter(batches(tmp, CKPT_ARCH)[:1]), 1)
         info["latest"] = tr.ckpt.latest()
         info["saves"] = [s["step"] for s in tr.ckpt.saves]
+        # a state saved from a model split over "model" (its blocks
+        # gathered into global arrays)
+        tcz = TrainerConfig(**trainer_config(
+            "adamw", ckpt_dir=str(tmp / "ckpt_split"), ckpt_every=1))
+        trz = Trainer(_port_model(tmp, SPLIT_CKPT_ARCH), tcz, mesh=mesh)
+        trz.run(trz.init_state(),
+                iter(batches(tmp, SPLIT_CKPT_ARCH)[:1]), 1)
+        info["split_ckpt_leaves"] = sum(
+            isinstance(h, int) for h in tree_leaves(trz.model.split_plan))
         dist.barrier()
         if rank == 0:
             (tmp / "ckpt_saved").write_text("ok")
@@ -539,6 +576,12 @@ def _worker(rank: int, tmp: Path) -> None:
             tuple(x.placements) == s.placements for x, s in zip(
                 tree_leaves(state), tree_leaves(state_shardings(
                     tr41.model, state, tr41.rules, mesh41))))
+        trz41 = Trainer(_port_model(tmp, SPLIT_CKPT_ARCH), tcz, mesh=mesh41)
+        state_z = trz41.restore_or_init()
+        info["split_restored_41_step"] = int(state_z["step"])
+        info["split_restored_41_equal"] = _blocks_equal_files(
+            state_z, tmp / "ckpt_split" / "step_00000001")
+        del state_z
         state, m = tr41._step_fn(state, {
             k: torch.from_numpy(v)
             for k, v in batches(tmp, CKPT_ARCH)[1].items()})
@@ -660,6 +703,14 @@ def _single(tmp: Path) -> None:
             info[f"restored_{name}_step"] = int(state["step"])
             info[f"restored_{name}_equal"] = _blocks_equal_files(
                 state, ckpt / "step_00000001")
+        tcz = TrainerConfig(**trainer_config(
+            "adamw", ckpt_dir=str(tmp / "ckpt_split")))
+        for name, m in (("11", mesh), ("none", None)):
+            tr = Trainer(_port_model(tmp, SPLIT_CKPT_ARCH), tcz, mesh=m)
+            state = tr.restore_or_init()
+            info[f"split_restored_{name}_step"] = int(state["step"])
+            info[f"split_restored_{name}_equal"] = _blocks_equal_files(
+                state, tmp / "ckpt_split" / "step_00000001")
         (tmp / "single.json").write_text(json.dumps(info))
     finally:
         dist.destroy_process_group()
@@ -703,7 +754,8 @@ def runs(tmp_path_factory):
 
 
 def _run_all_sides(tmp: Path) -> None:
-    base = {**os.environ, "OMP_NUM_THREADS": "1",
+    # a crash of a subprocess prints its Python stack to its log
+    base = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONFAULTHANDLER": "1",
             "PYTHONPATH": os.pathsep.join(
                 [str(ROOT / "src"), str(ROOT / "tests"),
                  os.environ.get("PYTHONPATH", "")])}
@@ -747,19 +799,48 @@ def rel(got, want) -> float:
 # the sharded steps against the reference's
 
 
+def reference_spread(ref: dict, arch: str) -> np.ndarray:
+    """(STEPS, 3): |(2, 2) - (1, 4)| / |(2, 2)| of the reference's own
+    steps of ``arch`` (AdamW) in this run."""
+    a, b = ref[f"metrics_{tag(arch, 'adamw')}"], ref[
+        f"metrics_{tag(arch, 'adamw')}-14"]
+    return np.abs(a - b) / np.abs(a)
+
+
+def metric_bounds(arch: str, ref: dict) -> np.ndarray:
+    """(STEPS, 3): each step's bound on |port - ref| / |ref| of the loss,
+    grad norm and lr: TOL_METRIC, but at the (step, metric)s of SPREAD
+    the reference's own spread between its meshes where that is
+    larger."""
+    out = np.full((STEPS, 3), TOL_METRIC)
+    if arch in SPREAD:
+        spread = reference_spread(ref, arch)
+        for at in SPREAD[arch]:
+            out[at] = max(TOL_METRIC, spread[at])
+    return out
+
+
 def check_leaves(got: dict, ref: dict, key: str, bound: float,
-                 adamw: bool = False) -> None:
+                 adamw: bool = False, flip_lr: float | None = None
+                 ) -> None:
     """The leaves ``<key>_<i>`` of ``got`` against ``ref``'s: within
-    ``bound`` of the leaf's max |ref|, or (``adamw``) within
-    TOL_ADAMW_LR * LR of it."""
+    ``bound`` of the leaf's max |ref|, or (``adamw``) every entry within
+    TOL_ADAMW_LR * LR of it; with ``flip_lr`` all but fewer than
+    ADAMW_FLIP_SHARE of a leaf's entries within TOL_ADAMW_LR * LR, and
+    those within ``flip_lr`` * LR."""
     n = len([k for k in ref if k.startswith(f"{key}_")])
     assert n and n == len([k for k in got if k.startswith(f"{key}_")])
     for i in range(n):
         g, w = got[f"{key}_{i}"], ref[f"{key}_{i}"]
         assert g.shape == w.shape and g.dtype == w.dtype
         if adamw:
-            diff = np.abs(g.astype(np.float64) - w).max()
-            assert diff <= TOL_ADAMW_LR * LR, i
+            diff = np.abs(g.astype(np.float64) - w)
+            if flip_lr is None:
+                assert diff.max() <= TOL_ADAMW_LR * LR, i
+            else:
+                flips = int((diff > TOL_ADAMW_LR * LR).sum())
+                assert flips < ADAMW_FLIP_SHARE * diff.size, (i, flips)
+                assert diff.max() <= flip_lr * LR, i
         else:
             assert rel(g, w) < bound, i
 
@@ -795,7 +876,16 @@ def check_flips(got: dict, ref: dict, key: str, levels) -> None:
 @pytest.mark.parametrize("arch,optimizer", TRAIN)
 def test_mesh_steps_match_the_reference(runs, arch, optimizer):
     """Each step's loss, grad norm and lr within 1e-5 of the reference's
-    sharded step (measured at most 1.9e-6), on every rank.
+    sharded step (measured at most 1.9e-6 for the G/L families; rwkv6-3b
+    6.3e-6, whisper-base 1.5e-7, zamba2-7b's first step 3.6e-6), on every
+    rank; zamba2-7b's grad norm after its first step (measured 2.2e-5)
+    within the reference's own steps' spread there, its (2, 2) against
+    its (1, 4) in this run (SPREAD; measured 5.7e-5, its (2, 2) and
+    (4, 1) 2.3e-5): TOL_METRIC is not met there, by the reference
+    either. AdamW's first update moves an entry whose gradient is within
+    rounding of zero by +-lr on its sign, and zamba2's gradient at the
+    moved parameters follows them: its grad norm falls 13% in that one
+    step.
 
     After step 2 every optimizer-state leaf within STATE_BOUND of its max:
     AdamW's moments measured 4.6e-5 (qwen2-0.5b), 5.2e-5 (gemma3-1b) and
@@ -809,7 +899,19 @@ def test_mesh_steps_match_the_reference(runs, arch, optimizer):
     zero moves by up to 2 lr on a rounding: its parameters are held within
     0.2 lr (measured 0.110 lr for qwen2-0.5b, 0.038 lr for gemma3-1b and
     0.015 lr for qwen3-0.6b; the reference's own unsharded step differs
-    from its sharded one by 0.053 lr and 0.106 lr). Compressed SGD's
+    from its sharded one by 0.053 lr and 0.106 lr). rwkv6-3b, unconditioned
+    (it has no wq or wk), and zamba2-7b are held at the reference's own
+    spread between its meshes: its (2, 2) and (1, 4) steps differ by 9.9e-4
+    and 1.5e-3 in the moments and 0.27 lr and 1.42 lr in the parameters,
+    and the port measured 1.1e-3 and 1.3e-3 (2.7e-3 on (1, 4)), 0.47 lr
+    and 1.43 lr: STATE_BOUND 3e-3 and 5e-3. Their parameters are held as
+    flips: in every leaf all but fewer than ADAMW_FLIP_SHARE 1e-3 of the
+    entries within 0.2 lr (measured at most 5e-5 of a leaf, 1-3 entries
+    of 32768-65536 in 2 of 26 and 2 of 70 leaves), those within
+    ADAMW_LR_BOUND 1 lr and 2 lr, a sign flipped by a rounding; an update
+    dropped or applied twice moves every entry of its leaf by about lr.
+    whisper-base's moments measured
+    9.2e-6 and its parameters 0.018 lr. Compressed SGD's
     momentum and int8 error state are held by `check_flips`. qwen3-0.6b
     accumulates two microbatches a step, the microbatch axis first and
     unsharded on both sides."""
@@ -817,7 +919,8 @@ def test_mesh_steps_match_the_reference(runs, arch, optimizer):
     for port in runs["ports"]:
         got, want = port[f"metrics_{name}"], ref[f"metrics_{name}"]
         assert got.shape == want.shape == (STEPS, 3)
-        assert np.all(np.abs(got - want) <= TOL_METRIC * np.abs(want))
+        assert np.all(np.abs(got - want)
+                      <= metric_bounds(arch, ref) * np.abs(want))
         if optimizer == "sgd":
             levels = port[f"levels_{name}"]
             check_flips(port, ref, f"opt_state_{name}", levels)
@@ -825,7 +928,8 @@ def test_mesh_steps_match_the_reference(runs, arch, optimizer):
         else:
             check_leaves(port, ref, f"opt_state_{name}", STATE_BOUND[arch])
         check_leaves(port, ref, f"params_{name}", TOL_PARAM,
-                     adamw=optimizer == "adamw")
+                     adamw=optimizer == "adamw",
+                     flip_lr=ADAMW_LR_BOUND.get(arch))
 
 
 @pytest.mark.parametrize("arch,optimizer", TRAIN, ids=case_ids(TRAIN))
@@ -835,14 +939,18 @@ def test_tensor_parallel_step_matches_the_replicated_step(runs, arch,
     step (the default rules split heads, d_ff and vocab over "model", and
     kv_heads where they divide) within 1e-5 of the replicated step's (the
     rules with heads, kv_heads, d_ff and vocab overridden to None, which
-    split nothing there), on every rank."""
+    split nothing there), on every rank; zamba2-7b's grad norm after its
+    first step within the reference's own spread of SPREAD (measured
+    1.2e-5; the replicated step is 3.4e-5 from the reference's, the split
+    one 2.2e-5)."""
     name = tag(arch, optimizer)
     for port, info in zip(runs["ports"], runs["infos"]):
         assert info["split_leaves"][name] > 0
         assert all(info["replicated_split_leaves"])
         got, want = port[f"metrics_{name}"], port[f"metrics_rep_{name}"]
         assert got.shape == want.shape == (STEPS, 3)
-        assert np.all(np.abs(got - want) <= TOL_METRIC * np.abs(want))
+        assert np.all(np.abs(got - want)
+                      <= metric_bounds(arch, runs["ref"]) * np.abs(want))
 
 
 def test_one_by_four_mesh_matches_the_reference(runs):
@@ -857,6 +965,45 @@ def test_one_by_four_mesh_matches_the_reference(runs):
         assert np.all(np.abs(got - want) <= TOL_METRIC * np.abs(want))
         check_leaves(port, ref, f"opt_state_{name}", STATE_BOUND[TP14[0]])
         check_leaves(port, ref, f"params_{name}", TOL_PARAM, adamw=True)
+
+
+@pytest.mark.parametrize("arch,optimizer", FAMILIES14,
+                         ids=[a for a, _ in FAMILIES14])
+def test_one_by_four_mesh_matches_the_reference_for_the_families(
+        runs, arch, optimizer):
+    """zamba2-7b (its shared attention block's 4 q heads one a rank, its 2
+    kv heads whole; its mamba blocks' 8 heads two a rank) and whisper-base
+    (the encoder's, the decoder's and the cross attention's 4 q heads one
+    a rank, their 2 kv heads whole) on (1, 4), at the bounds of
+    test_mesh_steps_match_the_reference against the reference's step on a
+    (1, 4) mesh (zamba2-7b's grad norm after its first step measured
+    1.7e-5)."""
+    ref, name = runs["ref"], tag(arch, optimizer) + "-14"
+    for port in runs["ports"]:
+        got, want = port[f"metrics_{name}"], ref[f"metrics_{name}"]
+        assert got.shape == want.shape == (STEPS, 3)
+        assert np.all(np.abs(got - want)
+                      <= metric_bounds(arch, ref) * np.abs(want))
+        check_leaves(port, ref, f"opt_state_{name}", STATE_BOUND[arch])
+        check_leaves(port, ref, f"params_{name}", TOL_PARAM, adamw=True,
+                     flip_lr=ADAMW_LR_BOUND.get(arch))
+
+
+@pytest.mark.parametrize("arch", sorted(SPREAD))
+def test_the_metric_spread_bound_is_the_references_own(runs, arch):
+    """Where SPREAD holds a metric at the reference's own spread between
+    its (2, 2) and (1, 4) steps, that spread, measured in this run, is
+    past TOL_METRIC (which the reference itself does not meet there;
+    zamba2-7b's grad norm after its first step: 5.7e-5) and below
+    SPREAD_CAP, so that the bound cannot widen unseen; everywhere else
+    the reference's meshes agree within TOL_METRIC."""
+    spread = reference_spread(runs["ref"], arch)
+    at = tuple(zip(*SPREAD[arch]))
+    assert np.all(spread[at] > TOL_METRIC)
+    assert np.all(spread[at] < SPREAD_CAP)
+    rest = np.ones_like(spread, dtype=bool)
+    rest[at] = False
+    assert np.all(spread[rest] <= TOL_METRIC)
 
 
 ADAMW = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.1}  # the defaults
@@ -962,6 +1109,23 @@ def test_elastic_restore_is_bit_for_bit_on_every_mesh(runs):
     d = runs["tmp"] / "ckpt"
     assert sorted(p.name for p in d.glob("step_*")) == ["step_00000001"]
     assert (d / "step_00000001" / "COMMIT").exists()
+
+
+def test_split_model_state_restores_bit_for_bit_on_every_mesh(runs):
+    """zamba2-7b's state saved on (2, 2) after one step, from a model that
+    holds its blocks along "model" (the mamba blocks, the shared attention
+    block and the vocabulary split): onto (4, 1) (every rank's blocks),
+    (1, 1) and no mesh, each leaf equal to the saved global array."""
+    single = runs["single"]
+    for info in runs["infos"]:
+        assert info["split_ckpt_leaves"] > 0
+        assert info["split_restored_41_step"] == 1
+        assert info["split_restored_41_equal"]
+    for name in ("11", "none"):
+        assert single[f"split_restored_{name}_step"] == 1
+        assert single[f"split_restored_{name}_equal"]
+    d = runs["tmp"] / "ckpt_split"
+    assert sorted(p.name for p in d.glob("step_*")) == ["step_00000001"]
 
 
 def test_resumed_step_on_another_mesh_matches_the_uninterrupted_run(runs):

@@ -1,6 +1,8 @@
 """The tensor-parallel operators over "model"
 (`repro_torch.sharding.tensor_parallel`, the split paths of
-`models.attention`, `models.mlp`, `models.moe` and `TransformerLM.loss`)
+`models.attention` (self attention, causal and the encoder's, and cross
+attention), `models.mlp` (the gated MLP and rwkv6's channel mix),
+`models.rwkv6`, `models.mamba2`, `models.moe` and `TransformerLM.loss`)
 against the same functions unsplit.
 
 Each case runs over 2 and over 4 ranks of a ``gloo`` group, as
@@ -21,6 +23,7 @@ holds float32 parameters). Over a group of one every operator is the
 unsplit function bit for bit.
 """
 
+import dataclasses
 import datetime
 import fcntl
 import os
@@ -34,7 +37,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import attention, mlp as mlp_mod, moe
+from repro_torch.models import attention, mamba2, mlp as mlp_mod, moe, rwkv6
 from repro_torch.models.common import cross_entropy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import TransformerLM
@@ -47,7 +50,13 @@ TOL = 1e-12  # max |split - whole| / max |whole|, float64 (measured 2.6e-16)
 # ... where a stage is float32: measured up to 6.1e-7 (cross_entropy over
 # 2 ranks), the split sums rounding in float32
 TOL32 = 2e-6
-FLOAT64 = ("mlp", "embed")  # the cases float64 throughout
+# ... of a whole rwkv6, zamba2 or whisper model's gradients: measured up to
+# 5.4e-6 (zamba2's mamba leaves), the float32 rounding of the split sums
+# carried through 6 layers of float32 scans; the unsplit model's own
+# gradients move by up to 5.2e-6 when its mamba norm's mean of squares is
+# summed as two halves in float32 (as over two ranks)
+TOL_FAMILY = 1e-5
+FLOAT64 = ("mlp", "embed", "rwkv_cmix")  # the cases float64 throughout
 BOUND_S = 180
 B, S = 2, 12
 
@@ -67,8 +76,13 @@ ATTN = {"attn_kv_split": {2: (8, 4), 4: (8, 4)},
         "attn_kv_whole_g2": {2: (2, 1), 4: (4, 2)},
         "attn_kv_whole_g4": {2: (4, 1), 4: (8, 2)},
         "attn_kv_straddle": {4: (12, 3)}}
-CASES = (list(ATTN) + ["mlp", "moe_mixtral", "moe_shared", "embed",
-                       "cross_entropy", "model_loss"])
+CASES = (list(ATTN) + ["attn_encoder", "cross_attention", "mlp",
+                       "rwkv_tmix", "rwkv_cmix", "mamba2", "moe_mixtral",
+                       "moe_shared", "embed", "cross_entropy", "model_loss",
+                       "family_loss"])
+# the reduced configs of the families whose whole model's loss is held
+FAMILIES = ("rwkv6-3b", "zamba2-7b", "whisper-base")
+SE = 8  # the encoder positions of the cross attention case
 
 
 def case_worlds(name: str) -> tuple:
@@ -85,6 +99,19 @@ def _moe_cfg(arch: str):
 
 def _normal(rng, shape, scale=1.0):
     return rng.standard_normal(shape) * scale
+
+
+def _drawn(rng, specs: dict, scale: float) -> dict:
+    """A block's leaves: a normal leaf ``scale`` N(0, 1); a zeros or ones
+    leaf (a lerp, decay, bonus or norm) its init value plus 0.1 N(0, 1),
+    as `models.conditioning` redraws them. A decay far from its init
+    drives a scan chunk's cumulative log-decay towards -80, where
+    float32's exp (the reference's scan is float32) turns its rounding
+    into ~5e-6 of the decay's gradient, in the unsplit function alone."""
+    return {k: _normal(rng, ps.shape, scale)
+            if ps.init not in ("zeros", "ones")
+            else float(ps.init == "ones") + _normal(rng, ps.shape, 0.1)
+            for k, ps in specs.items()}
 
 
 def setup(name: str, world: int) -> dict:
@@ -105,6 +132,64 @@ def setup(name: str, world: int) -> dict:
                     ct=_normal(rng, (B, S, cfg.d_model)), split=split,
                     fn=lambda cfg, p, x, tp: attention.self_attention(
                         cfg, p, x, tp=tp))
+    if name == "attn_encoder":  # whisper's encoder: no mask, no rope
+        cfg = dataclasses.replace(_attn_cfg(8, 4), qk_norm=False,
+                                  qkv_bias=False)
+        p = {k: _normal(rng, ps.shape, 0.5)
+             for k, ps in attention.attn_specs(cfg).items()}
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)),
+                    split={"wq": 1, "wo": 0, "wk": 1, "wv": 1},
+                    fn=lambda cfg, p, x, tp: attention.self_attention(
+                        cfg, p, x, causal=False, tp=tp))
+    if name == "cross_attention":
+        # 4 q heads and 2 kv heads: the kv heads split over 2 ranks, whole
+        # over 4; the input is the decoder's S positions then the
+        # encoder's SE
+        cfg = _attn_cfg(4, 2)
+        p = {k: _normal(rng, ps.shape, 0.5)
+             for k, ps in attention.attn_specs(cfg, cross=True).items()}
+        split = {"wq": 1, "wo": 0}
+        if world == 2:
+            split.update(wk=1, wv=1)
+
+        def cross(cfg, p, x, tp):
+            ek, ev = attention.encode_kv(cfg, p, x[:, S:], tp)
+            return attention.cross_attention(cfg, p, x[:, :S], ek, ev, tp)
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S + SE, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)), split=split,
+                    fn=cross)
+    if name == "rwkv_tmix":
+        # 4 heads of 4; the gate's mu_g and wg read outside the region
+        cfg = dataclasses.replace(_attn_cfg(4, 4), family="ssm")
+        p = _drawn(rng, rwkv6.rwkv_tmix_specs(cfg), 0.3)
+        heads = {"wr": 1, "wk": 1, "wv": 1, "wo": 0, "w_lora_b": 1,
+                 "w_base": 0, "u": 0, "ln_scale": 0, "ln_bias": 0}
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)), split=heads,
+                    shared=("mu_g", "wg"),
+                    fn=lambda cfg, p, x, tp: rwkv6.rwkv_tmix(
+                        cfg, p, x, None, tp)[0])
+    if name == "rwkv_cmix":
+        cfg = _attn_cfg(4, 4)
+        p = _drawn(rng, mlp_mod.rwkv_cmix_specs(cfg), 0.3)
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)),
+                    split={"wk": 1, "wv": 0}, shared=("mu_k", "mu_r", "wr"),
+                    fn=lambda cfg, p, x, tp: mlp_mod.rwkv_cmix(
+                        cfg, p, x, None, tp)[0])
+    if name == "mamba2":
+        # d_inner 32 in 8 heads of 4, a state of 4; wB and wC "partial"
+        cfg = dataclasses.replace(_attn_cfg(4, 4), family="ssm",
+                                  ssm_state=4, ssm_head_dim=4, ssm_conv=4)
+        p = _drawn(rng, mamba2.mamba2_specs(cfg), 0.3)
+        split = {"wz": 1, "wx": 1, "conv_w": 1, "conv_b": 0,
+                 "norm_scale": 0, "wdt": 1, "dt_bias": 0, "A_log": 0,
+                 "D": 0, "wo": 0}
+        return dict(cfg=cfg, p=p, x=_normal(rng, (B, S, cfg.d_model)),
+                    ct=_normal(rng, (B, S, cfg.d_model)), split=split,
+                    fn=lambda cfg, p, x, tp: mamba2.mamba2_block(
+                        cfg, p, x, None, tp)[0])
     if name == "mlp":
         cfg = _attn_cfg(4, 2)
         p = {k: _normal(rng, ps.shape, 0.3)
@@ -194,14 +279,35 @@ def _model_case(world: int):
     return cfg, batch
 
 
-def run_model(world: int, mesh=None) -> dict:
+def _family_case(arch: str):
+    """``arch``'s reduced config in float64, 2 x 40 tokens with a loss
+    mask (and whisper's 2 x 16 frames)."""
+    cfg = get_config(arch).reduced(dtype="float64", cache_dtype="float64")
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 40))),
+             "loss_mask": torch.from_numpy((rng.random((2, 40)) < 0.8)
+                                           .astype(np.float32))}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.cross_len, cfg.d_model)))
+    return cfg, batch
+
+
+def run_model(world: int, mesh=None, arch: str | None = None) -> dict:
     """The loss and every parameter's gradient of the model (seed 0), split
-    over ``mesh``'s "model" dim when given."""
+    over ``mesh``'s "model" dim when given: qwen2-0.5b's `_model_case`, or
+    ``arch``'s `_family_case` with its norms and biases redrawn and, where
+    the reference's init is chaotic, wq and wk at their true fan-in
+    (`models.conditioning`)."""
+    from repro_torch.models.conditioning import GRAD_CONDITIONED, condition
     from repro_torch.sharding.rules import ShardingRules
     from repro_torch.tree import tree_flatten
-    cfg, batch = _model_case(world)
+    cfg, batch = _model_case(world) if arch is None else _family_case(arch)
     model = TransformerLM(cfg, device="cpu",
                           generator=torch.Generator().manual_seed(0))
+    if arch is not None:
+        condition(model, 1, arch in GRAD_CONDITIONED)
     if mesh is not None:
         model.split_over_model(mesh, ShardingRules.default())
     leaves, _ = tree_flatten(model.param_tree())
@@ -235,6 +341,11 @@ def _rank(rank: int, world: int, tmp: Path) -> None:
         res = {}
         for name in CASES:
             if world not in case_worlds(name):
+                continue
+            if name == "family_loss":
+                for arch in FAMILIES:
+                    out = run_model(world, mesh, arch)
+                    res.update((f"{arch}/{k}", v) for k, v in out.items())
                 continue
             out = (run_model(world, mesh) if name == "model_loss"
                    else run_case(setup(name, world), tp, rank, world))
@@ -301,7 +412,7 @@ def rel(got, want) -> float:
 
 
 def check_ranks(outs: list, whole: dict, split: dict, tol: float,
-                shared=None) -> None:
+                shared=()) -> None:
     """Every rank's output and input gradient against the whole's; split
     leaves' gradients against their blocks; the other leaves' summed over
     the ranks, or each rank's for the leaves in ``shared`` (read outside
@@ -314,7 +425,7 @@ def check_ranks(outs: list, whole: dict, split: dict, tol: float,
     for k in (k for k in whole if k.startswith("g_")):
         if k[2:] in split:
             got = [np.concatenate([o[k] for o in outs], axis=split[k[2:]])]
-        elif shared is not None and k[2:] in shared:
+        elif k[2:] in shared:
             got = [o[k] for o in outs]
         else:
             got = [sum(o[k] for o in outs)]
@@ -323,15 +434,22 @@ def check_ranks(outs: list, whole: dict, split: dict, tol: float,
             assert rel(g, whole[k]) < tol, k
 
 
-@pytest.mark.parametrize("name,world", [(n, w) for n in CASES
-                                        if n != "model_loss"
+OPERATORS = [n for n in CASES if n not in ("model_loss", "family_loss")]
+
+
+@pytest.mark.parametrize("name,world", [(n, w) for n in OPERATORS
                                         for w in case_worlds(n)])
 def test_split_operator_matches_the_unsplit_function(ranks, name, world):
+    """A leaf the case splits: its blocks; a leaf read whole inside the
+    split region ("partial": the attention's norms and whole kv leaves,
+    rwkv6's lerps and decay LoRA-in, mamba2's wB and wC, the router): its
+    shares summed; a leaf read whole outside it (``shared``: rwkv6's gate,
+    the channel mix's lerps and receptance): every rank's own."""
     case = setup(name, world)
     outs = [{k.split("/", 1)[1]: v for k, v in r.items()
              if k.startswith(name + "/")} for r in ranks[world]]
     check_ranks(outs, run_case(case, None), case["split"],
-                TOL if name in FLOAT64 else TOL32)
+                TOL if name in FLOAT64 else TOL32, case.get("shared", ()))
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -350,7 +468,7 @@ def test_split_model_loss_matches_the_whole_model(ranks, world):
     check_ranks(outs, run_model(world), split, TOL32, shared)
 
 
-@pytest.mark.parametrize("name", [n for n in CASES if n != "model_loss"])
+@pytest.mark.parametrize("name", OPERATORS)
 def test_group_of_one_is_the_unsplit_function_bit_for_bit(name):
     """Over a "model" dim of one (no process group) every operator and
     split path is the unsplit function: output and gradients bit for
@@ -361,6 +479,28 @@ def test_group_of_one_is_the_unsplit_function_bit_for_bit(name):
     assert sorted(got) == sorted(want)
     for k in want:
         assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_split_family_loss_matches_the_whole_model(ranks, arch, world):
+    """`TransformerLM.loss` of rwkv6 (the time mix over its heads, the
+    channel mix over d_ff), zamba2 (the mamba blocks over d_inner and their
+    heads, the shared attention block over its heads and d_ff) and whisper
+    (the encoder, the decoder's self and cross attention, their MLPs), each
+    with its vocabulary split, reduced in float64, against the whole
+    model: the loss on every rank and every gradient (a split leaf's
+    blocks, a "partial" leaf's shares summed, a whole leaf's on every
+    rank), within TOL_FAMILY."""
+    outs = [{k.split("/", 1)[1]: v for k, v in r.items()
+             if k.startswith(arch + "/")} for r in ranks[world]]
+    split = {str(i): int(d) for i, d in enumerate(outs[0]["split"])
+             if d >= 0}
+    partial = {str(i) for i, x in enumerate(outs[0]["partial"]) if x}
+    assert split
+    shared = {str(i) for i in range(len(outs[0]["split"]))} - set(
+        split) - partial
+    check_ranks(outs, run_model(world, arch=arch), split, TOL_FAMILY, shared)
 
 
 def test_model_over_a_group_of_one_is_the_whole_model_bit_for_bit():
@@ -383,14 +523,19 @@ def test_model_over_a_group_of_one_is_the_whole_model_bit_for_bit():
 
 def test_model_split_plan_follows_the_rules():
     """The plan of `model_split` on the tests' meshes: heads, kv heads,
-    d_ff and vocab split where they divide; q_norm, k_norm and the whole
-    kv leaves "partial" under split q heads; the router under split
-    experts; every leaf "whole" for the families computed replicated over
-    "model" and under the rules that split nothing there."""
+    d_ff, ssm_heads and vocab split where they divide; q_norm, k_norm and
+    the whole kv leaves "partial" under split q heads, in self and cross
+    attention; the router under split experts; rwkv6's lerps and decay
+    LoRA-in under split heads, its gate and channel-mix receptance whole;
+    mamba2's wB and wC under a split d_inner, and the whole mamba block
+    where d_inner divides and its heads do not; every leaf "whole" under
+    the rules that split nothing there."""
     from repro_torch.launch.mesh import ShapeMesh
     from repro_torch.sharding.rules import ShardingRules
+    from repro_torch.tree import tree_leaves
     rules = ShardingRules.default()
     m22 = ShapeMesh((2, 2), ("data", "model"))
+    m14 = ShapeMesh((1, 4), ("data", "model"))
     plan = TransformerLM(get_config("gemma3-1b").reduced(),
                          device="meta").model_split(rules, m22)
     attn = plan["blocks"]["0"]["attn"]
@@ -402,15 +547,45 @@ def test_model_split_plan_follows_the_rules():
                              device="meta").model_split(rules, m22)
     assert moe_plan["blocks"]["0"]["moe"]["router"] == "partial"
     assert moe_plan["blocks"]["0"]["attn"]["wk"] == 2
+
+    def plan_of(arch, mesh, **cut):
+        return TransformerLM(get_config(arch).reduced(**cut),
+                             device="meta").model_split(rules, mesh)
+    rwkv = plan_of("rwkv6-3b", m22)["blocks"]["0"]
+    assert rwkv["tmix"] == {
+        "wr": 2, "wk": 2, "wv": 2, "wo": 1, "w_lora_b": 2, "w_base": 1,
+        "u": 1, "ln_scale": 1, "ln_bias": 1, "mu_r": "partial",
+        "mu_k": "partial", "mu_v": "partial", "mu_w": "partial",
+        "w_lora_a": "partial", "mu_g": "whole", "wg": "whole"}
+    assert rwkv["cmix"] == {"wk": 2, "wv": 1, "mu_k": "whole",
+                            "mu_r": "whole", "wr": "whole"}
+    zamba = plan_of("zamba2-7b", m22)
+    assert zamba["blocks"]["0"]["mamba"] == {
+        "wz": 2, "wx": 2, "conv_w": 2, "conv_b": 1, "norm_scale": 1,
+        "wdt": 2, "dt_bias": 1, "A_log": 1, "D": 1, "wo": 1,
+        "wB": "partial", "wC": "partial"}
+    assert (zamba["shared"]["attn"]["wq"], zamba["shared"]["attn"]["wk"],
+            zamba["shared"]["mlp"]["wi"], zamba["embed"]) == (1, 1, 1, 0)
+    # 8 mamba heads over 16: d_inner (256) divides, the heads do not
+    zamba16 = plan_of("zamba2-7b", ShapeMesh((1, 16), ("data", "model")))
+    assert set(tree_leaves(zamba16["blocks"]["0"]["mamba"])) == {"whole"}
+    assert (zamba16["shared"]["attn"]["wq"], zamba16["shared"]["mlp"]["wi"],
+            zamba16["embed"]) == ("whole", 1, 0)
+    for mesh, kv in ((m22, 2), (m14, "partial")):
+        whisper = plan_of("whisper-base", mesh)
+        enc = whisper["encoder"]["blocks"]
+        assert (enc["attn"]["wq"], enc["attn"]["wo"], enc["mlp"]["wi"]) == (
+            2, 1, 2)
+        cross = whisper["blocks"]["0"]["cross"]
+        assert (cross["wq"], cross["wo"], cross["wk"], cross["wv"]) == (
+            2, 1, kv, kv)
+        assert whisper["encoder"]["final_norm"]["scale"] == "whole"
+    # the replicated step's rules: ssm_heads alone splits no mamba block
     none = rules.with_overrides(heads=None, kv_heads=None, d_ff=None,
                                 vocab=None)
     for arch in ("qwen2-0.5b", "rwkv6-3b", "zamba2-7b", "whisper-base"):
         model = TransformerLM(get_config(arch).reduced(), device="meta")
-        for r in (rules, none):
-            if r is rules and arch == "qwen2-0.5b":
-                continue
-            from repro_torch.tree import tree_leaves
-            assert set(tree_leaves(model.model_split(r, m22))) == {"whole"}
+        assert set(tree_leaves(model.model_split(none, m22))) == {"whole"}
     with pytest.raises(ValueError, match="kv heads"):
         TransformerLM(get_config("qwen2-0.5b").reduced(),
                       device="meta").model_split(

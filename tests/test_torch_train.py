@@ -208,18 +208,18 @@ def test_serving_still_casts_once_and_training_casts_in_the_graph():
     assert float(model.blocks["0"]["attn"]["wq"].grad.abs().max()) > 0
 
 
-def test_rescale_qk_to_fan_in_is_the_tests_conditioning():
+def check_rescale_is_the_conditioning(arch, marker):
     """`TransformerLM.rescale_qk_to_fan_in` on the reference's parameters
-    gives test_torch_lm_serve's conditioned tree (wq, wk at std
-    1/sqrt(d_model)), every attention of the encoder-decoder included."""
-    ref_model = RefLM(case_configs("whisper-base")[1])
+    of ``arch`` gives test_torch_lm_serve's conditioned tree, leaf for
+    leaf; ``marker`` names a leaf the model must have."""
+    ref_model = RefLM(case_configs(arch)[1])
     model = params_from_reference(
         ref_tree(ref_model, 0, False),
-        TransformerLM(get_config("whisper-base").reduced(), device="cpu"))
+        TransformerLM(get_config(arch).reduced(), device="cpu"))
     model.rescale_qk_to_fan_in()
     want = ref_tree(ref_model, 0, True)
     names = [n for n, _ in model.named_parameters()]
-    assert any(n.endswith("cross.wq") for n in names)
+    assert any(n.endswith(marker) for n in names)
     flat = {}
 
     def walk(node, prefix):
@@ -232,3 +232,22 @@ def test_rescale_qk_to_fan_in_is_the_tests_conditioning():
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), flat[name],
                                    rtol=1e-6, atol=0)
+
+
+def test_rescale_qk_to_fan_in_is_the_tests_conditioning():
+    """On whisper-base: wq, wk at std 1/sqrt(d_model), every attention of
+    the encoder-decoder included."""
+    check_rescale_is_the_conditioning("whisper-base", "cross.wq")
+
+
+def test_rescale_qk_to_fan_in_is_the_tests_conditioning_for_rwkv6():
+    """On rwkv6-3b: the time mix's wr and wk rescaled, the channel mix's
+    wr and wk (plain (d, d_ff) matrices) left as drawn."""
+    check_rescale_is_the_conditioning("rwkv6-3b", "tmix.wr")
+    ref_model = RefLM(case_configs("rwkv6-3b")[1])
+    plain, cond = ref_tree(ref_model, 0, False), ref_tree(ref_model, 0, True)
+    for block, moved in (("tmix", True), ("cmix", False)):
+        for leaf in ("wr", "wk"):
+            same = np.array_equal(plain["blocks"]["0"][block][leaf],
+                                  cond["blocks"]["0"][block][leaf])
+            assert same != moved, (block, leaf)
