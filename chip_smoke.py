@@ -177,14 +177,36 @@ Phases (any failed check exits non-zero):
      `MESH_SPREAD_FACTOR` times the model's own spread), the same on both
      ranks, each rank's peak memory below one device's; one `lm mesh
      tp` line a config with
-     each rank's peak memory and step ms beside one device's; no FFT
-     kernel runs;
+     each rank's peak memory and step ms beside one device's; (f) after
+     (e), the same ranks serve each config of `MESH_SERVE` split over
+     "model" (`TransformerLM.prefill`, `decode_step`, the caches at each
+     rank's heads): qwen2-0.5b (24 layers), gemma3-1b (26, a rotated
+     ring past its window of 512), mixtral-8x22b (1 of 56), whisper-base
+     (6 + 6, the cross caches), rwkv6-3b (4 of 32), zamba2-7b (one
+     period), at published widths, conditioned, in bf16 and in float32,
+     against the same model served whole on one device by this process
+     before the ranks start: the prefill's last-position logits, each
+     decode step's logits teacher-forced with one device's greedy tokens
+     (a rank's vocabulary block; for mixtral the (sequence, step)s whose
+     routing is a near tie or dropped are left out and counted,
+     `MESH_SERVE_MOE_MARGIN`) and each rank's cache block after the last
+     step (`cache_split`), all within the config's `MESH_SERVE_BOUND`;
+     both ranks take the same tokens (`vocab_argmax`), and in bf16 the
+     same `ServeEngine.generate` tokens, whose agreement with one
+     device's greedy tokens is printed, not held; one `lm mesh serve`
+     line a config with the prefill ms, a decode step's ms (the first
+     pass), in bf16 `ServeEngine.generate`'s ms (the second), the cache
+     bytes and the peak memory above the process's before the model a
+     rank beside one device's, and the heads, kv heads, d_ff and
+     vocabulary a rank; no FFT kernel runs;
  20. the LM dryrun (`lm_dryrun_checks`): (a) ``python -m
      repro_torch.launch.sweep --archs qwen2-0.5b`` over both production
      meshes and every shape, and over the one_card cells, one sweep a
      (mesh, shape), all started together: every record ok, long_500k
      skipped with the reference's reason, finite positive FLOPs and bytes,
-     each cell's wall time; (b) qwen2-0.5b decode_32k on one card, whole
+     every cell computed split over "model" (``model_axis`` "tensor",
+     its all_reduce bytes over "model" counted off one card), each cell's
+     wall time; (b) qwen2-0.5b decode_32k on one card, whole
      (128 sequences, a 32768-position cache), built on the card by
      `dryrun.card_check`: the tensors' bytes equal the record's, the
      allocator's growth within its rounding, FlopCounterMode around the
@@ -306,6 +328,55 @@ MESH_FAMILY_BOUND = {"qwen2-0.5b": MESH_TP_BOUND,
                      "zamba2-7b": {"loss": 4e-3, "grad_norm": 0.9},
                      "whisper-base": {"loss": 1e-3, "grad_norm": 3e-3}}
 MESH_SPREAD_FACTOR = 10
+# phase 19 (f): serving split over the (1, 2) mesh's "model" dim, each
+# config at its published widths, against the same model served whole on
+# one device: batch, prompt and new tokens (whisper's frames), the layers
+# each keeps (qwen2-0.5b, gemma3-1b and whisper-base all of theirs; the
+# rehearsal keeps as many at the reduced widths)
+MESH_SERVE = ({"arch": "qwen2-0.5b", "layers": 24, "batch": 8,
+               "prompt": 512, "new": 32},
+              {"arch": "gemma3-1b", "layers": 26, "batch": 4, "prompt": 1024,
+               "new": 16},
+              # its second run float64, as the MoE configs are held
+              # elsewhere (`models.conditioning.FLOAT64`): its dispatch
+              # rounds each expert's input to bf16 in a float32 model too,
+              # and a 1e-7 change flips such a rounding (PERF.md §6)
+              {"arch": "mixtral-8x22b", "layers": 1, "batch": 4,
+               "prompt": 2048, "new": 16,
+               "dtypes": ("bfloat16", "float64")},
+              {"arch": "whisper-base", "layers": 6, "encoder_layers": 6,
+               "batch": 8, "prompt": 64, "frames": 1500, "new": 32},
+              {"arch": "rwkv6-3b", "layers": 4, "batch": 8, "prompt": 512,
+               "new": 32},
+              {"arch": "zamba2-7b", "layers": 6, "batch": 4, "prompt": 1024,
+               "new": 16})
+# max|d| / max|one device| of the prefill's last-position logits, each
+# teacher-forced decode step's logits (a rank's vocabulary block) and each
+# rank's cache block after the last step, a config (bf16) and
+# "<config>/<its second dtype>"; set before the first card run at 20x the
+# largest of
+# the rehearsal's same two-rank check (reduced widths at the card run's
+# depths; bf16 0.0130, 0.0391, 0.00581, 0.0112, 0.125, 0.0436; float32
+# 6.69e-7, 1.76e-6, (mixtral float64 0), 6.18e-7, 6.45e-6, 4.25e-6 in
+# MESH_SERVE's order; PERF.md §6), rounded up to one digit, at least 1e-5
+# past bf16. mixtral-8x22b's float32 run missed its 1e-5 on the H100
+# (1.77e-5: its bf16 dispatch's flips) and runs in float64 since.
+# rwkv6-3b's bf16 bound sees no fault: its one-device bf16 logits are
+# themselves 0.05-0.26 from float32 (the reduced config, 4 layers); its
+# float32 bound does
+MESH_SERVE_BOUND = {"qwen2-0.5b": 0.3, "qwen2-0.5b/float32": 2e-5,
+                    "gemma3-1b": 0.8, "gemma3-1b/float32": 4e-5,
+                    "mixtral-8x22b": 0.2, "mixtral-8x22b/float64": 1e-5,
+                    "whisper-base": 0.3, "whisper-base/float32": 2e-5,
+                    "rwkv6-3b": 3.0, "rwkv6-3b/float32": 2e-4,
+                    "zamba2-7b": 0.9, "zamba2-7b/float32": 9e-5}
+# (f)'s MoE positions held: a (sequence, step) whose token's router margin
+# (the k-th minus the (k+1)-th probability, `moe_record`) at some layer is
+# below this in either run, or whose choice was dropped over capacity, is
+# left out of the logits' check (and counted): the split's rounding of an
+# expert's input (2^-8 relative in bf16) may flip such a choice, which
+# moves that token's logits by O(1) with nothing wrong
+MESH_SERVE_MOE_MARGIN = {"bfloat16": 2e-2, "float32": 1e-4, "float64": 1e-4}
 # the card's loss and gradients against the host's (phase 18 (b)), max|d|
 # / max|host| a leaf: measured on the H100 at 6.2e-6 (gemma3-1b, float32,
 # 26 layers) and 2.58e-5 (qwen2-0.5b's first layer, float64) in the
@@ -582,6 +653,10 @@ FULL = {
                "frames": 1500, "optimizer": "adamw", "lr": 3e-4,
                "launch_steps": 30, "reduced": False,
                "configs": MESH_FAMILIES, "bound": MESH_FAMILY_BOUND},
+        # (f) each config of MESH_SERVE split over "model" by the same
+        # ranks, after (d)-(e), in bf16 and float32
+        "serve": {"configs": MESH_SERVE, "dtypes": ("bfloat16", "float32"),
+                  "reduced": False, "bound": MESH_SERVE_BOUND},
         "moe_tol": MESH_MOE_TOL, "seed": 0},
     "lm_dryrun": LM_DRYRUN,
 }
@@ -725,6 +800,14 @@ REHEARSE = {
                "frames": 32, "optimizer": "adamw", "lr": 3e-4,
                "launch_steps": 30, "reduced": True, "dtype": "bfloat16",
                "configs": MESH_FAMILIES, "bound": MESH_FAMILY_BOUND},
+        # (f)'s bounds come from this rehearsal (PERF.md §6): the reduced
+        # configs, 2 x 96 tokens (past the reduced window of 64; 3 MoE
+        # groups of 64), 4 new, whisper's 16 frames
+        "serve": {"configs": tuple(
+            {**c, "batch": 2, "prompt": 96, "new": 4,
+             **({"frames": 16} if "frames" in c else {})}
+            for c in MESH_SERVE), "dtypes": ("bfloat16", "float32"),
+            "reduced": True, "bound": MESH_SERVE_BOUND},
         "moe_tol": MESH_MOE_TOL, "seed": 0},
     # the sweep runs on meta in both; (b) and (c) need the card
     "lm_dryrun": LM_DRYRUN,
@@ -3705,7 +3788,7 @@ def lm_free(torch, gpu: bool) -> None:
 
 def lm_config(cfg: dict, spec: dict):
     """The model config ``spec`` serves: reduced in the rehearsal, cut to
-    ``spec["layers"]`` where it says."""
+    ``spec["layers"]`` (and ``spec["encoder_layers"]``) where it says."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3714,6 +3797,9 @@ def lm_config(cfg: dict, spec: dict):
         mcfg = mcfg.reduced()
     if spec.get("layers"):
         mcfg = dataclasses.replace(mcfg, num_layers=spec["layers"])
+    if spec.get("encoder_layers"):
+        mcfg = dataclasses.replace(mcfg,
+                                   encoder_layers=spec["encoder_layers"])
     if spec.get("dtype"):
         mcfg = dataclasses.replace(mcfg, dtype=spec["dtype"])
     return mcfg
@@ -4726,7 +4812,7 @@ def mesh_moe_check(torch, dev, gpu: bool, spec: dict, seed: int,
 
 
 def mesh_ranks_start(ranks: int, gpu: bool, work: Path) -> list:
-    """Phase 19 (d)-(e)'s ranks (``chip_smoke.py --mesh-rank r``); logs and
+    """Phase 19 (d)-(f)'s ranks (``chip_smoke.py --mesh-rank r``); logs and
     reports under ``work``; they step once ``work / "go"`` exists
     (`wait_for_go`)."""
     store = work / "store"
@@ -4863,14 +4949,305 @@ def full_as_one_device(full: dict, fam: dict, steps: int) -> dict:
             "peak_bytes": full["one_device_peak_bytes"], "wall_s": None}
 
 
+def serve_dtypes(cfg: dict, spec: dict) -> tuple:
+    """(f)'s dtypes of a config: the served bf16 first, then its own
+    second dtype where it names one, else the phase's."""
+    return spec.get("dtypes", cfg["serve"]["dtypes"])
+
+
+def serve_runs(cfg: dict) -> list:
+    """(f)'s runs in order: (config index, config, dtype)."""
+    return [(i, spec, dtype)
+            for i, spec in enumerate(cfg["serve"]["configs"])
+            for dtype in serve_dtypes(cfg, spec)]
+
+
+def serve_model(torch, dev, cfg: dict, spec: dict, dtype: str, mesh=None):
+    """(f)'s model of ``spec`` computing in ``dtype`` (its caches too),
+    drawn from a generator on ``dev`` seeded with the phase's seed and
+    conditioned (`models.conditioning.condition`), split over ``mesh``'s
+    "model" dim when given (the default rules)."""
+    import dataclasses
+
+    from repro_torch.models.conditioning import condition
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding.rules import ShardingRules
+    mcfg = dataclasses.replace(lm_config(cfg["serve"], spec), dtype=dtype,
+                               cache_dtype=dtype)
+    model = TransformerLM(mcfg, device=dev, generator=torch.Generator(
+        dev).manual_seed(cfg["seed"]))
+    condition(model, cfg["seed"] + 1, True)
+    if mesh is not None:
+        model.split_over_model(mesh, ShardingRules.default())
+    return model
+
+
+def serve_split_sizes(model) -> dict:
+    """The heads, kv heads, d_ff (d_inner for mamba2) and vocabulary rows
+    the model holds: a rank's where it is split."""
+    out = {}
+    for name, p in model.named_parameters():
+        for key, suffix, dim in (("heads", "attn.wq", -2),
+                                 ("kv_heads", "attn.wk", -2),
+                                 ("heads", "tmix.wr", -2),
+                                 ("d_ff", ".wi", -1),
+                                 ("d_inner", "mamba.wz", -1),
+                                 ("vocab", "embed", 0)):
+            if name.endswith(suffix) and key not in out:
+                out[key] = p.shape[dim]
+    return out
+
+
+def lm_mark(torch, gpu: bool):
+    """A point in time: a recorded CUDA event on the card, the host clock in
+    the rehearsal (`lm_ms` between two)."""
+    if gpu:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def lm_ms(gpu: bool, a, b) -> float:
+    """The ms from `lm_mark` ``a`` to ``b`` (waits for ``b`` on the card)."""
+    if gpu:
+        b.synchronize()
+        return a.elapsed_time(b)
+    return (b - a) * 1e3
+
+
+def serve_engine(torch, gpu: bool, model, batch: dict, new: int) -> tuple:
+    """`ServeEngine.generate`'s tokens (a list) and its ms, as a user calls
+    it."""
+    from repro_torch.serve import ServeEngine
+    t0 = lm_mark(torch, gpu)
+    tokens = ServeEngine(model).generate(batch, new)
+    return tokens.cpu().tolist(), lm_ms(gpu, t0, lm_mark(torch, gpu))
+
+
+def serve_pass(torch, gpu: bool, model, batch: dict, new: int,
+               forced=None, base: int = 0) -> dict:
+    """Prefill with decode headroom and ``new`` - 1 decode steps, each
+    step fed the greedy token (`vocab_argmax`) or, teacher-forced, the
+    column of ``forced`` (B, new): the logits of the last position and of
+    each step (B, new, V; a rank's block), the greedy tokens, the caches,
+    the prefill's and a decode step's ms (CUDA events on the card, the
+    host clock in the rehearsal) and the peak memory above ``base`` (the
+    bytes allocated before the model was made); for a MoE model ``clean``
+    (B, new), the (sequence, step)s
+    whose token no layer dropped and routed with a margin of at least
+    `MESH_SERVE_MOE_MARGIN` (`moe_record`)."""
+    from repro_torch.sharding.tensor_parallel import vocab_argmax
+    moe = model.cfg.num_experts > 0
+    vocab = model.cfg.vocab_size
+    tokens = batch["tokens"]
+    s = model.cfg.num_prefix_embeds + tokens.shape[1]
+    with torch.inference_mode(), (moe_record(torch) if moe
+                                  else contextlib.nullcontext()) as rec:
+        model.weights()  # the cast weights, before the peak is reset
+        if gpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = lm_mark(torch, gpu)
+        logits, caches = model.prefill(batch, cache_len=s + new)
+        t1 = lm_mark(torch, gpu)
+        steps = [logits[:, -1]]
+        out = [vocab_argmax(model.tp, steps[-1], vocab)[:, None]]
+        for t in range(new - 1):
+            tok = out[-1] if forced is None else forced[:, t:t + 1]
+            logits, caches = model.decode_step(caches, tok.to(tokens.dtype),
+                                               s + t)
+            steps.append(logits[:, -1])
+            out.append(vocab_argmax(model.tp, steps[-1], vocab)[:, None])
+        t2 = lm_mark(torch, gpu)
+    b = tokens.shape[0]
+    clean = torch.ones((b, new), dtype=torch.bool)
+    if moe:  # one record a MoE layer a call: prefill's, then each step's
+        layers = len(rec["margin"]) // new
+        floor = MESH_SERVE_MOE_MARGIN[model.cfg.dtype]
+        for c in range(new):
+            for i in range(c * layers, (c + 1) * layers):
+                margin = rec["margin"][i].reshape(b, -1)[:, -1]
+                dropped = rec["dropped"][i].reshape(b, -1)[:, -1]
+                clean[:, c] &= (margin >= floor) & (dropped == 0)
+    return {"logits": torch.stack(steps, dim=1), "tokens": torch.cat(out, 1),
+            "caches": caches, "prefill_ms": lm_ms(gpu, t0, t1),
+            "decode_ms": lm_ms(gpu, t1, t2) / max(new - 1, 1),
+            "clean": clean, "peak_bytes": (torch.cuda.max_memory_allocated()
+                                           - base if gpu else 0)}
+
+
+def serve_one_device(torch, dev, gpu: bool, cfg: dict, work: Path) -> list:
+    """(f)'s one-device runs: each config of ``serve`` in each dtype served
+    whole (`serve_pass`, greedy), its logits, tokens and caches written to
+    ``work`` for the ranks, and in bf16 `ServeEngine.generate` timed;
+    returns a record a run."""
+    from repro_torch.tree import tree_leaves, tree_map
+    out = []
+    for i, spec, dtype in serve_runs(cfg):
+        lm_free(torch, gpu)
+        base = torch.cuda.memory_allocated() if gpu else 0
+        model = serve_model(torch, dev, cfg, spec, dtype)
+        batch = lm_batch(torch, model.cfg, cfg["seed"], spec["batch"],
+                         spec["prompt"], spec.get("frames", 0), dev)
+        run = serve_pass(torch, gpu, model, batch, spec["new"], base=base)
+        torch.save({"logits": run["logits"].cpu(),
+                    "tokens": run["tokens"].cpu(), "clean": run["clean"],
+                    "caches": tree_map(lambda x: x.cpu(),
+                                       run["caches"])},
+                   work / f"serve_{i}_{dtype}.pt")
+        out.append({"arch": spec["arch"], "dtype": dtype,
+                    "layers": model.cfg.num_layers,
+                    "tokens": run["tokens"].cpu().tolist(),
+                    "prefill_ms": run["prefill_ms"],
+                    "decode_ms": run["decode_ms"],
+                    "peak_bytes": run["peak_bytes"],
+                    "cache_bytes": sum(
+                        x.numel() * x.element_size()
+                        for x in tree_leaves(run["caches"])),
+                    "sizes": serve_split_sizes(model)})
+        if dtype == serve_dtypes(cfg, spec)[0]:
+            _, out[-1]["generate_ms"] = serve_engine(torch, gpu, model,
+                                                     batch, spec["new"])
+        del model, run, batch
+    lm_free(torch, gpu)
+    return out
+
+
+def serve_run(torch, dev, gpu: bool, cfg: dict, i: int, dtype: str,
+              work: Path, mesh) -> dict:
+    """(f) on a rank: config ``i`` of ``serve`` in ``dtype`` split over
+    ``mesh``'s "model" dim, teacher-forced with one device's greedy tokens
+    (``work / serve_<i>_<dtype>.pt``): max|d| / max|one device| of the
+    prefill's logits, of each decode step's (the rank's vocabulary block)
+    and of each cache leaf's block after the last step (`cache_split`);
+    the tokens `vocab_argmax` took; in bf16, `ServeEngine.generate`'s
+    tokens and ms; the times, cache bytes and peak memory (one device's
+    file is held on the host, outside the peak)."""
+    from repro_torch.models.transformer import cache_block
+    from repro_torch.tree import flatten_up_to, tree_flatten
+    spec = cfg["serve"]["configs"][i]
+    lm_free(torch, gpu)
+    base = torch.cuda.memory_allocated() if gpu else 0
+    model = serve_model(torch, dev, cfg, spec, dtype, mesh)
+    batch = lm_batch(torch, model.cfg, cfg["seed"], spec["batch"],
+                     spec["prompt"], spec.get("frames", 0), dev)
+    one = torch.load(work / f"serve_{i}_{dtype}.pt", map_location="cpu")
+    run = serve_pass(torch, gpu, model, batch, spec["new"],
+                     one["tokens"].to(dev), base)
+    v = run["logits"].shape[-1]  # the rank's block, or the whole vocabulary
+    rank = model.tp.rank if model.tp else 0
+    want = one["logits"][..., rank * v:(rank + 1) * v] if (
+        v < model.cfg.vocab_size) else one["logits"]
+
+    def err(got, ref, rows=None):
+        d = (got.double() - ref.to(got.device).double()).abs()
+        if rows is not None:  # the sequences held
+            d = d[rows.to(d.device)]
+        return float(d.max() / (ref.double().abs().max() or 1.0)
+                     if d.numel() else 0.0)
+    clean = one["clean"].cpu() & run["clean"]
+    ones, tdef = tree_flatten(one["caches"])
+    hows = flatten_up_to(tdef, model.cache_split())
+    mine, _ = tree_flatten(run["caches"])
+    rec = {"arch": spec["arch"], "dtype": dtype,
+           "prefill_err": err(run["logits"][:, 0], want[:, 0], clean[:, 0]),
+           "decode_err": max(err(run["logits"][:, t], want[:, t],
+                                 clean[:, t])
+                             for t in range(1, spec["new"])),
+           "moe_left_out": int((~clean).sum()),
+           "cache_err": max(err(m, cache_block(o, h))
+                            for m, o, h in zip(mine, ones, hows)),
+           "tokens": run["tokens"].cpu().tolist(),
+           "prefill_ms": run["prefill_ms"], "decode_ms": run["decode_ms"],
+           "peak_bytes": run["peak_bytes"],
+           "cache_bytes": sum(x.numel() * x.element_size() for x in mine),
+           "split_caches": sum(h is not None for h in hows),
+           "sizes": serve_split_sizes(model),
+           "model_axis": "tensor" if model.tp else "replicated"}
+    del run, one, ones, mine
+    if dtype == serve_dtypes(cfg, spec)[0]:
+        rec["engine_tokens"], rec["generate_ms"] = serve_engine(
+            torch, gpu, model, batch, spec["new"])
+    del model
+    lm_free(torch, gpu)
+    return rec
+
+
+def mesh_serve_finish(work: Path, ranks: int, one: list, cfg: dict,
+                      device: str) -> list:
+    """(f)'s checks on the ranks' reports in ``work`` (after
+    `mesh_tp_finish`), a config in both its dtypes: the model split over
+    "model" on every rank; every error within the config's
+    `MESH_SERVE_BOUND`; the ranks' tokens equal at every step
+    (teacher-forced and the engine's); the engine's agreement with one
+    device's greedy tokens, printed, not held. One `lm mesh serve` line
+    and record a config, every line printed before the checks."""
+    ranks = [json.loads((work / f"rank_{r}.json").read_text())["serve"]
+             for r in range(ranks)]
+    out, held = [], []
+    runs = serve_runs(cfg)
+    for i, spec in enumerate(cfg["serve"]["configs"]):
+        rec = {"arch": spec["arch"], "batch": spec["batch"],
+               "prompt": spec["prompt"], "new": spec["new"],
+               "frames": spec.get("frames"), "ranks": len(ranks),
+               "device": device, "runs": {}}
+        for k, (_, _, dtype) in enumerate(runs):
+            if runs[k][0] != i:
+                continue
+            got, want = [r[k] for r in ranks], one[k]
+            name = spec["arch"] + ("" if dtype == "bfloat16"
+                                   else f"/{dtype}")
+            bound = cfg["serve"]["bound"].get(name)
+            errs = {e: max(g[e] for g in got)
+                    for e in ("prefill_err", "decode_err", "cache_err")}
+            run = {"bound": bound, **errs, "layers": want["layers"],
+                   "moe_left_out": [g["moe_left_out"] for g in got],
+                   "prefill_ms": [g["prefill_ms"] for g in got],
+                   "one_device_prefill_ms": want["prefill_ms"],
+                   "decode_ms": [g["decode_ms"] for g in got],
+                   "one_device_decode_ms": want["decode_ms"],
+                   "cache_bytes": [g["cache_bytes"] for g in got],
+                   "one_device_cache_bytes": want["cache_bytes"],
+                   "peak_bytes": [g["peak_bytes"] for g in got],
+                   "one_device_peak_bytes": want["peak_bytes"],
+                   "split_caches": got[0]["split_caches"],
+                   "sizes": got[0]["sizes"],
+                   "one_device_sizes": want["sizes"]}
+            if "engine_tokens" in got[0]:
+                pairs = [(a, b) for ra, rb in zip(got[0]["engine_tokens"],
+                                                  want["tokens"])
+                         for a, b in zip(ra, rb)]
+                run["engine_agreement"] = sum(a == b for a, b in
+                                              pairs) / len(pairs)
+                run["generate_ms"] = [g["generate_ms"] for g in got]
+                run["one_device_generate_ms"] = want["generate_ms"]
+            rec["runs"][dtype] = run
+            held.append((name, got, errs, bound))
+        out.append(rec)
+        print("lm mesh serve " + json.dumps(rec))
+    for name, got, errs, bound in held:
+        check(all(g["model_axis"] == "tensor" for g in got)
+              and got[0]["split_caches"] > 0,
+              f"lm mesh serve {name}: not split over 'model'")
+        check(all(g["tokens"] == got[0]["tokens"]
+                  and g.get("engine_tokens") == got[0].get("engine_tokens")
+                  for g in got),
+              f"lm mesh serve {name}: the ranks' tokens differ")
+        check(bound is not None and all(e <= bound for e in errs.values()),
+              f"lm mesh serve {name}: split against one device {errs}, "
+              f"bound {bound}")
+    return out
+
+
 def mesh_tp_rank(rank: int, store: str, out: str, gpu: bool) -> int:
-    """A rank of phase 19 (d)-(e) (``chip_smoke.py --mesh-rank``), one of a
-    gloo group of ``tp["ranks"]`` processes on the one card, a (1, ranks)
-    ("data", "model") mesh: each config of ``tp`` split over "model"
-    (`family_run`; no checkpoint: a save would gather), once a ``go`` file
-    beside ``out`` says the card is free (the ranks start beside (b) and
-    wait through it and the one-device runs). Writes each config's
-    record."""
+    """A rank of phase 19 (d)-(f) (``chip_smoke.py --mesh-rank``), one of
+    a gloo group of ``tp["ranks"]`` processes on the one card, a (1,
+    ranks) ("data", "model") mesh: each config of ``tp`` split over
+    "model" (`family_run`; no checkpoint: a save would gather), then each
+    config of ``serve`` (`serve_run`), once a ``go`` file beside ``out``
+    says the card is free (the ranks start beside (b) and wait through it
+    and the one-device runs). Writes each config's record."""
     import datetime
 
     import torch
@@ -4890,9 +5267,13 @@ def mesh_tp_rank(rank: int, store: str, out: str, gpu: bool) -> int:
         mesh = init_device_mesh(dev.type, (1, n),
                                 mesh_dim_names=("data", "model"))
         wait_for_go(out, 900, "lm mesh tp")
+        work = Path(out).parent
         report = {"rank": rank, "ranks": n, "runs": [
-            family_run(torch, dev, gpu, cfg, fam, Path(out).parent, mesh)
+            family_run(torch, dev, gpu, cfg, fam, work, mesh)
             for fam in cfg["tp"]["configs"]]}
+        report["serve"] = [serve_run(torch, dev, gpu, cfg, i, dtype, work,
+                                     mesh)
+                           for i, _, dtype in serve_runs(cfg)]
     finally:
         dist.destroy_process_group()
     Path(out).write_text(json.dumps(report))
@@ -4981,7 +5362,8 @@ def mesh_tp_finish(procs: list, work: Path, bound_s: float, one: list,
 def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
     """Phase 19: LM training on a mesh, (a), (b), and (d)-(e), whose ranks
     start beside (b) and step alone on the card after this process's
-    one-device runs. No FFT kernel runs."""
+    one-device runs, then serve (f) against this process's one-device
+    serving. No FFT kernel runs."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     reset_counts()
@@ -5029,11 +5411,17 @@ def mesh_train_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
                     for k in ("losses", "grad_norms")}
                 one[-1]["control"] = {k: ctl[k] for k in (
                     "losses", "grad_norms", "step_ms")}
+        # (f): each config served whole on one device, in each dtype
+        t1 = time.monotonic()
+        serve_one = serve_one_device(torch, dev, gpu, cfg, ranks)
+        out["serve_one_device_seconds"] = time.monotonic() - t1
         (ranks / "go").write_text("go")
-        out["tp"] = mesh_tp_finish(procs, ranks, 600, one, cfg)
+        out["tp"] = mesh_tp_finish(procs, ranks, 900, one, cfg)
         for rec in out["tp"]:
             rec["device"] = card
             print("lm mesh tp " + json.dumps(rec))
+        out["serve"] = mesh_serve_finish(ranks, len(procs), serve_one, cfg,
+                                         card)
         out["tp_seconds"] = time.monotonic() - t0
     finally:
         for p in procs:  # stopped where (a) or (b) failed
@@ -5101,8 +5489,8 @@ def lm_dryrun_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
     rounding, the step's FLOPs under FlopCounterMode equal the record's,
     its ms beside the record's terms; (c) the one_card train cell's state
     from ``Trainer.init_state`` on the card: bytes equal the record's. No
-    FFT kernel runs. The train cells record ``"model_axis": "tensor"``,
-    the prefill and decode cells "replicated"."""
+    FFT kernel runs. Every cell records ``"model_axis": "tensor"``, with
+    all_reduce bytes over "model" off one card."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.specs import cell_runnable
@@ -5128,14 +5516,17 @@ def lm_dryrun_checks(torch, dev, gpu: bool, cfg: dict, work: Path) -> dict:
             check(math.isfinite(cost[k]) and cost[k] > 0,
                   f"{mesh} {shape}: {k} {cost[k]}")
         check(mem["total_bytes"] > 0, f"{mesh} {shape}: no bytes")
-        # qwen2-0.5b's train cells compute split over "model" (its d_ff
-        # and vocabulary; its 14 heads and 2 kv heads stay whole at 16)
-        axis = "tensor" if rec["mode"] == "train" else "replicated"
-        check(cost["model_axis"] == axis,
-              f"{mesh} {shape}: model_axis {cost['model_axis']}, not {axis}")
+        # qwen2-0.5b's cells compute split over "model" (its d_ff and
+        # vocabulary; its 14 heads and 2 kv heads stay whole at 16)
+        check(cost["model_axis"] == "tensor"
+              and (cost["model_all_reduce_bytes"] > 0) == (
+                  mesh != "one_card"),
+              f"{mesh} {shape}: model_axis {cost['model_axis']}, "
+              f"{cost['model_all_reduce_bytes']} bytes all-reduced")
         out["cells"].append({
             "mesh": mesh, "shape": shape, "model_axis": cost["model_axis"],
             "model_all_reduce_bytes": cost["model_all_reduce_bytes"],
+            "port_caches_bytes": mem.get("port_caches_bytes"),
             "build_s": rec["build_s"],
             "cost_s": rec["cost_s"], "rows_per_device":
             cost["rows_per_device"], "flops": cost["flops"],
@@ -5229,7 +5620,7 @@ def main(argv=None) -> int:
                     help="run as this rank of phase 15's service (started "
                          "by phase 15 itself, with --store and --out)")
     ap.add_argument("--mesh-rank", type=int, default=None,
-                    help="run as this rank of phase 19 (d)-(e)'s gloo "
+                    help="run as this rank of phase 19 (d)-(f)'s gloo "
                          "group (started by phase 19 itself, with --store "
                          "and --out)")
     ap.add_argument("--store", help="phase 15's or 19's FileStore")

@@ -23,26 +23,30 @@ bfloat16 parameters for prefill and decode, and the inputs of
           shardings (`state_shardings`, `param_shardings`,
           `tree_shardings` over `cache_axes`, the batch rule of
           `BATCH_AXES`) and `local_slices`; ``per_rank`` the least and
-          the most of every rank's total
+          the most of every rank's total; a decode cell whose caches the
+          port holds otherwise than the rules' blocks (kv heads whole
+          under split q heads, heads whole, the rules' ``cache_head_dim``
+          fallback) adds ``port_caches_bytes``, rank 0's
+          (`TransformerLM.cache_split`)
   cost    the step run on meta at the rows one rank holds under the batch
-          rule, as rank 0 computes it (``model_axis``): a train cell
-          runs the tensor-parallel step, the model holding rank 0's
-          blocks of the leaves the rules split over "model" (heads,
-          kv_heads, d_ff, ssm_heads, vocab; `TransformerLM.model_split`)
-          ("tensor"); prefill and decode cells compute replicated over
-          "model" ("replicated"). ``flops`` counted by ``FlopCounterMode``,
+          rule, as rank 0 computes it (``model_axis``): the model holds
+          rank 0's blocks of the leaves the rules split over "model"
+          (heads, kv_heads, d_ff, ssm_heads, vocab;
+          `TransformerLM.model_split`) and computes its blocks of the
+          products ("tensor"; "replicated" where the rules split none),
+          in a decode step at its blocks of the caches. ``flops``
+          counted by ``FlopCounterMode``,
           ``bytes_accessed`` every op's input and output tensor bytes
           (`ByteCounter`, an unfused upper bound); ``model_flops`` the
           reference's 6ND / 2ND / 2NB over the chips;
           ``collective_bytes`` the collectives the port's step issues on
-          the mesh (train: `_DataParallel`'s parameter gather and its
-          gradient reduction, over the mesh dims other than "model" for
-          the leaves the model holds split, and the model's all_reduces
-          over "model", counted where the step issues them,
-          ``model_all_reduce_bytes`` their operands; prefill and decode:
-          the weight gather that replicated compute would need, since
-          the port has no sharded prefill or decode) at the ring
-          multipliers of the reference's ``hlo_analysis.py``;
+          the mesh (the parameter gather over the mesh dims other than
+          "model" for the leaves the model holds split, over every dim
+          for the others; train: `_DataParallel`'s gradient reduction
+          too; and the model's all_reduces over "model", counted where
+          the step issues them, ``model_all_reduce_bytes`` their
+          operands) at the ring multipliers of the reference's
+          ``hlo_analysis.py``;
           ``compute_s``, ``memory_s`` and ``collective_s`` at the H100
           rates of `RATES`, and ``bound`` the largest
 
@@ -230,18 +234,24 @@ class Cell:
         return block[bdim].stop - block[bdim].start
 
     def local_inputs(self):
-        """One rank's inputs: the cell's own when a rank holds every row."""
+        """One rank's inputs: the cell's own when a rank holds every row
+        and all of the caches; a decode step's caches at the model's
+        blocks (`init_cache`) where it is split over "model"."""
         t, case = self.tensors, self.case
-        if self.rows * self.grad_accum == case.global_batch:
+        split = self.model.tp is not None and self.model.tp.size > 1
+        if self.rows * self.grad_accum == case.global_batch and not split:
             if self.mode == "decode":  # at input_specs' position
                 return t["caches"], t["inputs"]["tokens"], case.seq_len - 1
             return t["inputs"]
         local = dataclasses.replace(
             case, global_batch=self.rows * self.grad_accum)
-        inputs = input_specs(self.cfg, local, t["inputs"]["tokens"].device)
+        device = t["inputs"]["tokens"].device
         if self.mode == "decode":
-            return inputs
-        return _microbatched(inputs, self.grad_accum)
+            return (self.model.init_cache(self.rows, case.seq_len),
+                    torch.zeros((self.rows, 1), dtype=torch.int32,
+                                device=device), case.seq_len - 1)
+        return _microbatched(input_specs(self.cfg, local, device),
+                             self.grad_accum)
 
     def step(self, args):
         """The cell's step on ``args`` (`local_inputs`)."""
@@ -270,9 +280,9 @@ def build_cell(arch: str, shape, mesh_name: str = "one_card", *,
     ``device`` (meta: shapes only). ``shape`` is a name of `SHAPES` or a
     `ShapeCase`; ``mesh_name`` a name of `MESHES` or a `ShapeMesh`;
     ``cfg`` replaces the arch's config (overrides, a reduced config);
-    ``generator`` draws the parameters on a real device. A train cell's
-    model is split over "model" as rank 0's (`split_over_model`); its
-    ``tensors`` stay the global state, on meta where the model holds
+    ``generator`` draws the parameters on a real device. The model is
+    split over "model" as rank 0's (`split_over_model`); ``tensors`` stay
+    the global state or parameters, on meta where the model holds
     blocks."""
     case = SHAPES[shape] if isinstance(shape, str) else shape
     mesh = (mesh_name if isinstance(mesh_name, ShapeMesh)
@@ -311,7 +321,8 @@ def build_cell(arch: str, shape, mesh_name: str = "one_card", *,
                     tc.optimizer, grad_accum, step_fn, step_state)
 
     model.to(torch.bfloat16)
-    tensors = {"params": model.param_tree()}
+    tensors = {"params": model.param_tree()}  # the whole leaves
+    model.split_over_model(mesh.at(0), rules)
     shardings = {"params": param_shardings(model.param_specs(), rules, mesh)}
     if case.mode == "prefill":
         tensors["inputs"] = inputs
@@ -355,6 +366,10 @@ def cell_memory(cell: Cell) -> dict:
     mem = {f"{kind}_bytes": max(v) for kind, v in per_kind.items()}
     mem["total_bytes"] = max(totals)
     mem["per_rank"] = {"min": min(totals), "max": max(totals)}
+    if cell.mode == "decode":
+        port = tensor_bytes(cell.local_inputs()[0])
+        if port != per_kind["caches"][0]:
+            mem["port_caches_bytes"] = port
     return mem
 
 
@@ -388,8 +403,8 @@ def cell_collectives(cell: Cell, model_bytes: float = 0.0
     p_sh = tree_leaves(cell.shardings["params"])
     names = list(mesh.mesh_dim_names)
     m = mesh.size(names.index("model")) if "model" in names else 1
-    hows = (tree_leaves(cell.model.split_plan) if cell.mode == "train"
-            else ["whole"] * len(params))
+    plan = cell.model.split_plan
+    hows = tree_leaves(plan) if plan is not None else ["whole"] * len(params)
     out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
     for x, sh, how in zip(params, p_sh, hows):
         n, nbytes = _shards(mesh, sh), tensor_bytes(x)
@@ -398,8 +413,10 @@ def cell_collectives(cell: Cell, model_bytes: float = 0.0
         if n > 1:
             out["all-gather"] += ring_bytes("all-gather", nbytes, n)
     if cell.mode != "train":
-        return out, ("the weight gather replicated compute would need: the "
-                     "port has no sharded prefill or decode")
+        out["all-reduce"] += ring_bytes("all-reduce", model_bytes, m)
+        return out, ("the parameter gather over the mesh dims other than "
+                     "\"model\" where the model holds a block; the model's "
+                     "all_reduces over \"model\"")
     # the gradients (float32; each rank's block of a leaf the model holds
     # split) enter Partial on the batch's mesh dims and are redistributed
     # to the parameters' placements: a reduce-scatter where a dim shards

@@ -11,7 +11,10 @@ The JAX package's algorithm in torch ops, step for step:
   * the probabilities are cast to v's dtype before the PV product, and the
     output to q's dtype;
   * decode supports full caches and ring-buffer SWA caches, written in
-    place at ``pos`` (``pos % window`` for a ring).
+    place at ``pos`` (``pos % window`` for a ring);
+  * under tensor parallelism over "model" every entry point computes a
+    rank's block of the q heads, and prefill's and decode's caches hold
+    the kv heads those read (`_kv_block`).
 """
 
 from __future__ import annotations
@@ -228,7 +231,7 @@ def self_attention(cfg, p, x, *, window=None, theta=None, pos_offset=0,
     `ModelGroup`) and ``p`` holding this rank's block of the q heads, the
     projections are column-parallel and ``wo`` row-parallel: the region
     starts with ``tp.enter`` and ends with ``tp.exit``, and ``return_kv``
-    gives this rank's kv heads."""
+    gives this rank's kv heads (`_qkv`'s: the caches prefill writes)."""
     theta = cfg.rope_theta if theta is None else theta
     split = _split_heads(cfg, p, tp)
     if split:
@@ -284,31 +287,28 @@ def encode_kv(cfg, p, enc_out, tp=None):
 
 
 def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *,
-                          window=None, theta=None):
+                          window=None, theta=None, tp=None):
     """x (B,1,d), cache (B,S_cache,KV,hd), pos: int position.
 
     Writes this token's k/v into the caches in place and returns
     (y, cache_k, cache_v). When ``window`` is set and the cache length
-    equals the window, the cache is a ring buffer.
+    equals the window, the cache is a ring buffer (the slot depends on the
+    position only). With ``tp`` and ``p`` holding this rank's block of the
+    q heads, the caches hold the rank's kv heads as prefill writes them
+    (`self_attention`'s ``return_kv``): its block where the kv heads are
+    split, else the kv heads its q heads read (`_kv_block`: a run of them,
+    or one a q head where the rank's heads straddle a group unevenly), and
+    ``wo`` is row-parallel between ``tp.enter`` and ``tp.exit``.
     """
     theta = cfg.rope_theta if theta is None else theta
     b, s_cache, kvh, hd = cache_k.shape
-    h = cfg.num_heads
-    g = h // kvh
     ring = window is not None and s_cache == window
-
-    q, k_t, v_t = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if cfg.qkv_bias and "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k_t = k_t + p["bk"].to(x.dtype)
-        v_t = v_t + p["bv"].to(x.dtype)
-    if cfg.qk_norm and "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k_t = rms_norm(k_t, p["k_norm"], cfg.norm_eps)
-    if theta is not None:
-        posv = torch.full((1,), pos, device=x.device)
-        q = rope(q, posv, theta)
-        k_t = rope(k_t, posv, theta)
+    split = _split_heads(cfg, p, tp)
+    if split:
+        x = tp.enter(x)
+    q, k_t, v_t = _qkv(cfg, p, x, pos, theta, tp if split else None)
+    h = q.shape[2]
+    g = h // kvh
 
     slot = (pos % window) if ring else pos
     cache_k[:, slot] = k_t[:, 0].to(cache_k.dtype)
@@ -332,18 +332,28 @@ def decode_self_attention(cfg, p, x, cache_k, cache_v, pos: int, *,
                        cache_v.to(q.dtype))
     out = out.reshape(b, 1, h, hd)
     y = _out_proj(out, p["wo"], x.dtype)
+    if split:
+        y = tp.exit(y)
     return y, cache_k, cache_v
 
 
-def decode_cross_attention(cfg, p, x, enc_k, enc_v):
-    """One-token cross-attention against a fixed encoder cache."""
+def decode_cross_attention(cfg, p, x, enc_k, enc_v, tp=None):
+    """One-token cross-attention against a fixed encoder cache. With
+    ``tp`` and ``p`` holding this rank's block of the q heads, ``enc_k``
+    and ``enc_v`` are the rank's cross caches (`encode_kv`'s kv heads),
+    ``wq`` is column-parallel and ``wo`` row-parallel, between
+    ``tp.enter`` and ``tp.exit``."""
+    split = _split_heads(cfg, p, tp)
+    if split:
+        x = tp.enter(x)
     b, tc, kvh, hd = enc_k.shape
-    h, g = cfg.num_heads, cfg.num_heads // enc_k.shape[2]
     q = _proj(x, p["wq"])
-    qg = q.reshape(b, 1, kvh, g, hd)
+    h = q.shape[2]
+    qg = q.reshape(b, 1, kvh, h // kvh, hd)
     s = torch.einsum("bqkgh,btkh->bkgqt", qg, enc_k.to(q.dtype))
     s = s.float() * (cfg.head_dim ** -0.5)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqt,btkh->bqkgh", w.to(q.dtype),
                        enc_v.to(q.dtype)).reshape(b, 1, h, hd)
-    return _out_proj(out, p["wo"], x.dtype)
+    y = _out_proj(out, p["wo"], x.dtype)
+    return tp.exit(y) if split else y

@@ -149,10 +149,19 @@ def mamba2_block(cfg, p, x, carry=None, tp=None):
     return y, (conv_carry, state)
 
 
-def mamba2_step(cfg, p, x, carry):
-    """Single-token decode. x (B,1,d)."""
+def mamba2_step(cfg, p, x, carry, tp=None):
+    """Single-token decode. x (B,1,d). With ``tp`` and ``p`` holding this
+    rank's block of d_inner and of its heads, as `mamba2_block`'s split
+    path: the conv carry is the rank's d_inner block and the state its
+    heads', the gated norm's mean of squares is summed over "model" (one
+    all_reduce: no gradient flows), and ``wo`` is row-parallel before
+    ``tp.exit``."""
     b, _, d = x.shape
-    di = cfg.ssm_expand * d
+    width = cfg.ssm_expand * d
+    split = tp is not None and p["wz"].shape[-1] < width
+    if split:
+        x = tp.enter(x)
+    di = p["wz"].shape[-1]
     nh = di // cfg.ssm_head_dim
     conv_carry, state = carry
     z, xs, bmat, cmat, dt_raw = _proj(cfg, p, x)
@@ -163,8 +172,13 @@ def mamba2_step(cfg, p, x, carry):
     o = o + (p["D"].to(o.dtype)[None, None, :, None]
              * xs.reshape(b, 1, nh, cfg.ssm_head_dim))
     o = o.reshape(b, 1, di)
-    o = rms_norm(o * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    y = torch.matmul(o, p["wo"].to(x.dtype))
+    if split:
+        o = _rms_norm_over_model(tp, o * F.silu(z), p["norm_scale"],
+                                 cfg.norm_eps, width)
+        y = tp.exit(torch.matmul(o, p["wo"].to(x.dtype)))
+    else:
+        o = rms_norm(o * F.silu(z), p["norm_scale"], cfg.norm_eps)
+        y = torch.matmul(o, p["wo"].to(x.dtype))
     return y, (conv_carry, state)
 
 

@@ -128,15 +128,24 @@ def rwkv_tmix(cfg, p, x, carry=None, tp=None):
     return y, (x[:, -1], state)
 
 
-def rwkv_tmix_step(cfg, p, x, carry):
-    """Single-token decode. x (B,1,d); carry as in rwkv_tmix."""
+def rwkv_tmix_step(cfg, p, x, carry, tp=None):
+    """Single-token decode. x (B,1,d); carry as in rwkv_tmix. With ``tp``
+    and ``p`` holding this rank's block of the heads, as `rwkv_tmix`'s
+    split path: the gate reads the whole ``wg`` outside the split region,
+    the state is the rank's heads', and ``tp.exit`` sums ``wo``'s
+    row-parallel output before the gate multiplies it."""
     x_last, state = carry
     prev = x_last[:, None] if x_last is not None else torch.zeros_like(x)
     g = _gate(p, x, prev)
+    split = tp is not None and p["wr"].shape[-2] < cfg.num_heads
+    if split:
+        x = tp.enter(x)
     r, k, v, logw = _mix_proj(cfg, p, x, prev)
     o, state = step_gla(r, k, v, logw, p["u"], state)
     o = _head_groupnorm(o, p["ln_scale"], p["ln_bias"])
     y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    if split:
+        y = tp.exit(y)
     return y * g.to(y.dtype), (x[:, 0], state)
 
 

@@ -60,7 +60,7 @@ from repro_torch.sharding.rules import (ParamSpec, abstract_params, constrain,
                                         tree_map_specs)
 from repro_torch.sharding.tensor_parallel import (ModelGroup, embed_lookup,
                                                   lse_and_gold)
-from repro_torch.tree import tree_flatten
+from repro_torch.tree import flatten_up_to, tree_flatten, tree_unflatten
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -120,7 +120,8 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
                       cache_len=None, tp=None):
     """``enc_out``: the encoder's output in train and prefill, and in
     decode any value but None (the cross caches hold its keys and values).
-    ``tp``: the `ModelGroup` of a model split over "model" (training).
+    ``tp``: the `ModelGroup` of a model split over "model" (every mode:
+    the caches prefill writes and decode reads are the rank's heads).
     """
     window, theta = _kind_window_theta(cfg, kind)
     if cfg.frontend == "audio_frames":
@@ -135,11 +136,11 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
     elif mode == "decode":
         y, ck, cv = attn.decode_self_attention(
             cfg, p["attn"], x, cache["k"], cache["v"], pos,
-            window=window, theta=theta)
+            window=window, theta=theta, tp=tp)
         new_cache = {"k": ck, "v": cv}
     elif mode == "prefill":
         y, (k, v) = attn.self_attention(cfg, p["attn"], x, window=window,
-                                        theta=theta, return_kv=True)
+                                        theta=theta, return_kv=True, tp=tp)
         s = k.shape[1]
         target = max(cache_len or s, s)
         if window is not None and target > window:
@@ -172,7 +173,8 @@ def _apply_attn_block(cfg, p, h, kind, mode, cache, pos, enc_out=None,
         x = norm_apply(cfg, h, p["ln_cross"])
         if mode == "decode":
             y = attn.decode_cross_attention(cfg, p["cross"], x,
-                                            cache["cross_k"], cache["cross_v"])
+                                            cache["cross_k"], cache["cross_v"],
+                                            tp)
             new_cache["cross_k"] = cache["cross_k"]
             new_cache["cross_v"] = cache["cross_v"]
         else:
@@ -208,7 +210,9 @@ def _write(dst, src):
 def _apply_block(cfg, kind, p, h, mode, cache, pos, enc_out=None,
                  cache_len=None, tp=None):
     """One block. In decode the M and R carries are written in place into
-    ``cache`` (whose dtypes `_decode_carries` set)."""
+    ``cache`` (whose dtypes `_decode_carries` set). ``tp``: as in
+    `_apply_attn_block`; the M and R blocks split where their leaves are
+    this rank's blocks."""
     if kind in "GLS":
         k = "G" if kind == "S" else kind
         return _apply_attn_block(cfg, p, h, k, mode, cache, pos, enc_out,
@@ -216,7 +220,7 @@ def _apply_block(cfg, kind, p, h, mode, cache, pos, enc_out=None,
     if kind == "M":
         x = norm_apply(cfg, h, p["ln"])
         if mode == "decode":
-            y, carry = mamba2_step(cfg, p["mamba"], x, cache)
+            y, carry = mamba2_step(cfg, p["mamba"], x, cache, tp)
             carry = _write(cache, carry)
         else:
             y, carry = mamba2_block(cfg, p["mamba"], x,
@@ -226,7 +230,7 @@ def _apply_block(cfg, kind, p, h, mode, cache, pos, enc_out=None,
         x = norm_apply(cfg, h, p["ln1"])
         tmix_carry = cache[0] if cache is not None else None
         if mode == "decode":
-            y, tcarry = rwkv_tmix_step(cfg, p["tmix"], x, tmix_carry)
+            y, tcarry = rwkv_tmix_step(cfg, p["tmix"], x, tmix_carry, tp)
         else:
             y, tcarry = rwkv_tmix(cfg, p["tmix"], x, tmix_carry, tp)
         h = h + y
@@ -592,12 +596,6 @@ class TransformerLM(nn.Module):
                 out.append((self, name))
         return out
 
-    def _whole(self, what: str) -> None:
-        if self.tp is not None and self.tp.size > 1:
-            raise NotImplementedError(
-                f"{what} on a model split over 'model': it computes the "
-                "training step only")
-
     def _forward_params(self) -> dict:
         """The tree a training forward reads: under autograd, the
         parameters themselves (each use casts them, in the graph);
@@ -770,7 +768,8 @@ class TransformerLM(nn.Module):
 
     def init_cache(self, batch: int, cache_len: int):
         """Zero decode caches for ``batch`` sequences of ``cache_len``
-        positions (the cross caches at ``cfg.cross_len``)."""
+        positions (the cross caches at ``cfg.cross_len``); on a model
+        split over "model", this rank's blocks of them (`cache_split`)."""
         cfg = self.cfg
         full, tail = cfg.pattern_groups()
         pat = cfg.layer_pattern
@@ -779,14 +778,86 @@ class TransformerLM(nn.Module):
         if full > 0:
             caches["blocks"] = {
                 str(j): _block_cache_init(cfg, k, batch, cache_len,
-                                          device=self.device, stacked=(full,),
+                                          device="meta", stacked=(full,),
                                           cross=cross)
                 for j, k in enumerate(pat)}
         for i in range(tail):
             caches["tail"][str(i)] = _block_cache_init(
-                cfg, pat[i], batch, cache_len, device=self.device,
-                cross=cross)
-        return caches
+                cfg, pat[i], batch, cache_len, device="meta", cross=cross)
+        leaves, tdef = tree_flatten(caches)
+        hows = flatten_up_to(tdef, self.cache_split())
+        return tree_unflatten(tdef, [
+            torch.zeros(cache_block(x, how).shape, dtype=x.dtype,
+                        device=self.device) for x, how in zip(leaves, hows)])
+
+    def cache_split(self) -> dict:
+        """The block of the whole model's decode caches that this rank's
+        hold, the counterpart of `model_split` for the caches, in
+        `init_cache`'s nesting: for each leaf None (whole) or (dim,
+        block), the leaf's dim and the rank's part of it, a slice or a
+        tuple of indices (`cache_block` cuts it). Attention k and v, self
+        and cross, at the kv heads the rank computes: its block where the
+        kv heads are split, else the kv heads its q heads read
+        (`attention._kv_block`: a run of them, or one a q head where the
+        rank's heads straddle a group unevenly, as prefill's
+        ``return_kv`` makes them); mamba2's conv carry at its d_inner
+        block and its state at its heads; rwkv6's wkv state at its heads
+        (its token and channel-mix carries are d_model wide and whole).
+        Every leaf None before a split and over a "model" dim of one."""
+        cfg, tp, plan = self.cfg, self.tp, self.split_plan
+        full, tail = cfg.pattern_groups()
+        pat = cfg.layer_pattern
+        cross = cfg.encoder_layers > 0
+        split = tp is not None and tp.size > 1
+
+        def part(n, dim):
+            n //= tp.size
+            return dim, slice(tp.rank * n, (tp.rank + 1) * n)
+
+        def split_at(bp, name, leaf):
+            """Does the rank hold a block of ``bp[name][leaf]``?"""
+            return split and isinstance(bp[name][leaf], int)
+
+        def kv(bp, name, lead):
+            if not split_at(bp, name, "wq"):
+                return None
+            if isinstance(bp[name]["wk"], int):
+                return part(cfg.num_kv_heads, lead + 2)
+            sel = attn._kv_block(cfg, tp.rank, cfg.num_heads // tp.size)
+            if isinstance(sel, torch.Tensor):
+                sel = tuple(sel.tolist())
+            return lead + 2, sel
+
+        def block(kind, bp, lead):
+            if kind in "GLS":
+                c = {"k": kv(bp, "attn", lead), "v": kv(bp, "attn", lead)}
+                if cross:
+                    c["cross_k"] = c["cross_v"] = kv(bp, "cross", lead)
+                return c
+            if kind == "M":
+                if not split_at(bp, "mamba", "wz"):
+                    return None, None
+                di = cfg.ssm_expand * cfg.d_model
+                return (part(di, lead + 2),
+                        part(di // cfg.ssm_head_dim, lead + 1))
+            if kind == "R":
+                heads = split_at(bp, "tmix", "wr")
+                return (None, part(cfg.num_heads, lead + 1) if heads
+                        else None), None
+            raise ValueError(kind)
+
+        def plan_of(kind, group, key):
+            if not split:
+                return None
+            return plan["shared"] if kind == "S" else plan[group][key]
+        out = {"blocks": None, "tail": {}}
+        if full > 0:
+            out["blocks"] = {str(j): block(k, plan_of(k, "blocks", str(j)), 1)
+                             for j, k in enumerate(pat)}
+        for i in range(tail):
+            out["tail"][str(i)] = block(pat[i],
+                                        plan_of(pat[i], "tail", str(i)), 0)
+        return out
 
     def cache_axes(self):
         """Logical sharding axes tree parallel to init_cache()'s structure
@@ -808,9 +879,11 @@ class TransformerLM(nn.Module):
         """Full-context forward building decode caches.
 
         ``cache_len``: total cache size including decode headroom (defaults
-        to the prompt length). Returns (last-position logits, caches).
+        to the prompt length). Returns (last-position logits, caches). On
+        a model split over "model" the logits are this rank's block of the
+        vocabulary where it is split, and the caches the rank's blocks
+        (`cache_split`); each rank passes the batch rows it computes.
         """
-        self._whole("prefill")
         params = self.weights()
         enc_out = self._encoder_out(params, batch, "prefill")
         h = self._prefix(self._embed(params, batch["tokens"]), batch)
@@ -821,19 +894,12 @@ class TransformerLM(nn.Module):
     def decode_step(self, caches, token, pos: int):
         """One token. token (B,1); pos int (same across the batch).
 
-        Writes the caches in place; returns (logits (B,1,V), caches).
+        Writes the caches in place; returns (logits (B,1,V), caches), V
+        this rank's block of the vocabulary on a model split over it.
         """
-        cfg = self.cfg
-        self._whole("decode")
         params = self.weights()
-        h = params["embed"][token].to(torch_dtype(cfg.dtype))
-        if cfg.embed_scale:
-            h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
-        if cfg.frontend == "audio_frames":
-            # absolute sinusoidal row at `pos` (table sized by cache length)
-            table = sinusoidal_embed(_cache_len_of(caches), cfg.d_model)
-            h = h + torch.from_numpy(table[pos]).to(h.device, h.dtype)
-        caches = _decode_caches(cfg, caches)
+        h = self._embed(params, token, offset=pos)
+        caches = _decode_caches(self.cfg, caches)
         # the cross caches stand for the encoder's output in decode
         h, caches = self._run_stack(params, h, "decode", caches, pos,
                                     enc_out=True)
@@ -880,10 +946,12 @@ def _decode_caches(cfg, caches):
     return out
 
 
-def _cache_len_of(caches):
-    """Self-attention cache length from any attention cache leaf."""
-    for grp in (caches.get("blocks") or {}), caches.get("tail", {}):
-        for c in grp.values():
-            if isinstance(c, dict) and "k" in c:
-                return c["k"].shape[-3]
-    raise ValueError("no attention cache found")
+def cache_block(x: torch.Tensor, how) -> torch.Tensor:
+    """The block ``how`` (a leaf of `TransformerLM.cache_split`: None, or
+    (dim, a slice or a tuple of indices)) of a whole cache leaf ``x``."""
+    if how is None:
+        return x
+    dim, sel = how
+    if isinstance(sel, slice):
+        return x[(slice(None),) * dim + (sel,)]
+    return x.index_select(dim, torch.tensor(sel, device=x.device))

@@ -4,7 +4,9 @@ The model holds its parameters, so `ServeEngine.generate` takes the batch
 and the token count (the reference's also takes the parameter tree). The
 whole batch goes to prefill (the encoder-decoder's ``frames``, the VLM's
 ``patches``). The decode caches are updated in place, as the reference
-donates them.
+donates them. On a model split over "model" (`split_over_model`) each
+rank of the dim passes the batch rows it computes and takes the same
+tokens: the greedy choice over a vocabulary block is `vocab_argmax`.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.sharding.tensor_parallel import vocab_argmax
 
 
 class ServeEngine:
@@ -32,12 +35,16 @@ class ServeEngine:
             cache_len = p + s + max_new_tokens
             logits, caches = model.prefill({**batch, "tokens": tokens},
                                            cache_len=cache_len)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(tokens.dtype)
+            vocab = model.cfg.vocab_size
+
+            def greedy(logits):
+                return vocab_argmax(model.tp, logits[:, -1],
+                                    vocab)[:, None].to(tokens.dtype)
+            tok = greedy(logits)
             out = [tok]
             for t in range(max_new_tokens - 1):
                 logits, caches = model.decode_step(caches, tok, p + s + t)
-                tok = torch.argmax(logits[:, -1],
-                                   dim=-1)[:, None].to(tokens.dtype)
+                tok = greedy(logits)
                 out.append(tok)
             return torch.cat(out, dim=1)
 

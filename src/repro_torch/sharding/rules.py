@@ -330,11 +330,16 @@ class use_mesh:
 def tree_map_specs(fn, specs):
     """``fn(path, spec)`` over a nested dict of `ParamSpec`, in sorted key
     order (the order of ``jax.tree.flatten``); returns the same nesting."""
-    def walk(node, path):
-        if isinstance(node, ParamSpec):
-            return fn(path, node)
-        return {k: walk(node[k], path + (k,)) for k in sorted(node)}
-    return walk(specs, ())
+    return _map_specs(fn, specs, ())
+
+
+def _map_specs(fn, node, path):
+    # recursive at module level: a nested recursive function is a
+    # reference cycle, which would keep ``fn`` and what it holds (a
+    # caller's parameters) alive until the next garbage collection
+    if isinstance(node, ParamSpec):
+        return fn(path, node)
+    return {k: _map_specs(fn, node[k], path + (k,)) for k in sorted(node)}
 
 
 def constrain(x, axes: tuple[str | None, ...]):

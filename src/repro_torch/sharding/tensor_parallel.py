@@ -1,10 +1,11 @@
 """Tensor parallelism over the "model" mesh dim, Megatron-style.
 
 Where the sharding rules put a parameter dim on "model" (``heads``,
-``kv_heads``, ``d_ff``, ``vocab``), each rank of that dim holds its block
-of the dim (`TransformerLM.split_over_model`) and computes its block of
-the products that read it. A split region starts and ends with the two
-operators of `ModelGroup`:
+``kv_heads``, ``d_ff``, ``ssm_heads``, ``vocab``), each rank of that dim
+holds its block of the dim (`TransformerLM.split_over_model`) and computes
+its block of the products that read it: in the training step, in prefill
+and in each decode step (the caches then hold the rank's heads). A split
+region starts and ends with the two operators of `ModelGroup`:
 
 * `ModelGroup.enter`: the identity forward and an all_reduce of the
   gradient backward (the region's input is the same on every rank, and
@@ -14,10 +15,10 @@ operators of `ModelGroup`:
 
 Column-parallel products (``wq``, ``wk``, ``wv``, ``wi``, ``wg``) need
 nothing between them; a row-parallel product (``wo``) ends the region
-with `exit`. The vocabulary's two ends are `embed_lookup` (a masked
-lookup into this rank's rows, then `exit`) and `lse_and_gold` (the
-log-sum-exp and the gold logit of a logits block that is local in the
-vocabulary).
+with `exit`. The vocabulary's ends are `embed_lookup` (a masked lookup
+into this rank's rows, then `exit`), `lse_and_gold` (the log-sum-exp and
+the gold logit of a logits block that is local in the vocabulary) and
+`vocab_argmax` (serving's greedy choice over such a block).
 
 Every collective here is ``dist.all_reduce`` (SUM or MAX) over the dim's
 process group: never an all_gather. Over a group of one each operator is
@@ -139,3 +140,21 @@ def lse_and_gold(tp: ModelGroup | None, logits: torch.Tensor,
     both = tp.exit(torch.stack([torch.exp(lse - m),
                                 torch.where(inside, gold, 0.0)]))
     return m + torch.log(both[0]), both[1]
+
+
+def vocab_argmax(tp: ModelGroup | None, logits: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """The global id of the first maximum over the last dim of ``logits``
+    (..., V_local), this rank's block of a ``vocab``-wide vocabulary (rows
+    ``rank * V_local`` on; the whole without ``tp``), the same on every
+    rank. Ties go to the lower id, as ``torch.argmax`` breaks them: the
+    maximum value is all-reduced (MAX), then the lowest id that reaches
+    it (a MAX of the negated ids). Over one rank, ``torch.argmax``."""
+    if tp is None or logits.shape[-1] == vocab:
+        return torch.argmax(logits, dim=-1)
+    rows = logits.shape[-1]
+    local = torch.argmax(logits, dim=-1)
+    best = torch.gather(logits, -1, local[..., None])[..., 0]
+    top = tp.all_reduce(_copy(best), "max")
+    ids = torch.where(best == top, local + tp.rank * rows, vocab)
+    return -tp.all_reduce(-ids, "max")

@@ -14,14 +14,17 @@ step run for real.
   counters around the same step run on the CPU, reduced configs of each
   family, in each mode; ``model_flops`` is the reference's formula
   (``benchmarks/roofline.py``, restated).
-* Tensor parallelism over "model": every train cell records
-  ``"model_axis": "tensor"``; a reduced config's cell on a (2, 2)
-  `ShapeMesh` (qwen2-0.5b, gemma3-1b, zamba2-7b, whisper-base) has the
-  FLOPs and the operand bytes of the all_reduces over "model" that rank
-  0's step on 4 gloo ranks recorded (`test_torch_mesh_train`'s run,
-  shared through its ``runs`` fixture); qwen2-0.5b's train_4k on (16,
-  16) counts its d_ff and vocabulary products at 1/16, and rwkv6-3b's
-  splits its channel mix and vocabulary and not its time mix.
+* Tensor parallelism over "model": every cell records ``"model_axis":
+  "tensor"``; a reduced config's train cell on a (2, 2) `ShapeMesh`
+  (qwen2-0.5b, gemma3-1b, zamba2-7b, whisper-base) has the FLOPs and the
+  operand bytes of the all_reduces over "model" that rank 0's step on 4
+  gloo ranks recorded (`test_torch_mesh_train`'s run, shared through its
+  ``runs`` fixture), and a reduced config's prefill and decode cells
+  those of rank 0's prefill and decode step (`test_torch_mesh_serve`'s
+  ``serve_runs``); qwen2-0.5b's train_4k on (16, 16) counts its d_ff and
+  vocabulary products at 1/16, and rwkv6-3b's splits its channel mix
+  and vocabulary and not its time mix; a decode cell gives the port's
+  cache bytes a rank where they differ from the rules' block.
 * `run_cell` at full width, one cell a mode; the sweep's resume, its
   contained failures and its exit code; `card_check` refuses to run
   without a card.
@@ -51,6 +54,9 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import dryrun, sweep
 from repro_torch.launch.mesh import ShapeMesh
 from repro_torch.launch.specs import SHAPES, ShapeCase, cell_runnable
+from test_torch_mesh_serve import COUNTED as SERVE_COUNTED
+from test_torch_mesh_serve import (COUNTED_SHAPES, counted_case, port_config,
+                                   serve_runs)
 from test_torch_mesh_train import BATCH, COUNTED, SEQ, _port_config, runs
 
 MESHES = {"single_pod": ((16, 16), ("data", "model")),
@@ -215,10 +221,8 @@ def check_record(rec, mesh):
     for k in ("flops", "bytes_accessed", "model_flops", "compute_s",
               "memory_s"):
         assert math.isfinite(cost[k]) and cost[k] > 0, k
-    tensor = rec["mode"] == "train"
-    assert cost["model_axis"] == ("tensor" if tensor else "replicated")
-    assert (cost["model_all_reduce_bytes"] > 0) == (tensor
-                                                    and mesh != "one_card")
+    assert cost["model_axis"] == "tensor"
+    assert (cost["model_all_reduce_bytes"] > 0) == (mesh != "one_card")
     assert cost["bytes_model"] == "unfused"
     assert cost["bound"] in ("compute_s", "memory_s", "collective_s")
     assert cost[cost["bound"]] == max(cost["compute_s"], cost["memory_s"],
@@ -252,6 +256,42 @@ def test_meta_cell_has_the_flops_and_model_bytes_of_rank0s_step(
     assert counts["flops"] > 0 and counts["model_all_reduce"] > 0
     assert cost["flops"] == counts["flops"]
     assert cost["model_all_reduce_bytes"] == counts["model_all_reduce"]
+
+
+# the reduced configs whose rank-0 caches on (2, 2) are not the rules'
+# block, and by how much: gemma3-1b's one kv head is whole under its split
+# q heads, where the rules shard the caches' head_dim (cache_head_dim)
+PORT_CACHE_RATIO = {"gemma3-1b": 2}
+
+
+@pytest.mark.parametrize("mode", list(COUNTED_SHAPES))
+@pytest.mark.parametrize("arch", SERVE_COUNTED)
+def test_meta_serving_cell_has_the_flops_and_model_bytes_of_rank0s_step(
+        serve_runs, arch, mode):
+    """The reduced config's prefill cell (4 x 96 tokens; whisper's 4 x 48
+    tokens and 4 x 48 frames) and decode cell (a cache of 100) on a (2, 2)
+    ShapeMesh: the model at rank 0's blocks along "model", its step on
+    meta has the FLOPs and the all_reduce operand bytes over "model" that
+    rank 0's prefill and decode step on 4 gloo ranks counted (qwen2-0.5b's
+    two kv heads split, gemma3-1b's one whole, rwkv6-3b's time mix,
+    zamba2-7b's mamba blocks and shared block, whisper-base's encoder and
+    cross attention); a decode cell's port cache bytes beside the rules'
+    where they differ."""
+    counts = serve_runs["infos"][0]["counts"][arch][mode]
+    cell = dryrun.build_cell(arch, counted_case(mode),
+                             ShapeMesh((2, 2), ("data", "model")),
+                             cfg=port_config(arch))
+    assert cell.rows == 2 and cell.model_axis == "tensor"
+    cost = dryrun.cell_cost(cell)
+    assert counts["flops"] > 0 and counts["model_all_reduce"] > 0
+    assert cost["flops"] == counts["flops"]
+    assert cost["model_all_reduce_bytes"] == counts["model_all_reduce"]
+    mem = dryrun.cell_memory(cell)
+    if mode == "decode" and arch in PORT_CACHE_RATIO:
+        assert mem["port_caches_bytes"] == (PORT_CACHE_RATIO[arch]
+                                            * mem["caches_bytes"])
+    else:
+        assert "port_caches_bytes" not in mem
 
 
 def test_train_4k_counts_d_ff_and_vocab_products_at_a_sixteenth():
@@ -317,8 +357,12 @@ def test_run_cell_at_full_width(arch, shape, mesh):
         coll = rec["cost"]["collectives"]
         assert coll["reduce-scatter"] > 0 and coll["all-gather"] > 0
     if shape == "decode_32k":
-        # 128 sequences over 16 data ranks, each with the whole cache
+        # 128 sequences over 16 data ranks; qwen2-0.5b's 14 heads stay
+        # whole over 16, so a rank holds its rows' whole cache, where the
+        # rules shard its head_dim 16 ways (cache_head_dim)
         assert rec["cost"]["rows_per_device"] == 8
+        mem = rec["memory"]
+        assert mem["port_caches_bytes"] == 16 * mem["caches_bytes"]
 
 
 def test_run_cell_skips_long_500k_for_full_attention():

@@ -3,7 +3,13 @@
 `models.attention` (self attention, causal and the encoder's, and cross
 attention), `models.mlp` (the gated MLP and rwkv6's channel mix),
 `models.rwkv6`, `models.mamba2`, `models.moe` and `TransformerLM.loss`)
-against the same functions unsplit.
+against the same functions unsplit; and the serving operators forward
+(`DECODE`: prefill's self attention with its k and v, decode's self
+attention on a full and a ring cache, its cross attention, `mamba2_step`,
+`rwkv_tmix_step`, `vocab_argmax`), each rank's output and cache block
+against the unsplit function's, and `TransformerLM.prefill`,
+`decode_step` and `ServeEngine.generate` of the reduced configs that
+`test_torch_mesh_serve.py` does not hold to the reference.
 
 Each case runs over 2 and over 4 ranks of a ``gloo`` group, as
 subprocesses of this file (``python test_torch_tensor_parallel.py rank
@@ -36,13 +42,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import attention, mamba2, mlp as mlp_mod, moe, rwkv6
 from repro_torch.models.common import cross_entropy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.sharding.tensor_parallel import (ModelGroup, embed_lookup,
-                                                  lse_and_gold)
+                                                  lse_and_gold, vocab_argmax)
 
 torch.set_num_threads(1)
 WORLDS = (2, 4)
@@ -261,6 +267,276 @@ def run_case(case: dict, tp, rank: int = 0, world: int = 1) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving: each operator forward, its caches at the rank's block
+
+# (heads, kv heads) of each attention case a world, as ATTN: the kv heads
+# split; whole; whole and straddling (rank 1 of 4 holds q heads 3-5 over
+# groups of 4: the kv heads (0, 1, 1), one a q head, as prefill writes
+# them and decode reads them: its cache 1.5x the bytes of the 2 distinct)
+SERVE_ATTN = {"kv_split": {2: (8, 4), 4: (8, 4)},
+              "kv_whole": {2: (4, 1), 4: (4, 2)},
+              "straddle": {4: (12, 3)}}
+DECODE = (["prefill_" + k for k in SERVE_ATTN]
+          + ["decode_" + k for k in SERVE_ATTN]
+          + ["decode_ring", "decode_cross", "mamba2_step", "rwkv_tmix_step",
+             "vocab_argmax"])
+DECODE32 = ("mamba2_step",)  # its norm's sum of squares is float32
+CACHE, WINDOW, POS, RING_POS = 12, 8, 7, 13
+
+
+def decode_worlds(name: str) -> tuple:
+    key = name.split("_", 1)[1]
+    return tuple(SERVE_ATTN[key]) if key in SERVE_ATTN else WORLDS
+
+
+def _kv_index(cfg, rank: int, world: int) -> np.ndarray:
+    """The kv heads a rank's cache holds: its block where they split over
+    ``world``, else those its q heads read (`attention._kv_block`)."""
+    if cfg.num_kv_heads % world == 0:
+        n = cfg.num_kv_heads // world
+        return np.arange(rank * n, (rank + 1) * n)
+    sel = attention._kv_block(cfg, rank, cfg.num_heads // world)
+    if isinstance(sel, slice):
+        return np.arange(cfg.num_kv_heads)[sel]
+    return sel.numpy()
+
+
+def _block(n: int):
+    """A rank's contiguous block of ``n``: (rank, world) -> indices."""
+    return lambda rank, world: np.arange(rank * n // world,
+                                         (rank + 1) * n // world)
+
+
+def decode_setup(name: str, world: int) -> dict:
+    """A serving case: ``cfg``, whole leaves ``p`` and each split leaf's dim
+    ``split``, the input ``x``, the whole carries ``carry``, ``cuts`` (a
+    carry's and output cache's (dim, (rank, world) -> indices), None where
+    whole), ``out_cuts`` for the caches it returns, ``x_cut`` (the
+    input's, for `vocab_argmax`'s logits) and ``fn(cfg, p, x, carry, tp)
+    -> (y, [caches])``. The same on every process (numpy seed 3)."""
+    rng = np.random.default_rng(3)
+    kind, _, key = name.partition("_")
+    if name == "decode_ring":
+        kind, key = "decode", "kv_split"
+    if kind in ("prefill", "decode") and key in SERVE_ATTN:
+        cfg = _attn_cfg(*SERVE_ATTN[key][world])
+        p = _drawn(rng, attention.attn_specs(cfg), 0.5)
+        split = {"wq": 1, "wo": 0, "bq": 0}
+        if cfg.num_kv_heads % world == 0:
+            split.update(wk=1, wv=1, bk=0, bv=0)
+
+        def kv(rank, w, cfg=cfg):
+            return _kv_index(cfg, rank, w)
+        if kind == "prefill":
+            def fn(cfg, p, x, carry, tp):
+                y, (k, v) = attention.self_attention(cfg, p, x,
+                                                     return_kv=True, tp=tp)
+                return y, [k, v]
+            return dict(cfg=cfg, p=p, split=split, carry=[], cuts=[],
+                        out_cuts=[(2, kv)] * 2, fn=fn,
+                        x=_normal(rng, (B, S, cfg.d_model)))
+        ring = name == "decode_ring"
+        n_cache = WINDOW if ring else CACHE
+        carry = [_normal(rng, (B, n_cache, cfg.num_kv_heads, cfg.head_dim))
+                 for _ in range(2)]
+
+        def fn(cfg, p, x, carry, tp, ring=ring):
+            y, k, v = attention.decode_self_attention(
+                cfg, p, x, *carry, RING_POS if ring else POS,
+                window=WINDOW if ring else None, tp=tp)
+            return y, [k, v]
+        return dict(cfg=cfg, p=p, split=split, carry=carry,
+                    cuts=[(2, kv)] * 2, fn=fn,
+                    x=_normal(rng, (B, 1, cfg.d_model)))
+    if name == "decode_cross":
+        cfg = _attn_cfg(4, 2)
+        p = _drawn(rng, attention.attn_specs(cfg, cross=True), 0.5)
+        split = {"wq": 1, "wo": 0}
+        if world == 2:
+            split.update(wk=1, wv=1)
+
+        def fn(cfg, p, x, carry, tp):
+            return attention.decode_cross_attention(cfg, p, x, *carry,
+                                                    tp), carry
+        return dict(cfg=cfg, p=p, split=split, fn=fn,
+                    carry=[_normal(rng, (B, SE, 2, cfg.head_dim))
+                           for _ in range(2)],
+                    cuts=[(2, lambda r, w, cfg=cfg: _kv_index(cfg, r, w))] * 2,
+                    x=_normal(rng, (B, 1, cfg.d_model)))
+    if name == "mamba2_step":
+        case = setup("mamba2", world)
+        cfg = case["cfg"]
+        di = cfg.ssm_expand * cfg.d_model
+        nh = di // cfg.ssm_head_dim
+        # the state float32, as the model holds it
+        carry = [_normal(rng, (B, cfg.ssm_conv - 1, di)),
+                 _normal(rng, (B, nh, cfg.ssm_state, cfg.ssm_head_dim),
+                         0.3).astype(np.float32)]
+
+        def fn(cfg, p, x, carry, tp):
+            y, c = mamba2.mamba2_step(cfg, p, x, tuple(carry), tp)
+            return y, list(c)
+        return dict(cfg=cfg, p=case["p"], split=case["split"], carry=carry,
+                    cuts=[(2, _block(di)), (1, _block(nh))], fn=fn,
+                    x=_normal(rng, (B, 1, cfg.d_model)))
+    if name == "rwkv_tmix_step":
+        case = setup("rwkv_tmix", world)
+        cfg = case["cfg"]
+        dk = cfg.d_model // cfg.num_heads
+        carry = [_normal(rng, (B, cfg.d_model)),
+                 _normal(rng, (B, cfg.num_heads, dk, dk),
+                         0.3).astype(np.float32)]
+
+        def fn(cfg, p, x, carry, tp):
+            y, c = rwkv6.rwkv_tmix_step(cfg, p, x, tuple(carry), tp)
+            return y, list(c)
+        return dict(cfg=cfg, p=case["p"], split=case["split"], carry=carry,
+                    cuts=[None, (1, _block(cfg.num_heads))], fn=fn,
+                    x=_normal(rng, (B, 1, cfg.d_model)))
+    if name == "vocab_argmax":
+        # integer logits over 24 ids: ties inside a rank's block and across
+        # blocks (row 0: ids 5 and 17, blocks 0 and 1 of 2 and 0 and 2 of
+        # 4; row 1: ids 11 and 12, the last of one block and the first of
+        # the next over 2; row 2: three ranks' blocks hold the maximum over
+        # 4), and a row whose maximum is in the last block alone
+        cfg = _attn_cfg(4, 2)
+        x = rng.integers(-20, 10, (4, 3, cfg.vocab_size)).astype(np.float64)
+        x[0, :, [5, 17]] = 10.0
+        x[1, :, [11, 12]] = 10.0
+        x[2, :, [3, 4, 13, 20]] = 10.0
+        x[3, :, 23] = 11.0
+
+        def fn(cfg, p, x, carry, tp):
+            return vocab_argmax(tp, x, cfg.vocab_size), []
+        return dict(cfg=cfg, p={}, split={}, carry=[], cuts=[], fn=fn, x=x,
+                    x_cut=(2, _block(cfg.vocab_size)))
+    raise KeyError(name)
+
+
+def run_decode_case(case: dict, tp, rank: int = 0, world: int = 1) -> dict:
+    """The case forward under inference mode on this rank's blocks (of the
+    split leaves, the carries and, for `vocab_argmax`, the logits): its
+    output ``y`` and caches ``c<i>``."""
+    def cut(a, how):
+        if tp is None or how is None:
+            return a
+        dim, idx = how
+        return np.take(a, idx(rank, world), axis=dim)
+    p = {}
+    for k, v in case["p"].items():
+        if tp is not None and k in case["split"]:
+            v = cut(v, (case["split"][k], _block(v.shape[case["split"][k]])))
+        p[k] = torch.tensor(v)
+    x = torch.tensor(cut(case["x"], case.get("x_cut")))
+    carry = [torch.tensor(cut(c, how))
+             for c, how in zip(case["carry"], case["cuts"])]
+    with torch.inference_mode():
+        y, caches = case["fn"](case["cfg"], p, x, carry, tp)
+    out = {"y": y.numpy()}
+    out.update((f"c{i}", c.numpy()) for i, c in enumerate(caches))
+    return out
+
+
+def check_decode(name: str, outs: list, whole: dict, world: int) -> float:
+    """Every rank's output against the whole's (exactly for `vocab_argmax`)
+    and its caches against their blocks of the whole's; the largest
+    error."""
+    case = decode_setup(name, world)
+    cuts = case.get("out_cuts", case["cuts"])
+    worst = 0.0
+    for rank, out in enumerate(outs):
+        assert sorted(out) == sorted(whole)
+        if name == "vocab_argmax":
+            assert np.array_equal(out["y"], whole["y"])
+            assert np.array_equal(whole["y"], np.argmax(case["x"], -1))
+            continue
+        for k, want in whole.items():
+            how = None if k == "y" else cuts[int(k[1:])]
+            if how is not None:
+                want = np.take(want, how[1](rank, world), axis=how[0])
+            assert out[k].shape == want.shape, k
+            worst = max(worst, rel(out[k], want))
+    return worst
+
+
+@pytest.mark.parametrize("name,world", [(n, w) for n in DECODE
+                                        for w in decode_worlds(n)])
+def test_split_serving_operator_matches_the_unsplit_function(ranks, name,
+                                                             world):
+    """Each rank's output equals the unsplit function's and its caches the
+    rank's block of the unsplit caches: prefill's k and v, decode's caches
+    after it wrote the token's (a full cache at position 7 of 12 and a ring
+    of 8 at position 13), the cross caches, mamba2's conv carry (its
+    d_inner block) and state (its heads) after the norm's mean of squares
+    over every rank, rwkv6's state (its heads; its token carry whole),
+    within `TOL` (`TOL32` for mamba2's float32 sum over the ranks);
+    `vocab_argmax`'s ids equal ``np.argmax`` of the whole logits on every
+    rank, ties to the lower id across blocks."""
+    outs = [{k.split("/", 1)[1]: v for k, v in r.items()
+             if k.startswith(name + "/")} for r in ranks[world]]
+    whole = run_decode_case(decode_setup(name, world), None)
+    assert check_decode(name, outs, whole, world) < (
+        TOL32 if name in DECODE32 else TOL)
+
+
+# ---------------------------------------------------------------------------
+# serving a whole model split over "model"
+
+# the reduced configs test_torch_mesh_serve.py does not hold to the
+# reference's sharded prefill and decode_step (its seven are held there)
+SERVE_FAMILIES = ("qwen3-0.6b", "h2o-danube-1.8b", "llama4-scout-17b-a16e")
+SERVE_B, SERVE_S, SERVE_NEW = 2, 96, 3
+
+
+def run_serve(arch: str, mesh=None) -> dict:
+    """``arch``'s reduced config (float64 where `conditioning.FLOAT64` says)
+    with its norms and biases redrawn and wq, wk at their true fan-in,
+    split over ``mesh``'s "model" dim when given: prefill of 2 x 96 tokens
+    (past the reduced window of 64; 3 MoE groups of 64), 3 decode steps
+    of seeded tokens (after whisper's frames or the VLM's patches), then
+    `ServeEngine.generate`'s 3 tokens: the logits
+    (this rank's vocabulary block), every cache leaf and the tokens."""
+    from repro_torch.models.conditioning import FLOAT64 as F64, condition
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding.rules import ShardingRules
+    from repro_torch.tree import tree_leaves
+    cut = {"dtype": "float64", "cache_dtype": "float64"} if arch in F64 else {}
+    cfg = get_config(arch).reduced(**cut)
+    model = TransformerLM(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    condition(model, 1, True)
+    if mesh is not None:
+        model.split_over_model(mesh, ShardingRules.default())
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (SERVE_B, SERVE_S)))}
+    forced = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                           (SERVE_B, SERVE_NEW)))
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (SERVE_B, cfg.cross_len, cfg.d_model)).astype(np.float32))
+    if cfg.num_prefix_embeds:
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (SERVE_B, cfg.num_prefix_embeds, cfg.d_model)).astype(
+                np.float32))
+    n = cfg.num_prefix_embeds + SERVE_S
+    out = {}
+    with torch.inference_mode():
+        logits, caches = model.prefill(batch, cache_len=n + SERVE_NEW)
+        out["logits_0"] = logits.numpy()
+        for t in range(SERVE_NEW):
+            logits, caches = model.decode_step(caches, forced[:, t:t + 1],
+                                               n + t)
+            out[f"logits_{t + 1}"] = logits.numpy()
+        out.update((f"cache_{i}", c.numpy())
+                   for i, c in enumerate(tree_leaves(caches)))
+    out["tokens"] = ServeEngine(model).generate(batch, SERVE_NEW).numpy()
+    if mesh is not None:
+        out["split"] = np.array(repr(model.cache_split()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the whole model's loss: the vocabulary-parallel head over padded chunks
 
 
@@ -339,6 +615,14 @@ def _rank(rank: int, world: int, tmp: Path) -> None:
         tp = ModelGroup.of(mesh)
         assert (tp.size, tp.rank) == (world, rank)
         res = {}
+        for name in DECODE:
+            if world in decode_worlds(name):
+                out = run_decode_case(decode_setup(name, world), tp, rank,
+                                      world)
+                res.update((f"{name}/{k}", v) for k, v in out.items())
+        for arch in SERVE_FAMILIES:
+            res.update((f"serve/{arch}/{k}", v)
+                       for k, v in run_serve(arch, mesh).items())
         for name in CASES:
             if world not in case_worlds(name):
                 continue
@@ -468,14 +752,19 @@ def test_split_model_loss_matches_the_whole_model(ranks, world):
     check_ranks(outs, run_model(world), split, TOL32, shared)
 
 
-@pytest.mark.parametrize("name", OPERATORS)
+@pytest.mark.parametrize("name", OPERATORS + DECODE)
 def test_group_of_one_is_the_unsplit_function_bit_for_bit(name):
     """Over a "model" dim of one (no process group) every operator and
     split path is the unsplit function: output and gradients bit for
-    bit."""
-    case = setup(name, min(case_worlds(name)))
-    got = run_case(case, ModelGroup(1, 0, None))
-    want = run_case(case, None)
+    bit, and a serving operator's output and caches (`DECODE`)."""
+    if name in DECODE:
+        case = decode_setup(name, min(decode_worlds(name)))
+        got = run_decode_case(case, ModelGroup(1, 0, None))
+        want = run_decode_case(case, None)
+    else:
+        case = setup(name, min(case_worlds(name)))
+        got = run_case(case, ModelGroup(1, 0, None))
+        want = run_case(case, None)
     assert sorted(got) == sorted(want)
     for k in want:
         assert np.array_equal(got[k], want[k]), k
@@ -519,6 +808,57 @@ def test_model_over_a_group_of_one_is_the_whole_model_bit_for_bit():
     assert torch.equal(lse, torch.logsumexp(logits, -1))
     assert torch.equal(gold, torch.gather(logits, -1, labels[..., None])[
         ..., 0])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch", SERVE_FAMILIES)
+def test_split_serving_matches_the_whole_model(ranks, arch, world):
+    """`TransformerLM.prefill`, 3 `decode_step` s and `ServeEngine.generate`
+    of ``arch`` split over "model" against the whole model: each rank's
+    logits its vocabulary block of the whole's, each cache leaf its block
+    (`cache_split`, `cache_block`), within `TOL_FAMILY`; the engine's
+    tokens equal on every rank and to the whole model's."""
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models.transformer import cache_block
+    from repro_torch.sharding.rules import ShardingRules
+    from repro_torch.tree import flatten_up_to, tree_flatten
+    outs = [{k.split("/", 2)[2]: v for k, v in r.items()
+             if k.startswith(f"serve/{arch}/")} for r in ranks[world]]
+    whole = run_serve(arch)
+    cfg = get_config(arch).reduced()
+    for rank, out in enumerate(outs):
+        model = TransformerLM(cfg, device="meta")
+        model.split_over_model(ShapeMesh((1, world), ("data", "model")).at(
+            rank), ShardingRules.default())
+        assert str(out["split"]) == repr(model.cache_split())
+        caches, tdef = tree_flatten(model.init_cache(1, 1))
+        hows = flatten_up_to(tdef, model.cache_split())
+        assert any(h is not None for h in hows)
+        for k in (k for k in whole if k.startswith("logits_")):
+            v = out[k].shape[-1]
+            assert v < cfg.vocab_size or world == 1
+            want = whole[k][..., rank * v:(rank + 1) * v]
+            assert rel(out[k], want) < TOL_FAMILY, k
+        for i, how in enumerate(hows):
+            want = cache_block(torch.from_numpy(whole[f"cache_{i}"]),
+                               how).numpy()
+            assert out[f"cache_{i}"].shape == want.shape, i
+            assert rel(out[f"cache_{i}"], want) < TOL_FAMILY, i
+        assert np.array_equal(out["tokens"], whole["tokens"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_over_a_group_of_one_is_the_whole_model_bit_for_bit(arch):
+    """`prefill`, `decode_step` and `ServeEngine.generate` of a model split
+    over a "model" dim of one (a (1, 1) mesh: every leaf whole, the
+    caches whole) are the unsplit model's bit for bit, every config."""
+    from repro_torch.launch.mesh import ShapeMesh
+    got = run_serve(arch, ShapeMesh((1, 1), ("data", "model")).at(0))
+    want = run_serve(arch)
+    assert str(got.pop("split")).count("None") > 0
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
 
 
 def test_model_split_plan_follows_the_rules():
