@@ -76,7 +76,8 @@ from repro_torch.core.pipeline.maponly import (FAILED, PENDING, JobConfig,
                                                JobStats, Manifest)
 from repro_torch.core.pipeline.records import block_of_segments
 from repro_torch.core.pipeline.stream import (Decoded, StagingPool,
-                                              StreamExecutor, StreamTransform)
+                                              StreamExecutor, StreamTransform,
+                                              async_clocks)
 from repro_torch.core.resilience import verify as abft
 from repro_torch.core.resilience.faults import maybe_corrupt, maybe_fire
 from repro_torch.kernels.fft import plan as kplan
@@ -506,6 +507,9 @@ class _PanelTransform(StreamTransform):
             return pending.realize()  # event wait + D2H
         finally:
             self.discard(batch)  # unconditional: no leaked staging
+
+    def clocks(self, handle):
+        return async_clocks(handle[0])
 
     def discard(self, batch) -> None:
         if self._pool is not None:

@@ -20,16 +20,23 @@ arXiv:2202.12756 — batch many transforms per launch):
            staging buffers (`StagingPool`; pinned host memory when the
            device is a CUDA card) that feed the async launch.
   compute  `plan.execute_async` — the host-to-device copy and the kernels
-           are queued on the plan's CUDA stream and an event is recorded;
+           are queued on the plan's CUDA stream between two timing events;
            nothing waits for the device in the hot path. The dispatcher keeps
            at most `inflight` launched batches outstanding (a semaphore
            released by the writeback stage once a batch's D2H completes):
            when the window is full, dispatch stalls until the OLDEST
            in-flight batch realizes — that window boundary is the only
-           sync point in the pipeline.
+           sync point in the pipeline. The stage's clock is the DEVICE's:
+           the time from the upload's start to the kernels' end, read once
+           the batch is realized (`StreamTransform.clocks`); where the
+           transform measures none (the CPU, a plain map task) it is the
+           host's time in ``launch``, which there does the work.
   d2h      writeback workers realize device results (wait on the batch's
            event, copy to host) while the dispatcher is already launching
-           later batches.
+           later batches. The stage's clock is the host's time in the
+           copies to host planes, the wait for the device left out (that
+           wait is compute's); where the transform measures none, the
+           whole of ``realize``.
   write    same workers: per-block encode + atomic offset-named writes.
 
 Retry / speculation / manifest semantics match `MapOnlyJob`: every
@@ -166,6 +173,13 @@ class StreamTransform:
 
     def realize(self, handle):
         raise NotImplementedError
+
+    def clocks(self, handle) -> tuple[float | None, float | None]:
+        """(compute, d2h) seconds that ``realize`` measured for ``handle``:
+        the device's time for the launch's work and the host's time in the
+        copies, None each where it measured none (the executor then keeps
+        its own host clocks)."""
+        return None, None
 
     def discard(self, batch) -> None:
         """Release a gathered batch that will never launch (failure path);
@@ -362,6 +376,9 @@ class SegmentFFTTransform(StreamTransform):
             # the pool starves the dispatcher
             self.discard(batch)
 
+    def clocks(self, handle):
+        return async_clocks(handle[0])
+
     def discard(self, batch) -> None:
         if self._pool is not None:  # device done -> staging reusable
             self._pool.release(tuple(batch[0].shape), batch)
@@ -387,6 +404,13 @@ class SegmentFFTTransform(StreamTransform):
         yr, yi = host
         return block_of_segments(yr[row0:row0 + d.rows],
                                  yi[row0:row0 + d.rows])
+
+
+def async_clocks(pending) -> tuple[float | None, float | None]:
+    """`StreamTransform.clocks` of a realized `AsyncResult`: its device
+    time (None on the CPU) and its copies' host time, in seconds."""
+    ms = pending.device_ms
+    return None if ms is None else ms * 1e-3, pending.copy_s
 
 
 class StreamExecutor:
@@ -492,7 +516,8 @@ class StreamExecutor:
             row0 += d.rows
         return host[0] if len(host) == 1 else tuple(host)
 
-    def _writeback(self, handle, group: list[tuple[Decoded, bool]]) -> None:
+    def _writeback(self, handle, group: list[tuple[Decoded, bool]],
+                   launch_s: float) -> None:
         try:
             t0 = time.monotonic()
             try:
@@ -500,7 +525,11 @@ class StreamExecutor:
             finally:
                 # the window boundary: oldest batch realized -> next launch
                 self._inflight.release()
-            self._add_stage("d2h", time.monotonic() - t0)
+            realize_s = time.monotonic() - t0
+            compute_s, d2h_s = self.transform.clocks(handle)
+            self._add_stage("compute",
+                            launch_s if compute_s is None else compute_s)
+            self._add_stage("d2h", realize_s if d2h_s is None else d2h_s)
             # fires only after realize: the staging set is back in the
             # pool (realize's finally), so an injected fault here cannot
             # leak pool capacity and starve the dispatcher
@@ -662,7 +691,7 @@ class StreamExecutor:
                 self._add_stage("h2d", time.monotonic() - t0)
                 t0 = time.monotonic()
                 handle = self.transform.launch(batch)
-                self._add_stage("compute", time.monotonic() - t0)
+                launch_s = time.monotonic() - t0
             except BaseException as e:
                 self._inflight.release()
                 if batch is not None:  # gathered but never launched
@@ -672,7 +701,7 @@ class StreamExecutor:
                 return
             self.stats.batches += 1
             self.stats.coalesced_blocks += max(len(group) - 1, 0)
-            writers.submit(self._writeback, handle, group)
+            writers.submit(self._writeback, handle, group, launch_s)
 
         try:
             for i in todo:

@@ -52,6 +52,17 @@ out of core. ``fallback="degrade"`` re-plans around ranks marked lost in
 fault-tolerant dynamic-batching service in front of these plans.
 ``python -m repro_torch.fft.selftest`` plans and runs one case of each
 placement.
+
+Spans (`repro_torch.spans`): under any ``torch.profiler.profile`` the
+path records ``repro_torch.fft.execute``, ``.execute_real``,
+``.execute_inverse`` and ``.execute_async`` (an entry point, from its
+operand checks to its last launch), ``repro_torch.fft.realize`` holding
+``.realize.wait`` (the event's wait) and ``.realize.copy`` (the copies to
+host planes), and the executor passes ``repro_torch.fft.rows`` (the
+contiguous axis), ``.axis_pass`` (an earlier axis) and ``.untangle`` (the
+r2c untangle where it is a pass of its own); ``prof.export_chrome_trace``
+writes them beside the kernels. With no profiler recording they cost a
+flag read.
 """
 
 from repro_torch.core.fft.distributed import (DistPlan, PencilPlan,

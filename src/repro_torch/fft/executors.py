@@ -54,8 +54,13 @@ from repro_torch.kernels.fft.matfft import (apply_global_twiddle, matfft,
                                             rfft_twiddle,
                                             untangle_half_spectrum)
 from repro_torch.kernels.fft.stockham import stockham_fft
+from repro_torch.spans import span
 
 Planar = tuple[torch.Tensor, torch.Tensor]
+# the passes' spans (`repro_torch.spans`)
+ROWS = "repro_torch.fft.rows"
+AXIS_PASS = "repro_torch.fft.axis_pass"
+UNTANGLE = "repro_torch.fft.untangle"
 
 
 def _periodic(yr, yi, epilogue) -> Planar:
@@ -287,22 +292,27 @@ def rfft(x: torch.Tensor, *, impl: str = "matfft",
     n = x.shape[-1]
     x = x.to(torch.float32)
     if n < 4 or impl != "matfft":
-        yr, yi = fft(x, torch.zeros_like(x), impl=impl, layout=layout,
-                     batch_tile=batch_tile)
+        with span(ROWS):
+            yr, yi = fft(x, torch.zeros_like(x), impl=impl, layout=layout,
+                         batch_tile=batch_tile)
         return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]
     fft_plan.log2i(n)
     m = n // 2
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, n).contiguous()
     if fft_plan.make_plan(m).levels == 1:
-        yr, yi = rfft_leaf(x2, batch_tile=batch_tile)
+        with span(ROWS):
+            yr, yi = rfft_leaf(x2, batch_tile=batch_tile)
     else:
         # bin k pairs with bin m - k, which a level-1 pass puts in another
         # leaf, so the untangle runs after the whole half-length transform
         z = x2.reshape(-1, m, 2)
-        zr, zi = fft(z[..., 0], z[..., 1], impl=impl, layout=layout,
-                     batch_tile=batch_tile)
-        yr, yi = untangle_half_spectrum(zr, zi, *rfft_twiddle(n, x.device))
+        with span(ROWS):
+            zr, zi = fft(z[..., 0], z[..., 1], impl=impl, layout=layout,
+                         batch_tile=batch_tile)
+        with span(UNTANGLE):
+            yr, yi = untangle_half_spectrum(zr, zi,
+                                            *rfft_twiddle(n, x.device))
     return yr.reshape(*batch_shape, m + 1), yi.reshape(*batch_shape, m + 1)
 
 
@@ -321,7 +331,9 @@ def irfft(yr: torch.Tensor, yi: torch.Tensor, *, impl: str = "matfft",
         # mirror to the full spectrum, full inverse transform
         fr = torch.cat([yr, torch.flip(yr[..., 1:-1], (-1,))], dim=-1)
         fi = torch.cat([yi, -torch.flip(yi[..., 1:-1], (-1,))], dim=-1)
-        zr, _ = ifft(fr, fi, impl=impl, layout=layout, batch_tile=batch_tile)
+        with span(ROWS):
+            zr, _ = ifft(fr, fi, impl=impl, layout=layout,
+                         batch_tile=batch_tile)
         return zr
     # E[k] = (X[k] + conj(X[m-k]))/2 ; O[k] = conj(v[k])*(X[k] - conj(X[m-k]))/2
     xr_, xi_ = yr[..., :m], yi[..., :m]
@@ -333,8 +345,9 @@ def irfft(yr: torch.Tensor, yi: torch.Tensor, *, impl: str = "matfft",
     our = vr * dr + vi * di  # conj(v) * D
     oui = vr * di - vi * dr
     # Z = E + i*O, z = IDFT_m(Z), x[2k] = Re z[k], x[2k+1] = Im z[k]
-    zr, zi = ifft(er - oui, ei + our, impl=impl, layout=layout,
-                  batch_tile=batch_tile)
+    with span(ROWS):
+        zr, zi = ifft(er - oui, ei + our, impl=impl, layout=layout,
+                      batch_tile=batch_tile)
     return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
 
 
@@ -376,16 +389,18 @@ def _untangle_nd(zr, zi, vr, vi, nd: int) -> Planar:
     The Nyquist column m is no longer real for nd > 1 (only the full N-D
     Hermitian symmetry survives, not per-column realness).
     """
-    pr, pi = _flip_leading(zr, zi, zr.dim(), nd)
-    pr = torch.roll(torch.flip(pr, (-1,)), 1, -1)
-    pi = torch.roll(torch.flip(pi, (-1,)), 1, -1)
-    er, ei = 0.5 * (zr + pr), 0.5 * (zi - pi)
-    our, oui = 0.5 * (zi + pi), 0.5 * (pr - zr)
-    xr = er + vr * our - vi * oui
-    xi = ei + vr * oui + vi * our
-    nyq_r = er[..., :1] - our[..., :1]
-    nyq_i = ei[..., :1] - oui[..., :1]
-    return torch.cat([xr, nyq_r], dim=-1), torch.cat([xi, nyq_i], dim=-1)
+    with span(UNTANGLE):
+        pr, pi = _flip_leading(zr, zi, zr.dim(), nd)
+        pr = torch.roll(torch.flip(pr, (-1,)), 1, -1)
+        pi = torch.roll(torch.flip(pi, (-1,)), 1, -1)
+        er, ei = 0.5 * (zr + pr), 0.5 * (zi - pi)
+        our, oui = 0.5 * (zi + pi), 0.5 * (pr - zr)
+        xr = er + vr * our - vi * oui
+        xi = ei + vr * oui + vi * our
+        nyq_r = er[..., :1] - our[..., :1]
+        nyq_i = ei[..., :1] - oui[..., :1]
+        return (torch.cat([xr, nyq_r], dim=-1),
+                torch.cat([xi, nyq_i], dim=-1))
 
 
 def _entangle_nd(yr, yi, n_last: int, nd: int) -> Planar:
@@ -431,14 +446,16 @@ def fftn(xr: torch.Tensor, xi: torch.Tensor, shape, *, impl: str = "matfft",
         raise ValueError(
             f"operand trailing dims {tuple(xr.shape[-nd:])} do not match "
             f"transform shape {shape}")
+    with span(ROWS):
+        yr, yi = fft(xr, xi, impl=impl, layout=layout, batch_tile=batch_tile)
     if nd == 1:
-        return fft(xr, xi, impl=impl, layout=layout, batch_tile=batch_tile)
+        return yr, yi
     batch = xr.shape[:-nd]
     rows = math.prod(batch)
-    yr, yi = fft(xr, xi, impl=impl, layout=layout, batch_tile=batch_tile)
     for view in _leading_views(shape, shape, rows):
-        yr, yi = axis_pass(yr, yi, view, out_major="col", impl=impl,
-                           layout=layout, col_tile=batch_tile)
+        with span(AXIS_PASS):
+            yr, yi = axis_pass(yr, yi, view, out_major="col", impl=impl,
+                               layout=layout, col_tile=batch_tile)
     return yr.reshape(*batch, *shape), yi.reshape(*batch, *shape)
 
 
@@ -483,13 +500,15 @@ def rfftn(x: torch.Tensor, shape, *, impl: str = "matfft",
     # the contiguous axis: packed half-length transform, raw half spectrum
     # out; K3 reads float2 pairs, so its rows come from a contiguous buffer
     x2 = x.contiguous().reshape(rows * math.prod(shape[:-1]), n_last)
-    zr, zi = rfft_pack_pass(x2, n_last, impl=impl, layout=layout,
-                            batch_tile=batch_tile)
+    with span(ROWS):
+        zr, zi = rfft_pack_pass(x2, n_last, impl=impl, layout=layout,
+                                batch_tile=batch_tile)
 
     # the remaining axes on the half-width spectrum (all powers of two)
     for view in _leading_views(shape, half, rows):
-        zr, zi = axis_pass(zr, zi, view, out_major="col", impl=impl,
-                           layout=layout, col_tile=batch_tile)
+        with span(AXIS_PASS):
+            zr, zi = axis_pass(zr, zi, view, out_major="col", impl=impl,
+                               layout=layout, col_tile=batch_tile)
     zr = zr.reshape(*batch, *half)
     zi = zi.reshape(*batch, *half)
 
@@ -521,8 +540,9 @@ def irfftn(yr: torch.Tensor, yi: torch.Tensor, shape, *,
             ax = k - nd  # negative axis index of shape[k] in the operand
             ar = yr.transpose(ax, -1)
             ai = yi.transpose(ax, -1)
-            ar, ai = ifft(ar, ai, impl=impl, layout=layout,
-                          batch_tile=batch_tile)
+            with span(AXIS_PASS):
+                ar, ai = ifft(ar, ai, impl=impl, layout=layout,
+                              batch_tile=batch_tile)
             yr = ar.transpose(ax, -1)
             yi = ai.transpose(ax, -1)
         return irfft(yr, yi, impl=impl, layout=layout, batch_tile=batch_tile)
@@ -535,11 +555,13 @@ def irfftn(yr: torch.Tensor, yi: torch.Tensor, shape, *,
 
     # leading-axis inverses on the half width (conjugation identity)
     for (b, L, inner) in _leading_views(shape, half, rows):
-        ar, ai = axis_pass(zr, -zi, (b, L, inner), out_major="col",
-                           impl=impl, layout=layout, col_tile=batch_tile)
+        with span(AXIS_PASS):
+            ar, ai = axis_pass(zr, -zi, (b, L, inner), out_major="col",
+                               impl=impl, layout=layout, col_tile=batch_tile)
         zr = ar.reshape(*batch, *half) / L
         zi = -ai.reshape(*batch, *half) / L
 
     # contiguous axis: half-length inverse + interleave
-    wr, wi = ifft(zr, zi, impl=impl, layout=layout, batch_tile=batch_tile)
+    with span(ROWS):
+        wr, wi = ifft(zr, zi, impl=impl, layout=layout, batch_tile=batch_tile)
     return torch.stack([wr, wi], dim=-1).reshape(*wr.shape[:-1], n_last)

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 
 import numpy as np
 import torch
@@ -47,6 +48,7 @@ from repro_torch.fft.spec import FftSpec
 from repro_torch.kernels.fft import matfft as kmatfft
 from repro_torch.kernels.fft import plan as kplan
 from repro_torch.kernels.fft import stockham as kstockham
+from repro_torch.spans import span
 
 _F32 = 4  # bytes per planar float32 element
 
@@ -77,23 +79,45 @@ def _upload_tables(n: int, device: torch.device, impl: str) -> None:
 
 
 class AsyncResult:
-    """A launched forward transform: device planes, and the CUDA event that
-    marks them complete (None on the CPU, where the work is already done).
-    `realize` is the only place the host waits."""
+    """A launched forward transform: device planes, the CUDA event that
+    marks them complete (None on the CPU, where the work is already done)
+    and the timing event recorded before the call's upload (None where
+    there is none). `realize` is the only place the host waits.
 
-    def __init__(self, yr: torch.Tensor, yi: torch.Tensor, event=None):
-        self.yr, self.yi, self.event = yr, yi, event
+    Once `realize` has returned, ``copy_s`` holds the host seconds it spent
+    copying to host planes, the wait left out, and ``device_ms`` reads the
+    device's time from the upload's start to the transform's end."""
+
+    def __init__(self, yr: torch.Tensor, yi: torch.Tensor, event=None,
+                 start=None):
+        self.yr, self.yi, self.event, self.start = yr, yi, event, start
+        self.copy_s: float | None = None
+
+    @property
+    def device_ms(self) -> float | None:
+        """Device milliseconds from the upload's start to the transform's
+        end; None before `realize` has waited or without a ``start``. Read
+        on demand: `realize` itself pays no event query for it."""
+        if self.start is None or self.copy_s is None:
+            return None
+        return self.start.elapsed_time(self.event)
 
     def realize(self) -> tuple[np.ndarray, np.ndarray]:
         """Wait for the transform and copy it to host numpy planes."""
-        if self.event is None:
-            return self.yr.numpy(), self.yi.numpy()
-        self.event.synchronize()
-        out = []
-        for y in (self.yr, self.yi):
-            host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-            host.copy_(y)
-            out.append(host.numpy())
+        with span("repro_torch.fft.realize"):
+            if self.event is not None:
+                with span("repro_torch.fft.realize.wait"):
+                    self.event.synchronize()
+            t0 = time.perf_counter()
+            with span("repro_torch.fft.realize.copy"):
+                out = []
+                for y in (self.yr, self.yi):
+                    if y.device.type != "cpu":
+                        host = torch.empty(y.shape, dtype=y.dtype,
+                                           pin_memory=True)
+                        y = host.copy_(y)
+                    out.append(y.numpy())
+            self.copy_s = time.perf_counter() - t0
         return out[0], out[1]
 
 
@@ -543,34 +567,37 @@ class ExecutablePlan:
         """Forward c2c transform of planar (*batch_shape, *shape) float32
         operands, on the caller's current stream. Returns planes on the
         plan's device."""
-        if self.spec.kind != "c2c":
-            raise ValueError(
-                "execute() is for kind='c2c' plans; use execute_real(x) "
-                "on this r2c plan")
-        xr = self._operand(xr, "execute").to(self.device)
-        xi = self._operand(xi, "execute").to(self.device)
-        return self._forward()(xr, xi)
+        with span("repro_torch.fft.execute"):
+            if self.spec.kind != "c2c":
+                raise ValueError(
+                    "execute() is for kind='c2c' plans; use execute_real(x) "
+                    "on this r2c plan")
+            xr = self._operand(xr, "execute").to(self.device)
+            xi = self._operand(xi, "execute").to(self.device)
+            return self._forward()(xr, xi)
 
     def execute_real(self, x):
         """Forward r2c transform: real (*batch_shape, *shape) float32 ->
         planar one-sided (*batch_shape, *shape[:-1], shape[-1]//2 + 1)
         spectrum, on the caller's current stream and the plan's device."""
-        if self.spec.kind != "r2c":
-            raise ValueError(
-                "execute_real() is for kind='r2c' plans; use "
-                "execute(xr, xi) on this c2c plan")
-        x = self._operand(x, "execute_real").to(self.device)
-        return self._forward()(x)
+        with span("repro_torch.fft.execute_real"):
+            if self.spec.kind != "r2c":
+                raise ValueError(
+                    "execute_real() is for kind='r2c' plans; use "
+                    "execute(xr, xi) on this c2c plan")
+            x = self._operand(x, "execute_real").to(self.device)
+            return self._forward()(x)
 
     def execute_inverse(self, yr, yi):
         """Inverse transform. c2c: planar spectrum -> planar signal, both
         (*batch_shape, *shape). r2c: one-sided (*batch_shape, *shape[:-1],
         shape[-1]//2 + 1) spectrum -> real (*batch_shape, *shape)
         signal."""
-        shape = self.output_shape
-        yr = self._operand(yr, "execute_inverse", shape).to(self.device)
-        yi = self._operand(yi, "execute_inverse", shape).to(self.device)
-        return self._inverse()(yr, yi)
+        with span("repro_torch.fft.execute_inverse"):
+            shape = self.output_shape
+            yr = self._operand(yr, "execute_inverse", shape).to(self.device)
+            yi = self._operand(yi, "execute_inverse", shape).to(self.device)
+            return self._inverse()(yr, yi)
 
     def execute_async(self, *operands, donate: bool = False) -> AsyncResult:
         """Launch the forward transform of host operands WITHOUT waiting
@@ -585,26 +612,31 @@ class ExecutablePlan:
         staging pool releases them only then). ``donate=False`` returns
         after the operands have been copied, so they may be reused at once.
         """
-        nargs = 1 if self.spec.kind == "r2c" else 2
-        if len(operands) != nargs:
-            raise ValueError(
-                f"execute_async on a {self.spec.kind!r} plan takes "
-                f"{nargs} operand(s), got {len(operands)}")
-        ops = [self._operand(x, "execute_async") for x in operands]
-        fwd = self._forward()
-        if self.device.type == "cpu":
-            return AsyncResult(*fwd(*ops))
-        with torch.cuda.stream(self._stream):
-            staged_ops = [x.to(self.device, non_blocking=True) for x in ops]
+        with span("repro_torch.fft.execute_async"):
+            nargs = 1 if self.spec.kind == "r2c" else 2
+            if len(operands) != nargs:
+                raise ValueError(
+                    f"execute_async on a {self.spec.kind!r} plan takes "
+                    f"{nargs} operand(s), got {len(operands)}")
+            ops = [self._operand(x, "execute_async") for x in operands]
+            fwd = self._forward()
+            if self.device.type == "cpu":
+                return AsyncResult(*fwd(*ops))
+            with torch.cuda.stream(self._stream):
+                # timing events: `realize` reads the call's device time
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self._stream)
+                staged_ops = [x.to(self.device, non_blocking=True)
+                              for x in ops]
+                if not donate:
+                    staged = torch.cuda.Event()
+                    staged.record(self._stream)
+                yr, yi = fwd(*staged_ops)
+                done = torch.cuda.Event(enable_timing=True)
+                done.record(self._stream)
             if not donate:
-                staged = torch.cuda.Event()
-                staged.record(self._stream)
-            yr, yi = fwd(*staged_ops)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        if not donate:
-            staged.synchronize()
-        return AsyncResult(yr, yi, done)
+                staged.synchronize()
+            return AsyncResult(yr, yi, done, start)
 
 
 # ---------------------------------------------------------------------------

@@ -366,9 +366,13 @@ def main(argv=None) -> dict:
     # stage clocks are per-thread sums; in pipelined mode they run
     # concurrently, so these fractions are shares of total STAGE TIME
     # (thread-seconds of work), not a wall-clock split. The device side is
-    # compute + d2h: the launch returns once the work is queued and the
-    # device wait surfaces at realization (the d2h clock). The Amdahl model
-    # below calibrates on wall time (t_job) and is unaffected.
+    # compute + d2h. Serial: compute is the host's time from the launch to
+    # the device's synchronize, d2h the copy. Pipelined on a card: compute
+    # is each batch's device time from its upload's start to its kernels'
+    # end (CUDA events, read at realization), d2h the host's time in
+    # realize's copies, its wait for the device left out; on the CPU,
+    # compute is the host's time in the launch, which does the work. The
+    # Amdahl model below calibrates on wall time (t_job) and is unaffected.
     fft_s = stage_s.get("compute", 0.0) + stage_s.get("d2h", 0.0)
     io_s = sum(v for k, v in stage_s.items()
                if k not in ("compute", "d2h"))

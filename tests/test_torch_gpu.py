@@ -228,6 +228,37 @@ def test_execute_async_from_pinned_staging(cuda, rng, donate):
     np.testing.assert_array_equal(got[1], want[1].cpu().numpy())
 
 
+@pytest.mark.gpu
+def test_async_clocks_and_spans_on_the_card(cuda, rng, tmp_path):
+    """A realized call's device time and copy time, and its spans on both
+    timelines of a CUDA trace: the host's user annotations and their
+    copies on the device's."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.fft as tfft
+    p = tfft.plan(kind="c2c", n=1024, batch_shape=(4096,))
+    x = tuple(t.pin_memory() for t in _planes(rng, (4096, 1024), "cpu"))
+    h = p.execute_async(*x, donate=True)
+    assert h.device_ms is None   # not realized yet
+    h.realize()
+    assert h.device_ms > 0 and h.copy_s > 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p.execute_async(*x, donate=True).realize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {c: {e["name"] for e in events if e.get("cat") == c}
+             for c in ("user_annotation", "gpu_user_annotation")}
+    fft = "repro_torch.fft."
+    assert {fft + s for s in ("execute_async", "rows", "realize",
+                              "realize.wait", "realize.copy")} \
+        <= names["user_annotation"]
+    assert fft + "execute_async" in names["gpu_user_annotation"]
+
+
 # N-D plans: (shape, batch) pairs at 2^18 to 2^20 points, with a K1 or K3
 # contiguous axis, K2 earlier axes, a level-1 contiguous axis and a
 # leading axis past MAX_LEAF (transposes around two K2 passes)

@@ -114,6 +114,46 @@ def test_stream_mapfn_path_identical(tmp_path):
     assert stats.batches == 5  # opaque bytes never coalesce
 
 
+def test_pipelined_stage_clocks_cover_every_stage(tmp_path):
+    """The pipelined stage_s has every stage, none negative; on the CPU
+    (no device clock) compute is the launch's host time and d2h the
+    realized copy's."""
+    from repro_torch.core.pipeline.stream import STAGES
+    store = _signal_store(tmp_path, blocks=6)
+    job = MapOnlyJob(store, tmp_path / "out_clocks", transform=_transform(),
+                     config=JobConfig(coalesce=2, inflight=2,
+                                      speculation=False),
+                     pipelined=True)
+    stats = job.run()
+    assert set(stats.stage_s) == set(STAGES)
+    assert all(v >= 0 for v in stats.stage_s.values())
+    assert stats.stage_s["compute"] > 0
+
+
+class _ClockedTransform(SegmentFFTTransform):
+    """Reports fixed device and copy clocks for every realized batch."""
+
+    def clocks(self, handle):
+        assert handle[0].copy_s is not None   # realize measured its copy
+        return 0.5, 0.125
+
+
+def test_pipelined_stages_take_the_transforms_clocks(tmp_path):
+    """Where the transform measured a batch (the card: its device time and
+    realize's copy), compute and d2h add those, not the host's clocks."""
+    store = _signal_store(tmp_path, blocks=6)
+    job = MapOnlyJob(store, tmp_path / "out_clocked",
+                     transform=_ClockedTransform(FFT_LEN, impl="ref",
+                                                 device="cpu"),
+                     config=JobConfig(coalesce=2, inflight=2,
+                                      speculation=False),
+                     pipelined=True)
+    stats = job.run()
+    assert stats.batches == 3
+    assert stats.stage_s["compute"] == 3 * 0.5
+    assert stats.stage_s["d2h"] == 3 * 0.125
+
+
 @pytest.mark.parametrize("blocks,plans", [(8, 1), (6, 2)])
 def test_coalescing_uses_at_most_two_plans_built_once(tmp_path, blocks,
                                                       plans):
