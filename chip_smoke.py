@@ -30,8 +30,9 @@ Phases (any failed check exits non-zero):
      zero_copy == copy bitwise at 2^16, 2^17, 2^20, 2^22 and 2^24 (K2's
      column passes, in clusters from L = 1024 on and both at L = 4096 at
      2^24, against K1's row passes over transposes), and each variant's
-     main-path case timed beside its bound, its plain version and
-     torch.fft (a yardstick only); the phase's seconds;
+     main-path case, and K1 at its other three-pass lengths (512, 2048,
+     MAX_LEAF), timed beside its bound, its plain version and torch.fft
+     (a yardstick only); the phase's seconds;
   4. main path: the map-only FFT job (`repro_torch.launch.fft_job`) driven
      pipelined through its CLI entry point, once per K1/K2 variant, once
      past MAX_LEAF**2 (three levels) and twice with --impl stockham (K4
@@ -868,16 +869,20 @@ def kernel_cases(cfg, max_leaf: int) -> list:
     (2^20 points: 2 blocks x 16 segments as (32, 1024, 1024); 2^16: 4 x 128
     as (512, 256, 256)), all at 2^25 points; K3 at a spectrogram block's
     frames (65535 x 512, 32767 x 1024); K4 at the stockham run's batch
-    (32768 x 1024). Then the tuner's tiles, and the calls of phases 6 and
-    9-15 at their own shapes (`ooc_kernel_cases` and the others)."""
+    (32768 x 1024). K1 at its other three-pass lengths is timed too,
+    under its shape's name (`k1_length_names`). Then the tuner's tiles, and
+    the calls of phases 6 and 9-15 at their own shapes (`ooc_kernel_cases`
+    and the others)."""
     points = cfg["points"]
+    lengths = k1_length_names(cfg, max_leaf)
     cases = []
     for n in (256, 512, 1024, 2048, max_leaf):
         variant = "matfft/direct" if n <= 256 else "matfft/four_step"
         for period in (None, 64):
             cases.append((variant, "matfft", (points // n, n),
                           {"period": period},
-                          period is None and n in (256, 1024)))
+                          period is None and (n in (256, 1024)
+                                              or lengths.get(n, False))))
     for L in (256, 1024, 2048, max_leaf):
         variant = "matfft_cols/direct" if L <= 256 else \
             "matfft_cols/four_step"
@@ -898,6 +903,14 @@ def kernel_cases(cfg, max_leaf: int) -> list:
             + nd_kernel_cases(cfg) + dist_kernel_cases(cfg)
             + pencil_kernel_cases(cfg) + serve_kernel_cases(cfg)
             + pipeline_kernel_cases(cfg) + mesh_serve_kernel_cases(cfg))
+
+
+def k1_length_names(cfg, max_leaf: int) -> dict:
+    """{n: name}: K1 at the three-pass lengths other than the main path's
+    1024, each timed in `kernel_cases` at ``points`` points under its
+    shape's name in the `kernels` line, "matfft/four_step (rows, n)"."""
+    return {n: f"matfft/four_step {(cfg['points'] // n, n)}"
+            for n in (512, 2048, max_leaf)}
 
 
 def tile_kernel_cases(cfg) -> list:
@@ -5878,6 +5891,9 @@ def main(argv=None) -> int:
                                           pencil_measured))
     launches.update(shape_kernel_launches(serve_kernel_cases(cfg),
                                           serve_measured))
+    for n, name in k1_length_names(cfg, kplan.MAX_LEAF).items():
+        key = ("matfft", (cfg["points"] // n, n), None)
+        launches[name] = sum(run.get(key, 0) for run in measured.values())
     for key in {k for run in tune_measured.values() for k in run
                 if len(k) > 3 and "tile" in k[3]}:
         launches[tile_case_name(key)] = sum(

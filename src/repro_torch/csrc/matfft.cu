@@ -11,11 +11,15 @@
 //                 512 <= L <= 4096 (cols_kernel<false>) and at :419 below
 //                 (cols_kernel<true>).
 //
-// All three run one tile algebra (tile_dft below): a block stages TILE =
-// 4096 complex points in shared memory (R = TILE / n whole rows, or R
-// columns of one (L, C) matrix for K2), in natural order, transforms them
-// in place, and stores them with the optional epilogue (K1, K2) or the
-// untangle (K3) fused into the store.
+// All three run one tile algebra on TILE = 4096 complex points a block
+// (R = TILE / n whole rows, or R columns of one (L, C) matrix for K2). K2,
+// K3 and K1 at n <= 256 stage the tile in shared memory in natural order,
+// transform it in place (tile_dft below), and store it with the optional
+// epilogue (K1, K2) or the untangle (K3) fused into the store. K1 at n >=
+// 512 stages no tile (rows_radix3): its first pass loads its rows from
+// device memory straight into registers, its last pass applies the
+// epilogue in registers and stores straight to device memory, and only
+// the two intermediates between the passes go through shared memory.
 //
 // The tile algebra is a radix FFT for every n <= TILE. Its passes are
 // DFTs of at most RADIX = 16 points, each run in one thread's registers
@@ -49,10 +53,13 @@
 // of device memory traffic, at most about 4 flops a byte, far below the
 // card's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20): it is bound by
 // bytes. The design reads and writes device memory once a point each way,
-// coalesced, and keeps shared memory to two round trips a pass: each of
+// coalesced, and keeps shared memory to one round trip a pass: each of
 // 256 threads reads its 16 points into registers, runs its DFTs there,
 // and writes back once, through strides chosen so that no access has a
-// bank conflict (make_geom says how). Both instantiations are held to 64
+// bank conflict (make_geom says how). K1's three passes take the first
+// read and the last write from device memory itself (4 shared-memory
+// accesses a point and 3 block-wide syncs, against 8 and 7 where the tile
+// is staged in and out). Both instantiations are held to 64
 // registers a thread, so that four blocks (1024 threads, 33-50 KB of
 // shared memory each) fit a SM. IEEE f32 on the CUDA cores, no TF32 and
 // no tensor cores; every product and sum is rounded as the plain PyTorch
@@ -203,6 +210,21 @@ __device__ __forceinline__ void global_twiddle(const GTw& t, long long row,
   cmul(__ldg(t.hr + h), __ldg(t.hi + h), __ldg(t.lr + l), __ldg(t.li + l),
        wr, wi);
   cmul(vr, vi, wr, wi, vr, vi);
+}
+
+// K1's store epilogue at output (row, o) of rows of n: the periodic
+// table's row row mod period, or the global twiddle, or nothing
+__device__ __forceinline__ void rows_epilogue(const float* __restrict__ er,
+                                              const float* __restrict__ ei,
+                                              int period, const GTw& gt,
+                                              long long row, int n, int o,
+                                              float& vr, float& vi) {
+  if (er != nullptr) {
+    const int e = (int)(row & (period - 1)) * n + o;
+    cmul(vr, vi, __ldg(er + e), __ldg(ei + e), vr, vi);
+  } else if (gt.hr != nullptr) {
+    global_twiddle(gt, row, o, vr, vi);
+  }
 }
 
 // K2's store epilogue at output (column, o): the periodic table's row
@@ -432,7 +454,107 @@ __device__ __forceinline__ void tile_radix(float* sr, float* si,
 //   natural order.
 // These are the two passes of tile_radix at length B, after a first pass
 // at A = 16, with the same operations in the same order as the plain
-// version's recursion (matfft.py:_radix_plain).
+// version's recursion (matfft.py:_radix_plain). The radix3_* helpers
+// below are the passes' shared parts: tile_radix3 runs them on a staged
+// tile, K1's rows_radix3 between device memory and registers.
+
+// Pass 1's arithmetic on item (r, i2), its 16 inputs in v[0, 16): the
+// 16-point DFT, then output o1 times W_n^{i2*o1} where the row is in the
+// tile (on).
+template <int LOG_N>
+__device__ __forceinline__ void radix3_pass1(float (&vr)[P], float (&vi)[P],
+                                             const int i2, const bool on,
+                                             const float* __restrict__ twr,
+                                             const float* __restrict__ twi) {
+  reg_dft<LOG_RADIX, LOG_N>(vr, vi, 0, twr, twi);
+  if (on) {
+#pragma unroll
+    for (int o1 = 1; o1 < RADIX; ++o1) {
+      const int e = i2 * o1, q = brev(o1, LOG_RADIX);
+      cmul(vr[q], vi[q], __ldg(twr + e), __ldg(twi + e), vr[q], vi[q]);
+    }
+  }
+}
+
+// Pass 1's store of item (r, i2) to M1.
+template <int LOG_N>
+__device__ __forceinline__ void radix3_store_m1(const float (&vr)[P],
+                                                const float (&vi)[P],
+                                                float* sr, float* si,
+                                                const int r, const int i2) {
+  constexpr int S1 = (1 << (LOG_N - LOG_RADIX)) + M1_PAD;  // over (r, o1)
+#pragma unroll
+  for (int o1 = 0; o1 < RADIX; ++o1) {
+    const int x = (r * RADIX + o1) * S1 + i2;
+    sr[x] = vr[brev(o1, LOG_RADIX)];
+    si[x] = vi[brev(o1, LOG_RADIX)];
+  }
+}
+
+// Pass 2, M1 to M2, for the g.R = R rows of the tile. M2 overwrites M1:
+// the block synchronises between the loads and the stores, and after.
+template <int LOG_N>
+__device__ __forceinline__ void radix3_pass2(float* sr, float* si,
+                                             const int R,
+                                             const float* __restrict__ twr,
+                                             const float* __restrict__ twi,
+                                             float (&vr)[P], float (&vi)[P]) {
+  constexpr int LOG_C = LOG_N - 2 * LOG_RADIX;
+  constexpr int C = 1 << LOG_C;
+  constexpr int S1 = (1 << (LOG_N - LOG_RADIX)) + M1_PAD;
+  const int t = threadIdx.x;
+  const int o1 = t & (RADIX - 1), d = t >> LOG_RADIX;
+  const int r = d >> LOG_C, i2b = d & (C - 1);
+  const bool on = r < R;
+#pragma unroll
+  for (int i2a = 0; i2a < RADIX; ++i2a) {
+    const int x = (r * RADIX + o1) * S1 + i2a * C + i2b;
+    vr[i2a] = on ? sr[x] : 0.f;
+    vi[i2a] = on ? si[x] : 0.f;
+  }
+  reg_dft<LOG_RADIX, LOG_N>(vr, vi, 0, twr, twi);
+  if (on) {
+#pragma unroll
+    for (int o2 = 1; o2 < RADIX; ++o2) {
+      const int e = (i2b * o2) << LOG_RADIX, q = brev(o2, LOG_RADIX);
+      cmul(vr[q], vi[q], __ldg(twr + e), __ldg(twi + e), vr[q], vi[q]);
+    }
+  }
+  __syncthreads();
+  if (on) {
+#pragma unroll
+    for (int o2 = 0; o2 < RADIX; ++o2) {
+      const int x = d * M2_STRIDE + o2 * RADIX + o1;
+      sr[x] = vr[brev(o2, LOG_RADIX)];
+      si[x] = vi[brev(o2, LOG_RADIX)];
+    }
+  }
+  __syncthreads();
+}
+
+// Pass 3's loads and DFT of row r (a constant after unrolling): item (o1,
+// o2) reads M2 over d = r*C + i2b and runs the C-point DFT on v[r*C, r*C
+// + C); output o3 lands in v[r*C + brev(o3)].
+template <int LOG_N>
+__device__ __forceinline__ void radix3_pass3(const float* sr,
+                                             const float* si, const int R,
+                                             const int r,
+                                             const float* __restrict__ twr,
+                                             const float* __restrict__ twi,
+                                             float (&vr)[P], float (&vi)[P]) {
+  constexpr int LOG_C = LOG_N - 2 * LOG_RADIX;
+  constexpr int C = 1 << LOG_C;
+  const int t = threadIdx.x;
+  const int o1 = t & (RADIX - 1), o2 = t >> LOG_RADIX;
+#pragma unroll
+  for (int i2b = 0; i2b < C; ++i2b) {
+    const int d = r * C + i2b, x = d * M2_STRIDE + o2 * RADIX + o1;
+    vr[d] = r < R ? sr[x] : 0.f;
+    vi[d] = r < R ? si[x] : 0.f;
+  }
+  reg_dft<LOG_C, LOG_N>(vr, vi, r * C, twr, twi);
+}
+
 template <int LOG_N>
 __device__ __forceinline__ void tile_radix3(float* sr, float* si,
                                             const Geom& g,
@@ -442,7 +564,6 @@ __device__ __forceinline__ void tile_radix3(float* sr, float* si,
   constexpr int LOG_B = LOG_N - LOG_RADIX;
   constexpr int C = 1 << LOG_C, B = 1 << LOG_B;
   constexpr int RF = P / C;         // rows a full tile holds
-  constexpr int S1 = B + M1_PAD;    // M1's stride over (r, o1)
   const int t = threadIdx.x, ld = g.ld, R = g.R;
   float vr[P], vi[P];
 
@@ -455,67 +576,18 @@ __device__ __forceinline__ void tile_radix3(float* sr, float* si,
       vr[i1] = on ? sr[x] : 0.f;
       vi[i1] = on ? si[x] : 0.f;
     }
-    reg_dft<LOG_RADIX, LOG_N>(vr, vi, 0, twr, twi);
-    if (on) {
-#pragma unroll
-      for (int o1 = 1; o1 < RADIX; ++o1) {
-        const int e = i2 * o1, q = brev(o1, LOG_RADIX);
-        cmul(vr[q], vi[q], __ldg(twr + e), __ldg(twi + e), vr[q], vi[q]);
-      }
-    }
-    __syncthreads();
-    if (on) {
-#pragma unroll
-      for (int o1 = 0; o1 < RADIX; ++o1) {
-        const int x = (r * RADIX + o1) * S1 + i2;
-        sr[x] = vr[brev(o1, LOG_RADIX)];
-        si[x] = vi[brev(o1, LOG_RADIX)];
-      }
-    }
+    radix3_pass1<LOG_N>(vr, vi, i2, on, twr, twi);
+    __syncthreads();  // M1 overwrites the tile
+    if (on) radix3_store_m1<LOG_N>(vr, vi, sr, si, r, i2);
     __syncthreads();
   }
-  {  // pass 2
-    const int o1 = t & (RADIX - 1), d = t >> LOG_RADIX;
-    const int r = d >> LOG_C, i2b = d & (C - 1);
-    const bool on = r < R;
+  radix3_pass2<LOG_N>(sr, si, R, twr, twi, vr, vi);
 #pragma unroll
-    for (int i2a = 0; i2a < RADIX; ++i2a) {
-      const int x = (r * RADIX + o1) * S1 + i2a * C + i2b;
-      vr[i2a] = on ? sr[x] : 0.f;
-      vi[i2a] = on ? si[x] : 0.f;
-    }
-    reg_dft<LOG_RADIX, LOG_N>(vr, vi, 0, twr, twi);
-    if (on) {
-#pragma unroll
-      for (int o2 = 1; o2 < RADIX; ++o2) {
-        const int e = (i2b * o2) << LOG_RADIX, q = brev(o2, LOG_RADIX);
-        cmul(vr[q], vi[q], __ldg(twr + e), __ldg(twi + e), vr[q], vi[q]);
-      }
-    }
-    __syncthreads();
-    if (on) {
-#pragma unroll
-      for (int o2 = 0; o2 < RADIX; ++o2) {
-        const int x = d * M2_STRIDE + o2 * RADIX + o1;
-        sr[x] = vr[brev(o2, LOG_RADIX)];
-        si[x] = vi[brev(o2, LOG_RADIX)];
-      }
-    }
-    __syncthreads();
-  }
-  {  // pass 3
+  for (int r = 0; r < RF; ++r)
+    radix3_pass3<LOG_N>(sr, si, R, r, twr, twi, vr, vi);
+  __syncthreads();  // the output overwrites M2
+  {
     const int o1 = t & (RADIX - 1), o2 = t >> LOG_RADIX;
-#pragma unroll
-    for (int r = 0; r < RF; ++r) {
-#pragma unroll
-      for (int i2b = 0; i2b < C; ++i2b) {
-        const int d = r * C + i2b, x = d * M2_STRIDE + o2 * RADIX + o1;
-        vr[d] = r < R ? sr[x] : 0.f;
-        vi[d] = r < R ? si[x] : 0.f;
-      }
-      reg_dft<LOG_C, LOG_N>(vr, vi, r * C, twr, twi);
-    }
-    __syncthreads();
 #pragma unroll
     for (int r = 0; r < RF; ++r) {
       if (r < R) {
@@ -527,8 +599,8 @@ __device__ __forceinline__ void tile_radix3(float* sr, float* si,
         }
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
 }
 
 // Transforms g.R rows of length g.n held in shared memory (row r at
@@ -561,7 +633,75 @@ __device__ __forceinline__ void tile_dft(float* sr, float* si, const Geom& g,
   }
 }
 
-// K1: block b transforms rows [b*R, b*R + R) of the (rows, n) planes.
+// K1's three-pass body at n = 2^LOG_N in [512, 4096]: tile_radix3's
+// passes on rows [row0, row0 + g.R) of the (rows, n) planes, with no tile
+// staged. Pass 1's item (r, i2) loads its 16 points x[row0 + r, i1*B +
+// i2] from device memory straight into registers, all 32 loads issued
+// before the first is used (rows at or past `rows` read 0); a warp's 32
+// consecutive i2 are 128 consecutive bytes of each plane. M1 aliases
+// nothing that pass 1 reads, so its store needs no sync before it. Pass 3
+// stores each row after its DFT (fewer live registers than all rows at
+// once: no spill at 64), applying the epilogue to its registers and
+// storing each output straight to y[row0 + r, (o3*16 + o2)*16 + o1]: a
+// warp's 16 o1 and two adjacent o2 are 32 consecutive words. Only M1 and
+// M2 pass through shared memory, 4 accesses a point and 3 block-wide
+// syncs, against tile_radix3's 8 and 7 behind a staged tile; every sum
+// and product is tile_radix3's, in its order, so the output is the same
+// bits.
+template <int LOG_N>
+__device__ __forceinline__ void rows_radix3(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    float* __restrict__ yr, float* __restrict__ yi, long long rows,
+    long long row0, float* sr, float* si, const int R,
+    const float* __restrict__ twr, const float* __restrict__ twi,
+    const float* __restrict__ er, const float* __restrict__ ei, int period,
+    const GTw& gt) {
+  constexpr int LOG_C = LOG_N - 2 * LOG_RADIX;
+  constexpr int LOG_B = LOG_N - LOG_RADIX;
+  constexpr int N = 1 << LOG_N, C = 1 << LOG_C, B = 1 << LOG_B;
+  constexpr int RF = P / C;  // rows a full tile holds
+  const int t = threadIdx.x;
+  float vr[P], vi[P];
+
+  {  // pass 1, from device memory
+    const int r = t >> LOG_B, i2 = t & (B - 1);
+    const bool on = r < R;
+    const bool in = on && row0 + r < rows;
+    const long long x = (row0 + r) * N + i2;
+#pragma unroll
+    for (int i1 = 0; i1 < RADIX; ++i1) {
+      vr[i1] = in ? xr[x + i1 * B] : 0.f;
+      vi[i1] = in ? xi[x + i1 * B] : 0.f;
+    }
+    radix3_pass1<LOG_N>(vr, vi, i2, on, twr, twi);
+    if (on) radix3_store_m1<LOG_N>(vr, vi, sr, si, r, i2);
+    __syncthreads();
+  }
+  radix3_pass2<LOG_N>(sr, si, R, twr, twi, vr, vi);
+  {  // pass 3, each row stored to device memory after its DFT
+    const int o1 = t & (RADIX - 1), o2 = t >> LOG_RADIX;
+#pragma unroll
+    for (int r = 0; r < RF; ++r) {
+      radix3_pass3<LOG_N>(sr, si, R, r, twr, twi, vr, vi);
+      const long long row = row0 + r;
+      if (r < R && row < rows) {
+#pragma unroll
+        for (int o3 = 0; o3 < C; ++o3) {
+          const int o = (o3 * RADIX + o2) * RADIX + o1;
+          float ur = vr[r * C + brev(o3, LOG_C)];
+          float ui = vi[r * C + brev(o3, LOG_C)];
+          rows_epilogue(er, ei, period, gt, row, N, o, ur, ui);
+          yr[row * N + o] = ur;
+          yi[row * N + o] = ui;
+        }
+      }
+    }
+  }
+}
+
+// K1: block b transforms rows [b*R, b*R + R) of the (rows, n) planes: at
+// n <= 256 (kTwoPass) through a tile staged in shared memory, above it
+// with rows_radix3.
 template <bool kTwoPass>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -573,29 +713,46 @@ rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float* sr = smem;
   float* si = smem + g.plane;
   const long long row0 = (long long)blockIdx.x * g.R;
-  const int tot = g.R * g.n;
-  for (int f = threadIdx.x; f < tot; f += NT) {
-    const int r = f >> g.log_n, i = f & (g.n - 1);
-    const long long row = row0 + r;
-    const bool in = row < rows;
-    sr[r * g.ld + i] = in ? xr[row * g.n + i] : 0.f;
-    si[r * g.ld + i] = in ? xi[row * g.n + i] : 0.f;
-  }
-  __syncthreads();
-  tile_dft<kTwoPass>(sr, si, g, twr, twi);
-  for (int f = threadIdx.x; f < tot; f += NT) {
-    const int r = f >> g.log_n, o = f & (g.n - 1);
-    const long long row = row0 + r;
-    if (row >= rows) continue;
-    float vr = sr[r * g.ld + o], vi = si[r * g.ld + o];
-    if (er != nullptr) {
-      const int e = (int)(row & (period - 1)) * g.n + o;
-      cmul(vr, vi, __ldg(er + e), __ldg(ei + e), vr, vi);
-    } else if (gt.hr != nullptr) {
-      global_twiddle(gt, row, o, vr, vi);
+  if constexpr (kTwoPass) {
+    const int tot = g.R * g.n;
+    for (int f = threadIdx.x; f < tot; f += NT) {
+      const int r = f >> g.log_n, i = f & (g.n - 1);
+      const long long row = row0 + r;
+      const bool in = row < rows;
+      sr[r * g.ld + i] = in ? xr[row * g.n + i] : 0.f;
+      si[r * g.ld + i] = in ? xi[row * g.n + i] : 0.f;
     }
-    yr[row * g.n + o] = vr;
-    yi[row * g.n + o] = vi;
+    __syncthreads();
+    tile_dft<true>(sr, si, g, twr, twi);
+    for (int f = threadIdx.x; f < tot; f += NT) {
+      const int r = f >> g.log_n, o = f & (g.n - 1);
+      const long long row = row0 + r;
+      if (row >= rows) continue;
+      float vr = sr[r * g.ld + o], vi = si[r * g.ld + o];
+      rows_epilogue(er, ei, period, gt, row, g.n, o, vr, vi);
+      yr[row * g.n + o] = vr;
+      yi[row * g.n + o] = vi;
+    }
+  } else {
+    switch (g.log_n) {
+      case 9:
+        rows_radix3<9>(xr, xi, yr, yi, rows, row0, sr, si, g.R, twr, twi,
+                       er, ei, period, gt);
+        break;
+      case 10:
+        rows_radix3<10>(xr, xi, yr, yi, rows, row0, sr, si, g.R, twr, twi,
+                        er, ei, period, gt);
+        break;
+      case 11:
+        rows_radix3<11>(xr, xi, yr, yi, rows, row0, sr, si, g.R, twr, twi,
+                        er, ei, period, gt);
+        break;
+      case 12:
+        rows_radix3<12>(xr, xi, yr, yi, rows, row0, sr, si, g.R, twr, twi,
+                        er, ei, period, gt);
+        break;
+      default: break;  // not reached: the launcher passes n <= TILE
+    }
   }
 }
 
@@ -835,9 +992,13 @@ int log2i(int v) {
 //   const (272 = 16 mod 32), 32 different;
 //   pass 3 reads M2 and stores y at r*ld + (o3*16 + o2)*16 + o1 for 16 o1
 //   and two adjacent o2: 32 consecutive words.
+//   K1 makes pass 1's reads and pass 3's stores on device memory at the
+//   same offsets of row row0 + r (128 coalesced bytes a warp), and uses
+//   only the intermediates of the plane.
 //   K1, K3: ld = n. K2: ld from the load's rule. The plane holds the rows
 //   and both intermediates: max(R*ld, 16R*(b + 2), (R*c - 1)*272 + 256)
-//   floats, 4336-4352 for a full tile (34-35 KB a block for both planes).
+//   floats, 4336-4352 for a full tile (34-35 KB a block for both planes),
+//   the intermediates' size alone at every tile.
 Geom make_geom(int n, int R, bool pad) {
   Geom g;
   g.n = n;

@@ -35,10 +35,13 @@ untangles the half spectrum (`untangle_half_spectrum`) in its store.
 
 What bounds them on an H100, and what the design does about it, is set out
 at the top of ``csrc/matfft.cu``: about 5 log2 n flops a point against 16
-bytes of traffic, so they are bound by bytes. Each block transforms its
-rows in place in shared memory, each pass in its threads' registers, in
-IEEE f32 on the CUDA cores (no TF32, no tensor cores), and touches device
-memory once per point each way.
+bytes of traffic, so they are bound by bytes. Each pass runs in its
+threads' registers, in IEEE f32 on the CUDA cores (no TF32, no tensor
+cores), and each kernel touches device memory once per point each way.
+K2, K3 and K1 up to 256 points transform a tile staged in shared memory;
+K1 from 512 points stages none: its first pass loads from device memory
+into registers, its last stores from registers to device memory, and
+only the intermediates between passes go through shared memory.
 
 Each wrapper takes a batch tile, the rows (K2: columns) a block stages:
 ``batch_tile`` (K1, K3) or ``col_tile`` (K2), as the JAX package's
@@ -210,7 +213,8 @@ def _radix_plain(xr, xi, tables) -> Planar:
     a = min(m, RADIX), a-point stages over i1 for each (row, i2), the inner
     twiddle W_m^{i2*o1} = entry i2*o1*n/m, the b-point DFT over i2 for each
     (row, o1) by the same rule, output at o2*a + o1. At m = n that is the
-    kernel's `tile_radix` up to 256 points and `tile_radix3` above."""
+    kernel's `tile_radix` up to 256 points and `tile_radix3` (K1:
+    `rows_radix3`) above."""
     twr, twi = tables
     rows, m = xr.shape
     n = twr.shape[0]

@@ -551,6 +551,45 @@ def test_k1_k3_k4_batch_tiles_equal_their_plain_versions(cuda, rng, n):
         assert km.launch_shapes[("stockham", (rows, n), None, *opts)] == 1
 
 
+def _k1_into_nan(x, batch_tile, epilogue=None, global_twiddle=None):
+    """K1 launched as `km.matfft` launches it, into output planes filled
+    with NaN beforehand: a word the kernel leaves unwritten stays NaN."""
+    rows, n = x[0].shape
+    yr, yi = (torch.full_like(t, float("nan")) for t in x)
+    wr, wi = km.leaf_tables(n, x[0].device)
+    er, ei = epilogue if epilogue is not None else (None, None)
+    rc = km._lib().matfft_rows(
+        x[0].data_ptr(), x[1].data_ptr(), yr.data_ptr(), yi.data_ptr(), rows,
+        n, wr.data_ptr(), wi.data_ptr(),
+        er.data_ptr() if er is not None else None,
+        ei.data_ptr() if ei is not None else None,
+        er.shape[0] if er is not None else 1,
+        *km._global_twiddle_args(global_twiddle, x[0].device),
+        batch_tile or 0, torch.cuda.current_stream(x[0].device).cuda_stream)
+    assert rc == 0
+    return yr, yi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096])
+@pytest.mark.parametrize("epilogue", ["none", "periodic", "twiddle"])
+def test_k1_three_pass_tiles_and_epilogues_equal_the_plain_version(
+        cuda, rng, n, epilogue):
+    """K1's three-pass body loads its rows from device memory into pass
+    1's registers and stores pass 3's registers to device memory: at every
+    tile, over a ragged last block, with no epilogue, the periodic table
+    (period 4) and the global twiddle across the 2^32 wrap of its logical
+    rows, it writes every output word, with the plain version's bits."""
+    rows = 1001
+    x = _planes(rng, (rows, n), cuda)
+    kw = {"none": {},
+          "periodic": {"epilogue": _planes(rng, (4, n), cuda)},
+          "twiddle": {"global_twiddle": (1 << 32, (1 << 32) - 600)}}[epilogue]
+    want = km.matfft_plain(*x, **kw)
+    for bt in _tiles(tplan.MAX_LEAF // n):
+        assert _same(_k1_into_nan(x, bt, **kw), want), bt
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("L,C,off,nc", [(256, 256, 0, None),
                                         (1024, 64, 0, None),
