@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 import repro_torch.fft as fft_api
 from repro_torch.fft.spec import resolve_device
+from repro_torch.spans import span
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,22 +61,27 @@ def stft(x, frame: int = 1024, hop: int = 512, *, window: bool = True,
     Frames are real, so this rides the r2c fast path: one half-length
     packed transform with the untangle fused in the kernel (K3).
     """
-    x, dev = _on(x, device)
-    frames = frame_signal(x, frame, hop, device=dev)
-    if window:
-        frames = frames * _hann_on(frame, dev)  # materializes the frames
-    else:
-        frames = frames.contiguous()
-    p = fft_api.plan(kind="r2c", n=frame, batch_shape=frames.shape[:-1],
-                     impl=impl, device=dev)
-    return p.execute_real(frames)
+    with span("repro_torch.spectral.stft"):
+        x, dev = _on(x, device)
+        with span("repro_torch.spectral.window"):
+            frames = frame_signal(x, frame, hop, device=dev)
+            if window:
+                # materializes the frames
+                frames = frames * _hann_on(frame, dev)
+            else:
+                frames = frames.contiguous()
+        p = fft_api.plan(kind="r2c", n=frame, batch_shape=frames.shape[:-1],
+                         impl=impl, device=dev)
+        return p.execute_real(frames)
 
 
 def power_spectrogram(x, frame: int = 1024, hop: int = 512,
                       **kw) -> torch.Tensor:
     """|stft|^2, (..., n_frames, frame//2+1)."""
-    sr, si = stft(x, frame, hop, **kw)
-    return sr * sr + si * si
+    with span("repro_torch.spectral.power_spectrogram"):
+        sr, si = stft(x, frame, hop, **kw)
+        with span("repro_torch.spectral.power"):
+            return sr * sr + si * si
 
 
 def _next_pow2(n: int) -> int:

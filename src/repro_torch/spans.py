@@ -25,6 +25,15 @@ The spans of the FFT path, each nested in the one that calls it:
   repro_torch.fft.rows         the contiguous axis's pass (leaf or four-step)
   repro_torch.fft.axis_pass    one earlier axis's pass
   repro_torch.fft.untangle     the r2c untangle, where it is a pass of its own
+
+The spans of the spectral ops (`repro_torch.core.spectral`):
+
+  repro_torch.spectral.power_spectrogram   the entry, holding
+    repro_torch.spectral.stft              the entry of `stft`, holding
+      repro_torch.spectral.window          the framing and the Hann window
+                                           (the frames written out)
+      repro_torch.fft.execute_real         the r2c transform of the frames
+    repro_torch.spectral.power             |X|^2 of the one-sided bins
 """
 
 from __future__ import annotations
