@@ -870,11 +870,14 @@ def kernel_cases(cfg, max_leaf: int) -> list:
     as (512, 256, 256)), all at 2^25 points; K3 at a spectrogram block's
     frames (65535 x 512, 32767 x 1024); K4 at the stockham run's batch
     (32768 x 1024). K1 at its other three-pass lengths is timed too,
-    under its shape's name (`k1_length_names`). Then the tuner's tiles, and
+    under its shape's name (`k1_length_names`), and so is K3's three-pass
+    body at its other lengths and at the spectrogram cell's frames
+    (`k3_length_names`). Then the tuner's tiles, and
     the calls of phases 6 and 9-15 at their own shapes (`ooc_kernel_cases`
     and the others)."""
     points = cfg["points"]
     lengths = k1_length_names(cfg, max_leaf)
+    k3_lengths = k3_length_names(cfg)
     cases = []
     for n in (256, 512, 1024, 2048, max_leaf):
         variant = "matfft/direct" if n <= 256 else "matfft/four_step"
@@ -891,11 +894,12 @@ def kernel_cases(cfg, max_leaf: int) -> list:
                           (max(points // (L * L), 1), L, L),
                           {"out_major": out_major, "with_epilogue": True},
                           out_major == "row" and L in (256, 1024)))
-    for rows, n in cfg["rfft_shapes"]:
+    for rows, n in dict.fromkeys([*cfg["rfft_shapes"], *k3_lengths]):
         variant = "rfft/direct" if n // 2 <= 256 else "rfft/four_step"
         for untangle in (True, False):
             cases.append((variant, "rfft", (rows, n), {"untangle": untangle},
-                          untangle and n in (512, 1024)))
+                          untangle and (k3_lengths.get((rows, n))
+                                        or n in (512, 1024))))
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
     return (cases + tile_kernel_cases(cfg) + cluster_kernel_cases(cfg)
@@ -911,6 +915,17 @@ def k1_length_names(cfg, max_leaf: int) -> dict:
     shape's name in the `kernels` line, "matfft/four_step (rows, n)"."""
     return {n: f"matfft/four_step {(cfg['points'] // n, n)}"
             for n in (512, 2048, max_leaf)}
+
+
+def k3_length_names(cfg) -> dict:
+    """{(rows, n): name}: K3's three-pass body (`rfft_leaf`) at m = n/2 =
+    1024, 2048 and 4096, ``points`` real samples each, beside the main
+    path's m = 512, and at the spectrogram cell's frames of 1024 at hop 512
+    over ``capture_samples``, each timed in `kernel_cases` under its
+    shape's name in the `kernels` line, "rfft/four_step (rows, n)"."""
+    frames = (cfg["capture_samples"] - 1024) // 512 + 1
+    shapes = [(cfg["points"] // n, n) for n in (2048, 4096, 8192)]
+    return {s: f"rfft/four_step {s}" for s in shapes + [(frames, 1024)]}
 
 
 def tile_kernel_cases(cfg) -> list:
@@ -5893,6 +5908,9 @@ def main(argv=None) -> int:
                                           serve_measured))
     for n, name in k1_length_names(cfg, kplan.MAX_LEAF).items():
         key = ("matfft", (cfg["points"] // n, n), None)
+        launches[name] = sum(run.get(key, 0) for run in measured.values())
+    for shape, name in k3_length_names(cfg).items():
+        key = ("rfft_leaf", shape, None)
         launches[name] = sum(run.get(key, 0) for run in measured.values())
     for key in {k for run in tune_measured.values() for k in run
                 if len(k) > 3 and "tile" in k[3]}:

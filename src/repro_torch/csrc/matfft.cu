@@ -13,13 +13,16 @@
 //
 // All three run one tile algebra on TILE = 4096 complex points a block
 // (R = TILE / n whole rows, or R columns of one (L, C) matrix for K2). K2,
-// K3 and K1 at n <= 256 stage the tile in shared memory in natural order,
-// transform it in place (tile_dft below), and store it with the optional
-// epilogue (K1, K2) or the untangle (K3) fused into the store. K1 at n >=
-// 512 stages no tile (rows_radix3): its first pass loads its rows from
-// device memory straight into registers, its last pass applies the
-// epilogue in registers and stores straight to device memory, and only
-// the two intermediates between the passes go through shared memory.
+// and K1 and K3 at n <= 256, stage the tile in shared memory in natural
+// order, transform it in place (tile_dft below), and store it with the
+// optional epilogue (K1, K2) or the untangle (K3) fused into the store. K1
+// and K3 at n >= 512 stage no tile (rows_radix3, rfft_radix3): the first
+// pass loads its rows from device memory straight into registers, and
+// only the two intermediates between the passes go through shared memory.
+// K1's last pass applies the epilogue in registers and stores straight to
+// device memory, as does K3's without the untangle; K3's with it writes
+// each row's spectrum to shared memory once, and untangles pairs of bins
+// from there (rfft_radix3 says how).
 //
 // The tile algebra is a radix FFT for every n <= TILE. Its passes are
 // DFTs of at most RADIX = 16 points, each run in one thread's registers
@@ -59,9 +62,9 @@
 // bank conflict (make_geom says how). K1's three passes take the first
 // read and the last write from device memory itself (4 shared-memory
 // accesses a point and 3 block-wide syncs, against 8 and 7 where the tile
-// is staged in and out). Both instantiations are held to 64
-// registers a thread, so that four blocks (1024 threads, 33-50 KB of
-// shared memory each) fit a SM. IEEE f32 on the CUDA cores, no TF32 and
+// is staged in and out; K3's untangle 6 and 5, against 9 and 7). Both
+// instantiations are held to 64 registers a thread, so that four blocks
+// (1024 threads, 33-50 KB of shared memory each) fit a SM. IEEE f32 on the CUDA cores, no TF32 and
 // no tensor cores; every product and sum is rounded as the plain PyTorch
 // version rounds it (__fmul_rn, __fadd_rn: no contraction), so each
 // kernel equals its plain version bit for bit.
@@ -72,13 +75,15 @@
 //                 rfft_leaf and rfft_pack_leaf.
 //
 // K3 packs z[k] = x[2k] + i x[2k+1] as it loads (one 8-byte float2 read
-// per complex point, so the packing costs nothing), runs tile_dft at the
-// half length m with R = TILE / m whole rows a block, and untangles in
-// the store loop: Y[k] and its partner Y[(m-k) % m] are in the same
-// shared-memory row, v[k] = W_n^k comes from the plan's rfft_twiddle
-// table. It reads 4n bytes and writes 8(m+1) a row, half the traffic and
-// about half the work of the complex transform of the same row. The
-// output row stride m+1 is odd, so its stores are scalar.
+// per complex point, so the packing costs nothing), runs the tile algebra
+// at the half length m with R = TILE / m whole rows a block, and
+// untangles from a shared-memory row that holds Y[k] and its partner
+// Y[(m-k) % m]: at m <= 256 in the store loop of the staged tile, above
+// it a pair (k, m-k) a thread, each of the pair's words read once, with
+// no division by the row width m+1. v[k] = W_n^k comes from the plan's
+// rfft_twiddle table. It reads 4n bytes and writes 8(m+1) a row, half the
+// traffic and about half the work of the complex transform of the same
+// row. The output row stride m+1 is odd, so its stores are scalar.
 //
 // A row's result depends only on its own values: every output is a fixed
 // sequence of operations on its own row, with no reduction across rows,
@@ -455,8 +460,9 @@ __device__ __forceinline__ void tile_radix(float* sr, float* si,
 // These are the two passes of tile_radix at length B, after a first pass
 // at A = 16, with the same operations in the same order as the plain
 // version's recursion (matfft.py:_radix_plain). The radix3_* helpers
-// below are the passes' shared parts: tile_radix3 runs them on a staged
-// tile, K1's rows_radix3 between device memory and registers.
+// below are the passes' shared parts: tile_radix3 (K2) runs them on a
+// staged tile, K1's rows_radix3 and K3's rfft_radix3 between device memory
+// and registers.
 
 // Pass 1's arithmetic on item (r, i2), its 16 inputs in v[0, 16): the
 // 16-point DFT, then output o1 times W_n^{i2*o1} where the row is in the
@@ -901,10 +907,146 @@ cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// The untangle of bin k from Y[k] = (ykr, yki) and its partner P = Y[(m-k)
+// % m] = (ypr, ypi): E = (Y[k] + conj(P))/2, O = (Y[k] - conj(P))/2i,
+// rounded as the plain version rounds them (untangle_half_spectrum). Both
+// of K3's bodies untangle through these two.
+struct EO {
+  float er, ei, our, oui;
+};
+
+__device__ __forceinline__ EO untangle_eo(float ykr, float yki, float ypr,
+                                          float ypi) {
+  return {__fmul_rn(0.5f, __fadd_rn(ykr, ypr)),
+          __fmul_rn(0.5f, __fsub_rn(yki, ypi)),
+          __fmul_rn(0.5f, __fadd_rn(yki, ypi)),
+          __fmul_rn(0.5f, __fsub_rn(ypr, ykr))};
+}
+
+// X[k] = E + v[k] O, v[k] = (wr, wi)
+__device__ __forceinline__ void untangle_x(const EO& e, float wr, float wi,
+                                           float& xr, float& xi) {
+  xr = __fsub_rn(__fadd_rn(e.er, __fmul_rn(wr, e.our)), __fmul_rn(wi, e.oui));
+  xi = __fadd_rn(__fadd_rn(e.ei, __fmul_rn(wr, e.oui)), __fmul_rn(wi, e.our));
+}
+
+// K3's three-pass body at m = 2^LOG_N in [512, 4096]: tile_radix3's
+// passes on real rows [row0, row0 + R) of x, packed as m complex points
+// each, with no tile staged, as rows_radix3 runs them for K1. Pass 1's
+// item (r, i2) loads its 16 packed points x[row0 + r, i1*B + i2] (one
+// float2 each, all 16 issued before the first is used; rows at or past
+// `rows` read 0) from device memory straight into registers; a warp's 32
+// consecutive i2 are 256 consecutive bytes. M1 aliases nothing that pass
+// 1 reads, so its store needs no sync before it.
+//   untangle == 0: pass 3 stores each row after its DFT straight to y[row0
+//   + r, o], as rows_radix3 does: 4 shared-memory accesses a point.
+//   untangle != 0: Y[k] and its partner Y[(m-k) % m] lie in other
+//   threads' registers, so pass 3 writes the row's spectrum Y once to
+//   r*m + o over M2 (after a sync), and each thread then takes pairs (k,
+//   m-k), 0 < k < m/2: it reads the pair's four words once and writes
+//   X[k] and X[m-k]; the pair (0, 0) gives X[0] and the Nyquist X[m], and
+//   its thread also writes X[m/2] from Y[m/2]. 6 shared-memory accesses a
+//   point and 5 block-wide syncs, against 9 and 7 behind a staged tile.
+// The rows and pairs come from two loops, not from a division by the row
+// width m+1. Every sum and product is tile_radix3's and the staged
+// untangle's, on the same words in the same order, so the output is the
+// same bits.
+template <int LOG_N>
+__device__ __forceinline__ void rfft_radix3(
+    const float2* __restrict__ x, float* __restrict__ yr,
+    float* __restrict__ yi, long long rows, long long row0, float* sr,
+    float* si, const int R, const float* __restrict__ twr,
+    const float* __restrict__ twi, const float* __restrict__ pwr,
+    const float* __restrict__ pwi, int untangle) {
+  constexpr int LOG_C = LOG_N - 2 * LOG_RADIX;
+  constexpr int LOG_B = LOG_N - LOG_RADIX;
+  constexpr int M = 1 << LOG_N, C = 1 << LOG_C, B = 1 << LOG_B;
+  constexpr int RF = P / C;  // rows a full tile holds
+  const int t = threadIdx.x;
+  const int o1 = t & (RADIX - 1), o2 = t >> LOG_RADIX;
+  float vr[P], vi[P];
+
+  {  // pass 1, from device memory
+    const int r = t >> LOG_B, i2 = t & (B - 1);
+    const bool on = r < R;
+    const bool in = on && row0 + r < rows;
+    const long long xo = (row0 + r) * M + i2;
+#pragma unroll
+    for (int i1 = 0; i1 < RADIX; ++i1) {
+      const float2 z = in ? x[xo + i1 * B] : make_float2(0.f, 0.f);
+      vr[i1] = z.x;
+      vi[i1] = z.y;
+    }
+    radix3_pass1<LOG_N>(vr, vi, i2, on, twr, twi);
+    if (on) radix3_store_m1<LOG_N>(vr, vi, sr, si, r, i2);
+    __syncthreads();
+  }
+  radix3_pass2<LOG_N>(sr, si, R, twr, twi, vr, vi);
+  if (!untangle) {  // pass 3, each row stored to device memory after its DFT
+#pragma unroll
+    for (int r = 0; r < RF; ++r) {
+      radix3_pass3<LOG_N>(sr, si, R, r, twr, twi, vr, vi);
+      const long long row = row0 + r;
+      if (r < R && row < rows) {
+#pragma unroll
+        for (int o3 = 0; o3 < C; ++o3) {
+          const int o = (o3 * RADIX + o2) * RADIX + o1;
+          yr[row * M + o] = vr[r * C + brev(o3, LOG_C)];
+          yi[row * M + o] = vi[r * C + brev(o3, LOG_C)];
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < RF; ++r)
+    radix3_pass3<LOG_N>(sr, si, R, r, twr, twi, vr, vi);
+  __syncthreads();  // Y overwrites M2
+#pragma unroll
+  for (int r = 0; r < RF; ++r) {
+    if (r < R) {
+#pragma unroll
+      for (int o3 = 0; o3 < C; ++o3) {
+        const int o = r * M + (o3 * RADIX + o2) * RADIX + o1;
+        sr[o] = vr[r * C + brev(o3, LOG_C)];
+        si[o] = vi[r * C + brev(o3, LOG_C)];
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = 0; r < R; ++r) {
+    const long long row = row0 + r;
+    if (row >= rows) break;
+    const float* ar = sr + r * M;
+    const float* ai = si + r * M;
+    float* xr = yr + row * (M + 1);
+    float* xi = yi + row * (M + 1);
+#pragma unroll
+    for (int k = t; k < M / 2; k += NT) {
+      const int p = (M - k) & (M - 1);
+      const float ykr = ar[k], yki = ai[k], ypr = ar[p], ypi = ai[p];
+      const EO e = untangle_eo(ykr, yki, ypr, ypi);
+      untangle_x(e, __ldg(pwr + k), __ldg(pwi + k), xr[k], xi[k]);
+      if (k) {
+        untangle_x(untangle_eo(ypr, ypi, ykr, yki), __ldg(pwr + p),
+                   __ldg(pwi + p), xr[p], xi[p]);
+      } else {  // Nyquist X[m] = E[0] - O[0], real; and X[m/2]
+        xr[M] = __fsub_rn(e.er, e.our);
+        xi[M] = 0.f;
+        const int h = M / 2;
+        untangle_x(untangle_eo(ar[h], ai[h], ar[h], ai[h]), __ldg(pwr + h),
+                   __ldg(pwi + h), xr[h], xi[h]);
+      }
+    }
+  }
+}
+
 // K3: block b transforms real rows [b*R, b*R + R) of x (rows, 2m), packed
 // as m complex points each; g.n = m. untangle != 0 writes the one-sided
 // (rows, m+1) spectrum (untangle_half_spectrum, rounded as the plain
 // version rounds it), untangle == 0 the packed (rows, m) half spectrum.
+// At m <= 256 (kTwoPass) through a tile staged in shared memory and an
+// untangle in the store loop, above it with rfft_radix3.
 template <bool kTwoPass>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 rfft_kernel(const float2* __restrict__ x, float* __restrict__ yr,
@@ -916,47 +1058,63 @@ rfft_kernel(const float2* __restrict__ x, float* __restrict__ yr,
   float* sr = smem;
   float* si = smem + g.plane;
   const long long row0 = (long long)blockIdx.x * g.R;
-  const int m = g.n;
-  const int tot = g.R * m;
-  for (int f = threadIdx.x; f < tot; f += NT) {
-    const int r = f >> g.log_n, k = f & (m - 1);
-    const long long row = row0 + r;
-    const float2 z = row < rows ? x[row * m + k] : make_float2(0.f, 0.f);
-    sr[r * g.ld + k] = z.x;
-    si[r * g.ld + k] = z.y;
-  }
-  __syncthreads();
-  tile_dft<kTwoPass>(sr, si, g, twr, twi);
-  const int w = untangle ? m + 1 : m;
-  for (int f = threadIdx.x; f < g.R * w; f += NT) {
-    const int r = f / w, k = f - r * w;
-    const long long row = row0 + r;
-    if (row >= rows) continue;
-    const float* ar = sr + r * g.ld;
-    const float* ai = si + r * g.ld;
-    float xr, xi;
-    if (!untangle) {
-      xr = ar[k];
-      xi = ai[k];
-    } else {
-      // E = (Y[k] + conj(P))/2, O = (Y[k] - conj(P))/2i, P = Y[(m-k) % m]
-      const int kk = k < m ? k : 0;
-      const int p = (m - kk) & (m - 1);
-      const float er = __fmul_rn(0.5f, __fadd_rn(ar[kk], ar[p]));
-      const float ei = __fmul_rn(0.5f, __fsub_rn(ai[kk], ai[p]));
-      const float our = __fmul_rn(0.5f, __fadd_rn(ai[kk], ai[p]));
-      const float oui = __fmul_rn(0.5f, __fsub_rn(ar[p], ar[kk]));
-      if (k < m) {  // X[k] = E + v[k] O
-        const float wr = __ldg(vr + k), wi = __ldg(vi + k);
-        xr = __fsub_rn(__fadd_rn(er, __fmul_rn(wr, our)), __fmul_rn(wi, oui));
-        xi = __fadd_rn(__fadd_rn(ei, __fmul_rn(wr, oui)), __fmul_rn(wi, our));
-      } else {      // Nyquist X[m] = E[0] - O[0], real
-        xr = __fsub_rn(er, our);
-        xi = 0.f;
-      }
+  if constexpr (kTwoPass) {
+    const int m = g.n;
+    const int tot = g.R * m;
+    for (int f = threadIdx.x; f < tot; f += NT) {
+      const int r = f >> g.log_n, k = f & (m - 1);
+      const long long row = row0 + r;
+      const float2 z = row < rows ? x[row * m + k] : make_float2(0.f, 0.f);
+      sr[r * g.ld + k] = z.x;
+      si[r * g.ld + k] = z.y;
     }
-    yr[row * w + k] = xr;
-    yi[row * w + k] = xi;
+    __syncthreads();
+    tile_dft<true>(sr, si, g, twr, twi);
+    const int w = untangle ? m + 1 : m;
+    for (int f = threadIdx.x; f < g.R * w; f += NT) {
+      const int r = f / w, k = f - r * w;
+      const long long row = row0 + r;
+      if (row >= rows) continue;
+      const float* ar = sr + r * g.ld;
+      const float* ai = si + r * g.ld;
+      float xr, xi;
+      if (!untangle) {
+        xr = ar[k];
+        xi = ai[k];
+      } else {
+        const int kk = k < m ? k : 0;
+        const int p = (m - kk) & (m - 1);
+        const EO e = untangle_eo(ar[kk], ai[kk], ar[p], ai[p]);
+        if (k < m) {
+          untangle_x(e, __ldg(vr + k), __ldg(vi + k), xr, xi);
+        } else {  // Nyquist X[m] = E[0] - O[0], real
+          xr = __fsub_rn(e.er, e.our);
+          xi = 0.f;
+        }
+      }
+      yr[row * w + k] = xr;
+      yi[row * w + k] = xi;
+    }
+  } else {
+    switch (g.log_n) {
+      case 9:
+        rfft_radix3<9>(x, yr, yi, rows, row0, sr, si, g.R, twr, twi, vr, vi,
+                       untangle);
+        break;
+      case 10:
+        rfft_radix3<10>(x, yr, yi, rows, row0, sr, si, g.R, twr, twi, vr, vi,
+                        untangle);
+        break;
+      case 11:
+        rfft_radix3<11>(x, yr, yi, rows, row0, sr, si, g.R, twr, twi, vr, vi,
+                        untangle);
+        break;
+      case 12:
+        rfft_radix3<12>(x, yr, yi, rows, row0, sr, si, g.R, twr, twi, vr, vi,
+                        untangle);
+        break;
+      default: break;  // not reached: the launcher passes m <= TILE
+    }
   }
 }
 
@@ -992,9 +1150,12 @@ int log2i(int v) {
 //   const (272 = 16 mod 32), 32 different;
 //   pass 3 reads M2 and stores y at r*ld + (o3*16 + o2)*16 + o1 for 16 o1
 //   and two adjacent o2: 32 consecutive words.
-//   K1 makes pass 1's reads and pass 3's stores on device memory at the
-//   same offsets of row row0 + r (128 coalesced bytes a warp), and uses
-//   only the intermediates of the plane.
+//   K1 and K3 make pass 1's reads and pass 3's stores on device memory at
+//   the same offsets of row row0 + r (128 coalesced bytes a warp of each
+//   plane; K3's float2 reads 256), and use only the intermediates of the
+//   plane; K3's untangle writes Y at r*ld + o over M2, as the staged tile
+//   was, and reads Y[k] and Y[m-k] for 32 consecutive k: 32 different
+//   banks each.
 //   K1, K3: ld = n. K2: ld from the load's rule. The plane holds the rows
 //   and both intermediates: max(R*ld, 16R*(b + 2), (R*c - 1)*272 + 256)
 //   floats, 4336-4352 for a full tile (34-35 KB a block for both planes),

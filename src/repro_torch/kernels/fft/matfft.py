@@ -38,10 +38,13 @@ at the top of ``csrc/matfft.cu``: about 5 log2 n flops a point against 16
 bytes of traffic, so they are bound by bytes. Each pass runs in its
 threads' registers, in IEEE f32 on the CUDA cores (no TF32, no tensor
 cores), and each kernel touches device memory once per point each way.
-K2, K3 and K1 up to 256 points transform a tile staged in shared memory;
-K1 from 512 points stages none: its first pass loads from device memory
-into registers, its last stores from registers to device memory, and
-only the intermediates between passes go through shared memory.
+K2, and K1 and K3 up to 256 points (K3: its half length m), transform a
+tile staged in shared memory; K1 and K3 from 512 points stage none: the
+first pass loads from device memory into registers, and only the
+intermediates between passes go through shared memory. K1's last pass,
+and K3's without the untangle, stores from registers to device memory;
+K3's with it writes each row's half spectrum to shared memory once and
+untangles a pair of bins k, m-k a thread from there.
 
 Each wrapper takes a batch tile, the rows (K2: columns) a block stages:
 ``batch_tile`` (K1, K3) or ``col_tile`` (K2), as the JAX package's

@@ -590,6 +590,56 @@ def test_k1_three_pass_tiles_and_epilogues_equal_the_plain_version(
         assert _same(_k1_into_nan(x, bt, **kw), want), bt
 
 
+def _k3_into_nan(x, untangle, batch_tile):
+    """K3 launched as `km.rfft_leaf` (untangle) or `km.rfft_pack_leaf`
+    launches it, into output planes filled with NaN beforehand."""
+    rows, n = x.shape
+    m = n // 2
+    shape = (rows, m + 1 if untangle else m)
+    yr, yi = (torch.full(shape, float("nan"), device=x.device)
+              for _ in range(2))
+    wr, wi = km.leaf_tables(m, x.device)
+    vr, vi = km.rfft_twiddle(n, x.device)
+    rc = km._lib().matfft_rfft(
+        x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, m, wr.data_ptr(),
+        wi.data_ptr(), vr.data_ptr(), vi.data_ptr(), int(untangle),
+        batch_tile or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    assert rc == 0
+    return yr, yi
+
+
+def _bits(planes):
+    return tuple(t.view(torch.int32) for t in planes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [512, 1024, 2048, 4096])
+@pytest.mark.parametrize("untangle", [True, False])
+def test_k3_three_pass_tiles_equal_the_plain_version(cuda, rng, m, untangle):
+    """K3's three-pass body loads its packed rows from device memory into
+    pass 1's registers; without the untangle it stores pass 3's registers
+    to device memory, with it it untangles each pair k, m-k once. At every
+    tile, over a ragged last block, it writes every output word with the
+    plain version's bits (signs of zeros too). Planted rows set the pair
+    logic's edges: a constant row (X[0] alone), a row at +-1 alternating
+    (the Nyquist bin alone) and one of period 4 (X[m/2] alone)."""
+    rows, n = 1001, 2 * m
+    x = torch.from_numpy(rng.standard_normal((rows, n))
+                         .astype(np.float32)).to(cuda)
+    j = torch.arange(n, device=cuda)
+    x[0] = 1.0
+    x[1] = 1.0 - 2.0 * (j % 2)
+    x[2] = 1.0 - 2.0 * ((j // 2) % 2)
+    plain = km.rfft_leaf_plain if untangle else km.rfft_pack_leaf_plain
+    want = plain(x)
+    if untangle:
+        assert float(want[0][0, 0]) == n and float(want[0][1, m]) == n
+        assert float(want[0][2, m // 2]) == m == -float(want[1][2, m // 2])
+    for bt in _tiles(tplan.MAX_LEAF // m):
+        got = _k3_into_nan(x, untangle, bt)
+        assert _same(_bits(got), _bits(want)), bt
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("L,C,off,nc", [(256, 256, 0, None),
                                         (1024, 64, 0, None),
