@@ -16,9 +16,8 @@ Phases (any failed check exits non-zero):
      epilogue; K2 at L = 256, 1024, 2048, MAX_LEAF, row- and column-major,
      with the epilogue, and its clusters (`cluster_kernel_cases`) at L =
      1024, 2048 and MAX_LEAF in both stores with the global twiddle, in
-     slabs of 1, 2, 4, 8 and 1024 columns at non-zero offsets, and at
-     narrowed tiles that give clusters of 2, 4 and 8 at L = 256 and 1024,
-     each K2 call's launch key its own, the cluster read from it;
+     slabs of 1, 2, 4, 8 and 1024 columns at non-zero offsets, each K2
+     call's launch key its own, the cluster read from it;
      K3 at n = 8, 512, 1024, 4096, 8192 with and without
      the untangle; K4 at every power of two from 2 to MAX_LEAF, every
      split of its groups of stages; K1 and K2 at the shapes phase 6's
@@ -79,7 +78,6 @@ Phases (any failed check exits non-zero):
      fft2 and the distributed four-step (each tuned plan bitwise equal to
      the default plan, the two timed), `tune_out_of_core`, `fft_job
      --tune` twice (the second run a wisdom hit) and the facade selftest;
-     phase 3 also checks K1-K4 at the tiles the tuner can pick;
  14. benchmarks/bench_pipeline.py's gate (`pipeline_gate`): serial,
      pipelined and the threaded map-only job over a `ThrottledStore` of
      128 MiB (250 MB/s disk model), best of 3, under impl "ref" and
@@ -872,9 +870,8 @@ def kernel_cases(cfg, max_leaf: int) -> list:
     (32768 x 1024). K1 at its other three-pass lengths is timed too,
     under its shape's name (`k1_length_names`), and so is K3's three-pass
     body at its other lengths and at the spectrogram cell's frames
-    (`k3_length_names`). Then the tuner's tiles, and
-    the calls of phases 6 and 9-15 at their own shapes (`ooc_kernel_cases`
-    and the others)."""
+    (`k3_length_names`). Then K2's clusters, and the calls of phases 6 and
+    9-15 at their own shapes (`ooc_kernel_cases` and the others)."""
     points = cfg["points"]
     lengths = k1_length_names(cfg, max_leaf)
     k3_lengths = k3_length_names(cfg)
@@ -902,7 +899,7 @@ def kernel_cases(cfg, max_leaf: int) -> list:
                                         or n in (512, 1024))))
     for rows, n in cfg["stockham_shapes"]:
         cases.append(("stockham", "stockham", (rows, n), {}, n == 1024))
-    return (cases + tile_kernel_cases(cfg) + cluster_kernel_cases(cfg)
+    return (cases + cluster_kernel_cases(cfg)
             + ooc_kernel_cases(cfg)
             + nd_kernel_cases(cfg) + dist_kernel_cases(cfg)
             + pencil_kernel_cases(cfg) + serve_kernel_cases(cfg)
@@ -928,53 +925,14 @@ def k3_length_names(cfg) -> dict:
     return {s: f"rfft/four_step {s}" for s in shapes + [(frames, 1024)]}
 
 
-def tile_kernel_cases(cfg) -> list:
-    """K1, K3 (m = n) and K4 at n = 256, 1024 and 4096, and K2 at L = 256
-    and 1024, at the batch tiles the tuner can pick: the default and its
-    half, quarter and one row (K2: column) a block, each distinct tile
-    once, at ``points`` points. Untimed (a winner's tile is timed in the
-    tuner phase)."""
-    from repro_torch.kernels.fft import plan as kplan
-    points = cfg["points"]
-
-    def tiles(full):
-        return sorted({kplan.tile_rows(full, t)
-                       for t in (full // 2 or 1, full // 4 or 1, 1)}
-                      - {full}) + [None]
-
-    cases = []
-    for n in (256, 1024, 4096):
-        full = kplan.MAX_LEAF // n
-        two = n <= 256
-        for t in tiles(full):
-            cases += [
-                ("matfft/direct" if two else "matfft/four_step", "matfft",
-                 (points // n, n), {"period": None, "tile": t}, False),
-                ("rfft/direct" if two else "rfft/four_step", "rfft",
-                 (points // (2 * n), 2 * n), {"untangle": True, "tile": t},
-                 False),
-                ("stockham", "stockham", (points // n, n), {"tile": t},
-                 False)]
-    for L in (256, 1024):
-        for t in tiles(min(kplan.MAX_LEAF // L, L)):
-            cases.append(("matfft_cols/direct" if L <= 256 else
-                          "matfft_cols/four_step", "matfft_cols",
-                          (max(points // (L * L), 1), L, L),
-                          {"out_major": "row", "with_epilogue": True,
-                           "tile": t}, False))
-    return cases
-
-
 def cluster_kernel_cases(cfg) -> list:
     """K2's thread-block clusters (`plan.col_cluster`) at a few matrices
     each: L = 1024, 2048 and MAX_LEAF (clusters of 2, 4 and 8) in both
     stores with the global twiddle; slabs of 1, 2, 4, 8 and 1024 columns
     at the last aligned offset of ``slab_shape``, both stores, with the
-    twiddle (one block alone below 8 columns, a cluster of 8 from 8 on);
-    narrowed tiles that give clusters of 2, 4 and 8 at L = 256 and 1024,
-    column-major (`tile_kernel_cases` has the row-major ones), and the
-    row-major tile 2 at L = 256. The options' cases draw their operands
-    on the device, as phase 10's do. Untimed."""
+    twiddle (one block alone below 8 columns, a cluster of 8 from 8 on).
+    The options' cases draw their operands on the device, as phase 10's
+    do. Untimed."""
     from repro_torch.kernels.fft import plan as kplan
     c = cfg["cluster"]
     B, C = c["rows"], c["cols"]
@@ -998,14 +956,6 @@ def cluster_kernel_cases(cfg) -> list:
                            "col_offset": C1 - nc, "ncols": nc,
                            "global_twiddle": (1 << 24, C1 - nc),
                            "dist": True}, False))
-    for L, tiles in ((256, (4, 2, 1)), (1024, (2, 1))):
-        for t in tiles:
-            cases.append((variant(L), "matfft_cols", (B, L, C),
-                          {"out_major": "col", "with_epilogue": True,
-                           "tile": t}, False))
-    cases.append((variant(256), "matfft_cols", (B, 256, C),
-                  {"out_major": "row", "with_epilogue": True, "tile": 2},
-                  False))
     return cases
 
 
@@ -1085,16 +1035,13 @@ def dist_split(n: int) -> tuple[int, int]:
 
 def option_key(kernel: str, shape, major, opts) -> tuple:
     """A call's `matfft.launch_shapes` key: (wrapper, shape, major), and
-    with the global twiddle, a column slab, a narrowed batch tile or K2's
-    thread-block cluster (`plan.col_cluster`), a fourth entry naming
-    them."""
+    with the global twiddle, a column slab or K2's thread-block cluster
+    (`plan.col_cluster`), a fourth entry naming them."""
     from repro_torch.kernels.fft import plan as kplan
-    K = (kplan.col_cluster(shape[1], opts.get("ncols") or shape[2],
-                           opts.get("tile"))[1]
+    K = (kplan.col_cluster(shape[1], opts.get("ncols") or shape[2])[1]
          if kernel == "matfft_cols" else 1)
     tags = (("twiddle",) if opts.get("global_twiddle") else ()) + (
         ("slab", opts["ncols"]) if opts.get("ncols") else ()) + (
-        ("tile", opts["tile"]) if opts.get("tile") else ()) + (
         ("cluster", K) if K > 1 else ())
     return (kernel, tuple(shape), major) + ((tags,) if tags else ())
 
@@ -1273,9 +1220,6 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
         # the distributed four-step's options (dist_kernel_cases)
         kw = {k: opts[k] for k in ("global_twiddle", "col_offset", "ncols")
               if opts.get(k) is not None}
-        # the batch tile (rows a block; K2: col_tile), narrowed
-        tile = ({"col_tile" if kernel == "matfft_cols" else "batch_tile":
-                 opts["tile"]} if opts.get("tile") else {})
         gt = opts.get("global_twiddle")
         if kernel == "matfft":
             xr, xi = planes(shape)
@@ -1283,10 +1227,10 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
             rows, n = shape
             epi = (unit_table((opts["period"], n)) if opts["period"]
                    else None)
-            base = lambda **t: km.matfft(  # noqa: E731
-                xr, xi, epilogue=epi, **kw, **t)
+            run = lambda: km.matfft(  # noqa: E731
+                xr, xi, epilogue=epi, **kw)
             plain = lambda: km.matfft_plain(  # noqa: E731
-                xr, xi, epilogue=epi, **kw, **tile)
+                xr, xi, epilogue=epi, **kw)
             lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
             y = lib()
             if gt:
@@ -1303,10 +1247,10 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
             rows = B * nc
             epi = unit_table((C, n)) if opts["with_epilogue"] else None
             major = opts["out_major"]
-            base = lambda **t: km.matfft_cols(  # noqa: E731
-                xr, xi, out_major=major, epilogue=epi, **kw, **t)
+            run = lambda: km.matfft_cols(  # noqa: E731
+                xr, xi, out_major=major, epilogue=epi, **kw)
             plain = lambda: km.matfft_cols_plain(  # noqa: E731
-                xr, xi, out_major=major, epilogue=epi, **kw, **tile)
+                xr, xi, out_major=major, epilogue=epi, **kw)
             lib = lambda: torch.fft.fft(xc, dim=1)  # noqa: E731
             y = lib().transpose(1, 2).reshape(rows, n)
             if gt:
@@ -1321,14 +1265,13 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
         elif kernel == "rfft":
             x = real(shape)
             if opts["untangle"]:
-                base = lambda **t: km.rfft_leaf(x, **t)  # noqa: E731
-                plain = lambda: km.rfft_leaf_plain(x, **tile)  # noqa: E731
+                run = lambda: km.rfft_leaf(x)  # noqa: E731
+                plain = lambda: km.rfft_leaf_plain(x)  # noqa: E731
                 lib = lambda: torch.fft.rfft(x, dim=-1)  # noqa: E731
             else:  # the packed half spectrum: the DFT of x[0::2] + i x[1::2]
                 xc = torch.complex(x[:, 0::2], x[:, 1::2])
-                base = lambda **t: km.rfft_pack_leaf(x, **t)  # noqa: E731
-                plain = lambda: km.rfft_pack_leaf_plain(  # noqa: E731
-                    x, **tile)
+                run = lambda: km.rfft_pack_leaf(x)  # noqa: E731
+                plain = lambda: km.rfft_pack_leaf_plain(x)  # noqa: E731
                 lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
                 # timed: the one-sided transform of the same real rows
                 lib_time = lambda: torch.fft.rfft(x, dim=-1)  # noqa: E731
@@ -1337,13 +1280,11 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
         else:
             xr, xi = planes(shape)
             xc = torch.complex(xr, xi)
-            base = lambda **t: ks.stockham_fft(xr, xi, **t)  # noqa: E731
-            plain = lambda: ks.stockham_fft_plain(  # noqa: E731
-                xr, xi, **tile)
+            run = lambda: ks.stockham_fft(xr, xi)  # noqa: E731
+            plain = lambda: ks.stockham_fft_plain(xr, xi)  # noqa: E731
             lib = lambda: torch.fft.fft(xc, dim=-1)  # noqa: E731
             y = lib()
             want = (y.real, y.imag)
-        run = lambda: base(**tile)  # noqa: E731
         if kernel == "matfft_cols":  # the CPU wrapper calls plain()
             key = case_key(kernel, shape, opts)
             got, cluster = launched(run, key)
@@ -1394,10 +1335,7 @@ def run_cases(torch, dev, cfg, gpu: bool, cases,
                 "bound_ms": max(t_bytes, t_flops),
                 "bound_by": "bytes" if t_bytes >= t_flops else "operations",
                 **({"cluster": cluster} if cluster is not None else {})}
-            if tile:  # the same call at the default tile, for comparison
-                timing[timed if isinstance(timed, str) else variant][
-                    "default_tile_ms"] = timed_ms(torch, base, reps)
-        del run, base, plain, lib, lib_time
+        del run, plain, lib, lib_time
         if (nd or opts.get("dist")) and gpu:
             torch.cuda.empty_cache()
     return checks, timing
@@ -1480,9 +1418,7 @@ def kernel_line(timing: dict, launches: dict) -> list:
              **{k: t[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                   "bitwise_plain", "ms_runs", "plain_ms",
                                   "plain_ms_runs",
-                                  "library_ms", "bound_ms", "bound_by")},
-             **({"default_tile_ms": t["default_tile_ms"]}
-                if "default_tile_ms" in t else {})}
+                                  "library_ms", "bound_ms", "bound_by")}}
             for name, t in timing.items()]
 
 
@@ -2988,8 +2924,7 @@ def tune_specs(cfg) -> list:
 def key_opts(key: tuple) -> dict:
     """Phase 3's options for a recorded call with no global twiddle
     (`pass_opts`; K3 packed or not by its wrapper), with its column slab
-    (at offset 0: the same kernel at the same shape) and its narrowed
-    batch tile."""
+    (at offset 0: the same kernel at the same shape)."""
     opts = pass_opts(key)
     if key[0] == "rfft_pack_leaf":
         opts = {"untangle": False}
@@ -2997,17 +2932,7 @@ def key_opts(key: tuple) -> dict:
     check("twiddle" not in tags, f"key_opts: a twiddle call {key}")
     if "slab" in tags:
         opts.update(col_offset=0, ncols=tags[tags.index("slab") + 1])
-    if "tile" in tags:
-        opts["tile"] = tags[tags.index("tile") + 1]
     return opts
-
-
-def tile_case_name(key: tuple) -> str:
-    """A winner's narrowed-tile call in the `kernels` line: "<variant>
-    <shape>[ <major>] tile <rows a block>"."""
-    tags = key[3]
-    return (shape_case_name(key[:3])
-            + f" tile {tags[tags.index('tile') + 1]}")
 
 
 def fft_want(torch, kind: str, shape, ops):
@@ -3036,10 +2961,9 @@ def tuner_checks(torch, dev, gpu: bool, cfg, work: Path):
        each block within 5e-6 of torch.fft.
     4. ``python -m repro_torch.fft.selftest`` as a subprocess: exit 0.
 
-    Every call the tuned plans made at a shape or tile phase 3 did not
-    check is checked here (`run_cases`), and each narrowed tile a winner
-    picked is timed under its own name. Returns (summary, launches by run,
-    the keys checked here, timing).
+    Every call the tuned plans made at a shape phase 3 did not check is
+    checked here (`run_cases`). Returns (summary, launches by run, the
+    keys checked here, timing).
     """
     import os
 
@@ -3057,7 +2981,7 @@ def tuner_checks(torch, dev, gpu: bool, cfg, work: Path):
     reps = cfg["tune"]["reps"]
     covered = {case_key(k, s, o) for _, k, s, o, _
                in kernel_cases(cfg, kplan.MAX_LEAF)}
-    runs, measured, calls, names = [], {}, [], {}
+    runs, measured, calls = [], {}, []
 
     def sync():
         if gpu:
@@ -3115,8 +3039,7 @@ def tuner_checks(torch, dev, gpu: bool, cfg, work: Path):
             t_default.append(timed_ms(
                 torch, lambda: getattr(default, fn)(*ops), reps))
         del ops
-        winner = {"layout": s.layout, "overlap": s.overlap,
-                  "batch_tile": s.batch_tile}
+        winner = {"layout": s.layout, "overlap": s.overlap}
         doc = {"run": name, "shape": list(s.shape),
                "batch_shape": list(s.batch_shape), "winner": winner,
                "disagreement": entry["disagreement"],
@@ -3139,12 +3062,8 @@ def tuner_checks(torch, dev, gpu: bool, cfg, work: Path):
                                    else s.overlap, s.fuse_twiddle, s.layout)
         else:
             run_calls = [(key, key_opts(key)) for key in shapes]
-        for key, opts in run_calls:
-            narrowed = len(key) > 3 and "tile" in key[3]
-            if key not in covered or narrowed:
-                calls.append((key, opts))
-            if narrowed:  # a winner's tile: timed under its own name
-                names[key] = tile_case_name(key)
+        calls += [(key, opts) for key, opts in run_calls
+                  if key not in covered]
         if gpu:
             torch.cuda.empty_cache()
 
@@ -3231,7 +3150,7 @@ def tuner_checks(torch, dev, gpu: bool, cfg, work: Path):
     runs.append({"run": "all_to_all_single 256 MiB", "bytes_s": a2a_bps})
 
     # every call the tuned plans made that phase 3 did not check
-    cases = calls_as_cases(calls, names)
+    cases = calls_as_cases(calls, {})
     checks, timing = run_cases(torch, dev, cfg, gpu, cases, seed=7)
     checked = {case_key(k, s, o) for _, k, s, o, _ in cases}
     return ({"runs": runs, "checks": checks, "a2a_bytes_s": a2a_bps},
@@ -5912,10 +5831,6 @@ def main(argv=None) -> int:
     for shape, name in k3_length_names(cfg).items():
         key = ("rfft_leaf", shape, None)
         launches[name] = sum(run.get(key, 0) for run in measured.values())
-    for key in {k for run in tune_measured.values() for k in run
-                if len(k) > 3 and "tile" in k[3]}:
-        launches[tile_case_name(key)] = sum(
-            run[key] for run in tune_measured.values())
     timing.update(tune_timing)
     # every call of phases 9-15 was held to its plain version in phase 3
     # (the tuner's other calls in phase 13) at its own shape

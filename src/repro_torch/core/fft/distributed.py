@@ -681,8 +681,7 @@ def _repencil(ex, a, shape: tuple, split: int, concat: int):
     return recv.movedim(0, concat).reshape(new), tuple(new)
 
 
-def _pencil_legs(shape, grid, exchanges, *, impl, layout, overlap,
-                 batch_tile=None):
+def _pencil_legs(shape, grid, exchanges, *, impl, layout, overlap):
     """The exchange legs shared by the c2c and r2c pencils: a function of
     the local planar volume ``loc0`` (leading axes sharded, the last
     already transformed) that runs legs k = nd-2 .. 0 (local `fftn`'s
@@ -692,7 +691,6 @@ def _pencil_legs(shape, grid, exchanges, *, impl, layout, overlap,
     Monolithic (`_repencil`) or, with ``overlap`` chunks, the overlapped
     slabs; both give the same bits, since every slab pass reads the
     assembled volume in place through K2's ``col_offset``/``ncols``.
-    ``batch_tile`` is every axis pass's column tile.
     """
     from repro_torch.fft import executors as fft_ex
 
@@ -707,8 +705,7 @@ def _pencil_legs(shape, grid, exchanges, *, impl, layout, overlap,
         nc = C - col_offset if ncols is None else ncols
         yr, yi = fft_ex.axis_pass(ar, ai, (B, L, C), out_major="col",
                                   impl=impl, layout=layout,
-                                  col_offset=col_offset, ncols=nc,
-                                  col_tile=batch_tile)
+                                  col_offset=col_offset, ncols=nc)
         rest = math.prod(S[k + 2:])
         out = (*S[:k], L, nc // rest, *S[k + 2:])
         return yr.reshape(out), yi.reshape(out)
@@ -787,7 +784,7 @@ def _pencil_legs(shape, grid, exchanges, *, impl, layout, overlap,
 
 def build_pencil(shape, mesh, axes=("data", "model"), *,
                  impl: str = "matfft", layout: str = "zero_copy",
-                 overlap: int | None = None, batch_tile: int | None = None):
+                 overlap: int | None = None):
     """The N-D pencil transform of an (n0, .., nk) volume over ``mesh``:
     returns ``forward(xr, xi)``, which takes this rank's planar input
     block and returns its output block.
@@ -805,8 +802,7 @@ def build_pencil(shape, mesh, axes=("data", "model"), *,
 
     Both exchange engines give the same bits, and the leg order is local
     `fftn`'s, so the result is bitwise equal to the local plan.
-    ``overlap`` is the resolved chunk count (`resolve_overlap_pencil`);
-    ``batch_tile`` goes to every leaf kernel, as the local plan's does.
+    ``overlap`` is the resolved chunk count (`resolve_overlap_pencil`).
     """
     from repro_torch.fft import executors as fft_ex
 
@@ -815,11 +811,10 @@ def build_pencil(shape, mesh, axes=("data", "model"), *,
     plan_pencil(shape, math.prod(grid), grid=grid, chunks=overlap)
     exchanges = [_Exchange(mesh, g) for g in groups]
     legs, _ = _pencil_legs(shape, grid, exchanges, impl=impl, layout=layout,
-                           overlap=overlap, batch_tile=batch_tile)
+                           overlap=overlap)
 
     def forward(xr, xi):
-        ar, ai = fft_ex.fft(xr, xi, impl=impl, layout=layout,
-                            batch_tile=batch_tile)
+        ar, ai = fft_ex.fft(xr, xi, impl=impl, layout=layout)
         return legs(ar, ai)
 
     return forward
@@ -827,8 +822,7 @@ def build_pencil(shape, mesh, axes=("data", "model"), *,
 
 def build_pencil_r2c(shape, mesh, axes=("data", "model"), *,
                      impl: str = "matfft", layout: str = "zero_copy",
-                     overlap: int | None = None,
-                     batch_tile: int | None = None):
+                     overlap: int | None = None):
     """The flop-halved real-input pencil: the rfftn packing, distributed.
 
     The local contiguous pass reads each real row as n_last/2 packed
@@ -854,23 +848,20 @@ def build_pencil_r2c(shape, mesh, axes=("data", "model"), *,
     plan_pencil(half, math.prod(grid), grid=grid, chunks=overlap)
     exchanges = [_Exchange(mesh, g) for g in groups]
     legs, loc0 = _pencil_legs(half, grid, exchanges, impl=impl,
-                              layout=layout, overlap=overlap,
-                              batch_tile=batch_tile)
+                              layout=layout, overlap=overlap)
     n_last = shape[-1]
 
     def forward(x):
         rows = math.prod(loc0[:-1])
         zr, zi = fft_ex.rfft_pack_pass(x.reshape(rows, n_last), n_last,
-                                       impl=impl, layout=layout,
-                                       batch_tile=batch_tile)
+                                       impl=impl, layout=layout)
         return legs(zr.reshape(loc0), zi.reshape(loc0))
 
     return forward
 
 
 def build_pencil_reverse(shape, mesh, axes=("data", "model"), *,
-                         impl: str = "matfft", layout: str = "zero_copy",
-                         batch_tile: int | None = None):
+                         impl: str = "matfft", layout: str = "zero_copy"):
     """The pencil run backwards, for the inverse through the conjugation
     identity: ``forward(yr, yi)`` takes this rank's block in the OUTPUT
     layout and returns the forward DFT in the INPUT layout. Axis 0 (whole
@@ -888,7 +879,7 @@ def build_pencil_reverse(shape, mesh, axes=("data", "model"), *,
     def axis_pass(ar, ai, S, k):
         view = (math.prod(S[:k]), S[k], math.prod(S[k + 1:]))
         yr, yi = fft_ex.axis_pass(ar, ai, view, out_major="col", impl=impl,
-                                  layout=layout, col_tile=batch_tile)
+                                  layout=layout)
         return yr.reshape(S), yi.reshape(S)
 
     def forward(yr, yi):
@@ -899,8 +890,7 @@ def build_pencil_reverse(shape, mesh, axes=("data", "model"), *,
             ai, _ = _repencil(exchanges[k], ai, S, k, k + 1)
             S = S2
             if k + 1 == nd - 1:
-                ar, ai = fft_ex.fft(ar, ai, impl=impl, layout=layout,
-                                    batch_tile=batch_tile)
+                ar, ai = fft_ex.fft(ar, ai, impl=impl, layout=layout)
             else:
                 ar, ai = axis_pass(ar, ai, S, k + 1)
         return ar, ai

@@ -16,15 +16,13 @@ from __future__ import annotations
 
 
 def build_segmented(kind: str, shape: tuple, *, impl: str = "matfft",
-                    layout: str = "zero_copy",
-                    batch_tile: int | None = None):
+                    layout: str = "zero_copy"):
     """The map task of a (rows/D, *shape) shard: kind="c2c" maps planar
     (xr, xi) -> (yr, yi), kind="r2c" real x -> the planar one-sided
-    spectrum, over the trailing ``len(shape)`` axes; ``batch_tile`` goes to
-    every leaf kernel (`executors`)."""
+    spectrum, over the trailing ``len(shape)`` axes (`executors`)."""
     from repro_torch.fft import executors as fft_ex
 
-    kw = dict(impl=impl, layout=layout, batch_tile=batch_tile)
+    kw = dict(impl=impl, layout=layout)
     if kind == "c2c":
         def forward(xr, xi):
             return fft_ex.fftn(xr, xi, shape, **kw)

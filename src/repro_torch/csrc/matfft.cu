@@ -113,17 +113,10 @@
 //                   the slab, and the output is (B, L, ncols) or
 //                   (B * ncols, L).
 //
-// The batch tile. Each launcher takes bt, the rows (K2: columns) a block
-// may stage, the JAX package's batch_tile and col_tile (matfft.py:172,
-// :325): 0 keeps the default tile above (K1: TILE / n, K2: min(TILE / L,
-// ncols), K3: TILE / m); a smaller bt narrows it to bt rounded down to a
-// power of two (tile_rows). Tiles only narrow: a wider one would need
-// more shared memory than make_geom sizes. The kernel bodies read the
-// tile as g.R and guard every row with r < R, so a narrow tile leaves
-// threads idle and does nothing else: every point is computed by the same
-// operations in the same order, and the output is the same bits at every
-// tile. The grid grows as the tile narrows; the autotuner
-// (fft/tuner.py) measures whether more, smaller blocks pay.
+// The tile is fixed at the default above (K1: TILE / n rows, K2: min(TILE
+// / L, ncols) columns, K3: TILE / m rows): a block keeps its 256 threads
+// whatever it stages, so a narrower tile only leaves threads idle and fits
+// no more blocks on a SM.
 //
 // K2's column group. K2 moves 16 bytes a point of device memory for about
 // 5 log2 L flops (at most about 4 flops a byte): like K1, it is bound by
@@ -131,8 +124,8 @@
 // operand is read down the columns: a matrix row holds one value of each
 // column, and a 32-byte sector of a float32 plane holds G = 8 adjacent
 // columns (CLUSTER_COLS). A block of R >= G columns reads whole sectors;
-// one of R < G columns (L >= 1024 at the default tile: R = 4096 / L)
-// would use R * 4 of every 32 bytes it moves, an eighth at L = 4096. So a
+// one of R < G columns (L >= 1024: R = 4096 / L) would use R * 4 of every
+// 32 bytes it moves, an eighth at L = 4096. So a
 // launch with R < G <= ncols runs as thread-block clusters of K = G / R
 // blocks (2 at L = 1024, 4 at 2048, 8 at 4096), one cluster a group of G
 // adjacent columns of one matrix; which launches do is decided in one
@@ -1208,15 +1201,6 @@ Geom make_geom(int n, int R, bool pad) {
 
 int smem_bytes(const Geom& g) { return 2 * g.plane * (int)sizeof(float); }
 
-// Rows (K2: columns) a block stages: the default tile ``full`` (a power of
-// two), narrowed to bt rounded down to a power of two when 0 < bt < full.
-int tile_rows(int full, int bt) {
-  if (bt <= 0 || bt >= full) return full;
-  int r = 1;
-  while (2 * r <= bt) r *= 2;
-  return r;
-}
-
 // The global twiddle's kernel argument; 0 on success, else the error of a
 // bad N (a power of two up to 2^32 wanted).
 int make_gtw(const float* hr, const float* hi, const float* lr,
@@ -1291,19 +1275,18 @@ extern "C" {
 // Returns 0, or the CUDA error code of the launch. wr, wi: the leaf table
 // W_n^k (n,). er, ei: the periodic epilogue table or null; ghr .. gli:
 // the global twiddle's tables (kernels/fft/plan.py:global_twiddles) or
-// null, with n_global and the logical row of row 0, row_off. bt: the
-// batch tile (tile_rows; 0 for the default).
+// null, with n_global and the logical row of row 0, row_off.
 int matfft_rows(const float* xr, const float* xi, float* yr, float* yi,
                 long long rows, int n, const float* wr, const float* wi,
                 const float* er, const float* ei, int period,
                 const float* ghr, const float* ghi, const float* glr,
                 const float* gli, long long n_global, long long row_off,
-                int bt, void* stream) {
+                void* stream) {
   if (n < 1 || n > TILE || (n & (n - 1))) return (int)cudaErrorInvalidValue;
   GTw gt;
   if (const int rc = make_gtw(ghr, ghi, glr, gli, n_global, row_off, gt))
     return rc;
-  const Geom g = make_geom(n, tile_rows(TILE / n, bt), false);
+  const Geom g = make_geom(n, TILE / n, false);
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
   return launch(n <= TWO_PASS_N ? rows_kernel<true> : rows_kernel<false>,
@@ -1312,23 +1295,22 @@ int matfft_rows(const float* xr, const float* xi, float* yr, float* yi,
 }
 
 // The slab [col0, col0 + nc) of the C columns: nc a power of two, col0 a
-// multiple of it; the output is (B, L, nc) col-major or (B * nc, L). bt:
-// the column tile (tile_rows; 0 for the default). cluster: the blocks of
-// a thread-block cluster (kernels/fft/plan.py:col_cluster; 1: one block
+// multiple of it; the output is (B, L, nc) col-major or (B * nc, L).
+// cluster: the blocks of a thread-block cluster (kernels/fft/plan.py:col_cluster; 1: one block
 // alone), checked by check_cluster.
 int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
                 long long B, int L, int C, int col0, int nc, const float* wr,
                 const float* wi, const float* er, const float* ei,
                 int col_major, const float* ghr, const float* ghi,
                 const float* glr, const float* gli, long long n_global,
-                long long row_off, int bt, int cluster, void* stream) {
+                long long row_off, int cluster, void* stream) {
   if (L < 1 || L > TILE || (L & (L - 1)) || C < 1 || (C & (C - 1)) ||
       nc < 1 || (nc & (nc - 1)) || col0 < 0 || col0 % nc || col0 + nc > C)
     return (int)cudaErrorInvalidValue;
   GTw gt;
   if (const int rc = make_gtw(ghr, ghi, glr, gli, n_global, row_off, gt))
     return rc;
-  const int R = tile_rows(TILE / L < nc ? TILE / L : nc, bt);
+  const int R = TILE / L < nc ? TILE / L : nc;
   if (const int rc = check_cluster(L, R, nc, cluster, xr, xi)) return rc;
   const Geom g = make_geom(L, R, true);
   const int tiles_per_b = nc / R;
@@ -1339,22 +1321,22 @@ int matfft_cols(const float* xr, const float* xi, float* yr, float* yi,
     return launch(two ? cols_kernel<true, false> : cols_kernel<false, false>,
                   blocks, g, stream, 1, xr, xi, yr, yi, C, col0, nc,
                   tiles_per_b, g, wr, wi, er, ei, col_major, gt, 0);
-  return launch(two ? cols_kernel<true, true> : cols_kernel<false, true>,
-                blocks, g, stream, cluster, xr, xi, yr, yi, C, col0, nc,
-                tiles_per_b, g, wr, wi, er, ei, col_major, gt,
-                log2i(cluster));
+  // a cluster forms only at L >= 1024 (check_cluster refuses one below)
+  return launch(cols_kernel<false, true>, blocks, g, stream, cluster, xr, xi,
+                yr, yi, C, col0, nc, tiles_per_b, g, wr, wi, er, ei,
+                col_major, gt, log2i(cluster));
 }
 
 // The clusters of K2's cluster path that can be resident on the card at
-// once (cudaOccupancyMaxActiveClusters) at length L and the default tile,
-// K blocks a cluster; or minus the CUDA error.
+// once (cudaOccupancyMaxActiveClusters) at length L, K blocks a cluster;
+// or minus the CUDA error. L <= TWO_PASS_N is refused: a block holds at
+// least CLUSTER_COLS columns there, and no cluster forms.
 int matfft_cols_clusters(int L, int cluster) {
-  if (L < 1 || L > TILE || (L & (L - 1)) || cluster < 1 ||
+  if (L <= TWO_PASS_N || L > TILE || (L & (L - 1)) || cluster < 1 ||
       cluster > MAX_CLUSTER || (cluster & (cluster - 1)))
     return -(int)cudaErrorInvalidValue;
   const Geom g = make_geom(L, TILE / L, true);
-  auto kernel = L <= TWO_PASS_N ? cols_kernel<true, true>
-                                : cols_kernel<false, true>;
+  auto kernel = cols_kernel<false, true>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        MAX_SMEM);
   cudaLaunchConfig_t cfg = {};
@@ -1376,14 +1358,13 @@ int matfft_cols_clusters(int L, int cluster) {
 
 // x: real (rows, 2m), 8-byte aligned; yr, yi: (rows, m+1) with untangle,
 // (rows, m) without; wr, wi: the leaf table at length m; vr, vi: the
-// packing twiddle W_{2m}^k (m,); bt: the batch tile (tile_rows; 0 for the
-// default).
+// packing twiddle W_{2m}^k (m,).
 int matfft_rfft(const float* x, float* yr, float* yi, long long rows, int m,
                 const float* wr, const float* wi, const float* vr,
-                const float* vi, int untangle, int bt, void* stream) {
+                const float* vi, int untangle, void* stream) {
   if (m < 2 || m > TILE || (m & (m - 1)) || ((size_t)x & 7))
     return (int)cudaErrorInvalidValue;
-  const Geom g = make_geom(m, tile_rows(TILE / m, bt), false);
+  const Geom g = make_geom(m, TILE / m, false);
   const long long blocks = (rows + g.R - 1) / g.R;
   if (blocks == 0) return 0;
   return launch(m <= TWO_PASS_N ? rfft_kernel<true> : rfft_kernel<false>,

@@ -73,14 +73,9 @@
 // No access has a bank conflict, at every R down to 1, where a warp lies
 // inside one row.
 //
-// The batch tile. stockham_rows takes bt, the JAX package's batch_tile
-// (stockham.py:56): 0 keeps R = 4096 / n rows a block; a smaller bt runs
-// R = bt rounded down to a power of two, over ceil(rows / R) blocks. The
-// block still walks the whole tile with the same index maps, and the rows
-// at or past R are dead (neither loaded nor stored), so the shared arrays,
-// the swizzle and each live row's operations are those of the default
-// tile: the output is the same bits at every tile, and a narrow tile
-// spends the dead rows' share of the block's work.
+// The tile is fixed at R = 4096 / n rows a block: a block keeps its 256
+// threads whatever it stages, so a narrower tile only leaves threads idle
+// and fits no more blocks on a SM.
 //
 // A row's result depends only on its own values, so it is the same
 // whatever the batch size or the row's place in it. Each instantiation is
@@ -218,9 +213,9 @@ __device__ __forceinline__ void group(const float* __restrict__ xr,
   if constexpr (!LAST) __syncthreads();
 }
 
-// Block b transforms rows [b*R, b*R + R), R <= TILE >> LOG_N (the batch
-// tile, `launch`): a narrower tile leaves the tile's other rows dead (no
-// load, no store), so every row is computed as at the default tile.
+// Block b transforms rows [b*R, b*R + R), R = TILE >> LOG_N (`launch`):
+// the last block's rows at or past `rows` are dead (no load, no store),
+// so every row is computed as in a full block.
 template <int LOG_N>
 __global__ void __launch_bounds__(NT, 4)
 stockham_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -244,18 +239,11 @@ stockham_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     group<LOG_N, 2 * MAX_G>(xr, xi, yr, yi, rows_here, sr, si, twr, twi);
 }
 
-// The batch tile: the default TILE >> LOG_N rows a block, narrowed to bt
-// rounded down to a power of two when 0 < bt < it.
 template <int LOG_N>
 int launch(const float* xr, const float* xi, float* yr, float* yi,
-           long long rows, int bt, const float* twr, const float* twi,
+           long long rows, const float* twr, const float* twi,
            void* stream) {
-  constexpr int FULL = TILE >> LOG_N;
-  int R = FULL;
-  if (bt > 0 && bt < FULL) {
-    R = 1;
-    while (2 * R <= bt) R *= 2;
-  }
+  constexpr int R = TILE >> LOG_N;
   const long long blocks = (rows + R - 1) / R;
   if (blocks == 0) return 0;
   stockham_kernel<LOG_N><<<(unsigned)blocks, NT, 0, (cudaStream_t)stream>>>(
@@ -268,15 +256,14 @@ int launch(const float* xr, const float* xi, float* yr, float* yi,
 extern "C" {
 
 // Returns 0, or the CUDA error code of the launch. tw_r, tw_i: the packed
-// (n,) per-stage twiddle table of plan.stockham_twiddles(n); bt: the batch
-// tile (0 for the default).
+// (n,) per-stage twiddle table of plan.stockham_twiddles(n).
 int stockham_rows(const float* xr, const float* xi, float* yr, float* yi,
-                  long long rows, int n, int bt, const float* tw_r,
+                  long long rows, int n, const float* tw_r,
                   const float* tw_i, void* stream) {
   switch (n) {
 #define STOCKHAM_CASE(LOG_N)                                               \
   case 1 << LOG_N:                                                         \
-    return launch<LOG_N>(xr, xi, yr, yi, rows, bt, tw_r, tw_i, stream);
+    return launch<LOG_N>(xr, xi, yr, yi, rows, tw_r, tw_i, stream);
     STOCKHAM_CASE(1) STOCKHAM_CASE(2) STOCKHAM_CASE(3) STOCKHAM_CASE(4)
     STOCKHAM_CASE(5) STOCKHAM_CASE(6) STOCKHAM_CASE(7) STOCKHAM_CASE(8)
     STOCKHAM_CASE(9) STOCKHAM_CASE(10) STOCKHAM_CASE(11) STOCKHAM_CASE(12)

@@ -36,9 +36,9 @@
 
     # measured plan choice, kept as wisdom: a second process measures
     # nothing (cache_info()["wisdom_hits"])
-    t = repro_torch.fft.plan(kind="c2c", n=1024, batch_shape=(32768,),
+    t = repro_torch.fft.plan(kind="c2c", n=1 << 16, batch_shape=(512,),
                              tune=True, wisdom_path="wisdom.json")
-    t.spec.layout, t.spec.batch_tile     # the winner's knobs
+    t.spec.layout, t.spec.overlap        # the winner's knobs
 
 The port runs local c2c and r2c transforms of 1 to 3 axes on one device
 (the contiguous axis up to MAX_LOCAL_N points, earlier axes up to

@@ -32,11 +32,6 @@ The ``layout`` option selects how level-1 pass boundaries move data:
   "copy"                 the reshape + transpose path, kept as the measured
                          baseline and as the path of non-matfft leaf impls
 
-``batch_tile`` (``col_tile`` for a column pass) is the rows, or K2's
-columns, a leaf kernel's block stages (`kernels.fft.plan.tile_rows`), passed
-to every kernel a transform launches, as the JAX package threads it; None
-keeps each kernel's default. It cannot change a result.
-
 Every function runs on the device its operands lie on.
 """
 
@@ -71,13 +66,12 @@ def _periodic(yr, yi, epilogue) -> Planar:
     return yr * er - yi * ei, yr * ei + yi * er
 
 
-def _leaf(xr, xi, impl: str, epilogue=None, global_twiddle=None,
-          batch_tile=None) -> Planar:
+def _leaf(xr, xi, impl: str, epilogue=None, global_twiddle=None) -> Planar:
     if impl == "matfft":
         return matfft(xr, xi, epilogue=epilogue,
-                      global_twiddle=global_twiddle, batch_tile=batch_tile)
+                      global_twiddle=global_twiddle)
     if impl == "stockham":
-        yr, yi = stockham_fft(xr, xi, batch_tile=batch_tile)
+        yr, yi = stockham_fft(xr, xi)
     elif impl == "ref":
         yr, yi = fft_ref.fft_ref(xr, xi)
     else:
@@ -97,8 +91,7 @@ def axis_pass(xr: torch.Tensor, xi: torch.Tensor, view, *,
               out_major: str = "row", epilogue: Planar | None = None,
               global_twiddle: tuple[int, int] | None = None,
               impl: str = "matfft", layout: str = "zero_copy",
-              col_offset: int = 0, ncols: int | None = None,
-              col_tile: int | None = None) -> Planar:
+              col_offset: int = 0, ncols: int | None = None) -> Planar:
     """FFT along the MIDDLE axis of a planar ``view = (B, L, C)`` reshape,
     or of the aligned column slab [col_offset, col_offset + nc) of it (nc
     = ``ncols``, default every column from ``col_offset`` on).
@@ -128,14 +121,14 @@ def axis_pass(xr: torch.Tensor, xi: torch.Tensor, view, *,
             and fft_plan.make_plan(L).levels == 1):
         return matfft_cols(xr3, xi3, out_major=out_major, epilogue=epilogue,
                            global_twiddle=global_twiddle,
-                           col_offset=col_offset, ncols=nc, col_tile=col_tile)
+                           col_offset=col_offset, ncols=nc)
     # fallback: slice the slab, materialize the transpose; columns become
     # batch rows
     cols = slice(col_offset, col_offset + nc)
     xrt = xr3[:, :, cols].transpose(1, 2).reshape(B * nc, L)
     xit = xi3[:, :, cols].transpose(1, 2).reshape(B * nc, L)
     yr, yi = fft(xrt, xit, impl=impl, layout=layout,
-                 global_twiddle=global_twiddle, batch_tile=col_tile)
+                 global_twiddle=global_twiddle)
     if epilogue is not None:
         er, ei = epilogue
         er, ei = er[cols].repeat(B, 1), ei[cols].repeat(B, 1)
@@ -147,8 +140,7 @@ def axis_pass(xr: torch.Tensor, xi: torch.Tensor, view, *,
 
 
 def four_step_zero_copy(xr: torch.Tensor, xi: torch.Tensor, n1: int, n2: int,
-                        *, impl: str = "matfft",
-                        col_tile: int | None = None) -> Planar:
+                        *, impl: str = "matfft") -> Planar:
     """Level-1 four-step as two shared axis passes.
 
     Pass 1 transforms the n1-axis of the (rows, n1, n2) view with the outer
@@ -166,16 +158,15 @@ def four_step_zero_copy(xr: torch.Tensor, xi: torch.Tensor, n1: int, n2: int,
     # (n2, n1) table, no O(batch*n) twiddle tensor
     epi = outer_twiddle(n1, n2, xr.device)
     ar, ai = axis_pass(xr, xi, (rows, n1, n2), out_major="row", epilogue=epi,
-                       impl=impl, col_tile=col_tile)  # (rows*n2, n1)
-    cr, ci = axis_pass(ar, ai, (rows, n2, n1), out_major="col", impl=impl,
-                       col_tile=col_tile)  # (rows, n2, n1) = [b, o2, o1]
+                       impl=impl)  # (rows*n2, n1)
+    cr, ci = axis_pass(ar, ai, (rows, n2, n1), out_major="col",
+                       impl=impl)  # (rows, n2, n1) = [b, o2, o1]
     return cr.reshape(rows, n), ci.reshape(rows, n)
 
 
 def fft(xr: torch.Tensor, xi: torch.Tensor, *, impl: str = "matfft",
         layout: str = "zero_copy",
-        global_twiddle: tuple[int, int] | None = None,
-        batch_tile: int | None = None) -> Planar:
+        global_twiddle: tuple[int, int] | None = None) -> Planar:
     """Batched forward FFT along the last axis of planar float32 tensors.
 
     Any leading batch shape; the last-axis length must be a power of two up
@@ -193,18 +184,16 @@ def fft(xr: torch.Tensor, xi: torch.Tensor, *, impl: str = "matfft",
     xi2 = xi.reshape(-1, n).contiguous()
     p = fft_plan.make_plan(n)
     if p.levels == 1:
-        yr, yi = _leaf(xr2, xi2, impl, global_twiddle=global_twiddle,
-                       batch_tile=batch_tile)
+        yr, yi = _leaf(xr2, xi2, impl, global_twiddle=global_twiddle)
     elif global_twiddle is not None:
         raise ValueError("global_twiddle requires a single-level plan")
     else:
-        yr, yi = _four_step(xr2, xi2, p.n1, p.n2, impl, layout, batch_tile)
+        yr, yi = _four_step(xr2, xi2, p.n1, p.n2, impl, layout)
     return yr.reshape(*batch_shape, n), yi.reshape(*batch_shape, n)
 
 
 def _four_step(xr, xi, n1: int, n2: int, impl: str,
-               layout: str = "zero_copy",
-               batch_tile: int | None = None) -> Planar:
+               layout: str = "zero_copy") -> Planar:
     """Level-1 four-step: two batched leaf passes.
 
     layout="zero_copy" (matfft only): both passes are column-strided kernel
@@ -218,21 +207,18 @@ def _four_step(xr, xi, n1: int, n2: int, impl: str,
     """
     rows, n = xr.shape
     if layout == "zero_copy" and impl == "matfft":
-        return four_step_zero_copy(xr, xi, n1, n2, impl=impl,
-                                   col_tile=batch_tile)
+        return four_step_zero_copy(xr, xi, n1, n2, impl=impl)
     epi = outer_twiddle(n1, n2, xr.device)
 
     def to_cols(a):  # (rows, n1*n2) -> (rows*n2, n1)
         return a.reshape(rows, n1, n2).transpose(1, 2).reshape(rows * n2, n1)
 
-    ar, ai = _leaf(to_cols(xr), to_cols(xi), impl, epilogue=epi,
-                   batch_tile=batch_tile)
+    ar, ai = _leaf(to_cols(xr), to_cols(xi), impl, epilogue=epi)
 
     def to_rows(a):  # (rows*n2, n1) -> (rows*n1, n2)
         return a.reshape(rows, n2, n1).transpose(1, 2).reshape(rows * n1, n2)
 
-    cr, ci = fft(to_rows(ar), to_rows(ai), impl=impl, layout=layout,
-                 batch_tile=batch_tile)
+    cr, ci = fft(to_rows(ar), to_rows(ai), impl=impl, layout=layout)
 
     def out_order(a):  # rows (b, o1), cols o2 -> flat o = o2*n1 + o1
         return a.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)
@@ -243,8 +229,7 @@ def _four_step(xr, xi, n1: int, n2: int, impl: str,
 def fft_cols(xr: torch.Tensor, xi: torch.Tensor, *, impl: str = "matfft",
              layout: str = "zero_copy", out_major: str = "row",
              global_twiddle: tuple[int, int] | None = None,
-             col_offset: int = 0, ncols: int | None = None,
-             col_tile: int | None = None) -> Planar:
+             col_offset: int = 0, ncols: int | None = None) -> Planar:
     """FFT each COLUMN of planar (L, C) tensors, or of the column slab
     [col_offset, col_offset + ncols).
 
@@ -259,8 +244,7 @@ def fft_cols(xr: torch.Tensor, xi: torch.Tensor, *, impl: str = "matfft",
     nc = C - col_offset if ncols is None else ncols
     yr, yi = axis_pass(xr, xi, (1, L, C), out_major=out_major,
                        global_twiddle=global_twiddle, impl=impl,
-                       layout=layout, col_offset=col_offset, ncols=nc,
-                       col_tile=col_tile)
+                       layout=layout, col_offset=col_offset, ncols=nc)
     if out_major == "col":
         return yr.reshape(L, nc), yi.reshape(L, nc)
     return yr, yi
@@ -278,7 +262,7 @@ def ifft(xr: torch.Tensor, xi: torch.Tensor, **kw) -> Planar:
 
 
 def rfft(x: torch.Tensor, *, impl: str = "matfft",
-         layout: str = "zero_copy", batch_tile: int | None = None) -> Planar:
+         layout: str = "zero_copy") -> Planar:
     """Real-input FFT along the last axis; returns the planar one-sided
     spectrum (n//2 + 1 bins).
 
@@ -293,8 +277,7 @@ def rfft(x: torch.Tensor, *, impl: str = "matfft",
     x = x.to(torch.float32)
     if n < 4 or impl != "matfft":
         with span(ROWS):
-            yr, yi = fft(x, torch.zeros_like(x), impl=impl, layout=layout,
-                         batch_tile=batch_tile)
+            yr, yi = fft(x, torch.zeros_like(x), impl=impl, layout=layout)
         return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]
     fft_plan.log2i(n)
     m = n // 2
@@ -302,14 +285,13 @@ def rfft(x: torch.Tensor, *, impl: str = "matfft",
     x2 = x.reshape(-1, n).contiguous()
     if fft_plan.make_plan(m).levels == 1:
         with span(ROWS):
-            yr, yi = rfft_leaf(x2, batch_tile=batch_tile)
+            yr, yi = rfft_leaf(x2)
     else:
         # bin k pairs with bin m - k, which a level-1 pass puts in another
         # leaf, so the untangle runs after the whole half-length transform
         z = x2.reshape(-1, m, 2)
         with span(ROWS):
-            zr, zi = fft(z[..., 0], z[..., 1], impl=impl, layout=layout,
-                         batch_tile=batch_tile)
+            zr, zi = fft(z[..., 0], z[..., 1], impl=impl, layout=layout)
         with span(UNTANGLE):
             yr, yi = untangle_half_spectrum(zr, zi,
                                             *rfft_twiddle(n, x.device))
@@ -317,8 +299,7 @@ def rfft(x: torch.Tensor, *, impl: str = "matfft",
 
 
 def irfft(yr: torch.Tensor, yi: torch.Tensor, *, impl: str = "matfft",
-          layout: str = "zero_copy",
-          batch_tile: int | None = None) -> torch.Tensor:
+          layout: str = "zero_copy") -> torch.Tensor:
     """Inverse of rfft: one-sided (..., n//2 + 1) spectrum -> real (..., n).
 
     Runs the packing in reverse: re-entangle the even/odd sub-spectra into
@@ -332,8 +313,7 @@ def irfft(yr: torch.Tensor, yi: torch.Tensor, *, impl: str = "matfft",
         fr = torch.cat([yr, torch.flip(yr[..., 1:-1], (-1,))], dim=-1)
         fi = torch.cat([yi, -torch.flip(yi[..., 1:-1], (-1,))], dim=-1)
         with span(ROWS):
-            zr, _ = ifft(fr, fi, impl=impl, layout=layout,
-                         batch_tile=batch_tile)
+            zr, _ = ifft(fr, fi, impl=impl, layout=layout)
         return zr
     # E[k] = (X[k] + conj(X[m-k]))/2 ; O[k] = conj(v[k])*(X[k] - conj(X[m-k]))/2
     xr_, xi_ = yr[..., :m], yi[..., :m]
@@ -346,24 +326,21 @@ def irfft(yr: torch.Tensor, yi: torch.Tensor, *, impl: str = "matfft",
     oui = vr * di - vi * dr
     # Z = E + i*O, z = IDFT_m(Z), x[2k] = Re z[k], x[2k+1] = Im z[k]
     with span(ROWS):
-        zr, zi = ifft(er - oui, ei + our, impl=impl, layout=layout,
-                      batch_tile=batch_tile)
+        zr, zi = ifft(er - oui, ei + our, impl=impl, layout=layout)
     return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
 
 
 def rfft_pack_pass(x2: torch.Tensor, n_last: int, *, impl: str = "matfft",
-                   layout: str = "zero_copy",
-                   batch_tile: int | None = None) -> Planar:
+                   layout: str = "zero_copy") -> Planar:
     """Contiguous-axis pass of the N-D real-input path: (rows, n_last) real
     rows -> (rows, n_last//2) RAW packed half spectrum (no untangle)."""
     m = n_last // 2
     if fft_plan.make_plan(m).levels == 1:
-        return rfft_pack_leaf(x2.contiguous(), batch_tile=batch_tile)
+        return rfft_pack_leaf(x2.contiguous())
     # the half transform is level-1: pack on the device first (one extra
     # round trip)
     z = x2.reshape(x2.shape[0], m, 2)
-    return fft(z[..., 0], z[..., 1], impl=impl, layout=layout,
-               batch_tile=batch_tile)
+    return fft(z[..., 0], z[..., 1], impl=impl, layout=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +408,7 @@ def _leading_views(shape: tuple, width: tuple, rows: int):
 
 
 def fftn(xr: torch.Tensor, xi: torch.Tensor, shape, *, impl: str = "matfft",
-         layout: str = "zero_copy", batch_tile: int | None = None) -> Planar:
+         layout: str = "zero_copy") -> Planar:
     """N-D forward FFT over the trailing ``len(shape)`` axes.
 
     The contiguous (last) axis runs the batched 1-D path (level 0/1/2);
@@ -447,7 +424,7 @@ def fftn(xr: torch.Tensor, xi: torch.Tensor, shape, *, impl: str = "matfft",
             f"operand trailing dims {tuple(xr.shape[-nd:])} do not match "
             f"transform shape {shape}")
     with span(ROWS):
-        yr, yi = fft(xr, xi, impl=impl, layout=layout, batch_tile=batch_tile)
+        yr, yi = fft(xr, xi, impl=impl, layout=layout)
     if nd == 1:
         return yr, yi
     batch = xr.shape[:-nd]
@@ -455,7 +432,7 @@ def fftn(xr: torch.Tensor, xi: torch.Tensor, shape, *, impl: str = "matfft",
     for view in _leading_views(shape, shape, rows):
         with span(AXIS_PASS):
             yr, yi = axis_pass(yr, yi, view, out_major="col", impl=impl,
-                               layout=layout, col_tile=batch_tile)
+                               layout=layout)
     return yr.reshape(*batch, *shape), yi.reshape(*batch, *shape)
 
 
@@ -467,7 +444,7 @@ def ifftn(xr: torch.Tensor, xi: torch.Tensor, shape, **kw) -> Planar:
 
 
 def rfftn(x: torch.Tensor, shape, *, impl: str = "matfft",
-          layout: str = "zero_copy", batch_tile: int | None = None) -> Planar:
+          layout: str = "zero_copy") -> Planar:
     """N-D real-input FFT; one-sided over the contiguous axis.
 
     Returns planar ``(*batch, *shape[:-1], shape[-1]//2 + 1)``, the
@@ -485,11 +462,11 @@ def rfftn(x: torch.Tensor, shape, *, impl: str = "matfft",
     nd = len(shape)
     x = x.to(torch.float32)
     if nd == 1:
-        return rfft(x, impl=impl, layout=layout, batch_tile=batch_tile)
+        return rfft(x, impl=impl, layout=layout)
     n_last = shape[-1]
     if n_last < 4 or impl != "matfft":
         yr, yi = fftn(x, torch.zeros_like(x), shape, impl=impl,
-                      layout=layout, batch_tile=batch_tile)
+                      layout=layout)
         return yr[..., : n_last // 2 + 1], yi[..., : n_last // 2 + 1]
     fft_plan.log2i(n_last)
     m = n_last // 2
@@ -501,14 +478,13 @@ def rfftn(x: torch.Tensor, shape, *, impl: str = "matfft",
     # out; K3 reads float2 pairs, so its rows come from a contiguous buffer
     x2 = x.contiguous().reshape(rows * math.prod(shape[:-1]), n_last)
     with span(ROWS):
-        zr, zi = rfft_pack_pass(x2, n_last, impl=impl, layout=layout,
-                                batch_tile=batch_tile)
+        zr, zi = rfft_pack_pass(x2, n_last, impl=impl, layout=layout)
 
     # the remaining axes on the half-width spectrum (all powers of two)
     for view in _leading_views(shape, half, rows):
         with span(AXIS_PASS):
             zr, zi = axis_pass(zr, zi, view, out_major="col", impl=impl,
-                               layout=layout, col_tile=batch_tile)
+                               layout=layout)
     zr = zr.reshape(*batch, *half)
     zi = zi.reshape(*batch, *half)
 
@@ -518,8 +494,7 @@ def rfftn(x: torch.Tensor, shape, *, impl: str = "matfft",
 
 
 def irfftn(yr: torch.Tensor, yi: torch.Tensor, shape, *,
-           impl: str = "matfft", layout: str = "zero_copy",
-           batch_tile: int | None = None) -> torch.Tensor:
+           impl: str = "matfft", layout: str = "zero_copy") -> torch.Tensor:
     """Inverse of rfftn: one-sided spectrum -> real ``(*batch, *shape)``.
 
     Runs the forward factorization in reverse: re-entangle the one-sided
@@ -530,7 +505,7 @@ def irfftn(yr: torch.Tensor, yi: torch.Tensor, shape, *,
     shape = tuple(int(d) for d in shape)
     nd = len(shape)
     if nd == 1:
-        return irfft(yr, yi, impl=impl, layout=layout, batch_tile=batch_tile)
+        return irfft(yr, yi, impl=impl, layout=layout)
     n_last = shape[-1]
     m = n_last // 2
     if m < 2 or impl != "matfft":
@@ -541,11 +516,10 @@ def irfftn(yr: torch.Tensor, yi: torch.Tensor, shape, *,
             ar = yr.transpose(ax, -1)
             ai = yi.transpose(ax, -1)
             with span(AXIS_PASS):
-                ar, ai = ifft(ar, ai, impl=impl, layout=layout,
-                              batch_tile=batch_tile)
+                ar, ai = ifft(ar, ai, impl=impl, layout=layout)
             yr = ar.transpose(ax, -1)
             yi = ai.transpose(ax, -1)
-        return irfft(yr, yi, impl=impl, layout=layout, batch_tile=batch_tile)
+        return irfft(yr, yi, impl=impl, layout=layout)
     batch = yr.shape[:-nd]
     rows = math.prod(batch)
     half = (*shape[:-1], m)
@@ -557,11 +531,11 @@ def irfftn(yr: torch.Tensor, yi: torch.Tensor, shape, *,
     for (b, L, inner) in _leading_views(shape, half, rows):
         with span(AXIS_PASS):
             ar, ai = axis_pass(zr, -zi, (b, L, inner), out_major="col",
-                               impl=impl, layout=layout, col_tile=batch_tile)
+                               impl=impl, layout=layout)
         zr = ar.reshape(*batch, *half) / L
         zi = -ai.reshape(*batch, *half) / L
 
     # contiguous axis: half-length inverse + interleave
     with span(ROWS):
-        wr, wi = ifft(zr, zi, impl=impl, layout=layout, batch_tile=batch_tile)
+        wr, wi = ifft(zr, zi, impl=impl, layout=layout)
     return torch.stack([wr, wi], dim=-1).reshape(*wr.shape[:-1], n_last)

@@ -467,8 +467,7 @@ class ExecutablePlan:
                 overlap=None if s.overlap == "off" else s.overlap)
         # local, or a segmented rank's map task: the transform of its rows
         from repro_torch.core.fft.segmented import build_segmented
-        return build_segmented(s.kind, s.shape, impl=s.impl, layout=s.layout,
-                               batch_tile=s.batch_tile)
+        return build_segmented(s.kind, s.shape, impl=s.impl, layout=s.layout)
 
     def _build_pencil(self):
         """The 2-D/3-D pencil: c2c maps this rank's input block to its
@@ -479,7 +478,7 @@ class ExecutablePlan:
         where local rfftn runs it (bitwise equal to local rfftn)."""
         from repro_torch.core.fft import distributed
         s = self.spec
-        kw = dict(impl=s.impl, layout=s.layout, batch_tile=s.batch_tile,
+        kw = dict(impl=s.impl, layout=s.layout,
                   overlap=None if s.overlap == "off" else s.overlap)
         if s.kind == "c2c":
             return distributed.build_pencil(s.shape, self.mesh, s.axes, **kw)
@@ -525,14 +524,14 @@ class ExecutablePlan:
                         def inverse(yr, yi):
                             return executors.irfftn(
                                 yr, yi, s.shape, impl=s.impl,
-                                layout=s.layout, batch_tile=s.batch_tile)
+                                layout=s.layout)
                     elif self.grid is not None:
                         # the pencil backwards: output layout in, input
                         # layout out (monolithic exchanges)
                         from repro_torch.core.fft import distributed
                         rev = distributed.build_pencil_reverse(
                             s.shape, self.mesh, s.axes, impl=s.impl,
-                            layout=s.layout, batch_tile=s.batch_tile)
+                            layout=s.layout)
 
                         def inverse(yr, yi):
                             ar, ai = rev(yr, -yi)
@@ -646,8 +645,7 @@ class ExecutablePlan:
 def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
          batch_shape=(), mesh=None, placement: str = "auto",
          layout: str = "zero_copy", impl: str = "matfft",
-         precision: str = "f32", device=None, batch_tile: int | None = None,
-         axes=None, natural_order: bool = True, fuse_twiddle: bool = False,
+         precision: str = "f32", device=None, axes=None, natural_order: bool = True, fuse_twiddle: bool = False,
          overlap="auto", r2c_axis: int = -1, fallback: str = "error",
          verify: str = "off", tune: bool = False, wisdom_path=None,
          tune_config=None, store=None, work_dir=None,
@@ -692,11 +690,6 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         present) or "cpu", which runs the kernels' plain PyTorch versions.
         With a mesh it defaults to the mesh's device type, and another is
         a ValueError.
-      batch_tile: the rows (K2: columns) a leaf kernel's block stages; None
-        keeps each kernel's default (MAX_LEAF points a block), a smaller
-        value narrows it to a power of two (`kernels.fft.plan.tile_rows`).
-        The same bits at every tile; part of the cache key. The 1-D
-        distributed engine does not take it (as in the JAX package).
       axes: the mesh dims to flatten (None: every dim), row-major in the
         order given.
       natural_order, fuse_twiddle: distributed options: False skips
@@ -727,7 +720,7 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
         GLOBAL operand, as the mesh-free plan always does: a caller that
         passes its shard gets a shape error, not a wrong answer.
       tune: measure instead of model (`repro_torch.fft.tuner`): time the
-        candidate layouts, batch tiles and overlap chunk counts at a
+        candidate layouts and overlap chunk counts at a
         representative shape, resolve the winner's knobs BEFORE the cache
         key (a plan with the same knobs spelled out is the same plan), and
         record the decision as wisdom keyed on the spec, the mesh's
@@ -794,8 +787,7 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
                 p = plan(kind=kind, n=n, shape=shape,
                          batch_shape=batch_shape, mesh=sub_mesh,
                          placement=sub_placement, layout=layout, impl=impl,
-                         precision=precision, device=device,
-                         batch_tile=batch_tile, axes=None,
+                         precision=precision, device=device, axes=None,
                          natural_order=natural_order,
                          fuse_twiddle=fuse_twiddle, overlap=overlap,
                          r2c_axis=r2c_axis, fallback="error", verify=verify)
@@ -840,11 +832,10 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
             axes=axes, num_devices=num_devices, axis_sizes=sizes,
             placement=placement, layout=layout, impl=impl,
             precision=precision, device=device or "cuda",
-            batch_tile=batch_tile, natural_order=natural_order,
+            natural_order=natural_order,
             fuse_twiddle=fuse_twiddle, overlap=overlap, r2c_axis=r2c_axis,
             verify=verify, wisdom_path=wisdom_path, config=tune_config)
         layout = knobs.get("layout", layout)
-        batch_tile = knobs.get("batch_tile", batch_tile)
         overlap = knobs.get("overlap", overlap)
         if report.wisdom_hit:
             with _CACHE_LOCK:
@@ -856,8 +847,7 @@ def plan(kind: str = "c2c", *, n: int | None = None, shape=None,
             precision=precision, device=device or "cuda",
             r2c_axis=r2c_axis, verify=verify, num_devices=num_devices,
             axes=axes, natural_order=natural_order,
-            fuse_twiddle=fuse_twiddle, overlap=overlap, axis_sizes=sizes,
-            batch_tile=batch_tile)
+            fuse_twiddle=fuse_twiddle, overlap=overlap, axis_sizes=sizes)
     except ValueError:
         # a mesh-bound strategy that cannot be satisfied (too few ranks for
         # the split, say): degrade walks the same chain instead of raising;

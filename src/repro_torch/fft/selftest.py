@@ -174,7 +174,7 @@ def _tuned_case(run: _Run, rng, device: str, tmp: Path) -> None:
                            device=device)
     run.check("tuned==default bitwise", _same(y, default.execute(*x)),
               f"knobs layout={p.spec.layout}, "
-              f"batch_tile={p.spec.batch_tile}")
+              f"overlap={p.spec.overlap}")
     hits = fft_api.cache_info()["wisdom_hits"]
     again = fft_api.plan(**kw)
     run.check("tuned wisdom hit", again is p

@@ -90,8 +90,6 @@ class FftSpec:
     natural_order: bool = True    # 1-D distributed only: exchange #3
     fuse_twiddle: bool = False    # 1-D distributed only: twiddle in leaf
     overlap: object = "off"       # distributed only: "off" | int chunks
-    batch_tile: int | None = None  # rows (K2: columns) a kernel block
-    #                               stages; None: each kernel's default
 
     @property
     def rows(self) -> int:
@@ -265,13 +263,8 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
             r2c_axis: int = -1, verify: str = "off",
             num_devices: int | None = None, axes=None,
             natural_order: bool = True, fuse_twiddle: bool = False,
-            overlap="auto", axis_sizes=None,
-            batch_tile: int | None = None) -> FftSpec:
+            overlap="auto", axis_sizes=None) -> FftSpec:
     """Validate + normalize everything into a frozen FftSpec.
-
-    ``batch_tile`` narrows the leaf kernels' tile (the rows, or K2's
-    columns, a block stages; `kernels.fft.plan.tile_rows`); None keeps each
-    kernel's default. It is part of the cache key, like the JAX package's.
 
     ``num_devices`` is the number of ranks over the mesh ``axes`` (None
     without a mesh); ``axis_sizes``, the ranks along each of ``axes``,
@@ -317,8 +310,6 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
     batch_shape = tuple(int(d) for d in batch_shape)
     if any(d < 1 for d in batch_shape):
         raise ValueError(f"batch_shape dims must be >= 1, got {batch_shape}")
-    if batch_tile is not None and batch_tile < 1:
-        raise ValueError(f"batch_tile must be >= 1, got {batch_tile}")
     if axis_sizes is not None and math.prod(axis_sizes) != num_devices:
         raise ValueError(f"axis_sizes {tuple(axis_sizes)} do not multiply "
                          f"to num_devices={num_devices}")
@@ -402,5 +393,4 @@ def resolve(kind: str, n=None, batch_shape=(), placement: str = "auto",
                    verify=verify,
                    axes=tuple(axes) if axes is not None else None,
                    natural_order=bool(natural_order),
-                   fuse_twiddle=bool(fuse_twiddle), overlap=overlap,
-                   batch_tile=None if batch_tile is None else int(batch_tile))
+                   fuse_twiddle=bool(fuse_twiddle), overlap=overlap)

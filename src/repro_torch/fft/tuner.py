@@ -5,13 +5,15 @@ The planner's analytic cost model ranks strategies by roofline numerators;
 FFTW's wisdom is the classic case for choosing a plan by measuring it. This
 module is the JAX package's `repro.fft.tuner` on PyTorch:
 
-  * `tune(...)` enumerates the candidate knobs of a spec: the overlap chunk
-    count of the distributed placements (which picks the exchange engine:
-    "off" is one `all_to_all_single` a plane, an int that many slabs of
-    `batch_isend_irecv` rounds), the layout (zero_copy against copy) and
-    the batch tile; builds each candidate at a representative shape, times
-    it (the least of ``repeats`` wall-clock runs of the plan's own execute,
-    the device synchronized), and returns the winner's knobs.
+  * `tune(...)` enumerates the candidate knobs of a spec, those that
+    change a launch: the overlap chunk count of the distributed placements
+    (which picks the exchange engine: "off" is one `all_to_all_single` a
+    plane, an int that many slabs of `batch_isend_irecv` rounds) and the
+    layout (zero_copy against copy, where a pass reads it:
+    `_layout_changes_a_launch`); builds each candidate at a representative
+    shape, times it (the least of ``repeats`` wall-clock runs of the
+    plan's own execute, the device synchronized), and returns the winner's
+    knobs.
   * The decision persists as wisdom: a JSON file keyed on the resolved
     spec with the knobs normalized out, the mesh's fingerprint and the
     backend (the card's name and driver, or "cpu"). A wisdom hit is a
@@ -22,26 +24,21 @@ module is the JAX package's `repro.fft.tuner` on PyTorch:
   * `tune_out_of_core(...)` picks the out-of-core panel height
     (`panel_scale`) on the disk model, or with an injected measurer.
 
-The batch tile differs from the JAX package's. There it is the rows of a
-Pallas grid step; here it is the rows (K2: columns) a CUDA block stages
-(`kernels.fft.plan.tile_rows`), which only narrows the default tile of
-MAX_LEAF points. The candidates are the default (None) and the two next
-smaller powers of two of the widest default tile among the plan's leaf
-kernels (MAX_LEAF over its shortest leaf length), those that still change
-a grid at the measured shape: at most three. The plans with a narrowed
-tile give the same bits as the default plan; only their speed differs.
-The (overlap, layout) candidates are the JAX package's.
+The JAX package also tunes its batch tile, the rows of a Pallas grid
+step. The port has none: a CUDA block stages one fixed tile of MAX_LEAF
+points. A level-0 1-D transform runs the same kernel at either layout, so
+there the tuner offers zero_copy alone, and stores no winner that is the
+noise between two timings of one launch.
 
 The representative shape. On the CPU, the JAX package's `_shrink`: at most
 16 rows (segmented: 2 a rank), the trailing axis cut to 1024 and earlier
 ones to 64, distributed signals to max(D^2, 4096) points and pencils to
 max(64, 2 * the largest grid factor) an axis. On CUDA the transform shape
-is kept (the tile's effect depends on the lengths) and only the batch is
-cut, to the fewest rows, a power of two, that hold MEASURE_WAVES full
-waves of default blocks (MAX_LEAF points each, KERNEL_BLOCKS_PER_SM to an
-SM), or every row: on an H100, 8 x 132 x 4 x 4096 = 17.3 M points. Fewer
-rows would time a card that is mostly idle, where the smallest tile wins
-for want of blocks.
+is kept (the passes the layout changes depend on the lengths) and only
+the batch is cut, to the fewest rows, a power of two, that hold
+MEASURE_WAVES full waves of blocks (MAX_LEAF points each,
+KERNEL_BLOCKS_PER_SM to an SM), or every row: on an H100, 8 x 132 x 4 x
+4096 = 17.3 M points. Fewer rows would time a card that is mostly idle.
 
 SPMD. On a mesh every rank runs `tune` with the same arguments. Rank 0 of
 the mesh's group looks the wisdom up and broadcasts what it found; on a
@@ -105,7 +102,9 @@ MODEL_RATES = {
 COPY_PENALTY = 0.5  # layout="copy" adds this fraction of the hbm time (its
 #                     materialized transposes); a share, not a rate
 OOC_PANEL_SCALES = (1, 2, 4)
-# CUDA measurement shape: full waves of default blocks
+# the knobs a wisdom entry holds; an entry with any other set is stale
+KNOBS = ("overlap", "layout")
+# CUDA measurement shape: full waves of blocks
 MEASURE_WAVES = 8
 KERNEL_BLOCKS_PER_SM = 4  # csrc/matfft.cu MIN_BLOCKS
 # a timed CUDA batch: back-to-back executes filling at least this long
@@ -293,10 +292,9 @@ def mesh_fingerprint(mesh) -> str:
 
 def wisdom_key(base_spec, mesh) -> str:
     """version | backend | mesh fingerprint | the knob-neutral spec. The
-    knobs (layout, batch_tile, overlap) are normalized out: they are the
-    wisdom's value, not its identity."""
-    neutral = replace(base_spec, layout="zero_copy", batch_tile=None,
-                      overlap="off")
+    knobs (layout, overlap) are normalized out: they are the wisdom's
+    value, not its identity."""
+    neutral = replace(base_spec, layout="zero_copy", overlap="off")
     return (f"v{WISDOM_VERSION}|backend={backend_name(base_spec.device)}|"
             f"{mesh_fingerprint(mesh)}|{neutral!r}")
 
@@ -336,35 +334,30 @@ def modeled_ooc_wall(factors, cfg: TuneConfig,
 # candidate space and the representative shape
 
 
-def _leaf_lengths(length: int) -> list:
-    """The leaf lengths a transform of ``length`` points runs (level 0:
-    itself; the four-step's factors, recursively)."""
-    p = kplan.make_plan(length)
-    if p.levels == 1:
-        return [length]
-    return _leaf_lengths(p.n1) + _leaf_lengths(p.n2)
-
-
-def _kernel_lengths(base) -> list:
-    """Every leaf kernel length of ``base``'s axis passes (the contiguous
-    axis at half length on the packed r2c path); [] for impl="ref", whose
-    transforms are torch.fft's."""
-    if base.impl == "ref":
-        return []
+def _layout_changes_a_launch(base) -> bool:
+    """Whether ``layout`` changes a launch of ``base``. Only
+    `executors.axis_pass` and `executors._four_step` read it, and for
+    every impl but "matfft" both take the copy path at either layout. A
+    matfft pass runs through one of them in a level-1 four-step of the
+    contiguous axis (at half length on the packed r2c path), in an earlier
+    N-D axis, and in the distributed placements; a level-0 1-D transform
+    launches the same kernel at either layout."""
+    if base.impl != "matfft":
+        return False
+    if base.placement == "distributed" or any(d > 1
+                                              for d in base.shape[:-1]):
+        return True
     last = base.shape[-1]
-    if base.kind == "r2c" and base.impl == "matfft" and last >= 4:
+    if base.kind == "r2c" and last >= 4:
         last //= 2
-    out = _leaf_lengths(last)
-    for length in base.shape[:-1]:
-        out += _leaf_lengths(length)
-    return out
+    return kplan.make_plan(last).levels > 1
 
 
 def _cuda_shape(base, num_devices, sms: int):
     """The CUDA measurement's (shape, batch_shape): the full transform
     shape, and the fewest rows, a power of two a rank, that hold
-    MEASURE_WAVES full waves of default blocks on each card of ``sms``
-    SMs (segmented: on each of its ``num_devices`` ranks), or every row."""
+    MEASURE_WAVES full waves of blocks on each card of ``sms`` SMs
+    (segmented: on each of its ``num_devices`` ranks), or every row."""
     if not base.batch_shape:
         return base.shape, ()
     ranks = num_devices if base.placement == "segmented" else 1
@@ -397,23 +390,6 @@ def _shrink(base, num_devices, grid, device):
     return dims, ((b,) if base.batch_shape else ())
 
 
-def _tiles(base, meas_shape, meas_batch) -> list:
-    """The batch-tile candidates (module docstring): None, and the two
-    next smaller powers of two of the widest default tile, kept where the
-    shortest-length kernel has more rows than the tile at the measured
-    shape (so its grid changes). The 1-D distributed engine takes none,
-    as in the JAX package."""
-    lengths = _kernel_lengths(base)
-    if not lengths or (base.placement == "distributed" and base.ndim == 1):
-        return [None]
-    shortest = min(lengths)
-    widest = kplan.MAX_LEAF // shortest
-    points = math.prod(meas_shape) * math.prod(meas_batch or (1,))
-    rows = points // shortest
-    return [None] + [t for t in (widest // 2, widest // 4)
-                     if 1 <= t < rows]
-
-
 def _spec_ok(kwargs) -> bool:
     try:
         spec_mod.resolve(**kwargs)
@@ -422,26 +398,23 @@ def _spec_ok(kwargs) -> bool:
         return False
 
 
-def _candidates(base, meas_shape, meas_batch) -> list:
+def _candidates(base) -> list:
     """The knob combinations, in one order on every rank. The base spec's
     own (resolved) knobs are candidate 0, so under one measurer the
-    winner never ranks behind the default."""
-    layouts = (["zero_copy", "copy"] if base.impl == "matfft"
+    winner never ranks behind the default; "copy" only where it changes a
+    launch (`_layout_changes_a_launch`)."""
+    layouts = (["zero_copy", "copy"] if _layout_changes_a_launch(base)
                else ["zero_copy"])
     overlaps: list = ["off"]
     if base.placement == "distributed":
         overlaps += [2, 4, 8]
-    tiles = _tiles(base, meas_shape, meas_batch)
-    combos = [{"overlap": base.overlap, "layout": base.layout,
-               "batch_tile": base.batch_tile}]
+    combos = [{"overlap": base.overlap, "layout": base.layout}]
     for ov in overlaps:
         for ly in layouts:
-            for bt in tiles:
-                combos.append({"overlap": ov, "layout": ly,
-                               "batch_tile": bt})
+            combos.append({"overlap": ov, "layout": ly})
     seen, out = set(), []
     for c in combos:
-        k = (c["overlap"], c["layout"], c["batch_tile"])
+        k = (c["overlap"], c["layout"])
         if k not in seen:
             seen.add(k)
             out.append(c)
@@ -552,10 +525,10 @@ def _slowest(times: list, group, size: int) -> list:
 def tune(*, kind, n=None, shape=None, batch_shape=(), mesh=None, axes=None,
          num_devices=None, axis_sizes=None, placement="auto",
          layout="zero_copy", impl="matfft", precision="f32", device="cuda",
-         batch_tile=None, natural_order=True, fuse_twiddle=False,
+         natural_order=True, fuse_twiddle=False,
          overlap="auto", r2c_axis=-1, verify="off", wisdom_path=None,
          config: TuneConfig | None = None):
-    """Pick (layout, batch_tile, overlap) for a spec by measurement.
+    """Pick (layout, overlap) for a spec by measurement.
 
     Returns ``(knobs, TuneReport)``. On a wisdom hit the knobs come from
     the file (zero measurements). On a miss every valid candidate is built
@@ -570,9 +543,8 @@ def tune(*, kind, n=None, shape=None, batch_shape=(), mesh=None, axes=None,
         return _tune(config or TuneConfig(), wisdom_path, mesh, dict(
             kind=kind, n=n, shape=shape, batch_shape=batch_shape,
             placement=placement, layout=layout, impl=impl,
-            precision=precision, device=device, batch_tile=batch_tile,
-            num_devices=num_devices, axes=axes, natural_order=natural_order,
-            fuse_twiddle=fuse_twiddle, overlap=overlap, r2c_axis=r2c_axis,
+            precision=precision, device=device, num_devices=num_devices,
+            axes=axes, natural_order=natural_order, fuse_twiddle=fuse_twiddle, overlap=overlap, r2c_axis=r2c_axis,
             verify=verify, axis_sizes=axis_sizes))
 
 
@@ -596,9 +568,9 @@ def _tune(cfg: TuneConfig, wisdom_path, mesh, base_kwargs: dict):
     entry = _broadcast(store.lookup(key) if leader else None, group)
     if entry is not None:
         knobs = dict(entry.get("knobs") or {})
-        # stale knobs under a colliding key must still resolve; if not,
-        # measure afresh
-        if _spec_ok({**base_kwargs, **knobs}):
+        # stale knobs under a colliding key (another set of knobs, or
+        # knobs that no longer resolve) are measured afresh
+        if set(knobs) == set(KNOBS) and _spec_ok({**base_kwargs, **knobs}):
             _bump("wisdom_hits")
             return knobs, TuneReport(
                 key=key, wisdom_hit=True, winner=knobs,
@@ -618,7 +590,7 @@ def _tune(cfg: TuneConfig, wisdom_path, mesh, base_kwargs: dict):
 
     from repro_torch.fft import planner
     tried, times, modeled = [], [], []
-    for knobs in _candidates(base, meas_shape, meas_batch):
+    for knobs in _candidates(base):
         if not (_spec_ok({**base_kwargs, **knobs})
                 and _spec_ok({**meas_kwargs, **knobs})):
             continue

@@ -46,13 +46,9 @@ and K3's without the untangle, stores from registers to device memory;
 K3's with it writes each row's half spectrum to shared memory once and
 untangles a pair of bins k, m-k a thread from there.
 
-Each wrapper takes a batch tile, the rows (K2: columns) a block stages:
-``batch_tile`` (K1, K3) or ``col_tile`` (K2), as the JAX package's
-``matfft``, ``matfft_cols`` and ``rfft_leaf`` do. None keeps the default,
-the whole tile of MAX_LEAF points (K2: at most the slab's columns); a
-smaller value narrows it to a power of two (`plan.tile_rows`), so more,
-smaller blocks run. Rows are independent, so the output is the same bits
-at every tile, and the plain versions take the argument and ignore it.
+A block stages one fixed tile of MAX_LEAF points (K2: at most the
+slab's columns): a block keeps 256 threads whatever it stages, so a
+narrower tile only leaves threads idle.
 
 Each wrapper takes float32 tensors (planar for K1 and K2, real for K3). On
 a CUDA tensor it launches its kernel (and counts the launch in
@@ -81,10 +77,9 @@ Planar = tuple[torch.Tensor, torch.Tensor]
 
 # (wrapper, operand shape, out_major or None) of each kernel launch, and of
 # each call a wrapper gave to its plain version, since `reset_counts`; a
-# call with the global twiddle, a column slab, a batch tile narrower than
-# the default or (K2) a thread-block cluster adds a fourth entry, its
-# options: ("twiddle",), ("slab", ncols), ("tile", rows a block),
-# ("cluster", blocks a cluster) or several
+# call with the global twiddle, a column slab or (K2) a thread-block
+# cluster adds a fourth entry, its options: ("twiddle",), ("slab",
+# ncols), ("cluster", blocks a cluster) or several
 launch_shapes: Counter = Counter()
 plain_shapes: Counter = Counter()
 
@@ -248,11 +243,9 @@ def _radix_plain(xr, xi, tables) -> Planar:
 
 def matfft_plain(xr: torch.Tensor, xi: torch.Tensor, *,
                  epilogue: Planar | None = None,
-                 global_twiddle: tuple[int, int] | None = None,
-                 batch_tile: int | None = None) -> Planar:
+                 global_twiddle: tuple[int, int] | None = None) -> Planar:
     """Plain PyTorch version of `matfft`, same arguments and algebra. It
-    transforms every row at once: ``batch_tile``, the rows a kernel block
-    takes, cannot change a result, since no row reads another."""
+    transforms every row at once."""
     matfft_plain.calls += 1
     rows, n = _check_rows(xr, xi, epilogue)
     gt = _check_global_twiddle(global_twiddle, epilogue)
@@ -274,12 +267,10 @@ def matfft_cols_plain(xr: torch.Tensor, xi: torch.Tensor, *,
                       epilogue: Planar | None = None,
                       global_twiddle: tuple[int, int] | None = None,
                       col_offset: int = 0,
-                      ncols: int | None = None,
-                      col_tile: int | None = None) -> Planar:
+                      ncols: int | None = None) -> Planar:
     """Plain PyTorch version of `matfft_cols`, same arguments and algebra
     (the slab and the transposes are materialized here; the kernel makes
-    none). ``col_tile`` is accepted and cannot change a result: each
-    column is transformed on its own."""
+    none)."""
     matfft_cols_plain.calls += 1
     B, L, C, nc = _check_cols(xr, xi, out_major, epilogue, col_offset,
                               ncols)
@@ -338,10 +329,8 @@ def _rfft_plain(x: torch.Tensor, untangle: bool, what: str) -> Planar:
     return untangle_half_spectrum(yr, yi, *rfft_twiddle(n, x.device))
 
 
-def rfft_leaf_plain(x: torch.Tensor, *,
-                    batch_tile: int | None = None) -> Planar:
-    """Plain PyTorch version of `rfft_leaf`, same argument and algebra
-    (``batch_tile`` cannot change a result: rows are independent)."""
+def rfft_leaf_plain(x: torch.Tensor) -> Planar:
+    """Plain PyTorch version of `rfft_leaf`, same argument and algebra."""
     rfft_leaf_plain.calls += 1
     return _rfft_plain(x, True, "rfft_leaf")
 
@@ -349,10 +338,8 @@ def rfft_leaf_plain(x: torch.Tensor, *,
 rfft_leaf_plain.calls = 0
 
 
-def rfft_pack_leaf_plain(x: torch.Tensor, *,
-                         batch_tile: int | None = None) -> Planar:
-    """Plain PyTorch version of `rfft_pack_leaf` (``batch_tile`` cannot
-    change a result: rows are independent)."""
+def rfft_pack_leaf_plain(x: torch.Tensor) -> Planar:
+    """Plain PyTorch version of `rfft_pack_leaf`."""
     rfft_pack_leaf_plain.calls += 1
     return _rfft_plain(x, False, "rfft_pack_leaf")
 
@@ -470,20 +457,19 @@ _BOUND = threading.Event()
 def _lib() -> ctypes.CDLL:
     lib = build.load("matfft")
     if not _BOUND.is_set():
-        # ... the global twiddle's four tables, n_global, row_off, the
-        # batch tile, stream
-        gtw = [_c_ptr] * 4 + [_c_ll, _c_ll, _c_int, _c_ptr]
+        # ... the global twiddle's four tables, n_global, row_off, stream
+        gtw = [_c_ptr] * 4 + [_c_ll, _c_ll, _c_ptr]
         lib.matfft_rows.argtypes = [_c_ptr] * 4 + [_c_ll, _c_int] + \
             [_c_ptr] * 4 + [_c_int] + gtw
         lib.matfft_rows.restype = _c_int
-        # ... the batch tile, the cluster's blocks, stream
+        # ... the cluster's blocks, stream
         lib.matfft_cols.argtypes = [_c_ptr] * 4 + [_c_ll] + [_c_int] * 4 + \
             [_c_ptr] * 4 + [_c_int] + gtw[:-1] + [_c_int, _c_ptr]
         lib.matfft_cols.restype = _c_int
         lib.matfft_cols_clusters.argtypes = [_c_int] * 2
         lib.matfft_cols_clusters.restype = _c_int
         lib.matfft_rfft.argtypes = [_c_ptr] * 3 + [_c_ll, _c_int] + \
-            [_c_ptr] * 4 + [_c_int, _c_int, _c_ptr]
+            [_c_ptr] * 4 + [_c_int, _c_ptr]
         lib.matfft_rfft.restype = _c_int
         _BOUND.set()
     return lib
@@ -511,31 +497,19 @@ def _global_twiddle_args(gt, device) -> list:
 
 
 def _launch_key(wrapper: str, shape, major, gt=None, ncols=None,
-                tile=None, cluster: int = 1) -> tuple:
+                cluster: int = 1) -> tuple:
     """The `launch_shapes` key of a call; with the global twiddle, a
-    column slab, a narrowed batch tile or a cluster of K > 1 blocks, a
-    fourth entry: ("twiddle",), ("slab", ncols), ("tile", rows a block),
-    ("cluster", K) or several."""
+    column slab or a cluster of K > 1 blocks, a fourth entry:
+    ("twiddle",), ("slab", ncols), ("cluster", K) or several."""
     opts = (("twiddle",) if gt is not None else ()) + (
         ("slab", ncols) if ncols is not None else ()) + (
-        ("tile", tile) if tile is not None else ()) + (
         ("cluster", cluster) if cluster > 1 else ())
     return (wrapper, tuple(shape), major) + ((opts,) if opts else ())
 
 
-def narrowed_tile(full: int, batch_tile: int | None) -> int | None:
-    """The rows a block of a kernel whose default tile is ``full`` stages
-    under ``batch_tile``, or None where that is the default (the kernel's
-    ``bt`` argument 0): the tile enters the launch key and the launch only
-    where it narrows."""
-    r = fft_plan.tile_rows(full, batch_tile)
-    return None if r == full else r
-
-
 def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
            epilogue: Planar | None = None,
-           global_twiddle: tuple[int, int] | None = None,
-           batch_tile: int | None = None) -> Planar:
+           global_twiddle: tuple[int, int] | None = None) -> Planar:
     """Batched forward DFT along the last axis of planar (rows, n) float32
     tensors, n a power of two <= MAX_LEAF.
 
@@ -544,18 +518,12 @@ def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
     global_twiddle: optional (n_global, row_off), host ints: output row r,
       column o is multiplied by W_{n_global}^{(row_off + r) * o}, the
       distributed four-step's twiddle (n_global a power of two <= 2^32).
-    batch_tile: rows a block; None (default) MAX_LEAF // n, a smaller value
-      narrows it to a power of two (`plan.tile_rows`). The same bits at
-      every tile.
     """
     gt = _check_global_twiddle(global_twiddle, epilogue)
-    tile = narrowed_tile(fft_plan.MAX_LEAF // max(xr.shape[-1], 1),
-                         batch_tile)
-    key = _launch_key("matfft", xr.shape, None, gt, tile=tile)
+    key = _launch_key("matfft", xr.shape, None, gt)
     if xr.device.type == "cpu":
         plain_shapes[key] += 1
-        return matfft_plain(xr, xi, epilogue=epilogue, global_twiddle=gt,
-                            batch_tile=batch_tile)
+        return matfft_plain(xr, xi, epilogue=epilogue, global_twiddle=gt)
     _check_cuda(xr, "matfft")
     rows, n = _check_rows(xr, xi, epilogue)
     er, ei = epilogue if epilogue is not None else (None, None)
@@ -568,7 +536,7 @@ def matfft(xr: torch.Tensor, xi: torch.Tensor, *,
         er.data_ptr() if er is not None else None,
         ei.data_ptr() if ei is not None else None,
         er.shape[0] if er is not None else 1,
-        *_global_twiddle_args(gt, xr.device), tile or 0,
+        *_global_twiddle_args(gt, xr.device),
         torch.cuda.current_stream(xr.device).cuda_stream)
     if rc:
         raise RuntimeError(f"matfft kernel launch failed: CUDA error {rc}")
@@ -583,8 +551,7 @@ matfft.launches = 0
 def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
                 out_major: str = "row", epilogue: Planar | None = None,
                 global_twiddle: tuple[int, int] | None = None,
-                col_offset: int = 0, ncols: int | None = None,
-                col_tile: int | None = None) -> Planar:
+                col_offset: int = 0, ncols: int | None = None) -> Planar:
     """Batched forward DFT along the MIDDLE axis of planar (B, L, C) float32
     tensors; L a power of two <= MAX_LEAF, C a power of two.
 
@@ -599,12 +566,10 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
     global_twiddle: optional (n_global, row_off), host ints: output row
       (b, c), column o is multiplied by W_{n_global}^{(row_off + b*nc + c)
       * o}, the distributed four-step's twiddle.
-    col_tile: columns a block; None (default) min(MAX_LEAF // L, nc), a
-      smaller value narrows it to a power of two (`plan.tile_rows`), the
-      JAX package's ``col_tile``. The same bits at every tile.
 
-    A launch whose block holds fewer than `plan.CLUSTER_COLS` columns of a
-    slab of at least that many (L >= 1024 at the default tile), with both
+    A block transforms min(MAX_LEAF // L, nc) columns. A launch whose
+    block holds fewer than `plan.CLUSTER_COLS` columns of a slab of at
+    least that many (L >= 1024), with both
     planes on 16 bytes, runs as thread-block clusters
     (`plan.col_cluster`), the same bits again; the key in `launch_shapes`
     records the cluster's blocks. A cluster launch the card refuses
@@ -613,19 +578,16 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
     gt = _check_global_twiddle(global_twiddle, epilogue)
     sliced = col_offset != 0 or ncols not in (None, xr.shape[-1])
     nc = (xr.shape[-1] - col_offset) if ncols is None else ncols
-    tile = narrowed_tile(
-        min(fft_plan.MAX_LEAF // max(xr.shape[-2], 1), max(nc, 1)), col_tile)
     _, K = fft_plan.col_cluster(
-        xr.shape[-2], max(nc, 1), col_tile,
+        xr.shape[-2], max(nc, 1),
         aligned=not (xr.data_ptr() | xi.data_ptr()) % 16)
     key = _launch_key("matfft_cols", xr.shape, out_major, gt,
-                      ncols if sliced else None, tile, K)
+                      ncols if sliced else None, K)
     if xr.device.type == "cpu":
         plain_shapes[key] += 1
         return matfft_cols_plain(xr, xi, out_major=out_major,
                                  epilogue=epilogue, global_twiddle=gt,
-                                 col_offset=col_offset, ncols=ncols,
-                                 col_tile=col_tile)
+                                 col_offset=col_offset, ncols=ncols)
     _check_cuda(xr, "matfft_cols")
     B, L, C, nc = _check_cols(xr, xi, out_major, epilogue, col_offset, ncols)
     er, ei = epilogue if epilogue is not None else (None, None)
@@ -640,7 +602,7 @@ def matfft_cols(xr: torch.Tensor, xi: torch.Tensor, *,
         er.data_ptr() if er is not None else None,
         ei.data_ptr() if ei is not None else None,
         int(out_major == "col"), *_global_twiddle_args(gt, xr.device),
-        tile or 0, K, torch.cuda.current_stream(xr.device).cuda_stream)
+        K, torch.cuda.current_stream(xr.device).cuda_stream)
     if rc:
         raise RuntimeError(
             f"matfft_cols kernel launch failed: CUDA error {rc}"
@@ -654,10 +616,9 @@ matfft_cols.launches = 0
 
 
 def cols_clusters_resident(L: int) -> tuple[int, int]:
-    """(K, clusters): the blocks of K2's cluster at length L and the
-    default tile (`plan.col_cluster`), and how many such clusters the
-    current card holds at once (cudaOccupancyMaxActiveClusters). Needs
-    the card."""
+    """(K, clusters): the blocks of K2's cluster at length L
+    (`plan.col_cluster`), and how many such clusters the current card
+    holds at once (cudaOccupancyMaxActiveClusters). Needs the card."""
     R, K = fft_plan.col_cluster(L, fft_plan.MAX_LEAF)
     if K == 1:
         raise ValueError(f"K2 at L={L}, {R} columns a block, runs no "
@@ -669,15 +630,7 @@ def cols_clusters_resident(L: int) -> tuple[int, int]:
     return K, n
 
 
-def _rfft_key(what: str, x: torch.Tensor, batch_tile) -> tuple:
-    """K3's `launch_shapes` key and its narrowed tile (None: default)."""
-    tile = narrowed_tile(fft_plan.MAX_LEAF // max(x.shape[-1] // 2, 1),
-                         batch_tile)
-    return _launch_key(what, x.shape, None, tile=tile), tile
-
-
-def _launch_rfft(x: torch.Tensor, untangle: bool, what: str,
-                 tile: int | None) -> Planar:
+def _launch_rfft(x: torch.Tensor, untangle: bool, what: str) -> Planar:
     _check_cuda(x, what)
     rows, n, m = _check_real(x, what)
     _contiguous(x, what=what)
@@ -692,25 +645,24 @@ def _launch_rfft(x: torch.Tensor, untangle: bool, what: str,
     rc = _lib().matfft_rfft(
         x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, m, wr.data_ptr(),
         wi.data_ptr(), vr.data_ptr(), vi.data_ptr(), int(untangle),
-        tile or 0, torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return yr, yi
 
 
-def rfft_leaf(x: torch.Tensor, *, batch_tile: int | None = None) -> Planar:
+def rfft_leaf(x: torch.Tensor) -> Planar:
     """One-sided spectrum of real (rows, n) float32 rows, n a power of two
     >= 4 with n/2 <= MAX_LEAF. Returns planar (rows, n/2 + 1) tensors.
 
     Costs one HALF-length DFT: the kernel reads the real rows as n/2
     complex points and untangles the half spectrum in its store.
-    ``batch_tile`` as in `matfft`, at the half length n/2.
     """
-    key, tile = _rfft_key("rfft_leaf", x, batch_tile)
+    key = _launch_key("rfft_leaf", x.shape, None)
     if x.device.type == "cpu":
         plain_shapes[key] += 1
-        return rfft_leaf_plain(x, batch_tile=batch_tile)
-    y = _launch_rfft(x, True, "rfft_leaf", tile)
+        return rfft_leaf_plain(x)
+    y = _launch_rfft(x, True, "rfft_leaf")
     rfft_leaf.launches += 1
     launch_shapes[key] += 1
     return y
@@ -719,17 +671,15 @@ def rfft_leaf(x: torch.Tensor, *, batch_tile: int | None = None) -> Planar:
 rfft_leaf.launches = 0
 
 
-def rfft_pack_leaf(x: torch.Tensor, *,
-                   batch_tile: int | None = None) -> Planar:
+def rfft_pack_leaf(x: torch.Tensor) -> Planar:
     """Raw packed half spectrum of real (rows, n) rows: DFT_m of
     x[:, 0::2] + i*x[:, 1::2], planar (rows, n/2), NO untangle (the N-D
-    real-input path untangles after its remaining axes). ``batch_tile`` as
-    in `rfft_leaf`."""
-    key, tile = _rfft_key("rfft_pack_leaf", x, batch_tile)
+    real-input path untangles after its remaining axes)."""
+    key = _launch_key("rfft_pack_leaf", x.shape, None)
     if x.device.type == "cpu":
         plain_shapes[key] += 1
-        return rfft_pack_leaf_plain(x, batch_tile=batch_tile)
-    y = _launch_rfft(x, False, "rfft_pack_leaf", tile)
+        return rfft_pack_leaf_plain(x)
+    y = _launch_rfft(x, False, "rfft_pack_leaf")
     rfft_pack_leaf.launches += 1
     launch_shapes[key] += 1
     return y

@@ -58,45 +58,41 @@ def _device(x, device):
     return x.device if isinstance(x, torch.Tensor) else "cuda"
 
 
-def fft(xr, xi, *, impl: str = "matfft", device=None,
-        batch_tile: int | None = None, global_twiddle=None,
+def fft(xr, xi, *, impl: str = "matfft", device=None, global_twiddle=None,
         layout: str = "zero_copy") -> Planar:
     """Deprecated shim: batched forward FFT along the last axis.
 
     See `repro_torch.fft.plan(kind="c2c", ...)`.
     """
     if global_twiddle is not None:
-        return _ex.fft(xr, xi, impl=impl, batch_tile=batch_tile,
-                       global_twiddle=global_twiddle, layout=layout)
+        return _ex.fft(xr, xi, impl=impl, global_twiddle=global_twiddle,
+                       layout=layout)
     _warn_deprecated("fft")
     p = fft_api.plan(kind="c2c", n=xr.shape[-1],
                      batch_shape=tuple(xr.shape[:-1]), layout=layout,
-                     impl=impl, device=_device(xr, device),
-                     batch_tile=batch_tile)
+                     impl=impl, device=_device(xr, device))
     return p.execute(xr, xi)
 
 
 def fft_cols(xr, xi, *, impl: str = "matfft", device=None,
-             col_tile: int | None = None, global_twiddle=None,
-             layout: str = "zero_copy") -> Planar:
+             global_twiddle=None, layout: str = "zero_copy") -> Planar:
     """Deprecated shim: FFT each COLUMN of planar (L, C) tensors, (C, L)
     row-major out. Layout-level internal (distributed pass boundaries);
     delegates to `repro_torch.fft.executors.fft_cols` on the operands'
     device (``device`` moves them first)."""
     if device is not None:
         xr, xi = (torch.as_tensor(a).to(device) for a in (xr, xi))
-    return _ex.fft_cols(xr, xi, impl=impl, col_tile=col_tile,
-                        global_twiddle=global_twiddle, layout=layout)
+    return _ex.fft_cols(xr, xi, impl=impl, global_twiddle=global_twiddle,
+                        layout=layout)
 
 
 def ifft(xr, xi, *, impl: str = "matfft", device=None,
-         batch_tile: int | None = None, layout: str = "zero_copy") -> Planar:
+         layout: str = "zero_copy") -> Planar:
     """Deprecated shim: inverse FFT. See `ExecutablePlan.execute_inverse`."""
     _warn_deprecated("ifft")
     p = fft_api.plan(kind="c2c", n=xr.shape[-1],
                      batch_shape=tuple(xr.shape[:-1]), layout=layout,
-                     impl=impl, device=_device(xr, device),
-                     batch_tile=batch_tile)
+                     impl=impl, device=_device(xr, device))
     return p.execute_inverse(xr, xi)
 
 
@@ -116,7 +112,7 @@ def ifft_c64(x, **kw) -> torch.Tensor:
 
 
 def rfft(x, *, impl: str = "matfft", device=None,
-         batch_tile: int | None = None, layout: str = "zero_copy") -> Planar:
+         layout: str = "zero_copy") -> Planar:
     """Deprecated shim: real-input FFT, planar one-sided spectrum.
 
     See `repro_torch.fft.plan(kind="r2c", ...)` /
@@ -127,16 +123,14 @@ def rfft(x, *, impl: str = "matfft", device=None,
     x = torch.as_tensor(x).to(torch.float32)
     if x.shape[-1] < 2:
         # degenerate n=1 predates the facade's r2c domain (n >= 2)
-        return _ex.rfft(x.to(dev), impl=impl, batch_tile=batch_tile,
-                        layout=layout)
+        return _ex.rfft(x.to(dev), impl=impl, layout=layout)
     p = fft_api.plan(kind="r2c", n=x.shape[-1],
                      batch_shape=tuple(x.shape[:-1]), layout=layout,
-                     impl=impl, device=dev, batch_tile=batch_tile)
+                     impl=impl, device=dev)
     return p.execute_real(x)
 
 
 def irfft(yr, yi, *, impl: str = "matfft", device=None,
-          batch_tile: int | None = None,
           layout: str = "zero_copy") -> torch.Tensor:
     """Deprecated shim: inverse of rfft, one-sided spectrum -> real signal."""
     _warn_deprecated("irfft")
@@ -145,10 +139,9 @@ def irfft(yr, yi, *, impl: str = "matfft", device=None,
     if n < 2:
         # degenerate 1-bin spectrum predates the facade's r2c domain
         return _ex.irfft(*(torch.as_tensor(a).to(dev) for a in (yr, yi)),
-                         impl=impl, batch_tile=batch_tile, layout=layout)
+                         impl=impl, layout=layout)
     p = fft_api.plan(kind="r2c", n=n, batch_shape=tuple(yr.shape[:-1]),
-                     layout=layout, impl=impl, device=dev,
-                     batch_tile=batch_tile)
+                     layout=layout, impl=impl, device=dev)
     return p.execute_inverse(yr, yi)
 
 

@@ -32,19 +32,6 @@ import numpy as np
 MAX_LEAF = 4096
 
 
-def tile_rows(full: int, batch_tile: int | None) -> int:
-    """Rows (K2: columns) a leaf kernel's block stages: the default tile
-    ``full`` (a power of two: MAX_LEAF // n rows, for K2 at most the slab's
-    columns), narrowed to ``batch_tile`` rounded down to a power of two
-    when it is smaller (csrc/matfft.cu:tile_rows). The batch tile only
-    narrows: ``None`` and anything >= ``full`` keep the default."""
-    if batch_tile is None or batch_tile >= full:
-        return full
-    if batch_tile < 1:
-        raise ValueError(f"batch_tile must be >= 1, got {batch_tile}")
-    return 1 << (int(batch_tile).bit_length() - 1)
-
-
 # K2's column group: the columns of one 32-byte sector of a float32 row,
 # the most blocks a thread-block cluster may have on every Hopper card,
 # and the shortest L that forms one (shorter tiles have an odd row pitch,
@@ -55,22 +42,19 @@ MAX_CLUSTER = 8
 CLUSTER_MIN_L = 32
 
 
-def col_cluster(L: int, nc: int, tile: int | None = None,
-                aligned: bool = True) -> tuple[int, int]:
-    """(R, K) of a K2 launch at length L over a slab of nc columns: R the
-    columns one block transforms (the default min(MAX_LEAF // L, nc),
-    narrowed by ``tile``: `tile_rows`), K the blocks of its thread-block
-    cluster. A block of fewer than CLUSTER_COLS columns would read part of
-    every sector it moves, so where R < CLUSTER_COLS <= nc and L >=
-    CLUSTER_MIN_L, K = CLUSTER_COLS // R blocks share one group of
-    CLUSTER_COLS columns (2 at L = 1024, 4 at 2048, 8 at 4096); else, or
-    where the planes do not start on 16 bytes (``aligned`` false: the
-    cluster moves 16 bytes at a time), K = 1, one block alone. The one
-    place that decides it: the wrapper passes K to the kernel, which
+def col_cluster(L: int, nc: int, aligned: bool = True) -> tuple[int, int]:
+    """(R, K) of a K2 launch at length L over a slab of nc columns: R =
+    min(MAX_LEAF // L, nc) the columns one block transforms, K the blocks
+    of its thread-block cluster. A block of fewer than CLUSTER_COLS
+    columns would read part of every sector it moves, so where R <
+    CLUSTER_COLS <= nc (L >= 1024), K = CLUSTER_COLS // R blocks share
+    one group of CLUSTER_COLS columns (2 at L = 1024, 4 at 2048, 8 at
+    4096); else, or where the planes do not start on 16 bytes
+    (``aligned`` false: the cluster moves 16 bytes at a time), K = 1, one
+    block alone. The one place that decides it: the wrapper passes K to the kernel, which
     checks it (`check_col_cluster` mirrors the check)."""
-    R = tile_rows(max(min(MAX_LEAF // max(L, 1), nc), 1), tile)
-    K = (CLUSTER_COLS // R if R < CLUSTER_COLS <= nc and L >= CLUSTER_MIN_L
-         and aligned else 1)
+    R = max(min(MAX_LEAF // max(L, 1), nc), 1)
+    K = CLUSTER_COLS // R if R < CLUSTER_COLS <= nc and aligned else 1
     return R, K
 
 

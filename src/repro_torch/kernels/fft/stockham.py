@@ -39,8 +39,7 @@ from repro_torch.kernels.fft import plan as fft_plan
 from repro_torch.kernels.fft.matfft import (Planar, _check_cuda, _check_planes,
                                             _contiguous, _device_table,
                                             _launch_key, launch_shapes,
-                                            narrowed_tile, plain_shapes,
-                                            stockham_stages)
+                                            plain_shapes, stockham_stages)
 
 
 def stockham_table(n: int, device: torch.device) -> Planar:
@@ -60,10 +59,8 @@ def _check(xr, xi) -> tuple[int, int]:
     return rows, n
 
 
-def stockham_fft_plain(xr: torch.Tensor, xi: torch.Tensor, *,
-                       batch_tile: int | None = None) -> Planar:
-    """Plain PyTorch version of `stockham_fft`, same stages and rounding.
-    ``batch_tile`` cannot change a result: no row reads another."""
+def stockham_fft_plain(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
+    """Plain PyTorch version of `stockham_fft`, same stages and rounding."""
     stockham_fft_plain.calls += 1
     _, n = _check(xr, xi)
     if n == 1:
@@ -134,26 +131,21 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("stockham")
     if not _BOUND.is_set():
         lib.stockham_rows.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + \
+            ctypes.c_longlong, ctypes.c_int] + \
             [ctypes.c_void_p] * 3
         lib.stockham_rows.restype = ctypes.c_int
         _BOUND.set()
     return lib
 
 
-def stockham_fft(xr: torch.Tensor, xi: torch.Tensor, *,
-                 batch_tile: int | None = None) -> Planar:
+def stockham_fft(xr: torch.Tensor, xi: torch.Tensor) -> Planar:
     """Batched forward DFT along the last axis of planar (rows, n) float32
     tensors via radix-2 Stockham stages; n a power of two <= MAX_LEAF.
-    n == 1 returns its input. ``batch_tile``: rows a block, None (default)
-    MAX_LEAF // n, a smaller value narrowed to a power of two
-    (`plan.tile_rows`); the same bits at every tile."""
-    tile = narrowed_tile(fft_plan.MAX_LEAF // max(xr.shape[-1], 1),
-                         batch_tile)
-    key = _launch_key("stockham", xr.shape, None, tile=tile)
+    n == 1 returns its input. A block takes MAX_LEAF // n rows."""
+    key = _launch_key("stockham", xr.shape, None)
     if xr.device.type == "cpu":
         plain_shapes[key] += 1
-        return stockham_fft_plain(xr, xi, batch_tile=batch_tile)
+        return stockham_fft_plain(xr, xi)
     _check_cuda(xr, "stockham_fft")
     rows, n = _check(xr, xi)
     if n == 1:
@@ -163,7 +155,7 @@ def stockham_fft(xr: torch.Tensor, xi: torch.Tensor, *,
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     rc = _lib().stockham_rows(
         xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, n,
-        tile or 0, twr.data_ptr(), twi.data_ptr(),
+        twr.data_ptr(), twi.data_ptr(),
         torch.cuda.current_stream(xr.device).cuda_stream)
     if rc:
         raise RuntimeError(

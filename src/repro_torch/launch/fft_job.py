@@ -305,7 +305,7 @@ def main(argv=None) -> dict:
                     help="out-of-core working-set budget in MiB")
     ap.add_argument("--tune", action="store_true",
                     help="measuring autotuner: pick the serial job's layout "
-                         "and batch tile (or the out-of-core panel height) "
+                         "(or the out-of-core panel height) "
                          "by measurement and keep the winner as wisdom, so "
                          "a later run measures nothing; the report carries "
                          "the tuner's counters")

@@ -32,23 +32,22 @@ def _rel_err(got, want) -> float:
 
 @pytest.mark.parametrize("L", [1 << p for p in range(1, 13)])
 def test_col_cluster_at_every_slab_and_tile(L):
-    """For every slab width and tile: a block's R columns are the tile's;
-    R < G <= nc from L = CLUSTER_MIN_L on forms a cluster of K = G / R <=
-    8 blocks, anything else none, and planes off 16 bytes none; the grid
-    (nc / R blocks a matrix) is whole clusters; and the kernel's own
-    checks accept the pair."""
+    """For every slab width at the one tile: a block's R columns are
+    min(MAX_LEAF // L, nc); R < G <= nc from L = CLUSTER_MIN_L on forms a
+    cluster of K = G / R <= 8 blocks, anything else none, and planes off
+    16 bytes none; the grid (nc / R blocks a matrix) is whole clusters;
+    and the kernel's own checks accept the pair."""
     for nc in (1 << p for p in range(13)):
-        for tile in (None, 1, 2, 4, 8):
-            R, K = tplan.col_cluster(L, nc, tile)
-            assert R == tplan.tile_rows(min(tplan.MAX_LEAF // L, nc), tile)
-            if R < G <= nc and L >= tplan.CLUSTER_MIN_L:
-                assert K * R == G and 2 <= K <= tplan.MAX_CLUSTER
-            else:
-                assert K == 1
-            assert nc % R == 0 and (nc // R) % K == 0
-            tplan.check_col_cluster(L, R, nc, K)
-            assert tplan.col_cluster(L, nc, tile, aligned=False) == (R, 1)
-            tplan.check_col_cluster(L, R, nc, 1, aligned=False)
+        R, K = tplan.col_cluster(L, nc)
+        assert R == min(tplan.MAX_LEAF // L, nc)
+        if R < G <= nc and L >= tplan.CLUSTER_MIN_L:
+            assert K * R == G and 2 <= K <= tplan.MAX_CLUSTER
+        else:
+            assert K == 1
+        assert nc % R == 0 and (nc // R) % K == 0
+        tplan.check_col_cluster(L, R, nc, K)
+        assert tplan.col_cluster(L, nc, aligned=False) == (R, 1)
+        tplan.check_col_cluster(L, R, nc, 1, aligned=False)
 
 
 def test_default_tiles_cluster_from_1024_on():
@@ -88,13 +87,11 @@ def _off16(a: np.ndarray) -> torch.Tensor:
 
 def test_the_launch_key_records_the_cluster(rng):
     """Each call's key: K > 1 as ("cluster", K) after the other options;
-    a one-block call carries none, and so does a call below CLUSTER_MIN_L
-    or on planes off 16 bytes."""
+    a one-block call carries none, and so does a call on planes off 16
+    bytes."""
     km.reset_counts()
     calls = [((1, 1024, 16), {}), ((1, 2048, 8), {}), ((1, 4096, 8), {}),
              ((1, 4096, 4), {}), ((1, 512, 16), {}),
-             ((1, 256, 16), {"col_tile": 2}),
-             ((1, 16, 16), {"col_tile": 1}),
              ((1, 4096, 16), {"col_offset": 8, "ncols": 8,
                               "global_twiddle": (1 << 20, 0)}),
              ((1, 4096, 16), {"col_offset": 4, "ncols": 4})]
@@ -109,8 +106,6 @@ def test_the_launch_key_records_the_cluster(rng):
         ("matfft_cols", (1, 4096, 8), "col", ("cluster", 8)): 1,
         ("matfft_cols", (1, 4096, 4), "col"): 1,
         ("matfft_cols", (1, 512, 16), "col"): 1,
-        ("matfft_cols", (1, 256, 16), "col", ("tile", 2, "cluster", 4)): 1,
-        ("matfft_cols", (1, 16, 16), "col", ("tile", 1)): 1,
         ("matfft_cols", (2, 2048, 8), "row"): 1,
         ("matfft_cols", (1, 4096, 16), "col",
          ("twiddle", "slab", 8, "cluster", 8)): 1,

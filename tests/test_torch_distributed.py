@@ -507,7 +507,7 @@ def _worker(rank: int, store: str, inputs: str, out: str) -> None:
             i = ["off", 2, 4, 8].index(s.overlap)
             return (1.0 + 0.1 * ((i - rank) % 4)
                     + (0.05 if s.layout == "copy" else 0.0)
-                    + 0.01 * ((rank + (s.batch_tile or 0)) % 3))
+                    + 0.01 * (rank % 3))
 
         tuner.WisdomStore.record = counted_record
         tuned = {}
@@ -535,8 +535,7 @@ def _worker(rank: int, store: str, inputs: str, out: str) -> None:
                                   tune_config=cfg)
                 second = tuner.tune_stats()
                 tuned[name] = {
-                    "knobs": [p.spec.layout, p.spec.overlap,
-                              p.spec.batch_tile],
+                    "knobs": [p.spec.layout, p.spec.overlap],
                     "own": ["off", 2, 4, 8][rank % 4],
                     "bitwise_default": all(torch.equal(a, b)
                                            for a, b in zip(y, y0)),
@@ -551,17 +550,15 @@ def _worker(rank: int, store: str, inputs: str, out: str) -> None:
         dist.all_gather_object(every, {**tuned, "writes": len(writes)})
         info["tune"] = every
 
-        # benchmarks/bench_tune.py's 3-D pencil gate: with a matched batch
-        # tile, both engines bitwise equal to the local fftn (with and
-        # without the tile), two legs, the per-leg bytes summing up
+        # benchmarks/bench_tune.py's 3-D pencil gate: both engines bitwise
+        # equal to the local fftn, two legs, the per-leg bytes summing up
         want = [np.stack([t.numpy() for t in tfft.plan(
-            kind="c2c", shape=SHAPE3, device="cpu", batch_tile=bt).execute(
-                *x["pen3"])]) for bt in (2, None)]
+            kind="c2c", shape=SHAPE3, device="cpu").execute(*x["pen3"])])]
         sl = block(mesh, SHAPE3, 0)
         gate = {}
         for ov in ("off", 2):
             p = tfft.plan(kind="c2c", shape=SHAPE3, mesh=mesh,
-                          placement="distributed", batch_tile=2, overlap=ov)
+                          placement="distributed", overlap=ov)
             got = assemble(p.execute(x["pen3"][0][sl], x["pen3"][1][sl]),
                            mesh, SHAPE3)
             gate[f"bitwise_overlap_{ov}"] = all(np.array_equal(got, w)

@@ -513,45 +513,15 @@ def test_service_on_the_card(cuda, impl, verify):
 
 
 # ---------------------------------------------------------------------------
-# the batch tile: K1-K4 at every tile the tuner can pick, bitwise
-
-
-def _tiles(full: int) -> list:
-    """The default tile, its half and quarter, and one row a block."""
-    return list(dict.fromkeys((None, full // 2 or 1, full // 4 or 1, 1)))
+# the three-pass bodies and K2 at the one tile, over a ragged last block,
+# bitwise
 
 
 def _same(got, want) -> bool:
     return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [16, 256, 1024, 4096])
-def test_k1_k3_k4_batch_tiles_equal_their_plain_versions(cuda, rng, n):
-    """Every tile gives the plain version's bits (rows independent), over
-    a ragged last block; a narrowed tile is recorded in the launch key."""
-    rows = 1001
-    x = _planes(rng, (rows, n), cuda)
-    xr = torch.from_numpy(rng.standard_normal((rows, 2 * n))
-                          .astype(np.float32)).to(cuda)
-    want = km.matfft_plain(*x)
-    want_rfft = km.rfft_leaf_plain(xr)
-    want_pack = km.rfft_pack_leaf_plain(xr)
-    want_k4 = ks.stockham_fft_plain(*x)
-    full = tplan.MAX_LEAF // n
-    for bt in _tiles(full):
-        km.launch_shapes.clear()
-        assert _same(km.matfft(*x, batch_tile=bt), want), bt
-        assert _same(km.rfft_leaf(xr, batch_tile=bt), want_rfft), bt
-        assert _same(km.rfft_pack_leaf(xr, batch_tile=bt), want_pack), bt
-        assert _same(ks.stockham_fft(*x, batch_tile=bt), want_k4), bt
-        r = tplan.tile_rows(full, bt)
-        opts = () if r == full else (("tile", r),)
-        assert km.launch_shapes[("matfft", (rows, n), None, *opts)] == 1
-        assert km.launch_shapes[("stockham", (rows, n), None, *opts)] == 1
-
-
-def _k1_into_nan(x, batch_tile, epilogue=None, global_twiddle=None):
+def _k1_into_nan(x, epilogue=None, global_twiddle=None):
     """K1 launched as `km.matfft` launches it, into output planes filled
     with NaN beforehand: a word the kernel leaves unwritten stays NaN."""
     rows, n = x[0].shape
@@ -565,7 +535,7 @@ def _k1_into_nan(x, batch_tile, epilogue=None, global_twiddle=None):
         ei.data_ptr() if ei is not None else None,
         er.shape[0] if er is not None else 1,
         *km._global_twiddle_args(global_twiddle, x[0].device),
-        batch_tile or 0, torch.cuda.current_stream(x[0].device).cuda_stream)
+        torch.cuda.current_stream(x[0].device).cuda_stream)
     assert rc == 0
     return yr, yi
 
@@ -576,8 +546,8 @@ def _k1_into_nan(x, batch_tile, epilogue=None, global_twiddle=None):
 def test_k1_three_pass_tiles_and_epilogues_equal_the_plain_version(
         cuda, rng, n, epilogue):
     """K1's three-pass body loads its rows from device memory into pass
-    1's registers and stores pass 3's registers to device memory: at every
-    tile, over a ragged last block, with no epilogue, the periodic table
+    1's registers and stores pass 3's registers to device memory: over a
+    ragged last block, with no epilogue, the periodic table
     (period 4) and the global twiddle across the 2^32 wrap of its logical
     rows, it writes every output word, with the plain version's bits."""
     rows = 1001
@@ -586,11 +556,10 @@ def test_k1_three_pass_tiles_and_epilogues_equal_the_plain_version(
           "periodic": {"epilogue": _planes(rng, (4, n), cuda)},
           "twiddle": {"global_twiddle": (1 << 32, (1 << 32) - 600)}}[epilogue]
     want = km.matfft_plain(*x, **kw)
-    for bt in _tiles(tplan.MAX_LEAF // n):
-        assert _same(_k1_into_nan(x, bt, **kw), want), bt
+    assert _same(_k1_into_nan(x, **kw), want)
 
 
-def _k3_into_nan(x, untangle, batch_tile):
+def _k3_into_nan(x, untangle):
     """K3 launched as `km.rfft_leaf` (untangle) or `km.rfft_pack_leaf`
     launches it, into output planes filled with NaN beforehand."""
     rows, n = x.shape
@@ -603,7 +572,7 @@ def _k3_into_nan(x, untangle, batch_tile):
     rc = km._lib().matfft_rfft(
         x.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, m, wr.data_ptr(),
         wi.data_ptr(), vr.data_ptr(), vi.data_ptr(), int(untangle),
-        batch_tile or 0, torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream)
     assert rc == 0
     return yr, yi
 
@@ -618,9 +587,9 @@ def _bits(planes):
 def test_k3_three_pass_tiles_equal_the_plain_version(cuda, rng, m, untangle):
     """K3's three-pass body loads its packed rows from device memory into
     pass 1's registers; without the untangle it stores pass 3's registers
-    to device memory, with it it untangles each pair k, m-k once. At every
-    tile, over a ragged last block, it writes every output word with the
-    plain version's bits (signs of zeros too). Planted rows set the pair
+    to device memory, with it it untangles each pair k, m-k once. Over a
+    ragged last block it writes every output word with the plain version's
+    bits (signs of zeros too). Planted rows set the pair
     logic's edges: a constant row (X[0] alone), a row at +-1 alternating
     (the Nyquist bin alone) and one of period 4 (X[m/2] alone)."""
     rows, n = 1001, 2 * m
@@ -635,9 +604,8 @@ def test_k3_three_pass_tiles_equal_the_plain_version(cuda, rng, m, untangle):
     if untangle:
         assert float(want[0][0, 0]) == n and float(want[0][1, m]) == n
         assert float(want[0][2, m // 2]) == m == -float(want[1][2, m // 2])
-    for bt in _tiles(tplan.MAX_LEAF // m):
-        got = _k3_into_nan(x, untangle, bt)
-        assert _same(_bits(got), _bits(want)), bt
+    got = _k3_into_nan(x, untangle)
+    assert _same(_bits(got), _bits(want))
 
 
 @pytest.mark.gpu
@@ -649,23 +617,21 @@ def test_k3_three_pass_tiles_equal_the_plain_version(cuda, rng, m, untangle):
                                         (2048, 64, 0, None),
                                         (4096, 64, 0, None)])
 @pytest.mark.parametrize("out_major", ["row", "col"])
-def test_k2_col_tiles_equal_the_plain_version(cuda, rng, L, C, off, nc,
-                                              out_major):
-    """Every tile, one block alone or a thread-block cluster of 2, 4 or 8
-    (`plan.col_cluster`), gives the plain version's bits; the launch key
+def test_k2_blocks_and_clusters_equal_the_plain_version(cuda, rng, L, C,
+                                                       off, nc, out_major):
+    """One block alone or a thread-block cluster of 2, 4 or 8
+    (`plan.col_cluster`) gives the plain version's bits; the launch key
     records the cluster."""
     x = _planes(rng, (3, L, C), cuda)
     epi = _planes(rng, (C, L), cuda)
     kw = dict(out_major=out_major, epilogue=epi, col_offset=off, ncols=nc)
     want = km.matfft_cols_plain(*x, **kw)
-    full = min(tplan.MAX_LEAF // L, nc or C - off)
-    for ct in _tiles(full):
-        km.launch_shapes.clear()
-        assert _same(km.matfft_cols(*x, col_tile=ct, **kw), want), ct
-        _, K = tplan.col_cluster(L, nc or C - off, ct)
-        [key] = km.launch_shapes
-        assert (key[3][-2:] == ("cluster", K)) if K > 1 else (
-            len(key) == 3 or "cluster" not in key[3]), (ct, key)
+    km.launch_shapes.clear()
+    assert _same(km.matfft_cols(*x, **kw), want)
+    _, K = tplan.col_cluster(L, nc or C - off)
+    [key] = km.launch_shapes
+    assert (key[3][-2:] == ("cluster", K)) if K > 1 else (
+        len(key) == 3 or "cluster" not in key[3]), key
 
 
 @pytest.mark.gpu
@@ -682,8 +648,8 @@ def test_k2_refuses_a_cluster_it_does_not_take(cuda, rng):
         rc = km._lib().matfft_cols(
             x[0].data_ptr() + skew, x[1].data_ptr(), y[0].data_ptr(),
             y[1].data_ptr(), 1, 4096, 64, 0, 64, wr.data_ptr(),
-            wi.data_ptr(), None, None, 0, None, None, None, None, 0, 0, 0,
-            K, torch.cuda.current_stream(cuda).cuda_stream)
+            wi.data_ptr(), None, None, 0, None, None, None, None, 0, 0, K,
+            torch.cuda.current_stream(cuda).cuda_stream)
         assert rc != 0, K
     assert bool((y[0] == 7.0).all()) and bool((y[1] == 7.0).all())
     with pytest.raises(ValueError):
@@ -711,8 +677,9 @@ def test_k2_takes_one_block_on_planes_off_16_bytes(cuda, rng, out_major):
                                          ("c2c", 1 << 16, 16),
                                          ("r2c", 4096, 256)])
 def test_tuned_plan_on_the_card(cuda, rng, tmp_path, kind, n, rows):
-    """plan(tune=True) measures on the card, equals the default plan bit
-    for bit, and a second call is a wisdom hit with no measurement."""
+    """plan(tune=True) measures on the card (one layout at level 0, where
+    both launch the same kernel; both at level 1), equals the default plan
+    bit for bit, and a second call is a wisdom hit with no measurement."""
     import repro_torch.fft as tfft
     from repro_torch.fft import tuner
     wp = str(tmp_path / "wisdom.json")
@@ -720,7 +687,7 @@ def test_tuned_plan_on_the_card(cuda, rng, tmp_path, kind, n, rows):
     kw = dict(kind=kind, n=n, batch_shape=(rows,))
     tuned = tfft.plan(**kw, tune=True, wisdom_path=wp)
     stats = tuner.tune_stats()
-    assert stats["measurements"] >= 2
+    assert stats["measurements"] == (2 if n > tplan.MAX_LEAF else 1)
     default = tfft.plan(**kw)
     if kind == "r2c":
         x = (torch.from_numpy(rng.standard_normal((rows, n))

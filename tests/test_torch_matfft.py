@@ -189,22 +189,22 @@ def test_wrappers_reject_what_the_kernel_does_not_take(rng, bad, exc):
         bad(_t(_planes(rng, (4, 16))))
 
 
-# the batch tile: the reference's batch_tile / col_tile against the port's
-# at two tiles; each kernel's output cannot depend on it
+# the tile: the port's one tile a kernel against the reference at each of
+# the reference's tiles in turn
 
 
 @pytest.mark.parametrize("n", [16, 256, 1024])
 @pytest.mark.parametrize("tile", [1, 8])
-def test_k1_and_k3_batch_tile_match_pallas(rng, n, tile):
+def test_k1_and_k3_one_tile_match_pallas_at_each_reference_tile(rng, n,
+                                                                tile):
     from repro.kernels.fft.matfft import rfft_leaf as jrfft_leaf
     rows = 20  # ragged against both tiles
     x = _planes(rng, (rows, n))
-    got = km.matfft(*_t(x), batch_tile=tile)
+    got = km.matfft(*_t(x))
     want = jmatfft(*_j(x), batch_tile=tile, interpret=True)
     assert _rel_err(got, want) < TOL
-    assert _rel_err(got, km.matfft(*_t(x))) == 0.0
     xr = rng.standard_normal((rows, 2 * n)).astype(np.float32)
-    got = km.rfft_leaf(torch.from_numpy(xr), batch_tile=tile)
+    got = km.rfft_leaf(torch.from_numpy(xr))
     want = jrfft_leaf(jnp.asarray(xr), batch_tile=tile, interpret=True)
     assert _rel_err(got, want) < TOL
 
@@ -212,33 +212,39 @@ def test_k1_and_k3_batch_tile_match_pallas(rng, n, tile):
 @pytest.mark.parametrize("L,C", [(16, 64), (256, 32)])
 @pytest.mark.parametrize("tile", [2, 8])
 @pytest.mark.parametrize("out_major", ["row", "col"])
-def test_k2_col_tile_matches_pallas(rng, L, C, tile, out_major):
+def test_k2_one_tile_matches_pallas_at_each_reference_tile(
+        rng, L, C, tile, out_major):
     x = _planes(rng, (2, L, C))
-    got = km.matfft_cols(*_t(x), out_major=out_major, col_tile=tile)
+    got = km.matfft_cols(*_t(x), out_major=out_major)
     want = jmatfft_cols(*_j(x), out_major=out_major, col_tile=tile,
                         interpret=True)
     assert _rel_err(got, want) < TOL
-    assert _rel_err(got, km.matfft_cols(*_t(x), out_major=out_major)) == 0.0
 
 
-def test_a_narrowed_tile_enters_the_launch_key(rng):
-    """The launch records tell the tile apart: a tile below the default is
-    the key's fourth entry (with the cluster K2 forms where its tile falls
-    below a sector's 8 columns), one at or above it is the default's
-    key."""
-    from repro_torch.kernels.fft import plan as tplan
+def test_a_launch_key_has_no_tile_entry(rng):
+    """A K1, K2 and K4 launch key is (wrapper, shape, major[, options]):
+    the options name only the global twiddle, a column slab and K2's
+    cluster, never a tile, and no wrapper takes a tile argument."""
+    import inspect
+
+    from repro_torch.kernels.fft import stockham as ks
     x = _t(_planes(rng, (8, 1024)))
     km.reset_counts()
-    km.matfft(*x, batch_tile=2)
-    km.matfft(*x, batch_tile=4)
-    km.matfft(*x, batch_tile=64)
-    x3 = _t(_planes(rng, (2, 256, 64)))
-    km.matfft_cols(*x3, col_tile=5, col_offset=32, ncols=32)
+    ks.reset_counts()
+    km.matfft(*x)
+    km.matfft(*x, global_twiddle=(1 << 20, 8))
+    x3 = _t(_planes(rng, (2, 1024, 64)))
+    km.matfft_cols(*x3, col_offset=32, ncols=32)
+    km.matfft_cols(*_t(_planes(rng, (2, 256, 64))), out_major="col")
+    ks.stockham_fft(*x)
     assert dict(km.plain_shapes) == {
-        ("matfft", (8, 1024), None, ("tile", 2)): 1,
-        ("matfft", (8, 1024), None): 2,
-        ("matfft_cols", (2, 256, 64), "row",
-         ("slab", 32, "tile", 4, "cluster", 2)): 1}
-    assert tplan.tile_rows(4, None) == 4 and tplan.tile_rows(16, 5) == 4
-    with pytest.raises(ValueError, match="batch_tile"):
-        tplan.tile_rows(16, 0)
+        ("matfft", (8, 1024), None): 1,
+        ("matfft", (8, 1024), None, ("twiddle",)): 1,
+        ("matfft_cols", (2, 1024, 64), "row",
+         ("slab", 32, "cluster", 2)): 1,
+        ("matfft_cols", (2, 256, 64), "col"): 1,
+        ("stockham", (8, 1024), None): 1}
+    for fn in (km.matfft, km.matfft_cols, km.rfft_leaf, km.rfft_pack_leaf,
+               ks.stockham_fft):
+        assert not [p for p in inspect.signature(fn).parameters
+                    if "tile" in p], fn

@@ -8,8 +8,9 @@ the gates of benchmarks/bench_tune.py as tests (tuned <= default on the
 analytic and disk models, a wisdom round trip across two processes; the
 3-D pencil's gate is in test_torch_distributed.py, which has 8 ranks); a
 tuned port plan within 5e-6 of the reference's tuned plan and bitwise
-equal to the port's default plan; the CUDA measurement shape and batch-tile
-candidates of the chip's specs; and the facade selftest on the CPU.
+equal to the port's default plan; the CUDA measurement shape of the chip's
+specs; the layout candidates, offered only where a pass reads the layout;
+and the facade selftest on the CPU.
 """
 
 import datetime
@@ -58,8 +59,6 @@ def _fake_measurer():
             base *= 1.5
         if s.overlap != "off":
             base *= 0.9 / (1 + 0.01 * int(s.overlap))
-        if s.batch_tile is not None:
-            base *= 1.01
         return base
     return measure
 
@@ -112,7 +111,7 @@ class TestDeterminism:
         _, rep = tuner.tune(**KW, wisdom_path=_wisdom(tmp_path),
                             config=cfg)
         assert rep.candidates[0]["knobs"] == {
-            "overlap": "off", "layout": "zero_copy", "batch_tile": None}
+            "overlap": "off", "layout": "zero_copy"}
 
 
 class TestWisdomRoundTrip:
@@ -178,17 +177,25 @@ class TestWisdomCorruption:
         doc = json.loads(wp.read_text())
         assert doc["version"] == tuner.WISDOM_VERSION
 
-    def test_stale_invalid_knobs_remeasure(self, tmp_path):
+    @pytest.mark.parametrize("stale", [
+        {"overlap": 3, "layout": "nope"},  # knobs that no longer resolve
+        # an entry written while the port had a batch tile
+        {"overlap": "off", "layout": "zero_copy", "batch_tile": 2},
+    ])
+    def test_stale_invalid_knobs_remeasure(self, tmp_path, stale):
         wp = _wisdom(tmp_path)
         cfg = tuner.TuneConfig(measurer="analytic")
         _, rep = tuner.tune(**KW, wisdom_path=wp, config=cfg)
         store = tuner.WisdomStore.get(wp)
         entry = store.lookup(rep.key)
-        entry["knobs"] = {"overlap": 3, "layout": "nope", "batch_tile": -1}
+        entry["knobs"] = stale
         store.record(rep.key, entry)
-        _, rep2 = tuner.tune(**KW, wisdom_path=wp, config=cfg)
+        knobs, rep2 = tuner.tune(**KW, wisdom_path=wp, config=cfg)
         assert not rep2.wisdom_hit and rep2.measurements > 0
         assert events.events("wisdom_stale")
+        # measured again, and rewritten with the two knobs alone
+        assert set(knobs) == set(tuner.KNOBS)
+        assert store.lookup(rep.key)["knobs"] == knobs
 
 
 class TestMeshFingerprint:
@@ -347,8 +354,7 @@ stats = tuner.tune_stats()
 print(json.dumps({
     "measurements": stats["measurements"],
     "wisdom_hits": stats["wisdom_hits"],
-    "knobs": {"layout": p.spec.layout, "overlap": p.spec.overlap,
-              "batch_tile": p.spec.batch_tile},
+    "knobs": {"layout": p.spec.layout, "overlap": p.spec.overlap},
     "cache_wisdom_hits": fft_api.cache_info()["wisdom_hits"],
 }))
 """
@@ -380,25 +386,26 @@ def test_wisdom_round_trip_across_processes(tmp_path):
 def test_tuned_plan_matches_the_reference_and_the_default(tmp_path, rng):
     """The port's tuned plan within 5e-6 of the reference's tuned plan on
     the same seeded input, and bitwise equal to the port's default plan;
-    with a fake measurer that rewards narrow tiles, so the port's winner
-    has a non-default tile."""
+    on a level-1 spec, with a fake measurer that prefers the copy layout,
+    so the port's winner has a non-default layout."""
     import repro.fft as jfft
     from repro.fft import tuner as jtuner
 
-    def likes_tiles(plan, cfg):
-        bt = plan.spec.batch_tile
-        return 1e-3 * (0.5 if bt else 1.0) * (
-            2.0 if plan.spec.layout == "copy" else 1.0)
+    def likes_copy(plan, cfg):
+        return 1e-3 * (0.5 if plan.spec.layout == "copy" else 1.0)
 
-    x = rng.standard_normal((2, 8, 64, 256)).astype(np.float32)
-    p = fft_api.plan(**KW, tune=True, wisdom_path=_wisdom(tmp_path),
-                     tune_config=tuner.TuneConfig(measurer=likes_tiles))
-    assert p.spec.batch_tile is not None and p.spec.layout == "zero_copy"
+    kw = dict(kind="c2c", n=1 << 13, batch_shape=(4,), device="cpu")
+    x = rng.standard_normal((2, 4, 1 << 13)).astype(np.float32)
+    p = fft_api.plan(**kw, tune=True, wisdom_path=_wisdom(tmp_path),
+                     tune_config=tuner.TuneConfig(measurer=likes_copy))
+    assert p.spec.layout == "copy"
     got = p.execute(*map(torch.from_numpy, x))
-    default = fft_api.plan(**KW).execute(*map(torch.from_numpy, x))
-    assert all(torch.equal(a, b) for a, b in zip(got, default))
+    default = fft_api.plan(**kw)
+    assert default.spec.layout == "zero_copy"
+    want0 = default.execute(*map(torch.from_numpy, x))
+    assert all(torch.equal(a, b) for a, b in zip(got, want0))
     jfft.clear_plan_cache()
-    jp = jfft.plan(kind="c2c", shape=(64, 256), batch_shape=(8,), tune=True,
+    jp = jfft.plan(kind="c2c", n=1 << 13, batch_shape=(4,), tune=True,
                    wisdom_path=_wisdom(tmp_path, "ref.json"),
                    tune_config=jtuner.TuneConfig(measurer="analytic"))
     want = [np.asarray(a) for a in jp.execute(*map(jnp.asarray, x))]
@@ -419,34 +426,26 @@ def test_model_rates_by_device():
     assert tuner.TuneConfig(hbm_bps=1.0).rates("cuda")["hbm_bps"] == 1.0
 
 
-# ----------------------------------------- the CUDA shape and the tiles
+# ----------------------------------- the CUDA shape and the candidates
 
 
-@pytest.mark.parametrize("kw,shape,batch,tiles", [
+@pytest.mark.parametrize("kw,shape,batch", [
     # the block job's spec: 8 waves on 132 SMs need 16896 rows, so 32768
-    (dict(kind="c2c", n=1024, batch_shape=(32768,)), (1024,), (32768,),
-     [None, 2, 1]),
-    (dict(kind="c2c", n=1024, batch_shape=(1 << 17,)), (1024,), (32768,),
-     [None, 2, 1]),
+    (dict(kind="c2c", n=1024, batch_shape=(32768,)), (1024,), (32768,)),
+    (dict(kind="c2c", n=1024, batch_shape=(1 << 17,)), (1024,), (32768,)),
     # the service's paper mix: every row
-    (dict(kind="c2c", n=1024, batch_shape=(256,)), (1024,), (256,),
-     [None, 2, 1]),
-    (dict(kind="c2c", n=1 << 16, batch_shape=(16,)), (1 << 16,), (16,),
-     [None, 8, 4]),
-    (dict(kind="r2c", n=4096, batch_shape=(256,)), (4096,), (256,),
-     [None, 1]),
-    # fft2 over 8 images of 4096^2: 2 images; a tile of 1 row is the
-    # default at 4096 points
+    (dict(kind="c2c", n=1024, batch_shape=(256,)), (1024,), (256,)),
+    (dict(kind="c2c", n=1 << 16, batch_shape=(16,)), (1 << 16,), (16,)),
+    (dict(kind="r2c", n=4096, batch_shape=(256,)), (4096,), (256,)),
+    # fft2 over 8 images of 4096^2: 2 images
     (dict(kind="c2c", shape=(4096, 4096), batch_shape=(8,)), (4096, 4096),
-     (2,), [None]),
+     (2,)),
     (dict(kind="c2c", n=1024, batch_shape=(64,), impl="ref"), (1024,),
-     (64,), [None]),
+     (64,)),
 ])
-def test_cuda_measurement_shape_and_tiles(kw, shape, batch, tiles):
+def test_cuda_measurement_shape_and_tiles(kw, shape, batch):
     base = tspec.resolve(**kw, device="cpu")
-    got_shape, got_batch = tuner._cuda_shape(base, None, 132)
-    assert (got_shape, got_batch) == (shape, batch)
-    assert tuner._tiles(base, got_shape, got_batch) == tiles
+    assert tuner._cuda_shape(base, None, 132) == (shape, batch)
 
 
 def test_cuda_measurement_keeps_segmented_rows_per_rank():
@@ -459,10 +458,32 @@ def test_cuda_measurement_keeps_segmented_rows_per_rank():
 def test_distributed_1d_takes_no_tile_and_every_overlap(tmp_path):
     base = tspec.resolve(kind="c2c", n=1 << 24, placement="distributed",
                          num_devices=1, axes=("data",), device="cpu")
-    cands = tuner._candidates(base, base.shape, ())
-    assert {c["batch_tile"] for c in cands} == {None}
+    cands = tuner._candidates(base)
+    assert all(set(c) == set(tuner.KNOBS) for c in cands)
     assert [c["overlap"] for c in cands if c["layout"] == "copy"] == \
         ["off", 2, 4, 8]
+
+
+@pytest.mark.parametrize("kw,layouts", [
+    # level 0, 1-D: the same K1 or K3 launch at either layout
+    (dict(kind="c2c", n=1024, batch_shape=(64,)), ["zero_copy"]),
+    (dict(kind="r2c", n=4096, batch_shape=(16,)), ["zero_copy"]),
+    # a pass through axis_pass or the four-step: both layouts
+    (dict(kind="c2c", n=1 << 16, batch_shape=(4,)), ["zero_copy", "copy"]),
+    (dict(kind="r2c", n=1 << 14, batch_shape=(4,)), ["zero_copy", "copy"]),
+    (dict(kind="c2c", shape=(64, 256), batch_shape=(2,)),
+     ["zero_copy", "copy"]),
+    (dict(kind="c2c", n=1 << 24, placement="distributed", num_devices=1,
+          axes=("data",)), ["zero_copy", "copy"]),
+])
+def test_copy_is_a_candidate_only_where_a_pass_reads_the_layout(kw,
+                                                                 layouts):
+    base = tspec.resolve(**kw, impl="matfft", device="cpu")
+    got = []
+    for c in tuner._candidates(base):
+        if c["layout"] not in got:
+            got.append(c["layout"])
+    assert got == layouts
 
 
 # ------------------------------------------------- the facade selftest
